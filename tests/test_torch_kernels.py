@@ -1,0 +1,134 @@
+"""The port's kernel modules against the JAX kernels they replace.
+
+Each kernel's plain PyTorch version (what the wrapper runs for a CPU
+tensor) is held against the Pallas kernel as ``tests/test_kernels.py``
+runs it on the CPU (the ``repro.kernels.ops`` wrappers in interpret mode)
+and against the oracle in ``repro/kernels/ref.py`` or an exact NumPy
+scatter-add.  Inputs are made from a seed with NumPy and handed to both.
+Tolerance: rtol 1e-5, atol 1e-3 on sums (f32 accumulation in the Pallas
+kernels, as ``tests/test_backends.py::assert_equivalent``); counts exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.ops import (histogram_counts, pair_sum_matrix,
+                               segment_sum_matrix, time_profile_matrix)
+from repro_torch.kernels import hist_bin, pair_sum, seg_sum, time_bin
+
+RTOL, ATOL = 1e-5, 1e-3
+
+
+def _codes(rng, n, hi, pad_frac=0.1):
+    """Codes in [0, hi) with a share of -1 padding codes."""
+    c = rng.integers(0, hi, size=n)
+    c[rng.random(n) < pad_frac] = -1
+    return c.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,n_seg,k", [(300, 7, 1), (777, 13, 2),
+                                       (1, 3, 2), (513, 1, 3)])
+def test_seg_sum_plain_matches_pallas(n, n_seg, k):
+    rng = np.random.default_rng(n)
+    code = _codes(rng, n, n_seg)
+    vals = rng.integers(0, 50_000, size=(n, k)).astype(np.float32)
+    got = seg_sum.seg_sum(torch.from_numpy(code), torch.from_numpy(vals),
+                          n_seg).numpy()
+    pallas = np.asarray(segment_sum_matrix(
+        jnp.asarray(code), jnp.asarray(vals), n_seg=n_seg, be=256))
+    exact = np.zeros((n_seg, k))
+    keep = code >= 0
+    np.add.at(exact, code[keep], vals[keep].astype(np.float64))
+    assert got.shape == (n_seg, k) and got.dtype == np.float32
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, exact, rtol=RTOL, atol=ATOL)
+
+
+def test_seg_sum_all_codes_ignored_and_out_of_range():
+    code = torch.tensor([-1, -3, 5, 9], dtype=torch.int32)
+    vals = torch.ones((4, 2), dtype=torch.float32)
+    got = seg_sum.seg_sum(code, vals, 5)
+    assert torch.equal(got, torch.zeros((5, 2)))
+
+
+@pytest.mark.parametrize("n,n_a,n_b", [(300, 5, 5), (1000, 7, 11),
+                                       (1, 2, 3)])
+def test_pair_sum_plain_matches_pallas(n, n_a, n_b):
+    rng = np.random.default_rng(n + 1)
+    a = _codes(rng, n, n_a)
+    b = _codes(rng, n, n_b)
+    w = rng.integers(256, 8192, size=n).astype(np.float32)
+    got = pair_sum.pair_sum(torch.from_numpy(a), torch.from_numpy(b),
+                            torch.from_numpy(w), n_a, n_b).numpy()
+    pallas = np.asarray(pair_sum_matrix(jnp.asarray(a), jnp.asarray(b),
+                                        jnp.asarray(w), n_a=n_a, n_b=n_b,
+                                        be=256))
+    exact = np.zeros((n_a, n_b))
+    keep = (a >= 0) & (b >= 0)
+    np.add.at(exact, (a[keep], b[keep]), w[keep].astype(np.float64))
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, exact, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n,n_funcs,n_bins", [(300, 7, 16), (53, 3, 5),
+                                              (777, 13, 10)])
+def test_time_bin_plain_matches_pallas_and_oracle(n, n_funcs, n_bins):
+    rng = np.random.default_rng(n + 2)
+    s = (rng.random(n) * n_bins).astype(np.float32)
+    e = (s + rng.random(n) * 3).astype(np.float32)
+    e[::9] = s[::9]                                  # zero-duration spans
+    f = _codes(rng, n, n_funcs)
+    r = rng.random(n).astype(np.float32)
+    t1 = float(n_bins)
+    got = time_bin.time_bin(torch.from_numpy(s), torch.from_numpy(e),
+                            torch.from_numpy(f), torch.from_numpy(r),
+                            n_funcs, n_bins, 0.0, t1).numpy()
+    pallas = np.asarray(time_profile_matrix(
+        jnp.asarray(s), jnp.asarray(e), jnp.asarray(f), jnp.asarray(r),
+        n_funcs=n_funcs, n_bins=n_bins, t0=0.0, t1=t1, be=256))
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    ones = np.ones(n, np.float32)
+    unit = time_bin.time_bin(torch.from_numpy(s), torch.from_numpy(e),
+                             torch.from_numpy(f), torch.from_numpy(ones),
+                             n_funcs, n_bins, 0.0, t1).numpy()
+    oracle = np.asarray(ref.time_bin_ref(
+        jnp.asarray(s), jnp.asarray(e), jnp.asarray(f), n_funcs=n_funcs,
+        n_bins=n_bins, t0=0.0, t1=t1))
+    np.testing.assert_allclose(unit, oracle, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n,n_bins", [(300, 10), (777, 7), (1, 1)])
+def test_hist_bin_plain_matches_pallas_exactly(n, n_bins):
+    rng = np.random.default_rng(n + 3)
+    idx = rng.integers(0, n_bins, size=n)
+    coords = (idx + 0.5).astype(np.float32)          # the idx + 0.5 feed
+    coords[::11] = -1.0                              # ignored coordinates
+    got = hist_bin.hist_bin(torch.from_numpy(coords), n_bins).numpy()
+    pallas = np.asarray(histogram_counts(jnp.asarray(coords),
+                                         n_bins=n_bins, be=256))
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, np.rint(pallas).astype(np.int64))
+    np.testing.assert_array_equal(
+        got, np.bincount(idx[coords >= 0], minlength=n_bins))
+
+
+def test_hist_bin_clamps_top_and_ignores_nan():
+    coords = torch.tensor([0.5, 3.7, 99.0, float("nan"), -0.5],
+                          dtype=torch.float32)
+    assert hist_bin.hist_bin(coords, 4).tolist() == [1, 0, 0, 2]
+
+
+@pytest.mark.parametrize("fn,args", [
+    (seg_sum.seg_sum, (torch.zeros(3, dtype=torch.int64),
+                       torch.zeros((3, 1)), 2)),
+    (pair_sum.pair_sum, (torch.zeros(3, dtype=torch.int32),
+                         torch.zeros(3, dtype=torch.int32),
+                         torch.zeros(3, dtype=torch.float64), 2, 2)),
+    (hist_bin.hist_bin, (torch.zeros(3, dtype=torch.float64), 2)),
+])
+def test_wrappers_reject_wrong_dtypes(fn, args):
+    with pytest.raises(TypeError):
+        fn(*args)
