@@ -24,7 +24,8 @@ __all__ = ["library", "build", "BUILD_DIR", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("seg_sum.cu", "pair_sum.cu", "time_bin.cu", "hist_bin.cu")
+SOURCES = ("seg_sum.cu", "pair_sum.cu", "time_bin.cu", "hist_bin.cu",
+           "flash_attention.cu", "topk_gating.cu")
 #: sorted records per CTA in the walk pass of csrc/runs.cuh (keep in step)
 CHUNK = 1024
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +47,11 @@ SIGNATURES = {
                        _F32, _P, _P, _P),
     # (device, coords, n, n_bins, out, stream)
     "pipit_hist_bin": (_I32, _P, _I64, _I32, _P, _P),
+    # (device, q, k, v, out, B, Sq, Sk, H, KVH, D, dtype, causal,
+    #  has_window, window, prefix_len, q_offset, scale, stream)
+    "pipit_flash_attention": (_I32, _P, _P, _P, _P, *(_I32,) * 12, _F32, _P),
+    # (device, logits, T, E, k, idx, gates, stream)
+    "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,7 +8,10 @@ Run on a GPU machine with::
 Each kernel is held against its plain PyTorch version on the same CUDA
 tensors (sums: rtol 1e-4 plus 1e-6 x the largest magnitude, the f32
 accumulation gate; counts exact) and must give bit-identical output on a
-second launch; the five ops on the card must match the CPU path.
+second launch; the five ops on the card must match the CPU path.  The
+model kernels are held to their plain versions as ``tests/test_kernels.py``
+holds the Pallas kernels: flash attention within 2e-5 in float32 and 3e-2
+in bfloat16, top-k indices exact and gates within 1e-6.
 """
 
 import numpy as np
@@ -16,7 +19,8 @@ import pytest
 import torch
 
 from repro_torch import Trace
-from repro_torch.kernels import hist_bin, pair_sum, seg_sum, time_bin
+from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
+                                 seg_sum, time_bin, topk_gating)
 from repro_torch.tracegen import big_events
 
 pytestmark = pytest.mark.gpu
@@ -114,3 +118,51 @@ def test_ops_on_card_match_cpu_path(cuda):
     for c in q.columns:
         np.testing.assert_allclose(p[c], q[c], rtol=1e-4,
                                    atol=1e-6 * float(np.abs(q[c]).max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", [
+    (2, 128, 128, 4, 4, 64, {}),                              # causal
+    (1, 160, 160, 2, 2, 32, {"window": 64, "prefix_len": 8}),
+    (1, 96, 96, 2, 1, 32, {"causal": False}),
+    (2, 200, 200, 8, 2, 128, {}),                             # GQA 4
+    (1, 1000, 1000, 4, 4, 128, {}),                           # padded tail
+    (2, 1, 300, 4, 2, 128, {"q_offset": 299}),                # one query
+    (1, 77, 77, 2, 2, 64, {"window": 16}),
+    (4, 33, 33, 4, 4, 16, {}),                                # smoke width
+    (1, 40, 1300, 4, 2, 64, {"q_offset": 1260, "window": 64,
+                             "prefix_len": 8}),
+    (2, 50, 70, 4, 4, 32, {"causal": False, "window": 20}),
+])
+def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
+                                          (B, Sk, KVH, D)))
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    again = flash_attention.flash_attention(q, k, v, **kw)
+    want = flash_attention.flash_attention_plain(q, k, v, **kw)
+    assert flash_attention.LAUNCHES == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again), "relaunch not bit-identical"
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("T,E,k", [(4096, 60, 4), (32, 128, 8), (777, 64, 4),
+                                   (5, 60, 4), (1000, 300, 2)])
+def test_topk_gating_kernel(cuda, T, E, k):
+    rng = np.random.default_rng(T + E)
+    x = rng.standard_normal((T, E)).astype(np.float32)
+    x[::3, 1::2] = 0.25                     # rows with exact ties
+    x[1::3] = np.round(x[1::3])
+    logits = torch.from_numpy(x).to(cuda)
+    before = topk_gating.LAUNCHES
+    idx, gates = topk_gating.topk_gating(logits, k)
+    idx2, gates2 = topk_gating.topk_gating(logits, k)
+    want_idx, want_gates = topk_gating.topk_gating_plain(logits, k)
+    assert topk_gating.LAUNCHES == before + 2
+    assert torch.equal(idx, idx2) and torch.equal(gates, gates2)
+    assert torch.equal(idx.cpu(), want_idx.cpu())
+    torch.testing.assert_close(gates, want_gates, atol=1e-6, rtol=0)
