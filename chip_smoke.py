@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero):
              its path's shapes, wider shapes and edge cases, and
              bit-identical on relaunch (the trace kernels; flash attention
              in bf16 and f32 with causal, window + prefix, non-causal,
-             GQA, padded-tail and one-query cases; top-k at the serving
+             GQA, padded-tail and one-query cases, each bf16 case at
+             D = 64 or 128 through both kernel variants, the tensor-core
+             one the wrapper picks and the SIMT one; top-k at the serving
              shape, E = 128 with k = 8, ragged T and exact ties);
 4. reader  — a small ``big_trace`` jsonl trace through ``Trace.open`` and
              the five ops on the card and on the CPU;
@@ -27,7 +29,8 @@ Phases (any failure raises and exits non-zero):
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
              kernels' counts are reset just before and read just after,
-             and each must have risen; tokens in the vocabulary, finite
+             and each must have risen, every flash launch on the
+             tensor-core variant; tokens in the vocabulary, finite
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
@@ -36,7 +39,13 @@ Phases (any failure raises and exits non-zero):
              greedy tokens, prefill logits within 1e-3;
 9. timing  — each model kernel on the inputs the serving path gave it,
              against its plain version, with one library call and its
-             bound.
+             bound; flash attention also through its SIMT variant
+             (``prev_ms``, the kernel this one replaced on the path).
+
+Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
+overhead included where the kernel is shorter than the call);
+``device_ms`` is the summed duration of the device kernels one wrapper
+call launches, read from ``torch.profiler``.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -92,6 +101,27 @@ def exact(a, b) -> float:
     if not np.array_equal(np.asarray(a), np.asarray(b)):
         raise AssertionError("counts differ")
     return 0.0
+
+
+def device_ms(fn, iters: int = 20) -> tuple:
+    """Device-only time of one call of ``fn``: the durations of the device
+    kernels it launches, from ``torch.profiler``, summed and averaged over
+    ``iters`` calls after a warm one; and the kernels' names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kern)
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / iters, sorted({e.key for e in kern})
 
 
 def cuda_ms(fn, iters: int, warm: int = 2) -> float:
@@ -262,7 +292,9 @@ def within(tol):
 def phase_model_kernels() -> None:
     """Flash attention within 2e-5 (f32) / 3e-2 (bf16) of its plain
     version, top-k indices exact and gates within 1e-6 (the tolerances of
-    tests/test_kernels.py); every case bit-identical on relaunch."""
+    tests/test_kernels.py); every case bit-identical on relaunch.  Each
+    bf16 flash case at D = 64 or 128 runs through both variants: the
+    tensor-core one (what the wrapper picks) and the SIMT one."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_gating as tg
     rng = np.random.default_rng(1)
@@ -286,6 +318,11 @@ def phase_model_kernels() -> None:
                          q_offset=1999)),
             (f"{tag} smoke width D=16", tol,
              _flash_case(rng, 4, 33, 33, 4, 4, 16, dtype)),
+            (f"{tag} D=64 S=1000", tol,
+             _flash_case(rng, 2, 1000, 1000, 8, 8, 64, dtype)),
+            (f"{tag} D=64 GQA 4, window 64 + prefix 8", tol,
+             _flash_case(rng, 1, 40, 1300, 8, 2, 64, dtype, q_offset=1260,
+                         window=64, prefix_len=8)),
         ]
     topk = [
         ("serve T=4096 E=60 k=4", _topk_case(rng, 4096, 60, 4)),
@@ -294,18 +331,30 @@ def phase_model_kernels() -> None:
         ("exact ties", _topk_case(rng, 4096, 60, 4, ties=True)),
         ("decode T=4", _topk_case(rng, 4, 60, 4)),
     ]
+    seen = set()
     for label, tol, (args, kw) in flash:
-        got = fa.flash_attention(*args, **kw)
-        again = fa.flash_attention(*args, **kw)
+        picked = fa.variant(args[0].dtype, args[0].shape[-1])
         want = fa.flash_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"flash_attention [{label}]: relaunch "
-                                 f"differs")
-        err = within(tol)(got.float().cpu().numpy(),
-                          want.float().cpu().numpy())
-        log(f"[kernels] flash_attention {label:34s} ok  max_abs_err="
-            f"{err:.6g} (tol {tol:g})  bit-identical relaunch")
+        for name in dict.fromkeys((picked, "simt")):
+            run = (fa.flash_attention if name == picked else
+                   lambda *a, _n=name, **k: fa.flash_attention_variant(
+                       _n, *a, **k))
+            got = run(*args, **kw)
+            again = run(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention [{label}, {name}]: "
+                                     f"relaunch differs")
+            err = within(tol)(got.float().cpu().numpy(),
+                              want.float().cpu().numpy())
+            seen.add(name)
+            log(f"[kernels] flash_attention {label:40s} {name:5s}"
+                f"{' (picked)' if name == picked else '         '} ok  "
+                f"max_abs_err={err:.6g} (tol {tol:g})  bit-identical "
+                f"relaunch")
+    if seen != set(fa.VARIANT_LAUNCHES):
+        raise AssertionError(f"flash variants checked {seen}, have "
+                             f"{set(fa.VARIANT_LAUNCHES)}")
     for label, (args, kw) in topk:
         idx, gates = tg.topk_gating(*args)
         idx2, gates2 = tg.topk_gating(*args)
@@ -566,13 +615,15 @@ def phase_timing(launches, inputs) -> list:
             keys = None
             shape = f"N={n} n_bins={n_bins}"
         ms = cuda_ms(lambda: kern(*args, **kw), iters=20)
+        dev_ms, _names = device_ms(lambda: kern(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5, warm=1)
         library_ms = cuda_ms(library, iters=20) if library else None
         # the wrapper's device sort of the record keys, part of ``ms``
         sort_ms = (cuda_ms(lambda: torch.sort(keys, stable=True), iters=20)
                    if keys is not None else 0.0)
         bound_ms, bound_by = _bound(bytes_moved, ops)
-        log(f"[timing] {name:8s} {shape:32s} kernel {ms:.4f} ms | plain "
+        log(f"[timing] {name:8s} {shape:32s} kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms) | plain "
             f"{plain_ms:.4f} ms | library "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} | "
             f"bound {bound_ms:.4f} ms ({bound_by}) | of which device "
@@ -581,7 +632,8 @@ def phase_timing(launches, inputs) -> list:
                      "source": src.format(name),
                      "replaces": replaces[name],
                      "launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "sort_ms": sort_ms, "shape": shape, "checked": True})
     return rows
@@ -602,12 +654,15 @@ def phase_serve():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    fa = kernels.flash_attention
     for mod in kernels.MODEL_KERNELS:
         mod.LAUNCHES = 0
+    fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
     with DeviceTimer(kernels.MODEL_KERNELS) as timer:
         run = launch.serve(**SERVE, device="cuda", logits_hook=hook)
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in kernels.MODEL_KERNELS}
+    by_variant = dict(fa.VARIANT_LAUNCHES)
     kernel_s = timer.seconds_by_kernel()
     peak = torch.cuda.max_memory_allocated()
     cfg = run.engine.cfg
@@ -615,11 +670,15 @@ def phase_serve():
         f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.topk} + "
         f"{cfg.n_shared_experts} shared, {cfg.param_count() / 1e9:.2f} B "
         f"parameters in {SERVE['dtype']}")
-    log(f"[serve] launches {json.dumps(launches)}")
+    log(f"[serve] launches {json.dumps(launches)}; flash_attention by "
+        f"variant {json.dumps(by_variant)}")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the serving "
                              f"path: {idle}")
+    if by_variant["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"prefill attention not all on the "
+                             f"tensor-core kernel: {by_variant}")
     if len(run.done) != SERVE["requests"] or any(
             len(r.out_tokens) != SERVE["new_tokens"] for r in run.done):
         raise AssertionError("not every request got its tokens")
@@ -759,13 +818,25 @@ def phase_model_timing(launches, inputs) -> list:
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows.append(_model_row(
+    picked = fa.variant(q.dtype, D)
+    row = _model_row(
         "flash_attention", "src/repro/kernels/flash_attention.py:101",
         launches, err, lambda: fa.flash_attention(q, k, v, **kw),
         lambda: fa.flash_attention_plain(q, k, v, **kw),
         lambda: sdpa(qt, kt, vt, is_causal=True), t_ops, t_bytes,
         f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype)[6:]}, "
-        f"{visible:.0f} visible pairs per head"))
+        f"{visible:.0f} visible pairs per head")
+    # the SIMT kernel, which served this path before, on the same inputs
+    simt = lambda: fa.flash_attention_variant("simt", q, k, v, **kw)  # noqa
+    prev_err = within(tol)(simt().float().cpu().numpy(),
+                           want.float().cpu().numpy())
+    row.update(variant=picked, prev_variant="simt",
+               prev_ms=cuda_ms(simt, iters=20),
+               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
+    log(f"[timing] flash_attention variant {picked}; the SIMT kernel on "
+        f"the same inputs {row['prev_ms']:.4f} ms (device "
+        f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g})")
+    rows.append(row)
     # top-k gating on the first router's logits
     (logits, k_), _kw = inputs["topk_gating"]
     T, E = logits.shape
@@ -793,19 +864,22 @@ def phase_model_timing(launches, inputs) -> list:
 def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
                t_bytes, shape) -> dict:
     ms = cuda_ms(kern, iters=20)
+    dev_ms, names = device_ms(kern)
     plain_ms = cuda_ms(plain, iters=5, warm=1)
     library_ms = cuda_ms(library, iters=20)
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
-    log(f"[timing] {name:15s} {shape:60s} kernel {ms:.4f} ms | plain "
-        f"{plain_ms:.4f} ms | library {library_ms:.4f} ms | bound "
-        f"{bound_ms:.4f} ms ({bound_by}) | launches {launches[name]}")
+    log(f"[timing] {name:15s} {shape:60s} kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms) | plain {plain_ms:.4f} ms | library "
+        f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) | "
+        f"launches {launches[name]} | device kernels {names}")
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": shape, "checked": True}
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
+            "checked": True}
 
 
 def main() -> int:

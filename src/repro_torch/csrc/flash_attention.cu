@@ -13,29 +13,70 @@
 // online-softmax state carried in VMEM scratch; GQA broadcast beforehand by
 // repro/kernels/ops.py::flash_attention_gqa).
 //
-// Bound on the H100: operations. A causal prefill of S = 1024, D = 128
-// does ~64 flops per byte it must move, far above the bytes line.
+// Bound on the H100: at the serving shape (q/k/v [4, 872, 16, 128] bf16,
+// causal) the 57 MB it must read and write take 0.017 ms at 3.35 TB/s and
+// its 12.5 GFLOP of QK^T and PV 0.013 ms at 989 TFLOP/s on the tensor
+// cores, so it sits near the ridge; off the tensor cores (67 TFLOP/s in
+// f32) the operations bound it at 0.19 ms.
 //
-// Design (simple first; no wgmma, TMA or tensor cores yet): one CTA per
-// (q-block of 64 rows, head, batch). Four threads share a query row; thread
-// j of a row owns the dims 16*i + 4*j + {0..3}, so its slice of the scaled
-// query row and of the f32 accumulator stays in registers and each of its
-// shared-memory reads is one 16-byte load that the row's four threads make
-// on 64 contiguous bytes. K and V tiles of 32 keys are staged in shared
-// memory as f32. A thread's partial dot products are summed across the four
-// threads with two xor-shuffles (the same bits on all four), so every
-// thread holds the row's 32 scores and runs the softmax update itself:
-//   m' = max(m, max s), p = exp(s - m'), l = l e^(m - m') + sum p,
-//   acc = acc e^(m - m') + p V,     out = acc / max(l, 1e-30).
-// Masked scores are -1e30 as in the reference, and a tile that no row of
-// the block can see is skipped; that is exact for every row with a visible
-// key (a row that sees no key at all has no defined output here, nor in
-// the Pallas kernel, whose result depends on its block sizes).
+// Two kernels; the wrapper picks one by (dtype, D) alone
+// (kernels/flash_attention.py::variant):
 //
-// The query is scaled in its own dtype first (round(q * scale)), as
-// attention.py::chunked_attention does; the Pallas kernel scales after the
-// f32 cast. Everything after is f32 with expf and IEEE division, and the
-// order of every sum is fixed, so a relaunch gives the same bits.
+// flash_wgmma ("wgmma": bf16 at D = 64 or 128) runs both products on the
+// tensor cores. One CTA per (128 query rows, head, batch), heaviest causal
+// q-blocks launched first; two consumer warpgroups of 64 rows each and one
+// producer warp. The producer's lane 0 loads the query tile once and then
+// each 128-key K and V tile into a ring of two stages with TMA
+// (cp.async.bulk.tensor over the 3-D view [B, S, heads * D], box
+// [1, 128, 64] at column head * D, so GQA reads its KV head in place and a
+// tail tile is zero-filled, never read from the next batch), 128-byte
+// swizzled, completion counted on mbarriers (full: one per stage for K and
+// for V; empty: the eight consumer warps release a stage). Each consumer
+// warpgroup scales its query rows in shared memory once (round(q * scale)
+// in bf16, then fence.proxy.async so wgmma sees the writes), and per tile:
+//   S = Q K^T      wgmma m64n128k16, both operands from shared memory,
+//                  K-major (D / 16 instructions);
+//   softmax        on the f32 accumulator fragments in registers: each
+//                  thread holds two rows, row max and sum meet by two quad
+//                  xor-shuffles; the mask is applied only on tiles that
+//                  straddle Sk, the diagonal or the window edge;
+//   O += P V       wgmma m64nDk16 with P as the register A operand (the f32
+//                  fragments rounded to bf16 pairs: the accumulator layout
+//                  of m64nN is the A-fragment layout of m64nDk16) and V from
+//                  shared memory, MN-major (transposed B).
+// BK = 128 at both D: one S shape (m64n128k16) and half the tile round
+// trips of BK = 64; S and O at D = 128 take 64 + 64 accumulator registers,
+// which fit the 168 a thread that 288 threads leave (ptxas spills 8
+// bytes). Shared memory: Q 32 KB + 2 x (K + V) 128 KB at D = 128.
+// P is rounded to bf16 before P V, as in every tensor-core flash kernel;
+// l is summed from the f32 P. This is the one place it differs from the
+// SIMT kernel and the reference, which keep P in f32 (within the bf16
+// gate of 3e-2).
+//
+// flash_fwd ("simt": f32, and bf16 at D = 16 or 32) is f32 FMAs off the
+// tensor cores: one CTA per (64 query rows, head, batch). Four threads
+// share a query row; thread j of a row owns the dims 16*i + 4*j + {0..3},
+// so its slice of the scaled query row and of the f32 accumulator stays in
+// registers and each of its shared-memory reads is one 16-byte load that
+// the row's four threads make on 64 contiguous bytes. K and V tiles of 32
+// keys are staged in shared memory as f32. A thread's partial dot products
+// are summed across the four threads with two xor-shuffles (the same bits
+// on all four), so every thread holds the row's 32 scores and runs the
+// softmax update itself. f32 is held to 2e-5, which no tensor-core rounding
+// meets.
+//
+// Both run  m' = max(m, max s), p = exp(s - m'), l = l e^(m - m') + sum p,
+// acc = acc e^(m - m') + p V,  out = acc / max(l, 1e-30),  with masked
+// scores at -1e30 as in the reference, and skip a tile that no row of the
+// block can see (the causal break and the window skip, prefix keys kept);
+// that is exact for every row with a visible key (a row that sees no key
+// at all has no defined output here, nor in the Pallas kernel, whose result
+// depends on its block sizes). The query is scaled in its own dtype first
+// (round(q * scale)), as attention.py::chunked_attention does; the Pallas
+// kernel scales after the f32 cast. Everything after is f32 with expf and
+// IEEE division; no atomics, and the order of every sum is fixed, so a
+// relaunch gives the same bits.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,25 +239,520 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_wgmma: the tensor-core kernel (bf16, D = 64 or 128)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BQ = 128;              // query rows per CTA: 2 warpgroups x 64
+constexpr int BK = 128;              // keys per K / V tile
+constexpr int STAGES = 2;            // K / V ring depth
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = CONSUMER_WARPS * 32 + 32;   // + the producer warp
+constexpr int ROW_BYTES = 128;       // a swizzle atom's row: 64 bf16
+constexpr int NBARS = 1 + 3 * STAGES;
+enum { LIVE, SKIP, STOP };
+
+// Dynamic shared memory: [Q][K0][V0][K1][V1] then the mbarriers. A tile of
+// R rows x D is D / 64 column blocks of [R][64] bf16, each 128-byte
+// swizzled by TMA; every block starts on 1024 bytes, the swizzle period.
+template <int D>
+struct Layout {
+  static constexpr int NB = D / 64;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * NBARS;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// Returns once the phase of parity `parity` has completed. A phase that
+// never completes (a fault in the pipeline) traps after 4 s, so the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!mbar_try(bar, parity))
+    if (now_ns() - t0 > 4000000000ull) __trap();
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(x), "r"(y), "r"(z) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets in 16-byte units, layout type 1 (SWIZZLE_128B).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of wgmma operands across
+// the asynchronous instructions that use them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define PIPIT_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define PIPIT_F16(i) PIPIT_F4(i), PIPIT_F4(i + 4), PIPIT_F4(i + 8), \
+    PIPIT_F4(i + 12)
+
+// d[64] (+)= A[64x16] B[16x128]: A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PIPIT_F16(0), PIPIT_F16(16), PIPIT_F16(32), PIPIT_F16(48)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d[64] += A[64x16] B[16x128]: A (bf16 pairs) from registers, B from shared
+// memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : PIPIT_F16(0), PIPIT_F16(16), PIPIT_F16(32), PIPIT_F16(48)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+// d[32] += A[64x16] B[16x64], as wgmma_rs_n128.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PIPIT_F16(0), PIPIT_F16(16)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+#undef PIPIT_F16
+#undef PIPIT_F4
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t b) {
+  if constexpr (D == 128) wgmma_rs_n128(d, a0, a1, a2, a3, b);
+  else wgmma_rs_n64(d, a0, a1, a2, a3, b);
+}
+
+// The KV tiles a CTA whose rows sit at positions [p_lo, p_hi] walks, in the
+// same order for the producer and the consumers (flash_fwd's skipping).
+__device__ __forceinline__ int tile_state(int c0, int Sk, int causal,
+                                          int has_window, int window,
+                                          int prefix_len, int p_lo,
+                                          int p_hi) {
+  const int c1 = (c0 + BK < Sk ? c0 + BK : Sk) - 1;
+  if (causal && c0 > p_hi) return STOP;             // every d < 0 from here
+  if (has_window && c1 <= p_lo - window && !(c0 < prefix_len && c0 <= p_hi))
+    return SKIP;                                    // all d >= window
+  return LIVE;
+}
+
+// two f32 -> one register of two bf16, round to nearest even; lo in the
+// low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            __nv_bfloat16* __restrict__ out, int B, int Sq, int Sk, int H,
+            int KVH, int causal, int has_window, int window, int prefix_len,
+            int q_offset, float scale) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t sq = smem_u32(base);
+  const uint32_t skv = sq + L::Q_BYTES;   // stage s: K at skv + 2s KV_BYTES
+  const uint32_t bars = sq + L::BAR_OFF;  // V right after its K
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * STAGES + s); };
+
+  // heaviest causal q-blocks first: block index -> (q-block, head, batch)
+  const int nq = (Sq + BQ - 1) / BQ, hb = H * B;
+  const int qb = nq - 1 - (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % H, b = (int)(blockIdx.x % hb) / H;
+  const int kvh = h / (H / KVH);
+  const int q0 = qb * BQ;
+  const int p_lo = q_offset + q0;
+  const int p_hi = q_offset + (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == CONSUMER_WARPS) {
+    // ---- producer: lane 0 keeps the ring full ----
+    if (lane != 0) return;
+    mbar_expect_tx(q_full, L::Q_BYTES);
+    for (int nb = 0; nb < L::NB; ++nb)
+      tma_load(sq + nb * BQ * ROW_BYTES, &tq, q_full, h * D + 64 * nb, q0, b);
+    int i = 0;
+    for (int c0 = 0; c0 < Sk; c0 += BK) {
+      const int st = tile_state(c0, Sk, causal, has_window, window,
+                                prefix_len, p_lo, p_hi);
+      if (st == STOP) break;
+      if (st == SKIP) continue;
+      const int s = i % STAGES;
+      mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // first pass: free
+      const uint32_t ks = skv + 2 * s * L::KV_BYTES, vs = ks + L::KV_BYTES;
+      mbar_expect_tx(k_full(s), L::KV_BYTES);
+      for (int nb = 0; nb < L::NB; ++nb)
+        tma_load(ks + nb * BK * ROW_BYTES, &tk, k_full(s),
+                 kvh * D + 64 * nb, c0, b);
+      mbar_expect_tx(v_full(s), L::KV_BYTES);
+      for (int nb = 0; nb < L::NB; ++nb)
+        tma_load(vs + nb * BK * ROW_BYTES, &tv, v_full(s),
+                 kvh * D + 64 * nb, c0, b);
+      ++i;
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64) ----
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int r0 = 16 * (warp % 4) + lane / 4;       // this thread's rows:
+  const int col = 2 * (lane % 4);                  // r0, r0 + 8
+  const int wg_lo = p_lo + 64 * wg;                // the warpgroup's rows
+  const int wg_hi = (p_hi < wg_lo + 63 ? p_hi : wg_lo + 63);
+
+  // scale the warpgroup's query rows in place: round(q * scale) in bf16
+  mbar_wait(q_full, 0);
+#pragma unroll
+  for (int nb = 0; nb < L::NB; ++nb) {
+    uint4* rows = reinterpret_cast<uint4*>(base + nb * BQ * ROW_BYTES +
+                                           wg * 64 * ROW_BYTES);
+#pragma unroll
+    for (int e = t; e < 64 * ROW_BYTES / 16; e += 128) {
+      uint4 x = rows[e];
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = __bfloat1622float2(p[u]);
+        p[u] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      rows[e] = x;
+    }
+  }
+  // generic-proxy writes -> visible to wgmma (async proxy), then all 128
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+
+  float o[D / 2], s[64];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 64; ++e) s[e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  uint32_t p[32];
+  const uint32_t qa = sq + wg * 64 * ROW_BYTES;
+
+  int i = 0;
+  for (int c0 = 0; c0 < Sk; c0 += BK) {
+    const int st = tile_state(c0, Sk, causal, has_window, window, prefix_len,
+                              p_lo, p_hi);
+    if (st == STOP) break;
+    if (st == SKIP) continue;
+    const int stage = i % STAGES;
+    const uint32_t par = (i / STAGES) & 1;
+    const uint32_t ks = skv + 2 * stage * L::KV_BYTES, vs = ks + L::KV_BYTES;
+
+    // S = Q K^T: D / 16 steps of 16 dims; a step's 32 bytes lie inside one
+    // 128-byte swizzle row, so it moves the start address only (SBO: the
+    // 1024 bytes between groups of 8 rows; LBO unused in K-major swizzle).
+    mbar_wait(k_full(stage), par);
+    __syncwarp();
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_n128(s,
+                    desc(qa + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024),
+                    desc(ks + (kk / 4) * BK * ROW_BYTES + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+
+    // mask only a tile that some row of the warpgroup does not fully see;
+    // accumulator element 4j + e sits at row r0 + 8 (e / 2), column
+    // c0 + 8j + col + e % 2
+    const bool full = c0 + BK <= Sk && (!causal || c0 + BK - 1 <= wg_lo) &&
+                      (!has_window || wg_hi - c0 < window) && wg_lo <= wg_hi;
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * j + col + (e & 1);
+          const int d = wg_lo + r0 + 8 * (e >> 1) - c;
+          bool ok = c < Sk;
+          if (causal) ok = ok && d >= 0;
+          if (has_window)
+            ok = ok && (d < window || (c < prefix_len && d >= 0));
+          if (!ok) s[4 * j + e] = NEG;
+        }
+      }
+    }
+
+    // online softmax on the fragments; row r = r0 + 8 h2 holds elements
+    // 4j + 2 h2 + {0, 1}, spread over the quad of lanes 4 (lane / 4) + [0, 4)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float mt = m[h2];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        mt = fmaxf(mt, fmaxf(s[4 * j + 2 * h2], s[4 * j + 2 * h2 + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float corr = expf(m[h2] - mt);
+      m[h2] = mt;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float a = expf(s[4 * j + 2 * h2] - mt);
+        const float c = expf(s[4 * j + 2 * h2 + 1] - mt);
+        s[4 * j + 2 * h2] = a;
+        s[4 * j + 2 * h2 + 1] = c;
+        ps += a + c;
+      }
+      l[h2] = l[h2] * corr + ps;     // this thread's share of the row sum
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * h2] *= corr;
+        o[4 * j + 2 * h2 + 1] *= corr;
+      }
+    }
+    // P as the A operand of k-step kk (keys 16 kk + [0, 16)): registers
+    // (r0, col), (r0 + 8, col), (r0, col + 8), (r0 + 8, col + 8), each a
+    // bf16 pair: the accumulator elements 8 kk + [0, 8) in order
+#pragma unroll
+    for (int e = 0; e < 32; ++e) p[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
+
+    // O += P V: BK / 16 steps of 16 keys = 16 rows of 128 bytes of every
+    // column block; V is MN-major: LBO is the distance between the
+    // 64-column blocks, SBO the 1024 bytes between groups of 8 keys.
+    mbar_wait(v_full(stage), par);
+    __syncwarp();
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                  desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    fence_regs(p);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(stage));     // this warp is done with it
+    ++i;
+  }
+
+  // out = acc / max(l, 1e-30), rows < Sq only
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    float den = l[h2];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = q0 + 64 * wg + r0 + 8 * h2;
+    if (row >= Sq) continue;
+    __nv_bfloat16* dst = out + (((int64_t)b * Sq + row) * H + h) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * h2] / den, o[4 * j + 2 * h2 + 1] / den);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda at link time.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over x [batch, rows, heads * D] bf16 seen as 3-D, a box of
+// [1, box_rows, 64] (one 128-byte swizzle atom wide), zero fill outside.
+bool tensor_map(CUtensorMap* map, const void* x, int batch, int rows,
+                int width, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)width * 2 * rows};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int Sq, int Sk, int H, int KVH, int causal,
+                   int has_window, int window, int prefix_len, int q_offset,
+                   float scale, cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, Sq, H * D, BQ) ||
+      !tensor_map(&tk, k, B, Sk, KVH * D, BK) ||
+      !tensor_map(&tv, v, B, Sk, KVH * D, BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Layout<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sq + BQ - 1) / BQ) * H * B;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_wgmma<D><<<(unsigned)blocks, THREADS, Layout<D>::BYTES, s>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, B, Sq, Sk, H, KVH, causal, has_window,
+      window, prefix_len, q_offset, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Sq, Sk >= 1; H % KVH == 0; D in
-// {16, 32, 64, 128} (the wrapper checks all of it).
+// dtype: 0 = float32, 1 = bfloat16; variant: 0 = flash_fwd (SIMT), 1 =
+// flash_wgmma (tensor cores; bf16 at D = 64 or 128 only, 16-byte aligned
+// q, k, v). Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 128} (the
+// wrapper checks all of it).
 extern "C" int pipit_flash_attention(int device, const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int H, int KVH, int D, int dtype,
-                                     int causal, int has_window, int window,
-                                     int prefix_len, int q_offset,
+                                     int variant, int causal, int has_window,
+                                     int window, int prefix_len, int q_offset,
                                      float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
+  if (variant == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    if (D == 128)
+      err = tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal,
+                            has_window, window, prefix_len, q_offset, scale,
+                            s);
+    else if (D == 64)
+      err = tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal,
+                           has_window, window, prefix_len, q_offset, scale,
+                           s);
+    else
+      err = cudaErrorInvalidValue;
+  } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KVH, D, causal,
                                 has_window, window, prefix_len, q_offset,
                                 scale, s);
-  else
+  } else {
     err = launch<float>(q, k, v, out, B, Sq, Sk, H, KVH, D, causal,
                         has_window, window, prefix_len, q_offset, scale, s);
+  }
   return (int)err;
 }

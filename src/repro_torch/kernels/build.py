@@ -47,9 +47,9 @@ SIGNATURES = {
                        _F32, _P, _P, _P),
     # (device, coords, n, n_bins, out, stream)
     "pipit_hist_bin": (_I32, _P, _I64, _I32, _P, _P),
-    # (device, q, k, v, out, B, Sq, Sk, H, KVH, D, dtype, causal,
+    # (device, q, k, v, out, B, Sq, Sk, H, KVH, D, dtype, variant, causal,
     #  has_window, window, prefix_len, q_offset, scale, stream)
-    "pipit_flash_attention": (_I32, _P, _P, _P, _P, *(_I32,) * 12, _F32, _P),
+    "pipit_flash_attention": (_I32, _P, _P, _P, _P, *(_I32,) * 13, _F32, _P),
     # (device, logits, T, E, k, idx, gates, stream)
     "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
 }

@@ -5,10 +5,21 @@ the reference through ``repro.kernels.ops.flash_attention_gqa``), in the
 layout of :func:`repro.models.attention.chunked_attention`: q
 ``[B, Sq, H, D]``, k/v ``[B, Sk, KVH, D]`` with ``H = KVH * G``, out
 ``[B, Sq, H, D]`` in q's dtype.  On a CUDA tensor :func:`flash_attention`
-launches the hand-written kernel in ``csrc/flash_attention.cu`` (the KV
-head of query head h is ``h // G``, read in place); on a CPU tensor it
-runs :func:`flash_attention_plain`, the chunked online-softmax scan of
-``chunked_attention``.
+launches one of the two hand-written kernels in ``csrc/flash_attention.cu``
+(the KV head of query head h is ``h // G``, read in place), chosen by
+:func:`variant` from the dtype and head dim alone:
+
+- ``"wgmma"`` (bfloat16 at D = 64 or 128, the serving shapes):
+  ``flash_wgmma``, both products on the tensor cores (``wgmma`` on
+  TMA-fed, 128-byte-swizzled shared-memory tiles).  It rounds the softmax
+  weights P to bfloat16 before P·V, as every tensor-core flash kernel does;
+  the row sums stay f32.  Held to the bf16 gate, 3e-2.
+- ``"simt"`` (float32, and bfloat16 at D = 16 or 32): ``flash_fwd``, f32
+  FMAs with P in f32, held to 2e-5 in float32.
+
+On a CPU tensor it runs :func:`flash_attention_plain`, the chunked
+online-softmax scan of ``chunked_attention`` (P in f32).  There is no
+fallback between the kernels: a CUDA call launches its variant or raises.
 
 Both scale the query in its own dtype before the f32 cast, as
 ``chunked_attention`` — the function the model calls — does; the Pallas
@@ -25,15 +36,31 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention", "flash_attention_plain", "mask", "LAUNCHES"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_variant", "variant", "mask", "LAUNCHES",
+           "VARIANT_LAUNCHES"]
 
 #: kernel launches since import (one per wrapper call that launches)
 LAUNCHES = 0
+#: the same launches by kernel variant
+VARIANT_LAUNCHES = {"simt": 0, "wgmma": 0}
 
 _NEG = -1e30
 _CHUNK = 1024             # KV chunk of the plain scan (chunked_attention's)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+_WGMMA_HEAD_DIMS = (64, 128)
+_VARIANT_IDS = {"simt": 0, "wgmma": 1}
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim launches:
+    ``"wgmma"`` (tensor cores) for bfloat16 at D = 64 or 128, else
+    ``"simt"`` (f32 FMAs: float32 needs P in f32 to meet 2e-5, and the
+    tensor-core tiles are 64 dims wide)."""
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -99,8 +126,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix_len: int = 0, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Sq, H, D], k/v [B, Sk, KVH, D] (float32 or bfloat16, one
-    dtype) → [B, Sq, H, D] in q's dtype."""
+    dtype) → [B, Sq, H, D] in q's dtype; on the card through the kernel
+    :func:`variant` picks."""
+    return flash_attention_variant(
+        variant(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+        window=window, prefix_len=prefix_len, q_offset=q_offset, scale=scale)
+
+
+def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None, prefix_len: int = 0,
+                            q_offset: int = 0,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_attention` through the named kernel (``"simt"`` or
+    ``"wgmma"``) whatever :func:`variant` would pick, to compare the two on
+    the same inputs; a CPU tensor still runs the plain version."""
     global LAUNCHES
+    if name not in _VARIANT_IDS:
+        raise ValueError(f"flash_attention: unknown variant {name!r}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q [B, Sq, H, D] and k/v "
                          f"[B, Sk, KVH, D] expected, got {tuple(q.shape)}, "
@@ -132,14 +175,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{_HEAD_DIMS}")
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention: B = {B} or H = {H} above 65535")
+    if name == "wgmma":
+        if q.dtype != torch.bfloat16 or D not in _WGMMA_HEAD_DIMS:
+            raise ValueError(f"flash_attention: the wgmma kernel takes "
+                             f"bfloat16 at D in {_WGMMA_HEAD_DIMS}, got "
+                             f"{q.dtype} at D = {D}")
+        if any(x.data_ptr() % 16 for x in (q, k, v)):
+            raise ValueError("flash_attention: the wgmma kernel's TMA "
+                             "loads need 16-byte aligned q, k, v")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
     build.check(build.library().pipit_flash_attention(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, H, KVH, D, _DTYPES[q.dtype], int(causal),
-        int(window is not None), int(window or 0), int(prefix_len),
-        int(q_offset), float(scale or D ** -0.5), build.stream_of(q)),
-        "flash_attention")
+        out.data_ptr(), B, Sq, Sk, H, KVH, D, _DTYPES[q.dtype],
+        _VARIANT_IDS[name], int(causal), int(window is not None),
+        int(window or 0), int(prefix_len), int(q_offset),
+        float(scale or D ** -0.5), build.stream_of(q)),
+        f"flash_attention ({name})")
     LAUNCHES += 1
+    VARIANT_LAUNCHES[name] += 1
     return out

@@ -10,6 +10,12 @@ and single-query rows.  Tolerances are ``tests/test_kernels.py``'s:
 2e-5 in float32 and 3e-2 in bfloat16 (the Pallas kernel scales the query
 after the f32 cast, ``chunked_attention`` and the port before it).
 Inputs are made from a seed with NumPy and handed to both.
+
+On the card, bfloat16 at D = 64 or 128 runs the tensor-core kernel, which
+rounds the softmax weights P to bfloat16 before P·V (the row sums stay
+f32); that kernel cannot run here, so a test-local emulation of the scan
+with P rounded at that point is held to the JAX ``chunked_attention``
+within the bf16 gate, 3e-2.
 """
 
 import jax.numpy as jnp
@@ -19,6 +25,7 @@ import torch
 
 from repro.kernels.ops import flash_attention_gqa
 from repro.models import attention as jattn
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.models import attention as tattn
 
@@ -136,3 +143,93 @@ def test_flash_wrapper_rejects_bad_inputs(bad, err):
         args["v"] = bad["k"]
     with pytest.raises(err):
         flash.flash_attention(args["q"], args["k"], args["v"])
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_flash_variant_rule(dtype, D, want):
+    assert flash.variant(dtype, D) == want
+
+
+def test_flash_variant_of_the_serving_model():
+    """qwen2-moe-a2.7b serves in bf16 at head dim 128: its prefill
+    attention takes the tensor-core kernel."""
+    cfg = get_config("qwen2-moe-a2.7b")
+    assert cfg.hd == 128
+    assert flash.variant(torch.bfloat16, cfg.hd) == "wgmma"
+
+
+def test_flash_variant_wrapper_checks():
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash.flash_attention_variant("mma", q, k, k)
+    # a CPU tensor runs the plain version whatever the variant
+    got = flash.flash_attention_variant("wgmma", q, k, k)
+    assert torch.equal(got, flash.flash_attention_plain(q, k, k))
+
+
+def _scan_bf16_p(q, k, v, *, causal=True, window=None, prefix_len=0,
+                 q_offset=0, block=128):
+    """The tensor-core kernel's arithmetic in plain PyTorch: the query
+    scaled in bf16, S in f32, 128-key blocks, the online softmax in f32
+    with l summed from the f32 P, and P rounded to bf16 before P·V (whose
+    bf16 x bf16 products are exact in f32)."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qq = (q.reshape(B, Sq, KVH, G, D) * D ** -0.5).to(q.dtype).float()
+    qpos = q_offset + torch.arange(Sq)
+    m = torch.full((B, KVH, G, Sq), -1e30)
+    l = torch.zeros((B, KVH, G, Sq))
+    acc = torch.zeros((B, KVH, G, Sq, D))
+    for c0 in range(0, Sk, block):
+        kc, vc = k[:, c0:c0 + block].float(), v[:, c0:c0 + block].float()
+        kpos = c0 + torch.arange(kc.shape[1])
+        s = torch.einsum("bqhgd,bchd->bhgqc", qq, kc)
+        s = torch.where(flash.mask(qpos, kpos, causal, window, prefix_len),
+                        s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqc,bchd->bhgqd",
+                          p.to(torch.bfloat16).float(), vc)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.movedim(3, 1).reshape(B, Sq, H, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", [
+    (1, 200, 200, 4, 2, 64, {}),
+    (2, 130, 130, 2, 2, 128, {}),
+    (1, 70, 260, 4, 1, 64, {"causal": False}),
+    (1, 40, 300, 4, 2, 128, {"q_offset": 260, "window": 64,
+                             "prefix_len": 8}),
+    (2, 1, 150, 4, 4, 128, {"q_offset": 149}),
+])
+def test_bf16_p_rounding_within_gate_of_jax(B, Sq, Sk, H, KVH, D, kw):
+    """The one precision change of the tensor-core kernel (P in bf16 before
+    P·V) keeps it within 3e-2 of the reference model's attention."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(Sq * Sk + D, B, Sq, Sk, H, KVH, D,
+                                      "bfloat16")
+    got = _scan_bf16_p(tq, tk, tv, **kw)
+    want = jattn.chunked_attention(jq, jk, jv, **kw)
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-2, rtol=0)
+    # and it is a change: P in f32 (the plain version) gives other bits
+    assert not torch.equal(got, flash.flash_attention_plain(tq, tk, tv,
+                                                            **kw))
+
+
+def test_flash_bench_needs_a_card():
+    """The chip-side flash benchmark exits 2, printing no result, where
+    there is no CUDA device."""
+    from repro_torch.launch import flash_bench
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without CUDA")
+    assert flash_bench.main([]) == 2

@@ -11,7 +11,11 @@ accumulation gate; counts exact) and must give bit-identical output on a
 second launch; the five ops on the card must match the CPU path.  The
 model kernels are held to their plain versions as ``tests/test_kernels.py``
 holds the Pallas kernels: flash attention within 2e-5 in float32 and 3e-2
-in bfloat16, top-k indices exact and gates within 1e-6.
+in bfloat16, top-k indices exact and gates within 1e-6.  Flash attention in
+bfloat16 at D = 64 or 128 runs the tensor-core kernel (``"wgmma"``), whose
+cases below cover both head dims, lengths that are not multiples of 64 or
+128, GQA, window + prefix with an offset, non-causal, one query row and
+the serving shape.
 """
 
 import numpy as np
@@ -148,6 +152,58 @@ def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.equal(got, again), "relaunch not bit-identical"
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", [
+    (2, 128, 128, 4, 4, 64, {}),                              # D = 64
+    (2, 256, 256, 4, 4, 128, {}),                             # D = 128
+    (1, 1000, 1000, 4, 4, 128, {}),                           # tails
+    (1, 77, 200, 4, 4, 64, {"causal": False}),
+    (2, 200, 200, 8, 2, 128, {}),                             # GQA 4
+    (2, 300, 300, 8, 2, 64, {}),                              # GQA 4
+    (1, 40, 1300, 4, 2, 64, {"q_offset": 1260, "window": 64,
+                             "prefix_len": 8}),
+    (2, 300, 300, 4, 4, 128, {"q_offset": 5, "window": 100,
+                              "prefix_len": 4}),
+    (2, 512, 700, 8, 8, 128, {"causal": False}),              # non-causal
+    (4, 1, 2000, 16, 16, 128, {"q_offset": 1999}),            # Sq = 1
+    (4, 872, 872, 16, 16, 128, {}),                           # serving
+])
+def test_flash_attention_tensor_core_kernel(cuda, B, Sq, Sk, H, KVH, D, kw):
+    rng = np.random.default_rng(Sq * Sk + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
+    assert flash_attention.variant(q.dtype, D) == "wgmma"
+    before = flash_attention.VARIANT_LAUNCHES["wgmma"]
+    got = flash_attention.flash_attention(q, k, v, **kw)
+    again = flash_attention.flash_attention(q, k, v, **kw)
+    want = flash_attention.flash_attention_plain(q, k, v, **kw)
+    assert flash_attention.VARIANT_LAUNCHES["wgmma"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again), "relaunch not bit-identical"
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+def test_flash_attention_variants_agree(cuda):
+    """The SIMT kernel on the same bf16 inputs: both within the gate of
+    the plain version, and the wgmma kernel refuses what it cannot take."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((2, 300, 8, 128), (2, 300, 2, 128), (2, 300, 2, 128)))
+    want = flash_attention.flash_attention_plain(q, k, v).float()
+    for name in ("simt", "wgmma"):
+        got = flash_attention.flash_attention_variant(name, q, k, v)
+        torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=0)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_variant("wgmma", q.float(),
+                                                k.float(), v.float())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_variant("wgmma", q[..., :32]
+                                                .contiguous(),
+                                                k[..., :32].contiguous(),
+                                                v[..., :32].contiguous())
 
 
 @pytest.mark.parametrize("T,E,k", [(4096, 60, 4), (32, 128, 8), (777, 64, 4),
