@@ -9,19 +9,25 @@ Phases (any failure raises and exits non-zero):
              print the ptxas register / shared-memory / spill lines;
 3. kernels — each kernel against its plain PyTorch version on the card at
              its path's shapes, wider shapes and edge cases, and
-             bit-identical on relaunch (the trace kernels; flash attention
-             in bf16 and f32 with causal, window + prefix, non-causal,
-             GQA, padded-tail and one-query cases, each bf16 case at
-             D = 64 or 128 through both kernel variants, the tensor-core
-             one the wrapper picks and the SIMT one; top-k at the serving
-             shape, E = 128 with k = 8, ragged T and exact ties);
+             bit-identical on relaunch (the trace kernels, ``pair_sum``
+             through the path its wrapper picks and, up to 6,144 cells,
+             also through the sorted one: ignored records, 64 x 64, the
+             threshold's two sides, 2048 x 2048; flash attention in bf16
+             and f32 with causal, window + prefix, non-causal, GQA,
+             padded-tail and one-query cases, each bf16 case at D = 64 or
+             128 through both kernel variants, the tensor-core one the
+             wrapper picks and the SIMT one; top-k at the serving shape,
+             E = 128 with k = 8, ragged T and exact ties; the fused router
+             at the serving model's prefill and decode shapes, E = 128
+             with k = 8, a ragged depth with odd E, all-zero rows, and a
+             depth split over a cluster at odd E);
 4. reader  — a small ``big_trace`` jsonl trace through ``Trace.open`` and
              the five ops on the card and on the CPU;
 5. main    — the trace path: 10M events over 64 ranks (``big_trace``
              parameters, seed 0): structure, then the six op calls on the
              card, each held against the CPU path; the trace kernels'
-             launch counts are reset just before and read just after, and
-             each must have risen;
+             launch counts (and ``pair_sum``'s by path) are reset just
+             before and read just after, and each must have risen;
 6. timing  — each trace kernel on the inputs the trace path gave it: its
              time, its plain version's, one library call's, and its bound;
 7. serve   — the serving path: ``repro_torch.launch.serve`` serves 8
@@ -29,23 +35,32 @@ Phases (any failure raises and exits non-zero):
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
              kernels' counts are reset just before and read just after,
-             and each must have risen, every flash launch on the
-             tensor-core variant; tokens in the vocabulary, finite
+             and each of the path's must have risen, every flash launch
+             on the tensor-core variant and every router call (24 layers
+             x 16 steps x 2 waves) on the fused ``router_topk`` kernel,
+             none on ``topk_gating``; tokens in the vocabulary, finite
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
-8. path    — qwen2-moe-smoke in f32 with one seeded weight set served on
+8. f32     — one ``moe_ffn`` call in float32 at the serving model's
+             widths (3,488 tokens, the first wave's prefill): the unfused
+             route, so ``topk_gating`` is launched once and
+             ``router_topk`` not at all (counts reset just before);
+9. path    — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-9. timing  — each model kernel on the inputs the serving path gave it,
-             against its plain version, with one library call and its
-             bound; flash attention also through its SIMT variant
-             (``prev_ms``, the kernel this one replaced on the path).
+10. timing — each model kernel on the inputs its path gave it, against
+             its plain version, with one library call and its bound;
+             flash attention also through its SIMT variant (``prev_ms``,
+             the kernel this one replaced on the path); the fused router
+             also at the decode shape and beside the unfused route it
+             replaced (``prev_ms``: the f32 product + ``topk_gating``).
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
 ``device_ms`` is the summed duration of the device kernels one wrapper
-call launches, read from ``torch.profiler``.
+call launches, read from ``torch.profiler``.  ``pair_sum``'s row also
+times the sorted path on the same inputs (``prev_ms``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -182,10 +197,13 @@ def _seg_case(rng, n, n_seg, k, pad=0.0):
     return _dev(code), _dev(vals), n_seg
 
 
-def _pair_case(rng, n, n_a, n_b, pad=0.0):
+def _pair_case(rng, n, n_a, n_b, pad=0.0, runs=False):
     a = rng.integers(0, n_a, size=n).astype(np.int32)
     b = rng.integers(0, n_b, size=n).astype(np.int32)
     a[rng.random(n) < pad] = -1
+    if runs:                     # by rank, then name: the ops' long runs
+        o = np.lexsort((a, b))
+        a, b = a[o], b[o]
     w = rng.integers(256, 8192, size=n).astype(np.float32)
     return _dev(a), _dev(b), _dev(w), n_a, n_b
 
@@ -223,14 +241,6 @@ def phase_kernels() -> None:
             ("all codes < 0", _seg_case(rng, 5000, 7, 1, pad=1.0)),
             ("K=11", _seg_case(rng, 20_000, 9, 11)),
         ]),
-        "pair_sum": (pair_sum.pair_sum, pair_sum.pair_sum_plain, gate, [
-            ("main ranks x ranks 0.7M", _pair_case(rng, 700_000, 64, 64)),
-            ("main names x ranks 4.3M", _pair_case(rng, 4_300_000, 6, 64)),
-            ("1024 x 1024", _pair_case(rng, 4_300_000, 1024, 1024)),
-            ("N=1", _pair_case(rng, 1, 3, 3)),
-            ("N=1000, padded", _pair_case(rng, 1000, 5, 7, pad=0.2)),
-            ("all codes < 0", _pair_case(rng, 5000, 5, 7, pad=1.0)),
-        ]),
         "time_bin": (time_bin.time_bin, time_bin.time_bin_plain, gate, [
             ("main 4.3M, 32 bins", _time_case(rng, 4_300_000, 6, 32)),
             ("1024 bins", _time_case(rng, 500_000, 13, 1024)),
@@ -259,6 +269,52 @@ def phase_kernels() -> None:
             err = check(got.cpu().numpy(), want.cpu().numpy())
             log(f"[kernels] {name:8s} {label:28s} ok  max_abs_err={err:.6g}"
                 f"  bit-identical relaunch")
+    phase_pair_paths()
+
+
+def phase_pair_paths() -> None:
+    """``pair_sum`` through the path its wrapper picks and, where the grid
+    fits the private path, also through the sorted one, against its plain
+    version within the gate; both paths must be covered."""
+    from repro_torch.kernels import pair_sum
+    rng = np.random.default_rng(2)
+    cases = [
+        ("main ranks x ranks 0.7M", _pair_case(rng, 700_000, 64, 64)),
+        ("main names x ranks 4.3M", _pair_case(rng, 4_300_000, 6, 64)),
+        ("names x ranks, in runs", _pair_case(rng, 4_300_000, 6, 64,
+                                              runs=True)),
+        ("64 x 64, 30% ignored", _pair_case(rng, 700_000, 64, 64,
+                                            pad=0.3)),
+        ("threshold 96 x 64", _pair_case(rng, 1_000_000, 96, 64)),
+        ("above it, 5 x 1229", _pair_case(rng, 1_000_000, 5, 1229)),
+        ("1024 x 1024", _pair_case(rng, 4_300_000, 1024, 1024)),
+        ("2048 x 2048", _pair_case(rng, 4_300_000, 2048, 2048)),
+        ("2048 x 2048, 30% ignored", _pair_case(rng, 4_300_000, 2048, 2048,
+                                                pad=0.3)),
+        ("N=1", _pair_case(rng, 1, 3, 3)),
+        ("N=1000, padded", _pair_case(rng, 1000, 5, 7, pad=0.2)),
+        ("all codes < 0", _pair_case(rng, 5000, 5, 7, pad=1.0)),
+    ]
+    seen = set()
+    for label, args in cases:
+        n, cells = args[0].shape[0], args[3] * args[4]
+        picked = pair_sum.path(n, cells)
+        want = pair_sum.pair_sum_plain(*args).cpu().numpy()
+        for name in dict.fromkeys((picked, "sorted")):
+            got = pair_sum.pair_sum_path(name, *args)
+            again = pair_sum.pair_sum_path(name, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"pair_sum [{label}, {name}]: "
+                                     f"relaunch differs")
+            err = gate(got.cpu().numpy(), want)
+            seen.add(name)
+            log(f"[kernels] pair_sum {label:26s} {name:7s}"
+                f"{' (picked)' if name == picked else '         '} ok  "
+                f"max_abs_err={err:.6g}  bit-identical relaunch")
+    if seen != set(pair_sum.PATH_LAUNCHES):
+        raise AssertionError(f"pair_sum paths checked {seen}, have "
+                             f"{set(pair_sum.PATH_LAUNCHES)}")
 
 
 def _flash_case(rng, B, Sq, Sk, H, KVH, D, dtype, **kw):
@@ -274,6 +330,62 @@ def _topk_case(rng, T, E, k, ties=False):
         x[::2, 3::4] = 2.5                   # exact ties among the largest
         x[1::2] = np.round(x[1::2])
     return (_dev(x), k), {}
+
+
+def _router_case(rng, T, d, E, k, zero_rows=False):
+    """bf16 activations ~ N(0, 1) (what rms_norm hands the router) and a
+    router weight drawn as the model draws it (std d^-1/2)."""
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    if zero_rows:
+        x[::7] = 0.0                 # all-zero logits: every expert ties
+    w = (rng.standard_normal((d, E)) * d ** -0.5).astype(np.float32)
+    return _dev(x).bfloat16(), _dev(w).bfloat16(), k
+
+
+def check_router(label, x, w, k) -> float:
+    """The fused router against its plain version on the card: bit-identical
+    on relaunch; idx equal to and gates within 1e-6 of ``topk_gating_plain``
+    on the kernel's own logits; logits within ``logit_tolerance`` of the
+    float32 product; and every row whose indices differ from the plain
+    route's must differ where two of the plain logits lie within twice
+    that tolerance of each other (each may move by it).  Returns the
+    logits' max abs error."""
+    from repro_torch.kernels import router_topk as rt
+    from repro_torch.kernels import topk_gating as tg
+    got = rt.router_topk(x, w, k)
+    again = rt.router_topk(x, w, k)
+    want_logits, want_idx, _want_gates = rt.router_topk_plain(x, w, k)
+    tol = rt.logit_tolerance(x, w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"router_topk [{label}]: relaunch differs")
+    logits, idx, gates = got
+    own_idx, own_gates = tg.topk_gating_plain(logits, k)
+    exact(idx.cpu().numpy(), own_idx.cpu().numpy())
+    gate_err = within(1e-6)(gates.cpu().numpy(), own_gates.cpu().numpy())
+    diff = (logits - want_logits).abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"router_topk [{label}]: logits outside the "
+                             f"tolerance, max abs err {float(diff.max())}")
+    err = float(diff.max())
+    ratio = float((diff / tol.clamp_min(1e-30)).max())
+    rows = (idx != want_idx).any(dim=1).nonzero().flatten()
+    if len(rows):
+        first = (idx[rows] != want_idx[rows]).int().argmax(dim=1)
+        pl = want_logits[rows]
+        a = pl.gather(1, want_idx[rows, first].long()[:, None])
+        b = pl.gather(1, idx[rows, first].long()[:, None])
+        gap = (a - b).abs().flatten()
+        if not bool((gap <= 2 * tol[rows].amax(dim=1)).all()):
+            raise AssertionError(f"router_topk [{label}]: {len(rows)} rows "
+                                 f"route differently with logit gaps above "
+                                 f"the tolerance")
+    log(f"[kernels] router_topk {label:34s} ok  idx exact and gates "
+        f"max_abs_err={gate_err:.3g} on its own logits; logits "
+        f"max_abs_err={err:.3g} ({ratio:.3g} of the tolerance); "
+        f"{len(rows)}/{len(idx)} rows route differently from the plain "
+        f"logits, each within the tolerance; bit-identical relaunch")
+    return err
 
 
 def within(tol):
@@ -292,9 +404,10 @@ def within(tol):
 def phase_model_kernels() -> None:
     """Flash attention within 2e-5 (f32) / 3e-2 (bf16) of its plain
     version, top-k indices exact and gates within 1e-6 (the tolerances of
-    tests/test_kernels.py); every case bit-identical on relaunch.  Each
-    bf16 flash case at D = 64 or 128 runs through both variants: the
-    tensor-core one (what the wrapper picks) and the SIMT one."""
+    tests/test_kernels.py), the fused router as :func:`check_router`
+    holds it; every case bit-identical on relaunch.  Each bf16 flash case
+    at D = 64 or 128 runs through both variants: the tensor-core one (what
+    the wrapper picks) and the SIMT one."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_gating as tg
     rng = np.random.default_rng(1)
@@ -331,6 +444,18 @@ def phase_model_kernels() -> None:
         ("exact ties", _topk_case(rng, 4096, 60, 4, ties=True)),
         ("decode T=4", _topk_case(rng, 4, 60, 4)),
     ]
+    router = [
+        ("serve prefill T=3488 d=2048 E=60 k=4",
+         _router_case(rng, 3488, 2048, 60, 4)),
+        ("serve decode T=4", _router_case(rng, 4, 2048, 60, 4)),
+        ("E=128 k=8 d=1024", _router_case(rng, 2048, 1024, 128, 8)),
+        ("ragged T=3489 d=2064 E=61 k=3",
+         _router_case(rng, 3489, 2064, 61, 3)),
+        ("all-zero rows (ties)", _router_case(rng, 700, 2048, 60, 4,
+                                              zero_rows=True)),
+        ("depth split T=250 d=2064 E=61 k=3",
+         _router_case(rng, 250, 2064, 61, 3)),
+    ]
     seen = set()
     for label, tol, (args, kw) in flash:
         picked = fa.variant(args[0].dtype, args[0].shape[-1])
@@ -366,6 +491,8 @@ def phase_model_kernels() -> None:
         err = within(1e-6)(gates.cpu().numpy(), wgates.cpu().numpy())
         log(f"[kernels] topk_gating {label:24s} ok  indices exact, gates "
             f"max_abs_err={err:.6g}  bit-identical relaunch")
+    for label, args in router:
+        check_router(label, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -531,13 +658,16 @@ def phase_main():
     struct_s = time.perf_counter() - t0
     log(f"[main] {len(ev)} events, {trace.num_processes} ranks; "
         f"generate {gen_s:.2f} s, structure {struct_s:.2f} s (host)")
+    paths = kernels.pair_sum.PATH_LAUNCHES
     for mod in kernels.TRACE_KERNELS:
         mod.LAUNCHES = 0
+    paths.update(dict.fromkeys(paths, 0))
     with DeviceTimer(kernels.TRACE_KERNELS) as timer:
         run_ops(trace, "main", timer)
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in kernels.TRACE_KERNELS}
-    log(f"[main] launches {json.dumps(launches)}")
+    log(f"[main] launches {json.dumps(launches)}; pair_sum by path "
+        f"{json.dumps(paths)}")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -592,7 +722,8 @@ def phase_timing(launches, inputs) -> list:
             flat = a.long() * n_b + b.long()
             acc = torch.zeros(n_a * n_b, device="cuda")
             library = lambda: acc.index_add_(0, flat, w)  # noqa: E731
-            keys = flat.int()
+            path = mod.path(n, n_a * n_b)
+            keys = flat.int() if path == "sorted" else None
             shape = f"N={n} {n_a}x{n_b}"
         elif name == "time_bin":
             s, e, f, r = args[:4]
@@ -627,7 +758,7 @@ def phase_timing(launches, inputs) -> list:
             f"{plain_ms:.4f} ms | library "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} | "
             f"bound {bound_ms:.4f} ms ({bound_by}) | of which device "
-            f"sort {sort_ms:.4f} ms")
+            f"sort {sort_ms:.4f} ms | device kernels {_names}")
         rows.append({"name": name, "route": "cuda",
                      "source": src.format(name),
                      "replaces": replaces[name],
@@ -636,7 +767,26 @@ def phase_timing(launches, inputs) -> list:
                      "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "sort_ms": sort_ms, "shape": shape, "checked": True})
+        if name == "pair_sum":
+            rows[-1].update(path=path, **_pair_prev(mod, args, path))
     return rows
+
+
+def _pair_prev(mod, args, path) -> dict:
+    """The sorted path on the private path's inputs: the design the
+    private path replaced on the trace path (with its block-wide walk)."""
+    if path != "sorted":
+        prev = lambda: mod.pair_sum_path("sorted", *args)  # noqa: E731
+        err = gate(prev().cpu().numpy(),
+                   mod.pair_sum_plain(*args).cpu().numpy())
+        out = {"prev_path": "sorted", "prev_ms": cuda_ms(prev, iters=20),
+               "prev_device_ms": device_ms(prev)[0],
+               "prev_max_abs_err": err}
+        log(f"[timing] pair_sum the sorted path on the same inputs "
+            f"{out['prev_ms']:.4f} ms (device {out['prev_device_ms']:.4f} "
+            f"ms, max_abs_err {err:.6g})")
+        return out
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -654,15 +804,17 @@ def phase_serve():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa = kernels.flash_attention
+    fa, rt = kernels.flash_attention, kernels.router_topk
     for mod in kernels.MODEL_KERNELS:
         mod.LAUNCHES = 0
     fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
+    rt.VARIANT_CALLS.update(dict.fromkeys(rt.VARIANT_CALLS, 0))
     with DeviceTimer(kernels.MODEL_KERNELS) as timer:
         run = launch.serve(**SERVE, device="cuda", logits_hook=hook)
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in kernels.MODEL_KERNELS}
     by_variant = dict(fa.VARIANT_LAUNCHES)
+    router_calls = dict(rt.VARIANT_CALLS)
     kernel_s = timer.seconds_by_kernel()
     peak = torch.cuda.max_memory_allocated()
     cfg = run.engine.cfg
@@ -671,14 +823,23 @@ def phase_serve():
         f"{cfg.n_shared_experts} shared, {cfg.param_count() / 1e9:.2f} B "
         f"parameters in {SERVE['dtype']}")
     log(f"[serve] launches {json.dumps(launches)}; flash_attention by "
-        f"variant {json.dumps(by_variant)}")
-    idle = [k for k, v in launches.items() if v <= 0]
+        f"variant {json.dumps(by_variant)}; router calls by route "
+        f"{json.dumps(router_calls)}")
+    idle = [k for k in ("flash_attention", "router_topk")
+            if launches[k] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the serving "
                              f"path: {idle}")
     if by_variant["wgmma"] != launches["flash_attention"]:
         raise AssertionError(f"prefill attention not all on the "
                              f"tensor-core kernel: {by_variant}")
+    waves = -(-SERVE["requests"] // SERVE["batch"])
+    calls = cfg.n_layers * waves * SERVE["new_tokens"]
+    if router_calls != {"fused": calls, "unfused": 0} or \
+            launches["router_topk"] != calls or launches["topk_gating"]:
+        raise AssertionError(f"bf16 router calls not all on router_topk: "
+                             f"{router_calls}, launches {launches}, "
+                             f"expected {calls} fused")
     if len(run.done) != SERVE["requests"] or any(
             len(r.out_tokens) != SERVE["new_tokens"] for r in run.done):
         raise AssertionError("not every request got its tokens")
@@ -688,7 +849,6 @@ def phase_serve():
         raise AssertionError(f"tokens outside [0, {cfg.vocab}): {bad[:5]}")
     if not checks or not all(bool(c) for c in checks):
         raise AssertionError("non-finite logits on the serving path")
-    waves = -(-SERVE["requests"] // SERVE["batch"])
     lens = [len(r.prompt) for r in run.done]
     trace = run.tracer.to_trace(device="cuda")
     fp = trace.flat_profile(metrics=(INC,))
@@ -754,6 +914,49 @@ def profile_step(label: str, fn, top: int = 8) -> None:
             f"x{e.count:<5d} {e.key[:90]}")
 
 
+def phase_f32_router():
+    """One ``moe_ffn`` call in float32 at the serving model's widths: the
+    first wave's 3,488 prefill tokens, d_model 2048, 60 experts top-4 of
+    width 1408, weights drawn on the card from seed 2 (std fan_in^-1/2, as
+    the model draws them).  float32 takes the unfused route, so the
+    ``topk_gating`` kernel is launched once and ``router_topk`` not at
+    all: counts reset just before, read just after."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_ffn
+    cfg = get_config(ARCH)
+    T, d, E, f = 3488, cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda") \
+            * shape[-2] ** -0.5
+
+    x = torch.randn((T, d), generator=g, device="cuda")
+    weights = (draw(d, E), draw(E, d, f), draw(E, d, f), draw(E, f, d))
+    rt, tg = kernels.router_topk, kernels.topk_gating
+    rt.LAUNCHES = tg.LAUNCHES = 0
+    rt.VARIANT_CALLS.update(dict.fromkeys(rt.VARIANT_CALLS, 0))
+    with DeviceTimer((tg,)) as timer:
+        y = moe_ffn(x, *weights, topk=cfg.topk,
+                    capacity_factor=cfg.capacity_factor,
+                    groups=cfg.moe_groups)
+    torch.cuda.synchronize()
+    launches = {"topk_gating": tg.LAUNCHES, "router_topk": rt.LAUNCHES}
+    if launches != {"topk_gating": 1, "router_topk": 0} or \
+            rt.VARIANT_CALLS != {"fused": 0, "unfused": 1}:
+        raise AssertionError(f"f32 routing: launches {launches}, calls "
+                             f"{rt.VARIANT_CALLS}")
+    if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError("f32 moe_ffn: wrong shape or non-finite")
+    log(f"[f32] moe_ffn float32 [{T}, {d}], {E} experts top-{cfg.topk}: "
+        f"launches {json.dumps(launches)}, finite output")
+    inputs = timer.inputs
+    del x, weights, y
+    torch.cuda.empty_cache()
+    return launches, inputs
+
+
 def phase_path() -> None:
     """The smoke config served on the card and on the CPU through the same
     engine code and weights: the same greedy tokens, prefill logits within
@@ -774,12 +977,11 @@ def phase_path() -> None:
         eng.logits_hook = (lambda ph, lg, _l=logits:
                            _l.append(lg.float().cpu()) if ph == "prefill"
                            else None)
-        before = (flash_attention.LAUNCHES, topk_gating.LAUNCHES)
+        flash_attention.LAUNCHES = topk_gating.LAUNCHES = 0
         done = eng.serve_queue(make_requests(cfg.vocab, 8, 32, 16))
         after = (flash_attention.LAUNCHES, topk_gating.LAUNCHES)
-        if (dev == "cuda") != all(a > b for a, b in zip(after, before)):
-            raise AssertionError(f"{dev}: kernel launches {before} -> "
-                                 f"{after}")
+        if (dev == "cuda") != all(a > 0 for a in after):
+            raise AssertionError(f"{dev}: kernel launches {after}")
         out[dev] = ([r.out_tokens for r in done], torch.cat(logits))
     (tok_card, lg_card), (tok_cpu, lg_cpu) = out["cuda"], out["cpu"]
     if tok_card != tok_cpu:
@@ -792,8 +994,9 @@ def phase_path() -> None:
         f"{err:.3g} (tol 1e-3)")
 
 
-def phase_model_timing(launches, inputs) -> list:
+def phase_model_timing(launches, inputs, f32_launches, f32_inputs) -> list:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import router_topk as rt
     from repro_torch.kernels import topk_gating as tg
     rows = []
     # flash attention on the first prefill's q, k, v
@@ -837,8 +1040,9 @@ def phase_model_timing(launches, inputs) -> list:
         f"the same inputs {row['prev_ms']:.4f} ms (device "
         f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g})")
     rows.append(row)
-    # top-k gating on the first router's logits
-    (logits, k_), _kw = inputs["topk_gating"]
+    rows.append(_router_row(rt, tg, launches, *inputs["router_topk"][0]))
+    # top-k gating on the f32 router's logits
+    (logits, k_), _kw = f32_inputs["topk_gating"]
     T, E = logits.shape
     idx, gates = tg.topk_gating(logits, k_)
     widx, wgates = tg.topk_gating_plain(logits, k_)
@@ -853,12 +1057,64 @@ def phase_model_timing(launches, inputs) -> list:
         return ids, torch.softmax(vals, dim=1)
 
     rows.append(_model_row(
-        "topk_gating", "src/repro/kernels/topk_gating.py:50", launches,
+        "topk_gating", "src/repro/kernels/topk_gating.py:50", f32_launches,
         err, lambda: tg.topk_gating(logits, k_),
         lambda: tg.topk_gating_plain(logits, k_), library,
         ops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3,
         f"T={T} E={E} k={k_}"))
     return rows
+
+
+def _router_row(rt, tg, launches, x, w, k) -> dict:
+    """The fused router on the serving path's first router call (the
+    first wave's prefill) and on its first 4 rows (a decode step's shape),
+    beside the unfused route it replaced there (the f32 product, then the
+    topk_gating kernel) and the library chain (f32 product, torch.topk,
+    softmax)."""
+    err = check_router("serving path's first call", x, w, k)
+
+    def unfused(x=x):
+        return tg.topk_gating(x.float() @ w.float(), k)
+
+    def library(x=x):
+        vals, ids = torch.topk(x.float() @ w.float(), k, dim=1)
+        return ids, torch.softmax(vals, dim=1)
+
+    def bound(T):
+        d, E = w.shape
+        nbytes = T * d * 2 + d * E * 2 + T * E * 4 + T * k * 8
+        return 2.0 * T * d * E / BF16_OPS_PER_S * 1e3, \
+            nbytes / HBM_BYTES_PER_S * 1e3
+
+    T, (d, E) = x.shape[0], w.shape
+    row = _model_row(
+        "router_topk", "src/repro/kernels/topk_gating.py:50", launches,
+        err, lambda: rt.router_topk(x, w, k),
+        lambda: rt.router_topk_plain(x, w, k), library, *bound(T),
+        f"x [{T}, {d}] w [{d}, {E}] bf16, k={k}")
+    row.update(prev_route="f32 product + topk_gating",
+               prev_ms=cuda_ms(unfused, iters=20),
+               prev_device_ms=device_ms(unfused)[0])
+    xd = x[:4]
+    t_ops, t_bytes = bound(4)
+    dec = {"decode_shape": f"x [4, {d}]",
+           "decode_ms": cuda_ms(lambda: rt.router_topk(xd, w, k), iters=50),
+           "decode_device_ms": device_ms(lambda: rt.router_topk(xd, w,
+                                                                 k))[0],
+           "decode_prev_ms": cuda_ms(lambda: unfused(xd), iters=50),
+           "decode_prev_device_ms": device_ms(lambda: unfused(xd))[0],
+           "decode_library_ms": cuda_ms(lambda: library(xd), iters=50),
+           "decode_bound_ms": max(t_ops, t_bytes)}
+    row.update(dec)
+    log(f"[timing] router_topk the unfused route on the same inputs "
+        f"{row['prev_ms']:.4f} ms (device {row['prev_device_ms']:.4f} ms); "
+        f"decode shape: fused {dec['decode_ms']:.4f} ms (device "
+        f"{dec['decode_device_ms']:.4f} ms), unfused "
+        f"{dec['decode_prev_ms']:.4f} ms (device "
+        f"{dec['decode_prev_device_ms']:.4f} ms), library "
+        f"{dec['decode_library_ms']:.4f} ms, bound "
+        f"{dec['decode_bound_ms']:.6f} ms")
+    return row
 
 
 def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
@@ -899,8 +1155,10 @@ def main() -> int:
     launches, inputs = phase_main()
     rows = phase_timing(launches, inputs)
     serve_launches, serve_inputs = phase_serve()
+    f32_launches, f32_inputs = phase_f32_router()
     phase_path()
-    rows += phase_model_timing(serve_launches, serve_inputs)
+    rows += phase_model_timing(serve_launches, serve_inputs, f32_launches,
+                               f32_inputs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(device["smi"])
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,17 +5,195 @@
 // one-hot matmuls, onehot(a)^T @ (onehot(b) * w), on the MXU).
 //
 // Bound on the H100: memory. Each record is 12 bytes in and one float add;
-// no tensor-core work. The output can be 1024 x 1024 or more, so per-CTA
-// dense copies of it would not fit in shared memory.
+// no tensor-core work. At N = 4.7M that is 56 MB, 17 us at 3.35 TB/s.
 //
-// Design: pipit_pair_keys forms the flat cell key a * n_b + b (-1 when the
-// record is ignored); the wrapper stably sorts the keys on the device (data
-// movement ahead of the sum); pipit_pair_sum reduces the sorted runs with
-// the two-pass, fixed-order scheme of runs.cuh, the same one seg_sum uses
-// with one column. Deterministic: no float atomics, partition by N alone.
+// Design: two paths, both deterministic (no float atomics; the summation
+// order is fixed by N and the grid's size), picked by
+// kernels/pair_sum.py::path from (N, n_a * n_b):
+//
+// - "private", up to PRIVATE_CELLS = 6,144 cells (the analyses' grids:
+//   names x ranks, ranks x ranks), with no sort. Each CTA owns a fixed tile
+//   of PRIVATE_TILE consecutive records and as many warps as 192 KB of
+//   shared memory holds copies of the grid (and mask tables, below), up
+//   to 32 (32 at 6 x 64, 12 at 64 x 64, 8 at 6,144 cells); each warp owns
+//   one copy. A CTA step reads
+//   warps x 128 consecutive records, four a lane in one 16-byte load of
+//   each array, and the next step's loads go out before this step is
+//   added. For each of a lane's four records, the lanes on one cell find
+//   each other (one vote when the whole warp agrees, as in runs of sorted
+//   records; else, up to 768 cells, by OR-ing their bits into a per-warp
+//   mask table, and above that by __match_any_sync, the slower of the
+//   two), add their weights in a pairwise tree over their lane order, and
+//   the group's first lane adds the sum to its warp's copy. The CTA adds its warps' copies in warp order into its row
+//   of partials, and a second launch adds the rows in CTA order. Every
+//   record is read once.
+// - "sorted", above that: pipit_pair_keys forms the flat cell key
+//   a * n_b + b (-1 when ignored), the wrapper stably sorts the keys on
+//   the device, pair_walk sums each 1,024-record chunk's runs of equal keys
+//   with a block-wide segmented scan (each thread eight records, then a
+//   fixed shuffle tree across threads), and runs.cuh's gather adds the
+//   chunks' run sums in chunk order.
+#include "launch.cuh"
 #include "runs.cuh"
 
 namespace {
+
+constexpr int PRIVATE_CELLS = 6144;
+constexpr int PRIVATE_TILE = 16384;  // records per CTA (kernels/pair_sum.py)
+constexpr int COPIES_BYTES = 192 * 1024;  // the warps' grid copies, at most
+constexpr int MAX_WARPS = 32;
+constexpr int WARP_RECS = 128;       // records a warp takes a step: 4 a lane
+constexpr int SUM_THREADS = 256;
+constexpr int SUM_BATCH = 16;        // partial rows loaded before adding
+constexpr int ITEMS = CHUNK / WALK_THREADS;
+
+// Grids this small also keep a group-mask table per warp (see
+// pair_private) and still fit MAX_WARPS copies in the budget.
+constexpr int MASK_CELLS = COPIES_BYTES / (8 * MAX_WARPS);   // 768
+
+// Bytes of shared memory a private-path warp takes: its copy of the grid,
+// and its mask table where the grid has one.
+inline int warp_bytes(int n_cells) {
+  return (n_cells <= MASK_CELLS ? 8 : 4) * n_cells;
+}
+
+// Warps of a private-path CTA: as many as the budget holds, up to 32.
+inline int private_warps(int n_cells) {
+  const int w = COPIES_BYTES / warp_bytes(n_cells);
+  return w < MAX_WARPS ? w : MAX_WARPS;
+}
+
+// Four consecutive records from i (a multiple of 4): cell (-1 when ignored
+// or at or past `end`) and weight; one 16-byte load an array when all four
+// lie before `end`.
+__device__ __forceinline__ void read4(const int32_t* __restrict__ a,
+                                      const int32_t* __restrict__ b,
+                                      const float* __restrict__ w, int64_t i,
+                                      int64_t end, int32_t n_a, int32_t n_b,
+                                      int (&cell)[4], float (&wv)[4]) {
+  int x[4], y[4];
+  if (i + 4 <= end) {
+    const int4 va = __ldcs(reinterpret_cast<const int4*>(a + i));
+    const int4 vb = __ldcs(reinterpret_cast<const int4*>(b + i));
+    const float4 vw = __ldcs(reinterpret_cast<const float4*>(w + i));
+    x[0] = va.x; x[1] = va.y; x[2] = va.z; x[3] = va.w;
+    y[0] = vb.x; y[1] = vb.y; y[2] = vb.z; y[3] = vb.w;
+    wv[0] = vw.x; wv[1] = vw.y; wv[2] = vw.z; wv[3] = vw.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = i + j < end;
+      x[j] = in ? a[i + j] : -1;
+      y[j] = in ? b[i + j] : -1;
+      wv[j] = in ? w[i + j] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    cell[j] = (x[j] >= 0 && y[j] >= 0 && x[j] < n_a && y[j] < n_b)
+                  ? x[j] * n_b + y[j] : -1;
+}
+
+// One CTA per PRIVATE_TILE records, blockDim.x / 32 warps, each with its
+// own copy of the grid. A CTA step covers warps x 128 consecutive records,
+// warp w the w-th 128, lane l records 4l..4l+3 of those; the next step's
+// loads go out before this step is added. MASKS: the lanes on one cell
+// find each other by OR-ing their bits into the warp's mask table (an
+// order-free shared-memory atomic, far cheaper than __match_any_sync),
+// which the group's first lane clears after use; otherwise by
+// __match_any_sync. Both give the same groups, so the same bits.
+template <bool MASKS>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+pair_private(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+             const float* __restrict__ w, int64_t n, int32_t n_a, int32_t n_b,
+             float* __restrict__ partial) {
+  extern __shared__ float sgrid[];     // [warps][n_cells], then the masks
+  const int n_cells = n_a * n_b;
+  const int warps = blockDim.x / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < (MASKS ? 2 : 1) * warps * n_cells;
+       i += blockDim.x)
+    sgrid[i] = 0.f;
+  __syncthreads();
+  float* mine = sgrid + warp * n_cells;
+  unsigned* masks = reinterpret_cast<unsigned*>(sgrid + warps * n_cells) +
+                    warp * n_cells;
+  const int64_t tile = (int64_t)blockIdx.x * PRIVATE_TILE;
+  const int64_t end = tile + PRIVATE_TILE < n ? tile + PRIVATE_TILE : n;
+  const int64_t stride = (int64_t)warps * WARP_RECS;
+  const unsigned below = (1u << lane) - 1u;
+  int64_t i = tile + warp * WARP_RECS + lane * 4;
+  int cell[4], next_cell[4];
+  float wv[4], next_wv[4];
+  read4(a, b, w, i, end, n_a, n_b, next_cell, next_wv);
+  for (; i - lane * 4 < end; i += stride) {   // the same for every lane
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      cell[j] = next_cell[j];
+      wv[j] = next_wv[j];
+    }
+    read4(a, b, w, i + stride, end, n_a, n_b, next_cell, next_wv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // Lanes on one cell form a group; its sum is a pairwise tree over
+      // the members' ranks (lane order), walked by pointer jumping: `nxt`
+      // is the member 2^round ranks up, -1 past the last.
+      const int first = __shfl_sync(0xffffffffu, cell[j], 0);
+      unsigned group = 0xffffffffu;     // the whole warp on one cell
+      if (!__all_sync(0xffffffffu, cell[j] == first)) {
+        if (MASKS) {
+          const unsigned ignored = __ballot_sync(0xffffffffu, cell[j] < 0);
+          if (cell[j] >= 0) atomicOr(masks + cell[j], 1u << lane);
+          __syncwarp();
+          group = cell[j] >= 0 ? masks[cell[j]] : ignored;
+          __syncwarp();
+          if (cell[j] >= 0 && (group & below) == 0) masks[cell[j]] = 0u;
+          __syncwarp();
+        } else {
+          group = __match_any_sync(0xffffffffu, cell[j]);
+        }
+      }
+      const unsigned up = group & ~below & ~(1u << lane);
+      const int rank = __popc(group & below);
+      const int most = (int)__reduce_max_sync(0xffffffffu, __popc(group));
+      int nxt = up ? __ffs(up) - 1 : -1;
+      float v = wv[j];
+      for (int step = 1; step < most; step <<= 1) {
+        const int src = nxt < 0 ? lane : nxt;
+        const float o = __shfl_sync(0xffffffffu, v, src);
+        const int nn = __shfl_sync(0xffffffffu, nxt, src);
+        if ((rank & (2 * step - 1)) == 0 && nxt >= 0) v += o;
+        nxt = nxt < 0 ? -1 : nn;
+      }
+      if (rank == 0 && cell[j] >= 0) mine[cell[j]] += v;
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n_cells; c += blockDim.x) {
+    float acc = 0.f;
+    for (int v = 0; v < warps; ++v) acc += sgrid[v * n_cells + c];
+    partial[(int64_t)blockIdx.x * n_cells + c] = acc;
+  }
+}
+
+// out[c] = the CTAs' partials of cell c added in CTA order.
+__global__ void __launch_bounds__(SUM_THREADS)
+pair_private_sum(const float* __restrict__ partial, int64_t ctas,
+                 int32_t n_cells, float* __restrict__ out) {
+  const int c = blockIdx.x * SUM_THREADS + threadIdx.x;
+  if (c >= n_cells) return;
+  float acc = 0.f;
+  int64_t p = 0;
+  for (; p + SUM_BATCH <= ctas; p += SUM_BATCH) {
+    float v[SUM_BATCH];
+#pragma unroll
+    for (int j = 0; j < SUM_BATCH; ++j) v[j] = partial[(p + j) * n_cells + c];
+#pragma unroll
+    for (int j = 0; j < SUM_BATCH; ++j) acc += v[j];
+  }
+  for (; p < ctas; ++p) acc += partial[p * n_cells + c];
+  out[c] = acc;
+}
 
 __global__ void pair_keys(const int32_t* __restrict__ a,
                           const int32_t* __restrict__ b, int64_t n,
@@ -26,31 +204,133 @@ __global__ void pair_keys(const int32_t* __restrict__ a,
   keys[i] = (x >= 0 && y >= 0 && x < n_a && y < n_b) ? x * n_b + y : -1;
 }
 
-__global__ void pair_walk(const int32_t* __restrict__ skeys,
-                          const int64_t* __restrict__ perm,
-                          const float* __restrict__ w, int64_t n,
-                          int32_t n_cells, float* __restrict__ partial) {
+// (flag, sum) pairs of a segmented scan: flag says a run starts inside.
+__device__ __forceinline__ void seg_combine(int& f, float& s, int of,
+                                            float os) {
+  if (!f) s = os + s;                  // continue the earlier open run
+  f |= of;
+}
+
+// One chunk of sorted keys: the sum of every run of equal keys into the
+// partial slot (chunk + key), as runs.cuh's walk writes it. Thread t owns
+// positions [8t, 8t + 8): a sequential segmented scan over them, then a
+// Kogge-Stone scan of the threads' (flag, sum) within each warp and the
+// warps' totals in warp order give each thread the sum of the run open at
+// its first position. The tree is fixed, so the bits are too.
+__global__ void __launch_bounds__(WALK_THREADS)
+pair_walk(const int32_t* __restrict__ skeys, const int64_t* __restrict__ perm,
+          const float* __restrict__ w, int64_t n, int32_t n_cells,
+          float* __restrict__ partial) {
   __shared__ int32_t sk[CHUNK];
   __shared__ float sw[CHUNK];
-  int64_t chunk = blockIdx.x;
-  int64_t base = chunk * CHUNK;
-  int m = chunk_len(n, base);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+  __shared__ float wsum[WALK_THREADS / 32];
+  __shared__ int wflag[WALK_THREADS / 32];
+  const int64_t chunk = blockIdx.x;
+  const int64_t base = chunk * CHUNK;
+  const int m = chunk_len(n, base);
+  for (int i = threadIdx.x; i < m; i += WALK_THREADS) {
     sk[i] = skeys[base + i];
     sw[i] = w[perm[base + i]];
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    walk_column(sk, m, chunk, n_cells, 1, 0, [&](int i) { return sw[i]; },
-                partial);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 = threadIdx.x * ITEMS;
+  float s[ITEMS];
+  int any = 0;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {   // positions >= m add 0 to the last run
+    const int p = p0 + j;
+    const float v = p < m ? sw[p] : 0.f;
+    const bool head = p < m && (p == 0 || sk[p] != sk[p - 1]);
+    s[j] = (head || j == 0) ? v : s[j > 0 ? j - 1 : 0] + v;
+    any |= head;
+  }
+  int f = any;
+  float t = s[ITEMS - 1];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float os = __shfl_up_sync(0xffffffffu, t, off);
+    const int of = __shfl_up_sync(0xffffffffu, f, off);
+    if (lane >= off) seg_combine(f, t, of, os);
+  }
+  float ex = __shfl_up_sync(0xffffffffu, t, 1);
+  int exf = __shfl_up_sync(0xffffffffu, f, 1);
+  if (lane == 0) {
+    ex = 0.f;
+    exf = 0;
+  }
+  if (lane == 31) {
+    wsum[warp] = t;
+    wflag[warp] = f;
+  }
+  __syncthreads();
+  int pf = 0;
+  float ps = 0.f;
+  for (int v = 0; v < warp; ++v) {    // the warps before, in warp order
+    int vf = wflag[v];
+    float vs = wsum[v];
+    seg_combine(vf, vs, pf, ps);
+    pf = vf;
+    ps = vs;
+  }
+  seg_combine(exf, ex, pf, ps);        // the run open before this thread
+  bool seen = false;
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const int p = p0 + j;
+    if (p >= m) break;
+    const int32_t key = sk[p];
+    seen = seen || p == 0 || key != sk[p - 1];
+    const bool end = p == m - 1 || sk[p + 1] != key;
+    if (end && key >= 0 && key < n_cells)
+      partial[chunk + key] = seen ? s[j] : ex + s[j];
+  }
 }
 
 }  // namespace
 
+// a, b, w 16-byte aligned; 1 <= n_a * n_b <= PRIVATE_CELLS (the wrapper
+// checks both).
+extern "C" int pipit_pair_sum_private(int device, const void* a,
+                                      const void* b, const void* w, int64_t n,
+                                      int n_a, int n_b, void* partial,
+                                      void* out, void* stream) {
+  static int granted[MAX_DEVICES] = {}, granted_match[MAX_DEVICES] = {};
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_cells = n_a * n_b;
+  if (n < 1 || n_cells < 1 || n_cells > PRIVATE_CELLS)
+    return (int)cudaErrorInvalidValue;
+  const bool masks = n_cells <= MASK_CELLS;
+  err = masks ? allow_smem(pair_private<true>, COPIES_BYTES, device, granted)
+              : allow_smem(pair_private<false>, COPIES_BYTES, device,
+                           granted_match);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned ctas = (unsigned)((n + PRIVATE_TILE - 1) / PRIVATE_TILE);
+  const int warps = private_warps(n_cells);
+  const int bytes = warps * warp_bytes(n_cells);
+  if (masks)
+    pair_private<true><<<ctas, warps * 32, bytes, s>>>(
+        (const int32_t*)a, (const int32_t*)b, (const float*)w, n, n_a, n_b,
+        (float*)partial);
+  else
+    pair_private<false><<<ctas, warps * 32, bytes, s>>>(
+        (const int32_t*)a, (const int32_t*)b, (const float*)w, n, n_a, n_b,
+        (float*)partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pair_private_sum<<<(unsigned)((n_cells + SUM_THREADS - 1) / SUM_THREADS),
+                     SUM_THREADS, 0, s>>>((const float*)partial,
+                                          (int64_t)ctas, n_cells,
+                                          (float*)out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int pipit_pair_keys(int device, const void* a, const void* b,
                                int64_t n, int n_a, int n_b, void* keys,
                                void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   unsigned blocks = (unsigned)((n + 255) / 256);
   pair_keys<<<blocks, 256, 0, (cudaStream_t)stream>>>(
@@ -61,7 +341,7 @@ extern "C" int pipit_pair_keys(int device, const void* a, const void* b,
 extern "C" int pipit_pair_sum(int device, const void* skeys, const void* perm,
                               const void* w, int64_t n, int n_cells,
                               void* partial, void* out, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* sk = (const int32_t*)skeys;

@@ -20,18 +20,24 @@ hist_bin         ``repro/kernels/hist_bin.py``               message_histogram
 flash_attention  ``repro/kernels/flash_attention.py``        LM prefill
                                                              attention
 topk_gating      ``repro/kernels/topk_gating.py``            MoE routing
+                                                             (float32)
+router_topk      ``repro/kernels/topk_gating.py`` fused      MoE routing
+                 with the router product of                  (bfloat16)
+                 ``repro/models/moe.py``
 ===============  ==========================================  ================
 """
 
-from . import flash_attention, hist_bin, pair_sum, seg_sum, time_bin, topk_gating
+from . import (flash_attention, hist_bin, pair_sum, router_topk, seg_sum,
+               time_bin, topk_gating)
 
 #: the kernels of the trace-analysis path, in the order it first reaches them
 TRACE_KERNELS = (seg_sum, pair_sum, time_bin, hist_bin)
-#: the kernels of the LM serving path
-MODEL_KERNELS = (flash_attention, topk_gating)
+#: the kernels of the LM serving path (bfloat16 weights route through
+#: router_topk; float32 ones through topk_gating)
+MODEL_KERNELS = (flash_attention, router_topk, topk_gating)
 #: every kernel module
 KERNELS = TRACE_KERNELS + MODEL_KERNELS
 
 __all__ = ["KERNELS", "TRACE_KERNELS", "MODEL_KERNELS", "seg_sum",
            "pair_sum", "time_bin", "hist_bin", "flash_attention",
-           "topk_gating"]
+           "router_topk", "topk_gating"]

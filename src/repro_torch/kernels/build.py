@@ -25,7 +25,7 @@ __all__ = ["library", "build", "BUILD_DIR", "SOURCES"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("seg_sum.cu", "pair_sum.cu", "time_bin.cu", "hist_bin.cu",
-           "flash_attention.cu", "topk_gating.cu")
+           "flash_attention.cu", "topk_gating.cu", "router_topk.cu")
 #: sorted records per CTA in the walk pass of csrc/runs.cuh (keep in step)
 CHUNK = 1024
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,6 +41,9 @@ SIGNATURES = {
     "pipit_pair_keys": (_I32, _P, _P, _I64, _I32, _I32, _P, _P),
     # (device, skeys, perm, w, n, n_cells, partial, out, stream)
     "pipit_pair_sum": (_I32, _P, _P, _P, _I64, _I32, _P, _P, _P),
+    # (device, a, b, w, n, n_a, n_b, partial, out, stream)
+    "pipit_pair_sum_private": (_I32, _P, _P, _P, _I64, _I32, _I32, _P, _P,
+                               _P),
     # (device, skeys, perm, start, end, rate, n, n_funcs, n_bins, t0, bw,
     #  partial, out, stream)
     "pipit_time_bin": (_I32, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32,
@@ -52,6 +55,9 @@ SIGNATURES = {
     "pipit_flash_attention": (_I32, _P, _P, _P, _P, *(_I32,) * 13, _F32, _P),
     # (device, logits, T, E, k, idx, gates, stream)
     "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
+    # (device, x, w, T, d, E, k, logits, idx, gates, stream)
+    "pipit_router_topk": (_I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
+                          _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -134,8 +140,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def raw_stream(device_index: int) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on the CUDA
+    device ``device_index`` (the lookup PyTorch's own generated kernels
+    use, without building a ``torch.cuda.Stream``)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def stream_of(t) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
     device."""
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return raw_stream(t.device.index)

@@ -2,8 +2,9 @@
 
 Mirrors :mod:`repro.models.moe` (Switch-Transformer routing):
 
-1. router logits → top-k experts + gate probs per token, through the
-   hand-written ``topk_gating`` kernel (:func:`route_topk`),
+1. router logits → top-k experts + gate probs per token, on the card in
+   one launch of the fused ``router_topk`` kernel (bfloat16; other dtypes
+   take the float32 product and the ``topk_gating`` kernel),
 2. assignments stably sorted by expert id; rank within expert computed
    vectorially,
 3. assignments over ``capacity`` are dropped (``capacity_factor``),
@@ -27,6 +28,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import router_topk as _router
 from ..kernels import topk_gating as _topk
 
 __all__ = ["moe_ffn", "route_topk", "capacity"]
@@ -66,8 +68,9 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     dev = x.device
 
     xg = x.reshape(G, Tg, d)
-    logits = torch.einsum("gtd,de->gte", xg.float(), w_router.float())
-    idx, gates = route_topk(logits, topk)                 # [G,Tg,k]
+    # routing is per token, so the groups do not change it
+    _logits, idx, gates = _router.router_topk(x, w_router, topk)
+    idx, gates = idx.reshape(G, Tg, topk), gates.reshape(G, Tg, topk)
 
     K = Tg * topk
     flat_e = idx.reshape(G, K).long()

@@ -15,7 +15,12 @@ in bfloat16, top-k indices exact and gates within 1e-6.  Flash attention in
 bfloat16 at D = 64 or 128 runs the tensor-core kernel (``"wgmma"``), whose
 cases below cover both head dims, lengths that are not multiples of 64 or
 128, GQA, window + prefix with an offset, non-causal, one query row and
-the serving shape.
+the serving shape.  ``pair_sum`` runs both of its paths (per-warp
+shared-memory copies, and sorted runs) on each side of the private path's
+threshold; the fused router (``router_topk``) runs at the serving model's
+prefill and decode shapes, its indices and gates equal to
+``topk_gating_plain`` on its own logits and its logits within
+``router_topk.logit_tolerance`` of the float32 product.
 """
 
 import numpy as np
@@ -24,7 +29,7 @@ import torch
 
 from repro_torch import Trace
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
-                                 seg_sum, time_bin, topk_gating)
+                                 router_topk, seg_sum, time_bin, topk_gating)
 from repro_torch.tracegen import big_events
 
 pytestmark = pytest.mark.gpu
@@ -222,3 +227,91 @@ def test_topk_gating_kernel(cuda, T, E, k):
     assert torch.equal(idx, idx2) and torch.equal(gates, gates2)
     assert torch.equal(idx.cpu(), want_idx.cpu())
     torch.testing.assert_close(gates, want_gates, atol=1e-6, rtol=0)
+
+
+def _pair_records(rng, n, n_a, n_b, order=None):
+    a = rng.integers(-1, n_a + 1, n).astype(np.int32)   # some out of range
+    b = rng.integers(0, n_b, n).astype(np.int32)
+    if order == "sorted":            # long runs of one cell, as the ops give
+        a, b = np.sort(a), np.sort(b)
+    elif order == "one cell":
+        a[:], b[:] = n_a - 1, n_b - 1
+    w = (rng.random(n) * 1e4).astype(np.float32)
+    return [torch.from_numpy(x) for x in (a, b, w)]
+
+
+@pytest.mark.parametrize("n,n_a,n_b,order", [
+    (1, 2, 2, None), (1000, 5, 7, None), (300_000, 6, 64, None),
+    (300_000, 6, 64, "sorted"), (100_000, 3, 3, "one cell"),
+    (200_000, 12, 64, None),        # the largest grid with mask tables
+    (300_000, 64, 64, None), (70_000, 96, 64, None),   # at the threshold
+])
+@pytest.mark.parametrize("name", ["private", "sorted"])
+def test_pair_sum_paths(cuda, n, n_a, n_b, order, name):
+    rng = np.random.default_rng(n + n_a)
+    a, b, w = (x.to(cuda) for x in _pair_records(rng, n, n_a, n_b, order))
+    assert pair_sum.path(n, n_a * n_b) == "private"
+    before = pair_sum.PATH_LAUNCHES[name]
+    _check(lambda *args: pair_sum.pair_sum_path(name, *args),
+           pair_sum.pair_sum_plain, (a, b, w, n_a, n_b))
+    assert pair_sum.PATH_LAUNCHES[name] == before + 2
+
+
+@pytest.mark.parametrize("n,n_a,n_b", [(70_000, 5, 1229), (300_000, 2048,
+                                                           2048)])
+def test_pair_sum_above_threshold_sorted(cuda, n, n_a, n_b):
+    rng = np.random.default_rng(n + n_a)
+    a, b, w = (x.to(cuda) for x in _pair_records(rng, n, n_a, n_b))
+    assert pair_sum.path(n, n_a * n_b) == "sorted"
+    before = pair_sum.PATH_LAUNCHES["sorted"]
+    _check(pair_sum.pair_sum, pair_sum.pair_sum_plain, (a, b, w, n_a, n_b))
+    assert pair_sum.PATH_LAUNCHES["sorted"] == before + 2
+    with pytest.raises(ValueError):
+        pair_sum.pair_sum_path("private", a, b, w, n_a, n_b)
+
+
+@pytest.mark.parametrize("T,d,E,k", [
+    (3488, 2048, 60, 4),            # qwen2-moe-a2.7b prefill, one wave
+    (4, 2048, 60, 4),               # its decode step
+    (256, 2048, 60, 4),             # 16 row tiles: the depth split over
+    (257, 2048, 60, 4),             # a cluster of 8 CTAs, and past it
+    (777, 256, 128, 8), (4, 1024, 128, 8), (33, 80, 8, 2), (1000, 64, 33, 1),
+    (17, 2064, 61, 3),
+])
+def test_router_topk_kernel(cuda, T, d, E, k):
+    rng = np.random.default_rng(T + d + E)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    x[::5] = 0.0                        # all-zero logits: every column ties
+    w = torch.from_numpy(rng.standard_normal((d, E)).astype(np.float32)
+                         * 0.02)
+    x, w = x.to(cuda).bfloat16(), w.to(cuda).bfloat16()
+    assert router_topk.router_variant(x.dtype, d, E, k) == "fused"
+    before = router_topk.LAUNCHES
+    logits, idx, gates = router_topk.router_topk(x, w, k)
+    again = router_topk.router_topk(x, w, k)
+    assert router_topk.LAUNCHES == before + 2
+    assert all(torch.equal(p, q) for p, q in zip((logits, idx, gates),
+                                                 again))
+    want_idx, want_gates = topk_gating.topk_gating_plain(logits, k)
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(gates, want_gates, atol=1e-6, rtol=0)
+    want = x.float() @ w.float()
+    assert bool(((logits - want).abs()
+                 <= router_topk.logit_tolerance(x, w)).all())
+    assert idx[::5].tolist() == [list(range(k))] * len(idx[::5])
+
+
+def test_router_topk_unfused_route_launches_topk_gating(cuda):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 60)).astype(np.float32))
+    x, w = x.to(cuda), w.to(cuda)
+    before = (router_topk.LAUNCHES, topk_gating.LAUNCHES,
+              router_topk.VARIANT_CALLS["unfused"])
+    logits, idx, gates = router_topk.router_topk(x, w, 4)
+    assert (router_topk.LAUNCHES, topk_gating.LAUNCHES,
+            router_topk.VARIANT_CALLS["unfused"]) == (
+        before[0], before[1] + 1, before[2] + 1)
+    want = router_topk.router_topk_plain(x, w, 4)
+    torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=0)
+    assert torch.equal(idx, want[1])

@@ -12,7 +12,9 @@ kernel's ``argmax`` (and the port) holds them equal; the comparison with
 ``test_topk_signed_zero_ties`` pins the kernel's behaviour.  ``moe_ffn``
 is held against the JAX ``moe_ffn`` on the same float32 weights within
 atol 1e-5 (f32 matmuls summed in another order), with dropping capacity,
-dropless and grouped dispatch.
+dropless and grouped dispatch; in bfloat16 (the serving dtype, the fused
+router's route on the card) within 4 bf16 ulps of the output's largest
+magnitude.
 """
 
 import jax.numpy as jnp
@@ -114,6 +116,31 @@ def test_moe_ffn_matches_jax(kw, topk):
     want = jmoe.moe_ffn(*map(jnp.asarray, arrs), topk=topk, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    {"capacity_factor": 1.25},
+    {"dropless": True},
+    {"groups": 2, "capacity_factor": 1.0},
+])
+@pytest.mark.parametrize("topk", [2, 4])
+def test_moe_ffn_bf16_matches_jax(kw, topk):
+    """bfloat16 activations and weights (the serving dtype, which routes
+    through the fused ``router_topk`` on the card): the same bf16 values
+    into both, routing in f32 from exact products, so the same experts;
+    outputs within 4 bf16 ulps (2^-6) of the output's largest magnitude,
+    since the expert products and the combine round to bf16 in each
+    framework's own places."""
+    arrs = [torch.from_numpy(a).bfloat16() for a in _moe_weights(topk)]
+    got = tmoe.moe_ffn(*arrs, topk=topk, **kw)
+    want = jmoe.moe_ffn(*(jnp.asarray(a.float().numpy())
+                          .astype(jnp.bfloat16) for a in arrs),
+                        topk=topk, **kw)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=2.0 ** -6 * scale, rtol=0)
 
 
 @pytest.mark.parametrize("Tg,k,E,cf,dropless", [
