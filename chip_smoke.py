@@ -9,10 +9,12 @@ Phases (any failure raises and exits non-zero):
              print the ptxas register / shared-memory / spill lines;
 3. kernels — each kernel against its plain PyTorch version on the card at
              its path's shapes, wider shapes and edge cases, and
-             bit-identical on relaunch (the trace kernels, ``pair_sum``
-             through the path its wrapper picks and, up to 6,144 cells,
-             also through the sorted one: ignored records, 64 x 64, the
-             threshold's two sides, 2048 x 2048; flash attention in bf16
+             bit-identical on relaunch (the trace kernels; ``seg_sum``,
+             ``pair_sum`` and ``time_bin`` through the path the wrapper
+             picks and, up to 6,144 cells, also through the sorted one:
+             ignored records, runs, K = 1, 3, 8 and 11, the threshold's
+             two sides, large grids, NaN and infinite coordinates for
+             ``time_bin``; flash attention in bf16
              and f32 with causal, window + prefix, non-causal, GQA,
              padded-tail and one-query cases, each bf16 case at D = 64 or
              128 through both kernel variants, the tensor-core one the
@@ -26,10 +28,15 @@ Phases (any failure raises and exits non-zero):
 5. main    — the trace path: 10M events over 64 ranks (``big_trace``
              parameters, seed 0): structure, then the six op calls on the
              card, each held against the CPU path; the trace kernels'
-             launch counts (and ``pair_sum``'s by path) are reset just
-             before and read just after, and each must have risen;
+             launch counts (and those of ``seg_sum``, ``pair_sum`` and
+             ``time_bin`` by path) are reset just before and read just
+             after: each must have risen, and every call of the three
+             must have taken the private path;
 6. timing  — each trace kernel on the inputs the trace path gave it: its
-             time, its plain version's, one library call's, and its bound;
+             time, its plain version's, one library call's (for
+             ``time_bin`` a chain of calls), and its bound; a private-path
+             row also times the sorted path on the same inputs and fails
+             if its profiler row holds a sort kernel;
 7. serve   — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
@@ -59,8 +66,9 @@ Phases (any failure raises and exits non-zero):
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
 ``device_ms`` is the summed duration of the device kernels one wrapper
-call launches, read from ``torch.profiler``.  ``pair_sum``'s row also
-times the sorted path on the same inputs (``prev_ms``).
+call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
+``pair_sum`` and ``time_bin`` name their ``path`` and time the sorted path
+on the same inputs (``prev_ms``, ``prev_device_ms``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -72,7 +80,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -80,6 +87,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.launch.cardcheck import (  # noqa: E402
+    card_line, cuda_ms, device_ms, gate, same_bits)
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
@@ -93,64 +104,10 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def gate(a, b) -> float:
-    """Kernel result vs reference to f32 rounding: rtol 1e-4 plus an
-    absolute tolerance of 1e-6 x the largest magnitude (f32 accumulation
-    error scales with the accumulated magnitude).  Returns the max abs
-    error; raises when outside."""
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    if a.shape != b.shape:
-        raise AssertionError(f"shape {a.shape} != {b.shape}")
-    if a.size == 0:
-        return 0.0
-    scale = max(float(np.abs(b).max()), 1.0)
-    if not np.allclose(a, b, rtol=1e-4, atol=1e-6 * scale):
-        bad = np.abs(a - b).max()
-        raise AssertionError(f"outside the gate: max abs err {bad}, "
-                             f"scale {scale}")
-    return float(np.abs(a - b).max())
-
-
 def exact(a, b) -> float:
     if not np.array_equal(np.asarray(a), np.asarray(b)):
         raise AssertionError("counts differ")
     return 0.0
-
-
-def device_ms(fn, iters: int = 20) -> tuple:
-    """Device-only time of one call of ``fn``: the durations of the device
-    kernels it launches, from ``torch.profiler``, summed and averaged over
-    ``iters`` calls after a warm one; and the kernels' names."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kern)
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / iters, sorted({e.key for e in kern})
-
-
-def cuda_ms(fn, iters: int, warm: int = 2) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -160,16 +117,11 @@ def cuda_ms(fn, iters: int, warm: int = 2) -> float:
 def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    smi = card_line()
     log(f"[device] {name} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log(smi.stdout.strip())
-    return {"kind": name, "count": count, "smi": smi.stdout.strip()}
+    log(smi)
+    return {"kind": name, "count": count, "smi": smi}
 
 
 def phase_build() -> None:
@@ -190,9 +142,11 @@ def _dev(x):
     return torch.from_numpy(np.ascontiguousarray(x)).cuda()
 
 
-def _seg_case(rng, n, n_seg, k, pad=0.0):
+def _seg_case(rng, n, n_seg, k, pad=0.0, runs=False):
     code = rng.integers(0, n_seg, size=n).astype(np.int32)
     code[rng.random(n) < pad] = -1
+    if runs:                     # long runs of one code
+        code = np.sort(code)
     vals = rng.integers(5_000, 40_000, size=(n, k)).astype(np.float32)
     return _dev(code), _dev(vals), n_seg
 
@@ -208,19 +162,29 @@ def _pair_case(rng, n, n_a, n_b, pad=0.0, runs=False):
     return _dev(a), _dev(b), _dev(w), n_a, n_b
 
 
-def _time_case(rng, n, n_funcs, n_bins, zero=0.0, pad=0.0):
+def _time_case(rng, n, n_funcs, n_bins, zero=0.0, pad=0.0, runs=False,
+               nonfinite=False):
     s = rng.random(n) * n_bins
     d = rng.exponential(2e-3, size=n)
     d[rng.random(n) < 0.001] *= 5000           # a few long calls
     d[rng.random(n) < zero] = 0.0              # zero-duration calls
+    if runs:                                   # canonical order: by start
+        s = np.sort(s)
     e = np.minimum(s + d, n_bins)
     f = rng.integers(0, n_funcs, size=n).astype(np.int32)
     f[rng.random(n) < pad] = -1
     r = (rng.integers(5_000, 40_000, size=n) / np.maximum(d, 1e-9)
          * (d > 0))
-    return (_dev(s.astype(np.float32)), _dev(e.astype(np.float32)),
-            _dev(f), _dev((r * 1e-6).astype(np.float32)), n_funcs, n_bins,
-            0.0, float(n_bins))
+    s, e, r = s.astype(np.float32), e.astype(np.float32), \
+        (r * 1e-6).astype(np.float32)
+    if nonfinite:          # infinite ends clamp; NaN fills func 1's row
+        s[::1001], e[::1003] = -np.inf, np.inf
+        s[5::2003], e[7::2003] = np.inf, -np.inf
+        s[11::20011] = np.nan
+        e[13::30011] = np.nan
+        f[11::20011] = f[13::30011] = 1
+    return (_dev(s), _dev(e), _dev(f), _dev(r), n_funcs, n_bins, 0.0,
+            float(n_bins))
 
 
 def _hist_case(rng, n, n_bins, pad=0.0):
@@ -230,55 +194,50 @@ def _hist_case(rng, n, n_bins, pad=0.0):
 
 
 def phase_kernels() -> None:
-    from repro_torch.kernels import hist_bin, pair_sum, seg_sum, time_bin
+    """The trace kernels: ``seg_sum``, ``time_bin`` and ``pair_sum`` case by
+    case through :func:`check_paths`, ``hist_bin`` against its plain
+    version (counts exact)."""
+    from repro_torch.kernels import hist_bin
     rng = np.random.default_rng(0)
-    cases = {
-        "seg_sum": (seg_sum.seg_sum, seg_sum.seg_sum_plain, gate, [
+    paths = {
+        "seg_sum": [
             ("main 4.3M x2, 6 names", _seg_case(rng, 4_300_000, 6, 2)),
             ("1024 names", _seg_case(rng, 4_300_000, 1024, 1)),
             ("N=1", _seg_case(rng, 1, 5, 2)),
             ("N=1000, padded", _seg_case(rng, 1000, 7, 3, pad=0.2)),
             ("all codes < 0", _seg_case(rng, 5000, 7, 1, pad=1.0)),
             ("K=11", _seg_case(rng, 20_000, 9, 11)),
-        ]),
-        "time_bin": (time_bin.time_bin, time_bin.time_bin_plain, gate, [
+            ("K=8", _seg_case(rng, 200_000, 6, 8)),
+            ("6 names x2, in runs", _seg_case(rng, 4_300_000, 6, 2,
+                                              runs=True)),
+            ("threshold 3072 x 2", _seg_case(rng, 500_000, 3072, 2)),
+            ("above it, 6145 names", _seg_case(rng, 500_000, 6145, 1)),
+        ],
+        "time_bin": [
             ("main 4.3M, 32 bins", _time_case(rng, 4_300_000, 6, 32)),
             ("1024 bins", _time_case(rng, 500_000, 13, 1024)),
             ("N=1", _time_case(rng, 1, 3, 8)),
             ("N=1000, zero-duration", _time_case(rng, 1000, 7, 10,
                                                  zero=0.3, pad=0.1)),
             ("all funcs < 0", _time_case(rng, 5000, 7, 10, pad=1.0)),
-        ]),
-        "hist_bin": (hist_bin.hist_bin, hist_bin.hist_bin_plain, exact, [
-            ("main 0.7M, 10 bins", _hist_case(rng, 700_000, 10)),
-            ("1024 bins", _hist_case(rng, 700_000, 1024)),
-            ("20000 bins", _hist_case(rng, 700_000, 20_000)),
-            ("N=1", _hist_case(rng, 1, 4)),
-            ("N=1000, padded", _hist_case(rng, 1000, 7, pad=0.2)),
-            ("all < 0", _hist_case(rng, 5000, 7, pad=1.0)),
-        ]),
+            ("32 bins, in runs", _time_case(rng, 4_300_000, 6, 32,
+                                            runs=True)),
+            ("NaN and inf coordinates", _time_case(rng, 500_000, 6, 32,
+                                                   nonfinite=True)),
+            ("threshold 48 x 128", _time_case(rng, 500_000, 48, 128)),
+            ("above it, 5 x 1229", _time_case(rng, 500_000, 5, 1229)),
+        ],
     }
-    for name, (kernel, plain, check, items) in cases.items():
-        for label, args in items:
-            got = kernel(*args)
-            again = kernel(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"{name} [{label}]: relaunch differs")
-            err = check(got.cpu().numpy(), want.cpu().numpy())
-            log(f"[kernels] {name:8s} {label:28s} ok  max_abs_err={err:.6g}"
-                f"  bit-identical relaunch")
-    phase_pair_paths()
-
-
-def phase_pair_paths() -> None:
-    """``pair_sum`` through the path its wrapper picks and, where the grid
-    fits the private path, also through the sorted one, against its plain
-    version within the gate; both paths must be covered."""
-    from repro_torch.kernels import pair_sum
+    hist = [
+        ("main 0.7M, 10 bins", _hist_case(rng, 700_000, 10)),
+        ("1024 bins", _hist_case(rng, 700_000, 1024)),
+        ("20000 bins", _hist_case(rng, 700_000, 20_000)),
+        ("N=1", _hist_case(rng, 1, 4)),
+        ("N=1000, padded", _hist_case(rng, 1000, 7, pad=0.2)),
+        ("all < 0", _hist_case(rng, 5000, 7, pad=1.0)),
+    ]
     rng = np.random.default_rng(2)
-    cases = [
+    paths["pair_sum"] = [
         ("main ranks x ranks 0.7M", _pair_case(rng, 700_000, 64, 64)),
         ("main names x ranks 4.3M", _pair_case(rng, 4_300_000, 6, 64)),
         ("names x ranks, in runs", _pair_case(rng, 4_300_000, 6, 64,
@@ -295,26 +254,57 @@ def phase_pair_paths() -> None:
         ("N=1000, padded", _pair_case(rng, 1000, 5, 7, pad=0.2)),
         ("all codes < 0", _pair_case(rng, 5000, 5, 7, pad=1.0)),
     ]
-    seen = set()
-    for label, args in cases:
-        n, cells = args[0].shape[0], args[3] * args[4]
-        picked = pair_sum.path(n, cells)
-        want = pair_sum.pair_sum_plain(*args).cpu().numpy()
-        for name in dict.fromkeys((picked, "sorted")):
-            got = pair_sum.pair_sum_path(name, *args)
-            again = pair_sum.pair_sum_path(name, *args)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"pair_sum [{label}, {name}]: "
-                                     f"relaunch differs")
-            err = gate(got.cpu().numpy(), want)
-            seen.add(name)
-            log(f"[kernels] pair_sum {label:26s} {name:7s}"
-                f"{' (picked)' if name == picked else '         '} ok  "
-                f"max_abs_err={err:.6g}  bit-identical relaunch")
-    if seen != set(pair_sum.PATH_LAUNCHES):
-        raise AssertionError(f"pair_sum paths checked {seen}, have "
-                             f"{set(pair_sum.PATH_LAUNCHES)}")
+    for name, items in paths.items():
+        for label, args in items:
+            check_paths(name, label, args)
+        if PATHS_SEEN[name] != {"private", "sorted"}:
+            raise AssertionError(f"{name} paths checked {PATHS_SEEN[name]}")
+    for label, args in hist:
+        got = hist_bin.hist_bin(*args)
+        again = hist_bin.hist_bin(*args)
+        want = hist_bin.hist_bin_plain(*args)
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            raise AssertionError(f"hist_bin [{label}]: relaunch differs")
+        err = exact(got.cpu().numpy(), want.cpu().numpy())
+        log(f"[kernels] hist_bin {label:28s} ok  max_abs_err={err:.6g}"
+            f"  bit-identical relaunch")
+
+
+#: the kernels with a private and a sorted path, and the paths checked
+PATH_KERNELS = ("seg_sum", "pair_sum", "time_bin")
+PATHS_SEEN = {name: set() for name in PATH_KERNELS}
+
+
+def _n_cells(name, args) -> tuple:
+    """(records, grid cells) of a path kernel's positional arguments."""
+    if name == "seg_sum":
+        return args[0].shape[0], args[2] * args[1].shape[1]
+    if name == "pair_sum":
+        return args[0].shape[0], args[3] * args[4]
+    return args[0].shape[0], args[4] * args[5]
+
+
+def check_paths(name, label, args) -> None:
+    """A path kernel through the path its wrapper picks and, where the grid
+    fits the private path, also through the sorted one: each bit-identical
+    on relaunch and within the gate of the plain version."""
+    from repro_torch import kernels
+    mod = getattr(kernels, name)
+    run, plain = getattr(mod, name + "_path"), getattr(mod, name + "_plain")
+    picked = mod.path(*_n_cells(name, args))
+    want = plain(*args).cpu().numpy()
+    for p in dict.fromkeys((picked, "sorted")):
+        got = run(p, *args)
+        again = run(p, *args)
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            raise AssertionError(f"{name} [{label}, {p}]: relaunch differs")
+        err = gate(got.cpu().numpy(), want)
+        PATHS_SEEN[name].add(p)
+        log(f"[kernels] {name} {label:26s} {p:7s}"
+            f"{' (picked)' if p == picked else '         '} ok  "
+            f"max_abs_err={err:.6g}  bit-identical relaunch")
 
 
 def _flash_case(rng, B, Sq, Sk, H, KVH, D, dtype, **kw):
@@ -658,20 +648,27 @@ def phase_main():
     struct_s = time.perf_counter() - t0
     log(f"[main] {len(ev)} events, {trace.num_processes} ranks; "
         f"generate {gen_s:.2f} s, structure {struct_s:.2f} s (host)")
-    paths = kernels.pair_sum.PATH_LAUNCHES
     for mod in kernels.TRACE_KERNELS:
         mod.LAUNCHES = 0
-    paths.update(dict.fromkeys(paths, 0))
+    for name in PATH_KERNELS:
+        counts = getattr(kernels, name).PATH_LAUNCHES
+        counts.update(dict.fromkeys(counts, 0))
     with DeviceTimer(kernels.TRACE_KERNELS) as timer:
         run_ops(trace, "main", timer)
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in kernels.TRACE_KERNELS}
-    log(f"[main] launches {json.dumps(launches)}; pair_sum by path "
+    paths = {name: dict(getattr(kernels, name).PATH_LAUNCHES)
+             for name in PATH_KERNELS}
+    log(f"[main] launches {json.dumps(launches)}; by path "
         f"{json.dumps(paths)}")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{idle}")
+    sorted_ = [k for k, v in paths.items() if v["sorted"]]
+    if sorted_:
+        raise AssertionError(f"main-path calls on the sorted path: "
+                             f"{sorted_}")
     return launches, timer.inputs
 
 
@@ -705,6 +702,7 @@ def phase_timing(launches, inputs) -> list:
         else:
             err = gate(got.cpu().numpy(), want.cpu().numpy())
         library = None
+        path = None
         if name == "seg_sum":
             code, vals, n_seg = args
             n, k = vals.shape
@@ -712,7 +710,9 @@ def phase_timing(launches, inputs) -> list:
             ops = n * k
             idx, acc = code.long(), torch.zeros((n_seg, k), device="cuda")
             library = lambda: acc.index_add_(0, idx, vals)  # noqa: E731
-            keys = code
+            call = "index_add_"
+            path = mod.path(n, n_seg * k)
+            keys = code if path == "sorted" else None
             shape = f"N={n} K={k} n_seg={n_seg}"
         elif name == "pair_sum":
             a, b, w, n_a, n_b = args
@@ -722,19 +722,28 @@ def phase_timing(launches, inputs) -> list:
             flat = a.long() * n_b + b.long()
             acc = torch.zeros(n_a * n_b, device="cuda")
             library = lambda: acc.index_add_(0, flat, w)  # noqa: E731
+            call = "index_add_ on flat cell keys"
             path = mod.path(n, n_a * n_b)
             keys = flat.int() if path == "sorted" else None
             shape = f"N={n} {n_a}x{n_b}"
         elif name == "time_bin":
             s, e, f, r = args[:4]
             n_funcs, n_bins = kw["n_funcs"], kw["n_bins"]
+            t0, t1 = kw["t0"], kw["t1"]
             n = s.shape[0]
             bytes_moved = n * 16 + n_funcs * n_bins * 4
-            first = torch.floor(s).clamp(0, n_bins)
-            last = torch.ceil(e).clamp(0, n_bins)
-            pairs = float((last - first).clamp_min(1)[f >= 0].sum())
-            ops = 5 * pairs        # min, max, sub, max, mul-add per pair
-            keys = f
+            # the (record, bin) terms this run's data needs: the bins its
+            # span touches, each min, max, sub, clamp, mul, add
+            bw = (t1 - t0) / n_bins
+            keep = (f >= 0) & (f < n_funcs) & (e > s)
+            first = torch.floor((s[keep] - t0) / bw).clamp(0, n_bins)
+            end = torch.ceil((e[keep] - t0) / bw).clamp(0, n_bins)
+            ops = 6 * float((end - first).clamp_min(0).double().sum())
+            library = _time_library(s, e, f, r, n_funcs, n_bins, t0, t1)
+            call = ("chain: torch.minimum / torch.maximum / clamp_min / "
+                    "mul on [N, n_bins], then index_add_")
+            path = mod.path(n, n_funcs * n_bins)
+            keys = f if path == "sorted" else None
             shape = f"N={n} n_funcs={n_funcs} n_bins={n_bins}"
         else:
             coords, n_bins = args
@@ -743,10 +752,12 @@ def phase_timing(launches, inputs) -> list:
             ops = n
             idx = torch.floor(coords).long()
             library = lambda: torch.bincount(idx, minlength=n_bins)  # noqa
+            call = "bincount"
             keys = None
             shape = f"N={n} n_bins={n_bins}"
         ms = cuda_ms(lambda: kern(*args, **kw), iters=20)
-        dev_ms, _names = device_ms(lambda: kern(*args, **kw))
+        dev_ms, by_kernel = device_ms(lambda: kern(*args, **kw))
+        names = sorted(by_kernel)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5, warm=1)
         library_ms = cuda_ms(library, iters=20) if library else None
         # the wrapper's device sort of the record keys, part of ``ms``
@@ -758,7 +769,12 @@ def phase_timing(launches, inputs) -> list:
             f"{plain_ms:.4f} ms | library "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} | "
             f"bound {bound_ms:.4f} ms ({bound_by}) | of which device "
-            f"sort {sort_ms:.4f} ms | device kernels {_names}")
+            f"sort {sort_ms:.4f} ms | device kernels {names}")
+        if path == "private":
+            sorts = [k for k in names if "sort" in k.lower()]
+            if sorts:
+                raise AssertionError(f"{name}: a sort kernel on the private "
+                                     f"path: {sorts}")
         rows.append({"name": name, "route": "cuda",
                      "source": src.format(name),
                      "replaces": replaces[name],
@@ -766,27 +782,48 @@ def phase_timing(launches, inputs) -> list:
                      "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
-                     "sort_ms": sort_ms, "shape": shape, "checked": True})
-        if name == "pair_sum":
-            rows[-1].update(path=path, **_pair_prev(mod, args, path))
+                     "library_call": call, "sort_ms": sort_ms,
+                     "device_kernels": names, "shape": shape,
+                     "checked": True})
+        if path is not None:
+            rows[-1].update(path=path, **_sorted_prev(mod, name, args, kw,
+                                                      path))
     return rows
 
 
-def _pair_prev(mod, args, path) -> dict:
+def _time_library(s, e, f, r, n_funcs, n_bins, t0, t1):
+    """time_bin as a chain of PyTorch calls: the dense [N, n_bins] overlap
+    by broadcasting, then ``index_add_`` by func (the records' filter and
+    the bin edges made outside the timed call)."""
+    keep = (f >= 0) & (f < n_funcs)
+    s, e, r, idx = s[keep], e[keep], r[keep], f[keep].long()
+    bw = (t1 - t0) / n_bins
+    lo = t0 + bw * torch.arange(n_bins, dtype=torch.float32, device="cuda")
+    hi = lo + bw
+    acc = torch.zeros((n_funcs, n_bins), device="cuda")
+
+    def library():
+        ov = (torch.minimum(e[:, None], hi) - torch.maximum(s[:, None], lo)
+              ).clamp_min_(0.0).mul_(r[:, None])
+        return acc.index_add_(0, idx, ov)
+    return library
+
+
+def _sorted_prev(mod, name, args, kw, path) -> dict:
     """The sorted path on the private path's inputs: the design the
-    private path replaced on the trace path (with its block-wide walk)."""
-    if path != "sorted":
-        prev = lambda: mod.pair_sum_path("sorted", *args)  # noqa: E731
-        err = gate(prev().cpu().numpy(),
-                   mod.pair_sum_plain(*args).cpu().numpy())
-        out = {"prev_path": "sorted", "prev_ms": cuda_ms(prev, iters=20),
-               "prev_device_ms": device_ms(prev)[0],
-               "prev_max_abs_err": err}
-        log(f"[timing] pair_sum the sorted path on the same inputs "
-            f"{out['prev_ms']:.4f} ms (device {out['prev_device_ms']:.4f} "
-            f"ms, max_abs_err {err:.6g})")
-        return out
-    return {}
+    private path replaced on the trace path."""
+    if path == "sorted":
+        return {}
+    run = getattr(mod, name + "_path")
+    prev = lambda: run("sorted", *args, **kw)  # noqa: E731
+    err = gate(prev().cpu().numpy(),
+               getattr(mod, name + "_plain")(*args, **kw).cpu().numpy())
+    out = {"prev_path": "sorted", "prev_ms": cuda_ms(prev, iters=20),
+           "prev_device_ms": device_ms(prev)[0], "prev_max_abs_err": err}
+    log(f"[timing] {name} the sorted path on the same inputs "
+        f"{out['prev_ms']:.4f} ms (device {out['prev_device_ms']:.4f} "
+        f"ms, max_abs_err {err:.6g})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1120,7 +1157,8 @@ def _router_row(rt, tg, launches, x, w, k) -> dict:
 def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
                t_bytes, shape) -> dict:
     ms = cuda_ms(kern, iters=20)
-    dev_ms, names = device_ms(kern)
+    dev_ms, by_kernel = device_ms(kern)
+    names = sorted(by_kernel)
     plain_ms = cuda_ms(plain, iters=5, warm=1)
     library_ms = cuda_ms(library, iters=20)
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
@@ -1143,7 +1181,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()

@@ -24,9 +24,11 @@
 //   records; else, up to 768 cells, by OR-ing their bits into a per-warp
 //   mask table, and above that by __match_any_sync, the slower of the
 //   two), add their weights in a pairwise tree over their lane order, and
-//   the group's first lane adds the sum to its warp's copy. The CTA adds its warps' copies in warp order into its row
-//   of partials, and a second launch adds the rows in CTA order. Every
-//   record is read once.
+//   the group's first lane adds the sum to its warp's copy. The CTA adds
+//   its warps' copies in warp order into its row of partials, and a second
+//   launch adds the rows in CTA order. Every record is read once. The
+//   grouping, the tree and both passes over the copies are private.cuh's,
+//   shared with seg_sum and time_bin.
 // - "sorted", above that: pipit_pair_keys forms the flat cell key
 //   a * n_b + b (-1 when ignored), the wrapper stably sorts the keys on
 //   the device, pair_walk sums each 1,024-record chunk's runs of equal keys
@@ -34,34 +36,13 @@
 //   fixed shuffle tree across threads), and runs.cuh's gather adds the
 //   chunks' run sums in chunk order.
 #include "launch.cuh"
+#include "private.cuh"
 #include "runs.cuh"
 
 namespace {
 
-constexpr int PRIVATE_CELLS = 6144;
 constexpr int PRIVATE_TILE = 16384;  // records per CTA (kernels/pair_sum.py)
-constexpr int COPIES_BYTES = 192 * 1024;  // the warps' grid copies, at most
-constexpr int MAX_WARPS = 32;
-constexpr int WARP_RECS = 128;       // records a warp takes a step: 4 a lane
-constexpr int SUM_THREADS = 256;
-constexpr int SUM_BATCH = 16;        // partial rows loaded before adding
 constexpr int ITEMS = CHUNK / WALK_THREADS;
-
-// Grids this small also keep a group-mask table per warp (see
-// pair_private) and still fit MAX_WARPS copies in the budget.
-constexpr int MASK_CELLS = COPIES_BYTES / (8 * MAX_WARPS);   // 768
-
-// Bytes of shared memory a private-path warp takes: its copy of the grid,
-// and its mask table where the grid has one.
-inline int warp_bytes(int n_cells) {
-  return (n_cells <= MASK_CELLS ? 8 : 4) * n_cells;
-}
-
-// Warps of a private-path CTA: as many as the budget holds, up to 32.
-inline int private_warps(int n_cells) {
-  const int w = COPIES_BYTES / warp_bytes(n_cells);
-  return w < MAX_WARPS ? w : MAX_WARPS;
-}
 
 // Four consecutive records from i (a multiple of 4): cell (-1 when ignored
 // or at or past `end`) and weight; one 16-byte load an array when all four
@@ -95,13 +76,11 @@ __device__ __forceinline__ void read4(const int32_t* __restrict__ a,
 }
 
 // One CTA per PRIVATE_TILE records, blockDim.x / 32 warps, each with its
-// own copy of the grid. A CTA step covers warps x 128 consecutive records,
-// warp w the w-th 128, lane l records 4l..4l+3 of those; the next step's
-// loads go out before this step is added. MASKS: the lanes on one cell
-// find each other by OR-ing their bits into the warp's mask table (an
-// order-free shared-memory atomic, far cheaper than __match_any_sync),
-// which the group's first lane clears after use; otherwise by
-// __match_any_sync. Both give the same groups, so the same bits.
+// own copy of the grid (private.cuh). A CTA step covers warps x 128
+// consecutive records, warp w the w-th 128, lane l records 4l..4l+3 of
+// those; the next step's loads go out before this step is added. MASKS:
+// lanes are grouped through the warp's mask table, else by
+// __match_any_sync (lane_groups), one record at a time.
 template <bool MASKS>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 pair_private(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -121,7 +100,6 @@ pair_private(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   const int64_t tile = (int64_t)blockIdx.x * PRIVATE_TILE;
   const int64_t end = tile + PRIVATE_TILE < n ? tile + PRIVATE_TILE : n;
   const int64_t stride = (int64_t)warps * WARP_RECS;
-  const unsigned below = (1u << lane) - 1u;
   int64_t i = tile + warp * WARP_RECS + lane * 4;
   int cell[4], next_cell[4];
   float wv[4], next_wv[4];
@@ -135,64 +113,18 @@ pair_private(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     read4(a, b, w, i + stride, end, n_a, n_b, next_cell, next_wv);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      // Lanes on one cell form a group; its sum is a pairwise tree over
-      // the members' ranks (lane order), walked by pointer jumping: `nxt`
-      // is the member 2^round ranks up, -1 past the last.
-      const int first = __shfl_sync(0xffffffffu, cell[j], 0);
-      unsigned group = 0xffffffffu;     // the whole warp on one cell
-      if (!__all_sync(0xffffffffu, cell[j] == first)) {
-        if (MASKS) {
-          const unsigned ignored = __ballot_sync(0xffffffffu, cell[j] < 0);
-          if (cell[j] >= 0) atomicOr(masks + cell[j], 1u << lane);
-          __syncwarp();
-          group = cell[j] >= 0 ? masks[cell[j]] : ignored;
-          __syncwarp();
-          if (cell[j] >= 0 && (group & below) == 0) masks[cell[j]] = 0u;
-          __syncwarp();
-        } else {
-          group = __match_any_sync(0xffffffffu, cell[j]);
-        }
-      }
-      const unsigned up = group & ~below & ~(1u << lane);
-      const int rank = __popc(group & below);
-      const int most = (int)__reduce_max_sync(0xffffffffu, __popc(group));
-      int nxt = up ? __ffs(up) - 1 : -1;
-      float v = wv[j];
-      for (int step = 1; step < most; step <<= 1) {
-        const int src = nxt < 0 ? lane : nxt;
-        const float o = __shfl_sync(0xffffffffu, v, src);
-        const int nn = __shfl_sync(0xffffffffu, nxt, src);
-        if ((rank & (2 * step - 1)) == 0 && nxt >= 0) v += o;
-        nxt = nxt < 0 ? -1 : nn;
-      }
-      if (rank == 0 && cell[j] >= 0) mine[cell[j]] += v;
+      const int key[1] = {cell[j]};
+      unsigned group[1];
+      lane_groups<1, MASKS>(key, masks, n_cells, lane, group);
+      float v[1][1] = {{wv[j]}};
+      group_sums(group, lane, v);
+      if (group_first(group[0], lane) && cell[j] >= 0)
+        mine[cell[j]] += v[0][0];
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < n_cells; c += blockDim.x) {
-    float acc = 0.f;
-    for (int v = 0; v < warps; ++v) acc += sgrid[v * n_cells + c];
-    partial[(int64_t)blockIdx.x * n_cells + c] = acc;
-  }
-}
-
-// out[c] = the CTAs' partials of cell c added in CTA order.
-__global__ void __launch_bounds__(SUM_THREADS)
-pair_private_sum(const float* __restrict__ partial, int64_t ctas,
-                 int32_t n_cells, float* __restrict__ out) {
-  const int c = blockIdx.x * SUM_THREADS + threadIdx.x;
-  if (c >= n_cells) return;
-  float acc = 0.f;
-  int64_t p = 0;
-  for (; p + SUM_BATCH <= ctas; p += SUM_BATCH) {
-    float v[SUM_BATCH];
-#pragma unroll
-    for (int j = 0; j < SUM_BATCH; ++j) v[j] = partial[(p + j) * n_cells + c];
-#pragma unroll
-    for (int j = 0; j < SUM_BATCH; ++j) acc += v[j];
-  }
-  for (; p < ctas; ++p) acc += partial[p * n_cells + c];
-  out[c] = acc;
+  float* row = partial + (int64_t)blockIdx.x * n_cells;
+  copies_to_row(sgrid, warps, n_cells, [&](int c, float v) { row[c] = v; });
 }
 
 __global__ void pair_keys(const int32_t* __restrict__ a,
@@ -301,15 +233,16 @@ extern "C" int pipit_pair_sum_private(int device, const void* a,
   const int n_cells = n_a * n_b;
   if (n < 1 || n_cells < 1 || n_cells > PRIVATE_CELLS)
     return (int)cudaErrorInvalidValue;
-  const bool masks = n_cells <= MASK_CELLS;
+  const bool masks = use_masks(n_cells);
   err = masks ? allow_smem(pair_private<true>, COPIES_BYTES, device, granted)
               : allow_smem(pair_private<false>, COPIES_BYTES, device,
                            granted_match);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned ctas = (unsigned)((n + PRIVATE_TILE - 1) / PRIVATE_TILE);
-  const int warps = private_warps(n_cells);
-  const int bytes = warps * warp_bytes(n_cells);
+  const unsigned ctas = private_ctas(n, PRIVATE_TILE);
+  const int each = warp_bytes(n_cells, n_cells, 1);
+  const int warps = private_warps(each, MAX_WARPS);
+  const int bytes = warps * each;
   if (masks)
     pair_private<true><<<ctas, warps * 32, bytes, s>>>(
         (const int32_t*)a, (const int32_t*)b, (const float*)w, n, n_a, n_b,
@@ -320,11 +253,8 @@ extern "C" int pipit_pair_sum_private(int device, const void* a,
         (float*)partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pair_private_sum<<<(unsigned)((n_cells + SUM_THREADS - 1) / SUM_THREADS),
-                     SUM_THREADS, 0, s>>>((const float*)partial,
-                                          (int64_t)ctas, n_cells,
-                                          (float*)out);
-  return (int)cudaGetLastError();
+  return (int)launch_private_sum((const float*)partial, (int64_t)ctas,
+                                 n_cells, (float*)out, s);
 }
 
 extern "C" int pipit_pair_keys(int device, const void* a, const void* b,

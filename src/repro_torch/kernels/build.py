@@ -37,6 +37,9 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     # (device, skeys, perm, values, n, k, n_seg, partial, out, stream)
     "pipit_seg_sum": (_I32, _P, _P, _P, _I64, _I32, _I32, _P, _P, _P),
+    # (device, code, values, n, k, n_seg, tile, partial, out, stream)
+    "pipit_seg_sum_private": (_I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P,
+                              _P),
     # (device, a, b, n, n_a, n_b, keys, stream)
     "pipit_pair_keys": (_I32, _P, _P, _I64, _I32, _I32, _P, _P),
     # (device, skeys, perm, w, n, n_cells, partial, out, stream)
@@ -48,6 +51,10 @@ SIGNATURES = {
     #  partial, out, stream)
     "pipit_time_bin": (_I32, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F32,
                        _F32, _P, _P, _P),
+    # (device, start, end, func, rate, n, n_funcs, n_bins, t0, bw, tile,
+    #  partial, out, stream)
+    "pipit_time_bin_private": (_I32, _P, _P, _P, _P, _I64, _I32, _I32, _F32,
+                               _F32, _I32, _P, _P, _P),
     # (device, coords, n, n_bins, out, stream)
     "pipit_hist_bin": (_I32, _P, _I64, _I32, _P, _P),
     # (device, q, k, v, out, B, Sq, Sk, H, KVH, D, dtype, variant, causal,

@@ -50,13 +50,14 @@ def pair_sum_plain(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
     return out.float()
 
 
-def path(n: int, n_cells: int) -> str:
+def path(n: int, n_cells: int, tile: int = PRIVATE_TILE) -> str:
     """The kernel path a CUDA call over ``n`` records into ``n_cells`` cells
     takes: ``"private"`` when the grid fits the per-warp shared-memory
     copies and its per-CTA partials (one row of ``n_cells`` floats per
-    :data:`PRIVATE_TILE` records) stay under :data:`PRIVATE_PARTIALS`; else
-    ``"sorted"``."""
-    ctas = -(-n // PRIVATE_TILE)
+    ``tile`` records, :data:`PRIVATE_TILE` here) stay under
+    :data:`PRIVATE_PARTIALS`; else ``"sorted"``.  ``seg_sum`` and
+    ``time_bin`` pick by the same rule at their own tiles."""
+    ctas = -(-n // tile)
     if n_cells <= PRIVATE_CELLS and ctas * n_cells <= PRIVATE_PARTIALS:
         return "private"
     return "sorted"

@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import argparse
 import os
-import re
-import subprocess
 import sys
 
 import numpy as np
 import torch
+
+from .cardcheck import card_line, cuda_ms, ptxas, run_trees, same_bits
 
 __all__ = ["CASES", "SHAPES", "main"]
 
@@ -53,35 +53,18 @@ SHAPES = [((4, 872, 16, 128), True), ((4, 958, 16, 128), True),
           ((4, 2048, 16, 64), True)]
 
 
-def _ms(fn, iters: int) -> float:
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
 def run(iters: int) -> int:
     from ..kernels import build
     from ..kernels import flash_attention as fa
     build.library()
     print(f"== {os.getcwd()}: build {build.BUILD_SECONDS:.1f} s", flush=True)
-    lines = build.BUILD_LOG.splitlines()
-    for i, line in enumerate(lines):
-        name = re.search(r"(flash_wgmma|flash_fwd)I(\w*?)Li(\d+)E", line)
-        if "Compiling entry" in line and name:
-            dtype = {"": "", "f": "f32, "}.get(name.group(2), "bf16, ")
-            print(f"[ptxas] {name.group(1)}<{dtype}{name.group(3)}>: " +
-                  " | ".join(
-                      x.strip() for x in lines[i + 1:i + 4]
-                      if "spill" in x or "registers" in x), flush=True)
-        elif "(C75" in line:
+    for m, regs in ptxas(build.BUILD_LOG,
+                         r"(flash_wgmma|flash_fwd)I(\w*?)Li(\d+)E"):
+        dtype = {"": "", "f": "f32, "}.get(m.group(2), "bf16, ")
+        print(f"[ptxas] {m.group(1)}<{dtype}{m.group(3)}>: {regs}",
+              flush=True)
+    for line in build.BUILD_LOG.splitlines():
+        if "(C75" in line:
             print(f"[ptxas] {line.strip()[:240]}", flush=True)
     rng = np.random.default_rng(0)
     bad = 0
@@ -96,12 +79,12 @@ def run(iters: int) -> int:
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        ok = err <= 3e-2 and torch.equal(got, again)
+        same = same_bits(got, again)
+        ok = err <= 3e-2 and same
         bad += not ok
         print(f"[check] {'ok ' if ok else 'BAD'} {(B, Sq, Sk, H, KVH, D)} "
               f"{kw} max_abs_err {err:.4g} relaunch "
-              f"{'bit-identical' if torch.equal(got, again) else 'differs'}",
-              flush=True)
+              f"{'bit-identical' if same else 'differs'}", flush=True)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for n, (shape, causal) in enumerate(SHAPES):
         q, k, v = (torch.randn(shape, device="cuda", dtype=torch.bfloat16)
@@ -116,7 +99,8 @@ def run(iters: int) -> int:
         if n == 0:
             times["simt"] = lambda: fa.flash_attention_variant(
                 "simt", q, k, v, causal=causal)
-        best = {name: min(_ms(fn, iters) for _ in range(3))
+        best = {name: min(cuda_ms(fn, iters, warm=5)
+                          for _ in range(3))
                 for name, fn in times.items()}
         print(f"[time] {list(shape)} causal={causal}: " + ", ".join(
             f"{name} {t:.4f} ms ({flops / t / 1e9:.0f} TFLOP/s)"
@@ -133,21 +117,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_bench: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "-i", "0",
-                          "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     if not args.trees:
         return run(args.iters)
-    rc = 0
-    for tree in args.trees:
-        env = dict(os.environ, PYTHONPATH=os.path.join(
-            os.path.abspath(tree), "src"))
-        rc |= subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.flash_bench",
-             "--iters", str(args.iters)], cwd=tree, env=env).returncode
-    return rc
+    return run_trees(args.trees, [
+        sys.executable, "-m", "repro_torch.launch.flash_bench", "--iters",
+        str(args.iters)])
 
 
 if __name__ == "__main__":

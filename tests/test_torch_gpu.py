@@ -17,7 +17,9 @@ cases below cover both head dims, lengths that are not multiples of 64 or
 128, GQA, window + prefix with an offset, non-causal, one query row and
 the serving shape.  ``pair_sum`` runs both of its paths (per-warp
 shared-memory copies, and sorted runs) on each side of the private path's
-threshold; the fused router (``router_topk``) runs at the serving model's
+threshold, and so do ``seg_sum`` and ``time_bin`` (``time_bin`` also on
+NaN and infinite coordinates, where both paths equal its plain version);
+the fused router (``router_topk``) runs at the serving model's
 prefill and decode shapes, its indices and gates equal to
 ``topk_gating_plain`` on its own logits and its logits within
 ``router_topk.logit_tolerance`` of the float32 product.
@@ -30,6 +32,7 @@ import torch
 from repro_torch import Trace
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
+from repro_torch.launch.cardcheck import gate, same_bits
 from repro_torch.tracegen import big_events
 
 pytestmark = pytest.mark.gpu
@@ -43,14 +46,14 @@ def cuda():
 
 
 def _close(a, b):
-    a, b = a.double().cpu(), b.double().cpu()
-    scale = max(float(b.abs().max()) if b.numel() else 0.0, 1.0)
-    assert torch.allclose(a, b, rtol=1e-4, atol=1e-6 * scale)
+    """Within the gate (``cardcheck.gate``): NaN only where the plain
+    version has NaN, and the scale taken over its finite values."""
+    gate(a, b)
 
 
 def _check(kernel, plain, args, exact=False):
     got, again, want = kernel(*args), kernel(*args), plain(*args)
-    assert torch.equal(got, again), "relaunch not bit-identical"
+    assert same_bits(got, again), "relaunch not bit-identical"
     if exact:
         assert torch.equal(got.cpu(), want.cpu())
     else:
@@ -268,6 +271,144 @@ def test_pair_sum_above_threshold_sorted(cuda, n, n_a, n_b):
     assert pair_sum.PATH_LAUNCHES["sorted"] == before + 2
     with pytest.raises(ValueError):
         pair_sum.pair_sum_path("private", a, b, w, n_a, n_b)
+
+
+def _seg_records(rng, n, n_seg, k, order=None):
+    code = rng.integers(-2, n_seg + 2, n).astype(np.int32)  # some ignored
+    if order == "runs":              # canonical order's long runs of a code
+        code = np.sort(code)
+    elif order == "one cell":
+        code[:] = n_seg - 1
+    vals = (rng.random((n, k)) * 1e4).astype(np.float32)
+    return torch.from_numpy(code), torch.from_numpy(vals)
+
+
+SEG_CASES = [
+    (4_681_408, 6, 2, None),        # flat_profile at main-10M
+    (300_000, 6, 2, "runs"), (100_000, 3, 2, "one cell"),
+    (200_000, 6, 1, None), (200_000, 6, 8, None), (200_000, 6, 11, None),
+    (100_000, 9, 3, None), (100_000, 700, 5, None),
+    (1, 3, 2, None), (1000, 7, 2, None),
+    (300_000, 1024, 1, None),       # grouped by __match_any_sync
+    (200_000, 3072, 2, None),       # the threshold, 6,144 cells
+]
+
+
+@pytest.mark.parametrize("n,n_seg,k,order", SEG_CASES)
+@pytest.mark.parametrize("name", ["private", "sorted"])
+def test_seg_sum_paths(cuda, n, n_seg, k, order, name):
+    rng = np.random.default_rng(n + n_seg + k)
+    code, vals = (x.to(cuda) for x in _seg_records(rng, n, n_seg, k, order))
+    assert seg_sum.path(n, n_seg * k) == "private"
+    before = seg_sum.PATH_LAUNCHES[name]
+    _check(lambda *args: seg_sum.seg_sum_path(name, *args),
+           seg_sum.seg_sum_plain, (code, vals, n_seg))
+    assert seg_sum.PATH_LAUNCHES[name] == before + 2
+
+
+def test_seg_sum_above_threshold_sorted(cuda):
+    rng = np.random.default_rng(9)
+    code, vals = (x.to(cuda) for x in _seg_records(rng, 100_000, 6145, 1))
+    assert seg_sum.path(100_000, 6145) == "sorted"
+    before = seg_sum.PATH_LAUNCHES["sorted"]
+    _check(seg_sum.seg_sum, seg_sum.seg_sum_plain, (code, vals, 6145))
+    assert seg_sum.PATH_LAUNCHES["sorted"] == before + 2
+    with pytest.raises(ValueError):
+        seg_sum.seg_sum_path("private", code, vals, 6145)
+
+
+def _time_records(rng, n, n_funcs, n_bins, kind=None):
+    """Calls as the trace path gives them (coordinates in bin units, short
+    spans, a few long ones; funcs below 0 and at n_funcs and above) and
+    the edge cases."""
+    s = rng.random(n) * n_bins
+    d = rng.exponential(2e-3, n)
+    d[rng.random(n) < 0.001] *= 5000            # a few long calls
+    if kind == "long":
+        d[::3] = rng.random(len(d[::3])) * 3 * n_bins
+    if kind == "zero":
+        d[::2] = 0.0
+    if kind == "edges":                         # whole bins, on bin edges
+        s = np.floor(s)
+        d = np.floor(rng.random(n) * 4)
+    e = np.minimum(s + d, n_bins + 2)
+    f = rng.integers(-2, n_funcs + 2, n).astype(np.int32)
+    if kind == "runs":                          # canonical order: by start
+        o = np.argsort(s, kind="stable")
+        s, e = s[o], e[o]
+    if kind == "one cell":
+        s[:], e[:], f[:] = 0.25, 0.75, n_funcs - 1
+    r = rng.integers(1, 40, n).astype(np.float64)
+    s, e, r = (x.astype(np.float32) for x in (s, e, r))
+    if kind == "nonfinite":
+        s[::1001], e[::1003] = -np.inf, np.inf
+        s[5::2003], e[7::2003] = np.inf, -np.inf
+        s[11::20011] = np.nan
+        e[13::30011] = np.nan
+        f[11::20011] = f[13::30011] = f[17::40009] = 1   # one row of NaN
+        r[17::40009] = np.inf
+    return [torch.from_numpy(x) for x in (s, e, f, r)]
+
+
+TIME_CASES = [
+    (4_681_408, 6, 32, None),       # time_profile at main-10M
+    (300_000, 6, 32, "runs"), (100_000, 6, 32, "long"),
+    (100_000, 6, 32, "zero"), (100_000, 5, 16, "edges"),
+    (100_000, 3, 4, "one cell"), (200_000, 6, 32, "nonfinite"),
+    (1, 2, 4, None), (1000, 7, 10, None), (50_000, 1, 1, None),
+    (100_000, 64, 32, None),        # grouped by __match_any_sync
+    (200_000, 48, 128, None),       # the threshold, 6,144 cells
+]
+
+
+@pytest.mark.parametrize("n,n_funcs,n_bins,kind", TIME_CASES)
+@pytest.mark.parametrize("name", ["private", "sorted"])
+def test_time_bin_paths(cuda, n, n_funcs, n_bins, kind, name):
+    rng = np.random.default_rng(n + n_funcs + n_bins)
+    args = [x.to(cuda) for x in _time_records(rng, n, n_funcs, n_bins, kind)]
+    assert time_bin.path(n, n_funcs * n_bins) == "private"
+    before = time_bin.PATH_LAUNCHES[name]
+    _check(lambda *a: time_bin.time_bin_path(name, *a),
+           time_bin.time_bin_plain,
+           (*args, n_funcs, n_bins, 0.0, float(n_bins)))
+    assert time_bin.PATH_LAUNCHES[name] == before + 2
+    if kind == "nonfinite":
+        got = time_bin.time_bin_path(name, *args, n_funcs, n_bins, 0.0,
+                                     float(n_bins))
+        # the port's rule: NaN in the record's own row only (the reference
+        # spreads it over every row; ROADMAP C)
+        assert bool(got[1].isnan().all()) and not bool(got[0].isnan().any())
+
+
+@pytest.mark.parametrize("t0,t1", [(0.3, 7.9), (-1e3, 1e3), (1e7, 1e7 + 64)])
+@pytest.mark.parametrize("name", ["private", "sorted"])
+def test_time_bin_paths_general_edges(cuda, t0, t1, name):
+    """Bins that do not start at 0 in unit steps: the private path's
+    candidate bins are exact for any t0 and bin width."""
+    rng = np.random.default_rng(3)
+    n, n_funcs, n_bins = 100_000, 6, 13
+    s = t0 + (rng.random(n) * 1.1 - 0.05) * (t1 - t0)
+    e = s + rng.exponential(0.05, n) * (t1 - t0)
+    f = rng.integers(0, n_funcs, n).astype(np.int32)
+    r = rng.random(n)
+    args = [torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (s, e)]
+    args += [torch.from_numpy(f).to(cuda),
+             torch.from_numpy(r.astype(np.float32)).to(cuda)]
+    _check(lambda *a: time_bin.time_bin_path(name, *a),
+           time_bin.time_bin_plain, (*args, n_funcs, n_bins, t0, t1))
+
+
+def test_time_bin_above_threshold_sorted(cuda):
+    rng = np.random.default_rng(8)
+    args = [x.to(cuda) for x in _time_records(rng, 100_000, 13, 1024,
+                                               "nonfinite")]
+    assert time_bin.path(100_000, 13 * 1024) == "sorted"
+    before = time_bin.PATH_LAUNCHES["sorted"]
+    _check(time_bin.time_bin, time_bin.time_bin_plain,
+           (*args, 13, 1024, 0.0, 1024.0))
+    assert time_bin.PATH_LAUNCHES["sorted"] == before + 2
+    with pytest.raises(ValueError):
+        time_bin.time_bin_path("private", *args, 13, 1024, 0.0, 1024.0)
 
 
 @pytest.mark.parametrize("T,d,E,k", [

@@ -100,6 +100,82 @@ def test_time_bin_plain_matches_pallas_and_oracle(n, n_funcs, n_bins):
     np.testing.assert_allclose(unit, oracle, rtol=RTOL, atol=ATOL)
 
 
+def _time_three(s, e, f, n_funcs, n_bins):
+    """time_bin_plain, the Pallas kernel and the oracle on the same records
+    at rate 1 (the oracle has no rate)."""
+    r = np.ones(len(s), np.float32)
+    t1 = float(n_bins)
+    got = time_bin.time_bin(*(torch.from_numpy(x) for x in (s, e, f, r)),
+                            n_funcs, n_bins, 0.0, t1).numpy()
+    pallas = np.asarray(time_profile_matrix(
+        jnp.asarray(s), jnp.asarray(e), jnp.asarray(f), jnp.asarray(r),
+        n_funcs=n_funcs, n_bins=n_bins, t0=0.0, t1=t1, be=256))
+    oracle = np.asarray(ref.time_bin_ref(
+        jnp.asarray(s), jnp.asarray(e), jnp.asarray(f), n_funcs=n_funcs,
+        n_bins=n_bins, t0=0.0, t1=t1))
+    return got, pallas, oracle
+
+
+def _infinite_records(rng, n, n_funcs, n_bins):
+    s = (rng.random(n) * n_bins).astype(np.float32)
+    e = (s + rng.random(n) * 3).astype(np.float32)
+    f = rng.integers(0, n_funcs, n).astype(np.int32)
+    s[::7], e[::11] = -np.inf, np.inf
+    s[3::13], e[5::17] = np.inf, -np.inf
+    return s, e, f
+
+
+@pytest.mark.parametrize("n,n_funcs,n_bins", [(300, 7, 16), (53, 3, 5)])
+def test_time_bin_plain_infinite_coordinates_match_pallas_and_oracle(
+        n, n_funcs, n_bins):
+    """±inf coordinates clamp to the bins in all three, finite."""
+    got, pallas, oracle = _time_three(
+        *_infinite_records(np.random.default_rng(n), n, n_funcs, n_bins),
+        n_funcs, n_bins)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, pallas, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, oracle, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("where,func", [("start", 2), ("end", 2),
+                                        ("both", 2), ("start", 5),
+                                        ("end", -1)])
+def test_time_bin_plain_nan_row_against_pallas_and_oracle(where, func):
+    """One record with a NaN coordinate among finite and infinite ones.
+    The port keeps its NaN terms in that record's own row (NaN in every
+    bin there, nothing for a func outside [0, n_funcs)); the reference's
+    one-hot product spreads them over every row, 0 · NaN being NaN, func
+    at n_funcs or above included.  A known difference (ROADMAP §C): every
+    other row of the port equals the reference without that record, and
+    for a func below 0 all three ignore it."""
+    n_funcs, n_bins, i = 5, 8, 40
+    s, e, f = _infinite_records(np.random.default_rng(9), 200, n_funcs,
+                                n_bins)
+    f[i] = func
+    if where in ("start", "both"):
+        s[i] = np.nan
+    if where in ("end", "both"):
+        e[i] = np.nan
+    got, pallas, oracle = _time_three(s, e, f, n_funcs, n_bins)
+    keep = np.arange(len(s)) != i
+    clean, pallas_clean, oracle_clean = _time_three(
+        s[keep], e[keep], f[keep], n_funcs, n_bins)
+    np.testing.assert_allclose(clean, pallas_clean, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(clean, oracle_clean, rtol=RTOL, atol=ATOL)
+    other = np.arange(n_funcs) != func
+    np.testing.assert_array_equal(got[other], clean[other])
+    if func < 0:
+        np.testing.assert_array_equal(got, clean)
+        np.testing.assert_allclose(pallas, pallas_clean, rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(oracle, oracle_clean, rtol=RTOL,
+                                   atol=ATOL)
+        return
+    if func < n_funcs:
+        assert np.isnan(got[func]).all()
+    assert np.isnan(pallas).all() and np.isnan(oracle).all()
+
+
 @pytest.mark.parametrize("n,n_bins", [(300, 10), (777, 7), (1, 1)])
 def test_hist_bin_plain_matches_pallas_exactly(n, n_bins):
     rng = np.random.default_rng(n + 3)
