@@ -18,8 +18,15 @@ Phases (any failure raises and exits non-zero):
              and f32 with causal, window + prefix, non-causal, GQA,
              padded-tail and one-query cases, each bf16 case at D = 64 or
              128 through both kernel variants, the tensor-core one the
-             wrapper picks and the SIMT one; top-k at the serving shape,
-             E = 128 with k = 8, ragged T and exact ties; the fused router
+             wrapper picks and the SIMT one; ``hist_bin`` through its
+             narrow path (up to 32 bins) and its wide one, counts exact, on
+             +inf, 3e9, -0.0, NaN and -inf coordinates, N = 1, N not a
+             multiple of 4 and coordinates off the 16-byte boundary; top-k
+             through its narrow path (E up to 128) and its wide one, each
+             exact against the plain version and the two bit for bit, at
+             the serving shape, E = 5, 33, 64, 127, 128, 129 and 300, k = 1
+             to 8, ragged T, exact ties and rows of -inf or at or below
+             -1e30 (a row holding NaN is logged only); the fused router
              at the serving model's prefill and decode shapes, E = 128
              with k = 8, a ragged depth with odd E, all-zero rows, and a
              depth split over a cluster at odd E);
@@ -30,13 +37,16 @@ Phases (any failure raises and exits non-zero):
              card, each held against the CPU path; the trace kernels'
              launch counts (and those of ``seg_sum``, ``pair_sum`` and
              ``time_bin`` by path) are reset just before and read just
-             after: each must have risen, and every call of the three
-             must have taken the private path;
+             after: each must have risen, every call of the three must
+             have taken the private path and ``hist_bin``'s its narrow
+             path;
 6. timing  — each trace kernel on the inputs the trace path gave it: its
              time, its plain version's, one library call's (for
              ``time_bin`` a chain of calls), and its bound; a private-path
              row also times the sorted path on the same inputs and fails
-             if its profiler row holds a sort kernel;
+             if its profiler row holds a sort kernel, the ``hist_bin`` row
+             the wide path, and fails unless the narrow path is one device
+             kernel a call;
 7. serve   — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
@@ -51,8 +61,9 @@ Phases (any failure raises and exits non-zero):
              ``torch.profiler`` (device busy share, the largest kernels);
 8. f32     — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
-             route, so ``topk_gating`` is launched once and
-             ``router_topk`` not at all (counts reset just before);
+             route, so ``topk_gating`` is launched once, on its narrow
+             path, and ``router_topk`` not at all (counts reset just
+             before);
 9. path    — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
@@ -61,14 +72,17 @@ Phases (any failure raises and exits non-zero):
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
              also at the decode shape and beside the unfused route it
-             replaced (``prev_ms``: the f32 product + ``topk_gating``).
+             replaced (``prev_ms``: the f32 product + ``topk_gating``);
+             ``topk_gating`` also through its wide path on the same logits
+             (the same bits, ``prev_ms``).
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
 ``device_ms`` is the summed duration of the device kernels one wrapper
 call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
-``pair_sum`` and ``time_bin`` name their ``path`` and time the sorted path
-on the same inputs (``prev_ms``, ``prev_device_ms``).
+``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
+``path`` and time the path it replaced on the same inputs (``prev_path``,
+``prev_ms``, ``prev_device_ms``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -89,7 +103,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.launch.cardcheck import (  # noqa: E402
-    card_line, cuda_ms, device_ms, gate, same_bits)
+    card_line, cuda_ms, device_ms, exact, gate, same_bits)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -102,12 +116,6 @@ SERVE = dict(arch=ARCH, requests=8, batch=4, prompt_len=1024,
 
 def log(*parts) -> None:
     print(*parts, flush=True)
-
-
-def exact(a, b) -> float:
-    if not np.array_equal(np.asarray(a), np.asarray(b)):
-        raise AssertionError("counts differ")
-    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -187,16 +195,22 @@ def _time_case(rng, n, n_funcs, n_bins, zero=0.0, pad=0.0, runs=False,
             float(n_bins))
 
 
-def _hist_case(rng, n, n_bins, pad=0.0):
-    x = rng.integers(0, n_bins, size=n) + 0.5
-    x[rng.random(n) < pad] = -1.0
-    return _dev(x.astype(np.float32)), n_bins
+def _hist_case(rng, n, n_bins, pad=0.0, edges=False, offset=0):
+    """``offset`` > 0 starts the coordinates that many floats past a
+    16-byte boundary (the narrow path's scalar head)."""
+    x = rng.integers(0, n_bins, size=n + offset) + 0.5
+    x[rng.random(n + offset) < pad] = -1.0
+    if edges:         # +inf and 3e9 in the top bin, -0.0 in bin 0, NaN and
+        x[1::17], x[2::17], x[3::17] = np.inf, 3e9, -0.0       # -inf out
+        x[4::17], x[5::17] = np.nan, -np.inf
+    return _dev(x.astype(np.float32))[offset:], n_bins
 
 
 def phase_kernels() -> None:
     """The trace kernels: ``seg_sum``, ``time_bin`` and ``pair_sum`` case by
-    case through :func:`check_paths`, ``hist_bin`` against its plain
-    version (counts exact)."""
+    case through :func:`check_paths`, ``hist_bin`` through the path its
+    wrapper picks and the wide one against its plain version (counts
+    exact, bit-identical on relaunch)."""
     from repro_torch.kernels import hist_bin
     rng = np.random.default_rng(0)
     paths = {
@@ -235,6 +249,18 @@ def phase_kernels() -> None:
         ("N=1", _hist_case(rng, 1, 4)),
         ("N=1000, padded", _hist_case(rng, 1000, 7, pad=0.2)),
         ("all < 0", _hist_case(rng, 5000, 7, pad=1.0)),
+        ("+inf 3e9 -0.0 NaN, N=500003", _hist_case(rng, 500_003, 10,
+                                                   edges=True)),
+        ("edges, N=7", _hist_case(rng, 7, 3, edges=True)),
+        ("N=1, +inf", (_dev(np.array([np.inf], np.float32)), 5)),
+        ("N=1, -0.0", (_dev(np.array([-0.0], np.float32)), 5)),
+        ("N=1, NaN", (_dev(np.array([np.nan], np.float32)), 5)),
+        ("N=2, off 16 bytes", _hist_case(rng, 2, 6, offset=1)),
+        ("N=100001, off 16 bytes", _hist_case(rng, 100_001, 10, edges=True,
+                                              offset=3)),
+        ("32 bins", _hist_case(rng, 700_000, 32)),
+        ("33 bins", _hist_case(rng, 700_000, 33)),
+        ("1 bin", _hist_case(rng, 70_000, 1, pad=0.1)),
     ]
     rng = np.random.default_rng(2)
     paths["pair_sum"] = [
@@ -259,21 +285,34 @@ def phase_kernels() -> None:
             check_paths(name, label, args)
         if PATHS_SEEN[name] != {"private", "sorted"}:
             raise AssertionError(f"{name} paths checked {PATHS_SEEN[name]}")
+    seen = set()
     for label, args in hist:
-        got = hist_bin.hist_bin(*args)
-        again = hist_bin.hist_bin(*args)
-        want = hist_bin.hist_bin_plain(*args)
-        torch.cuda.synchronize()
-        if not same_bits(got, again):
-            raise AssertionError(f"hist_bin [{label}]: relaunch differs")
-        err = exact(got.cpu().numpy(), want.cpu().numpy())
-        log(f"[kernels] hist_bin {label:28s} ok  max_abs_err={err:.6g}"
-            f"  bit-identical relaunch")
+        picked = hist_bin.path(args[1])
+        want = hist_bin.hist_bin_plain(*args).cpu().numpy()
+        for p in dict.fromkeys((picked, "wide")):
+            got = hist_bin.hist_bin_path(p, *args)
+            again = hist_bin.hist_bin_path(p, *args)
+            torch.cuda.synchronize()
+            if not same_bits(got, again):
+                raise AssertionError(f"hist_bin [{label}, {p}]: relaunch "
+                                     f"differs")
+            exact(got.cpu().numpy(), want)
+            seen.add(p)
+            log(f"[kernels] hist_bin {label:28s} {p:6s}"
+                f"{' (picked)' if p == picked else '         '} ok  counts "
+                f"exact  bit-identical relaunch")
+    if seen != set(hist_bin.PATH_LAUNCHES):
+        raise AssertionError(f"hist_bin paths checked {seen}")
 
 
 #: the kernels with a private and a sorted path, and the paths checked
 PATH_KERNELS = ("seg_sum", "pair_sum", "time_bin")
 PATHS_SEEN = {name: set() for name in PATH_KERNELS}
+#: the path every main-path call of a trace kernel must take
+MAIN_PATHS = {"seg_sum": "private", "pair_sum": "private",
+              "time_bin": "private", "hist_bin": "narrow"}
+#: the design each path replaced on its path: timed on the same inputs
+PREV_PATH = {"private": "sorted", "narrow": "wide"}
 
 
 def _n_cells(name, args) -> tuple:
@@ -314,11 +353,17 @@ def _flash_case(rng, B, Sq, Sk, H, KVH, D, dtype, **kw):
     return (q, k, v), kw
 
 
-def _topk_case(rng, T, E, k, ties=False):
+def _topk_case(rng, T, E, k, ties=False, fill=None):
+    """``fill``: every other row set to that value (``-inf`` and values at
+    or below -1e30 select a chosen column again), the rows between at or
+    below -1e30 too."""
     x = rng.standard_normal((T, E)).astype(np.float32)
     if ties:
         x[::2, 3::4] = 2.5                   # exact ties among the largest
-        x[1::2] = np.round(x[1::2])
+        x[1::2] = np.round(x[1::2])          # tied integers, signed zeros
+    if fill is not None:
+        x[::2] = fill
+        x[1::2] = -1e30 - np.abs(x[1::2]) * 1e30
     return (_dev(x), k), {}
 
 
@@ -397,7 +442,8 @@ def phase_model_kernels() -> None:
     tests/test_kernels.py), the fused router as :func:`check_router`
     holds it; every case bit-identical on relaunch.  Each bf16 flash case
     at D = 64 or 128 runs through both variants: the tensor-core one (what
-    the wrapper picks) and the SIMT one."""
+    the wrapper picks) and the SIMT one.  Each top-k case runs through the
+    path the wrapper picks and the wide one, whose bits must be equal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_gating as tg
     rng = np.random.default_rng(1)
@@ -433,6 +479,16 @@ def phase_model_kernels() -> None:
         ("ragged T=4099", _topk_case(rng, 4099, 60, 4)),
         ("exact ties", _topk_case(rng, 4096, 60, 4, ties=True)),
         ("decode T=4", _topk_case(rng, 4, 60, 4)),
+        ("rows of -inf", _topk_case(rng, 1000, 60, 4, fill=-np.inf)),
+        ("rows at -1e30", _topk_case(rng, 1000, 60, 8, fill=-1e30)),
+        ("E=5 k=1", _topk_case(rng, 3001, 5, 1, ties=True)),
+        ("E=5 k=5", _topk_case(rng, 3001, 5, 5, ties=True)),
+        ("E=33 k=8", _topk_case(rng, 3001, 33, 8, ties=True)),
+        ("E=64 k=4", _topk_case(rng, 3001, 64, 4, ties=True)),
+        ("E=127 k=8", _topk_case(rng, 3001, 127, 8, ties=True)),
+        ("E=128 k=1", _topk_case(rng, 3001, 128, 1, ties=True)),
+        ("E=129 k=8", _topk_case(rng, 1001, 129, 8, ties=True)),
+        ("E=300 k=2", _topk_case(rng, 1001, 300, 2)),
     ]
     router = [
         ("serve prefill T=3488 d=2048 E=60 k=4",
@@ -470,19 +526,49 @@ def phase_model_kernels() -> None:
     if seen != set(fa.VARIANT_LAUNCHES):
         raise AssertionError(f"flash variants checked {seen}, have "
                              f"{set(fa.VARIANT_LAUNCHES)}")
+    seen = set()
     for label, (args, kw) in topk:
-        idx, gates = tg.topk_gating(*args)
-        idx2, gates2 = tg.topk_gating(*args)
+        picked = tg.path(args[0].shape[1])
         widx, wgates = tg.topk_gating_plain(*args)
-        torch.cuda.synchronize()
-        if not (torch.equal(idx, idx2) and torch.equal(gates, gates2)):
-            raise AssertionError(f"topk_gating [{label}]: relaunch differs")
-        exact(idx.cpu().numpy(), widx.cpu().numpy())
-        err = within(1e-6)(gates.cpu().numpy(), wgates.cpu().numpy())
-        log(f"[kernels] topk_gating {label:24s} ok  indices exact, gates "
-            f"max_abs_err={err:.6g}  bit-identical relaunch")
+        got = {}
+        for p in dict.fromkeys((picked, "wide")):
+            got[p] = tg.topk_gating_path(p, *args)
+            again = tg.topk_gating_path(p, *args)
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got[p], again)):
+                raise AssertionError(f"topk_gating [{label}, {p}]: relaunch "
+                                     f"differs")
+            idx, gates = got[p]
+            exact(idx.cpu().numpy(), widx.cpu().numpy())
+            err = within(1e-6)(gates.cpu().numpy(), wgates.cpu().numpy())
+            seen.add(p)
+            log(f"[kernels] topk_gating {label:24s} {p:6s}"
+                f"{' (picked)' if p == picked else '         '} ok  indices "
+                f"exact, gates max_abs_err={err:.6g}  bit-identical relaunch")
+        if not all(same_bits(a, b) for a, b in zip(got[picked],
+                                                   got["wide"])):
+            raise AssertionError(f"topk_gating [{label}]: the {picked} "
+                                 f"path's bits differ from the wide path's")
+    if seen != set(tg.PATH_LAUNCHES):
+        raise AssertionError(f"topk_gating paths checked {seen}")
+    _topk_nan_row(tg)
     for label, args in router:
         check_router(label, *args)
+
+
+def _topk_nan_row(tg) -> None:
+    """A row holding NaN has no defined top k (the ops never feed one): log
+    what each path and the plain version give, and check nothing."""
+    x = torch.tensor([[0.5, float("nan"), 2.0, -1.0, 2.0, 0.25]] * 3,
+                     device="cuda")
+    x[1, 0] = float("nan")
+    for p in ("narrow", "wide"):
+        idx, gates = tg.topk_gating_path(p, x, 3)
+        log(f"[kernels] topk_gating NaN rows {p:6s} idx {idx.tolist()} "
+            f"gates {gates.tolist()} (not checked)")
+    idx, gates = tg.topk_gating_plain(x, 3)
+    log(f"[kernels] topk_gating NaN rows plain  idx {idx.tolist()} gates "
+        f"{gates.tolist()} (not checked)")
 
 
 # ---------------------------------------------------------------------------
@@ -650,7 +736,7 @@ def phase_main():
         f"generate {gen_s:.2f} s, structure {struct_s:.2f} s (host)")
     for mod in kernels.TRACE_KERNELS:
         mod.LAUNCHES = 0
-    for name in PATH_KERNELS:
+    for name in MAIN_PATHS:
         counts = getattr(kernels, name).PATH_LAUNCHES
         counts.update(dict.fromkeys(counts, 0))
     with DeviceTimer(kernels.TRACE_KERNELS) as timer:
@@ -658,17 +744,17 @@ def phase_main():
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in kernels.TRACE_KERNELS}
     paths = {name: dict(getattr(kernels, name).PATH_LAUNCHES)
-             for name in PATH_KERNELS}
+             for name in MAIN_PATHS}
     log(f"[main] launches {json.dumps(launches)}; by path "
         f"{json.dumps(paths)}")
     idle = [k for k, v in launches.items() if v <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{idle}")
-    sorted_ = [k for k, v in paths.items() if v["sorted"]]
-    if sorted_:
-        raise AssertionError(f"main-path calls on the sorted path: "
-                             f"{sorted_}")
+    off = [k for k, p in MAIN_PATHS.items() if paths[k][p] != launches[k]]
+    if off:
+        raise AssertionError(f"main-path calls off their path "
+                             f"{MAIN_PATHS}: {off}")
     return launches, timer.inputs
 
 
@@ -753,6 +839,7 @@ def phase_timing(launches, inputs) -> list:
             idx = torch.floor(coords).long()
             library = lambda: torch.bincount(idx, minlength=n_bins)  # noqa
             call = "bincount"
+            path = mod.path(n_bins)
             keys = None
             shape = f"N={n} n_bins={n_bins}"
         ms = cuda_ms(lambda: kern(*args, **kw), iters=20)
@@ -775,6 +862,9 @@ def phase_timing(launches, inputs) -> list:
             if sorts:
                 raise AssertionError(f"{name}: a sort kernel on the private "
                                      f"path: {sorts}")
+        if path == "narrow" and len(names) != 1:
+            raise AssertionError(f"{name}: the narrow path is one device "
+                                 f"kernel a call, the profiler saw {names}")
         rows.append({"name": name, "route": "cuda",
                      "source": src.format(name),
                      "replaces": replaces[name],
@@ -786,8 +876,9 @@ def phase_timing(launches, inputs) -> list:
                      "device_kernels": names, "shape": shape,
                      "checked": True})
         if path is not None:
-            rows[-1].update(path=path, **_sorted_prev(mod, name, args, kw,
-                                                      path))
+            check = exact if name == "hist_bin" else gate
+            rows[-1].update(path=path, **_path_prev(mod, name, args, kw,
+                                                    path, check))
     return rows
 
 
@@ -809,18 +900,19 @@ def _time_library(s, e, f, r, n_funcs, n_bins, t0, t1):
     return library
 
 
-def _sorted_prev(mod, name, args, kw, path) -> dict:
-    """The sorted path on the private path's inputs: the design the
-    private path replaced on the trace path."""
-    if path == "sorted":
+def _path_prev(mod, name, args, kw, path, check) -> dict:
+    """The path that ``path`` replaced on the main path (:data:`PREV_PATH`)
+    on the same inputs, held to the plain version by ``check``."""
+    if path not in PREV_PATH:
         return {}
+    prev_path = PREV_PATH[path]
     run = getattr(mod, name + "_path")
-    prev = lambda: run("sorted", *args, **kw)  # noqa: E731
-    err = gate(prev().cpu().numpy(),
-               getattr(mod, name + "_plain")(*args, **kw).cpu().numpy())
-    out = {"prev_path": "sorted", "prev_ms": cuda_ms(prev, iters=20),
+    prev = lambda: run(prev_path, *args, **kw)  # noqa: E731
+    err = check(prev().cpu().numpy(),
+                getattr(mod, name + "_plain")(*args, **kw).cpu().numpy())
+    out = {"prev_path": prev_path, "prev_ms": cuda_ms(prev, iters=20),
            "prev_device_ms": device_ms(prev)[0], "prev_max_abs_err": err}
-    log(f"[timing] {name} the sorted path on the same inputs "
+    log(f"[timing] {name} the {prev_path} path on the same inputs "
         f"{out['prev_ms']:.4f} ms (device {out['prev_device_ms']:.4f} "
         f"ms, max_abs_err {err:.6g})")
     return out
@@ -956,8 +1048,9 @@ def phase_f32_router():
     first wave's 3,488 prefill tokens, d_model 2048, 60 experts top-4 of
     width 1408, weights drawn on the card from seed 2 (std fan_in^-1/2, as
     the model draws them).  float32 takes the unfused route, so the
-    ``topk_gating`` kernel is launched once and ``router_topk`` not at
-    all: counts reset just before, read just after."""
+    ``topk_gating`` kernel is launched once, on its narrow path, and
+    ``router_topk`` not at all: counts reset just before, read just
+    after."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models.moe import moe_ffn
@@ -974,6 +1067,7 @@ def phase_f32_router():
     rt, tg = kernels.router_topk, kernels.topk_gating
     rt.LAUNCHES = tg.LAUNCHES = 0
     rt.VARIANT_CALLS.update(dict.fromkeys(rt.VARIANT_CALLS, 0))
+    tg.PATH_LAUNCHES.update(dict.fromkeys(tg.PATH_LAUNCHES, 0))
     with DeviceTimer((tg,)) as timer:
         y = moe_ffn(x, *weights, topk=cfg.topk,
                     capacity_factor=cfg.capacity_factor,
@@ -981,13 +1075,16 @@ def phase_f32_router():
     torch.cuda.synchronize()
     launches = {"topk_gating": tg.LAUNCHES, "router_topk": rt.LAUNCHES}
     if launches != {"topk_gating": 1, "router_topk": 0} or \
-            rt.VARIANT_CALLS != {"fused": 0, "unfused": 1}:
+            rt.VARIANT_CALLS != {"fused": 0, "unfused": 1} or \
+            tg.PATH_LAUNCHES != {"narrow": 1, "wide": 0}:
         raise AssertionError(f"f32 routing: launches {launches}, calls "
-                             f"{rt.VARIANT_CALLS}")
+                             f"{rt.VARIANT_CALLS}, topk_gating by path "
+                             f"{tg.PATH_LAUNCHES}")
     if y.shape != x.shape or not bool(torch.isfinite(y).all()):
         raise AssertionError("f32 moe_ffn: wrong shape or non-finite")
     log(f"[f32] moe_ffn float32 [{T}, {d}], {E} experts top-{cfg.topk}: "
-        f"launches {json.dumps(launches)}, finite output")
+        f"launches {json.dumps(launches)}, topk_gating by path "
+        f"{json.dumps(tg.PATH_LAUNCHES)}, finite output")
     inputs = timer.inputs
     del x, weights, y
     torch.cuda.empty_cache()
@@ -1093,12 +1190,27 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs) -> list:
         vals, ids = torch.topk(logits, k_, dim=1)
         return ids, torch.softmax(vals, dim=1)
 
-    rows.append(_model_row(
+    row = _model_row(
         "topk_gating", "src/repro/kernels/topk_gating.py:50", f32_launches,
         err, lambda: tg.topk_gating(logits, k_),
         lambda: tg.topk_gating_plain(logits, k_), library,
         ops / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3,
-        f"T={T} E={E} k={k_}"))
+        f"T={T} E={E} k={k_}")
+    # the wide path, which served this call before, on the same logits
+    path = tg.path(E)
+    wide = lambda: tg.topk_gating_path("wide", logits, k_)  # noqa: E731
+    if not all(same_bits(a, b) for a, b in zip(wide(), (idx, gates))):
+        raise AssertionError("topk_gating: the wide path's bits differ on "
+                             "the f32 router's logits")
+    if path != "narrow" or len(row["device_kernels"]) != 1:
+        raise AssertionError(f"topk_gating: path {path}, device kernels "
+                             f"{row['device_kernels']}")
+    row.update(path=path, prev_path="wide", prev_ms=cuda_ms(wide, iters=20),
+               prev_device_ms=device_ms(wide)[0], prev_bits_equal=True)
+    log(f"[timing] topk_gating path {path}; the wide path on the same "
+        f"logits {row['prev_ms']:.4f} ms (device {row['prev_device_ms']:.4f} "
+        f"ms), the same bits")
+    rows.append(row)
     return rows
 
 
@@ -1173,7 +1285,7 @@ def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
-            "checked": True}
+            "device_kernels": names, "checked": True}
 
 
 def main() -> int:

@@ -29,9 +29,10 @@
 // KSPLIT = 8 CTAs splits the depth of each tile instead. The partial tiles
 // are added in a fixed order: K groups in group order, then the cluster's
 // ranks in rank order through distributed shared memory. The epilogue
-// writes the f32 logit rows, and runs csrc/topk_gating.cu's warp-per-row
-// selection on them in shared memory (same comparisons, same softmax
-// order, so idx and gates equal topk_gating's on these logits). No
+// writes the f32 logit rows, and runs the warp-per-row selection of
+// csrc/topk_gating.cu's wide path on them in shared memory (same
+// comparisons, same softmax order, so idx and gates equal topk_gating's on
+// these logits, on either of its paths). No
 // atomics: the result is bit-identical on relaunch.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -126,10 +127,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// csrc/topk_gating.cu's selection for one row held in shared memory, with
-// k <= MAX_K a run-time bound: k rounds of a lane-strided scan (a column
-// chosen earlier reads -1e30) and a shuffle argmax that breaks ties to the
-// lower column; then the f32 softmax over the k, summed in selection order.
+// The selection of csrc/topk_gating.cu's wide path (one warp a row) for one
+// row held in shared memory, with k <= MAX_K a run-time bound: k rounds of
+// a lane-strided scan (a column chosen earlier reads -1e30) and a shuffle
+// argmax that breaks ties to the lower column; then the f32 softmax over
+// the k, summed in selection order. Its narrow path gives the same bits, so
+// idx and gates equal topk_gating's on either path.
 __device__ __forceinline__ void select_row(const float* row, int E, int k,
                                            int lane, int32_t* idx,
                                            float* gates) {

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "build", "BUILD_DIR", "SOURCES"]
+__all__ = ["library", "build", "check", "refuse_grad", "raw_stream",
+           "stream_of", "BUILD_DIR", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -57,11 +58,14 @@ SIGNATURES = {
                                _F32, _I32, _P, _P, _P),
     # (device, coords, n, n_bins, out, stream)
     "pipit_hist_bin": (_I32, _P, _I64, _I32, _P, _P),
+    # (device, coords, n, n_bins, scratch, out, stream)
+    "pipit_hist_bin_narrow": (_I32, _P, _I64, _I32, _P, _P, _P),
     # (device, q, k, v, out, B, Sq, Sk, H, KVH, D, dtype, variant, causal,
     #  has_window, window, prefix_len, q_offset, scale, stream)
     "pipit_flash_attention": (_I32, _P, _P, _P, _P, *(_I32,) * 13, _F32, _P),
     # (device, logits, T, E, k, idx, gates, stream)
     "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
+    "pipit_topk_gating_narrow": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
     # (device, x, w, T, d, E, k, logits, idx, gates, stream)
     "pipit_router_topk": (_I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
                           _P),
@@ -145,6 +149,20 @@ def check(err: int, what: str) -> None:
     ``cudaGetLastError()`` after the launches)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through a kernel that has
+    no backward: grad mode is on and a floating input requires grad.  A
+    launch through raw pointers gives outputs with no ``grad_fn``, so
+    without this a backward pass would stop at the kernel without a
+    word."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors if t.is_floating_point()):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward yet; call it under "
+            f"torch.no_grad(), or with inputs that do not require grad")
 
 
 def raw_stream(device_index: int) -> int:

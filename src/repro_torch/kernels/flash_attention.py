@@ -18,8 +18,12 @@ launches one of the two hand-written kernels in ``csrc/flash_attention.cu``
   FMAs with P in f32, held to 2e-5 in float32.
 
 On a CPU tensor it runs :func:`flash_attention_plain`, the chunked
-online-softmax scan of ``chunked_attention`` (P in f32).  There is no
-fallback between the kernels: a CUDA call launches its variant or raises.
+online-softmax scan of ``chunked_attention`` (P in f32), which is
+differentiable.  There is no fallback between the kernels: a CUDA call
+launches its variant or raises.  The kernels have no backward yet, so on
+the card the wrapper raises when autograd would need one
+(``build.refuse_grad``) instead of returning an output with no
+``grad_fn``.
 
 Both scale the query in its own dtype before the f32 cast, as
 ``chunked_attention`` — the function the model calls — does; the Pallas
@@ -168,6 +172,7 @@ def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
                                      q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: contiguous q, k, v expected")
     if D not in _HEAD_DIMS:

@@ -17,7 +17,10 @@ row, largest first, the lowest index on ties) and ``gates [T, k]`` float32
 - ``"unfused"`` (every other case, float32 among them): the float32
   product, then the ``topk_gating`` kernel.
 
-On a CPU tensor :func:`router_topk` runs :func:`router_topk_plain`.
+On a CPU tensor :func:`router_topk` runs :func:`router_topk_plain`, which
+is differentiable.  Neither kernel has a backward yet: on the card the
+wrapper raises when autograd would need one (``build.refuse_grad``), on
+either route.
 """
 
 from __future__ import annotations
@@ -91,6 +94,7 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
         return router_topk_plain(x, w, k)
     if x.device.type != "cuda":
         raise ValueError(f"router_topk: unsupported device {x.device}")
+    build.refuse_grad("router_topk", x, w)
     if w.dtype != x.dtype or router_variant(x.dtype, d, E, k) == "unfused":
         VARIANT_CALLS["unfused"] += 1
         logits = x.float() @ w.float()

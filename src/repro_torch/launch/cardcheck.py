@@ -16,8 +16,12 @@ from typing import Dict, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["gate", "same_bits", "cuda_ms", "device_ms", "card_line",
-           "ptxas", "run_trees"]
+__all__ = ["gate", "exact", "same_bits", "cuda_ms", "device_ms",
+           "short_name", "card_line", "ptxas", "run_trees"]
+
+#: profiles :func:`device_ms` takes before it gives up on one that records
+#: no device activity (it happened once in a long ``chip_smoke.py`` run)
+PROFILES = 3
 
 
 def _f64(x) -> np.ndarray:
@@ -43,6 +47,18 @@ def gate(got, want) -> float:
         raise AssertionError(f"outside the gate: max abs err {err} over "
                              f"finite values, scale {scale}")
     return err
+
+
+def exact(got, want) -> float:
+    """Counts (tensors or arrays) equal element for element; returns 0.0,
+    the max abs error, and raises ``AssertionError`` otherwise."""
+    if isinstance(got, torch.Tensor):
+        got = got.cpu().numpy()
+    if isinstance(want, torch.Tensor):
+        want = want.cpu().numpy()
+    if not np.array_equal(np.asarray(got), np.asarray(want)):
+        raise AssertionError("counts differ")
+    return 0.0
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -72,24 +88,37 @@ def cuda_ms(fn, iters: int, warm: int = 2) -> float:
 def device_ms(fn, iters: int = 20) -> Tuple[float, Dict[str, float]]:
     """Device-only time of one call of ``fn``: the durations of the device
     kernels it launches, from ``torch.profiler``, averaged over ``iters``
-    calls after a warm one; (total ms, {kernel name: ms})."""
+    calls after a warm one; (total ms, {kernel name: ms}).  A profile that
+    records no device activity at all is logged and taken again, up to
+    :data:`PROFILES` times; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by[e.key] = by.get(e.key, 0.0) + \
-                e.self_device_time_total / 1e3 / iters
-    if sum(by.values()) <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return sum(by.values()), by
+    for attempt in range(1, PROFILES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        by = {}
+        for e in events:
+            if e.device_type == DeviceType.CUDA:
+                by[e.key] = by.get(e.key, 0.0) + \
+                    e.self_device_time_total / 1e3 / iters
+        if sum(by.values()) > 0:
+            return sum(by.values()), by
+        print(f"[device_ms] profile {attempt} of {PROFILES}: the profiler "
+              f"saw no device time ({len(events)} host events)", flush=True)
+    raise AssertionError("the profiler saw no device time")
+
+
+def short_name(kernel: str) -> str:
+    """A device kernel's name from the profiler without its return type,
+    namespaces, template arguments and parameters."""
+    kernel = re.sub(r"^void |\(anonymous namespace\)::", "", kernel)
+    return kernel.split("(")[0].split("<")[0].rsplit("::", 1)[-1]
 
 
 def card_line() -> str:

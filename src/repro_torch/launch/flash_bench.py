@@ -1,22 +1,30 @@
-"""Check and time the flash-attention kernels on the card.
+"""Check and time the model kernels on the card: flash attention and the
+float32 router's ``topk_gating``.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_bench
     python -m repro_torch.launch.flash_bench --trees old . . old
 
 Without ``--trees`` it builds this checkout's kernels, prints the card's
-name and power limit and what ``ptxas`` said about the flash kernels
-(registers, spills, and any advisory such as a serialized ``wgmma``),
-holds the tensor-core kernel against the plain version on the bf16 cases
-of the tests (within 3e-2, bit-identical on relaunch), and times it
-beside ``scaled_dot_product_attention`` at the serving shape and a few
+name and power limit and what ``ptxas`` said about the flash and top-k
+kernels (registers, spills, and any advisory such as a serialized
+``wgmma``), holds the tensor-core kernel against the plain version on the
+bf16 cases of the tests (within 3e-2, bit-identical on relaunch), and times
+it beside ``scaled_dot_product_attention`` at the serving shape and a few
 longer ones (CUDA events around back-to-back calls, best of three runs),
-the SIMT kernel at the serving shape too.  It exits non-zero on a failed
-check or without a card.
+the SIMT kernel at the serving shape too.  Then ``topk_gating`` at the f32
+router's shape (T = 3,488, E = 60, k = 4, logits ~ N(0, 1) from seed 0,
+as ``moe_ffn``'s router product gives them) through both of its paths:
+indices exact and gates within 1e-6 of the plain version, bit-identical on
+relaunch, device time from ``torch.profiler`` and CUDA events, the median
+of three runs.  It exits non-zero on a failed check or without a card.
 
-``--trees A B ...`` runs the same in one process per checkout, in the
-order given (each with its own ``src`` and build directory), so that two
-versions of a kernel are compared on one card in one call: for example an
-unpacked parent commit, then this tree twice, then the parent again.
+``--trees A B ...`` runs this file once per checkout, in the order given,
+each process on that checkout's own ``src`` and build directory, so that
+two versions of a kernel are compared on one card in one call: for example
+an unpacked parent commit, then this tree twice, then the parent again.
+A tree whose ``topk_gating`` has one path (no ``topk_gating_path``) runs
+it through its wrapper, under the name of that design, ``wide``.  A last
+``[bits]`` line per top-k path says whether every tree gave the same bits.
 """
 
 from __future__ import annotations
@@ -24,13 +32,19 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from .cardcheck import card_line, cuda_ms, ptxas, run_trees, same_bits
+try:
+    from .cardcheck import (card_line, cuda_ms, device_ms, ptxas, run_trees,
+                            same_bits, short_name)
+except ImportError:    # run as a script beside another checkout's package
+    from cardcheck import (card_line, cuda_ms, device_ms, ptxas, run_trees,
+                           same_bits, short_name)
 
-__all__ = ["CASES", "SHAPES", "main"]
+__all__ = ["CASES", "SHAPES", "TOPK", "main"]
 
 #: bf16 cases of the tests: (B, Sq, Sk, H, KVH, D, keyword arguments)
 CASES = [
@@ -51,11 +65,15 @@ CASES = [
 SHAPES = [((4, 872, 16, 128), True), ((4, 958, 16, 128), True),
           ((2, 4096, 16, 128), True), ((2, 4096, 16, 128), False),
           ((4, 2048, 16, 64), True)]
+#: the f32 router's top-k: (T, E, k) of chip_smoke.py's f32 moe_ffn call
+TOPK = (3488, 60, 4)
 
 
-def run(iters: int) -> int:
-    from ..kernels import build
-    from ..kernels import flash_attention as fa
+def run(iters: int, out=None) -> int:
+    """Check and time the kernels of the ``repro_torch`` on the path; save
+    the top-k outputs to ``out`` when given."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     build.library()
     print(f"== {os.getcwd()}: build {build.BUILD_SECONDS:.1f} s", flush=True)
     for m, regs in ptxas(build.BUILD_LOG,
@@ -63,6 +81,9 @@ def run(iters: int) -> int:
         dtype = {"": "", "f": "f32, "}.get(m.group(2), "bf16, ")
         print(f"[ptxas] {m.group(1)}<{dtype}{m.group(3)}>: {regs}",
               flush=True)
+    for m, regs in ptxas(build.BUILD_LOG,
+                         r"(topk_narrow|topk_gate)I(\w*?)EEv"):
+        print(f"[ptxas] {m.group(1)}<{m.group(2)}>: {regs}", flush=True)
     for line in build.BUILD_LOG.splitlines():
         if "(C75" in line:
             print(f"[ptxas] {line.strip()[:240]}", flush=True)
@@ -105,7 +126,47 @@ def run(iters: int) -> int:
         print(f"[time] {list(shape)} causal={causal}: " + ", ".join(
             f"{name} {t:.4f} ms ({flops / t / 1e9:.0f} TFLOP/s)"
             for name, t in best.items()), flush=True)
+    bad += run_topk(iters, out)
     return 1 if bad else 0
+
+
+def run_topk(iters: int, out) -> int:
+    """The f32 router's top-k (:data:`TOPK`) through each path the tree's
+    ``topk_gating`` has; the number of failed checks."""
+    from repro_torch.kernels import topk_gating as tg
+    T, E, k = TOPK
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (T, E)).astype(np.float32)).cuda()
+    want_idx, want_gates = tg.topk_gating_plain(logits, k)
+    by_path = getattr(tg, "topk_gating_path", None)
+    bad, outs = 0, {}
+    for p in ("narrow", "wide"):
+        if by_path is None and p != "wide":
+            continue                          # a tree with one path
+
+        def call(_p=p):
+            if by_path is None:
+                return tg.topk_gating(logits, k)
+            return by_path(_p, logits, k)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        same = all(same_bits(a, b) for a, b in zip(got, again))
+        err = float((got[1] - want_gates).abs().max())
+        ok = same and torch.equal(got[0], want_idx) and err <= 1e-6
+        bad += not ok
+        outs[f"topk_gating {p}"] = tuple(x.cpu() for x in got)
+        total, parts = sorted((device_ms(call, iters) for _ in range(3)),
+                              key=lambda d: d[0])[1]
+        ev = sorted(cuda_ms(call, iters, warm=5) for _ in range(3))[1]
+        print(f"[time] topk_gating {p:6s} device {total:.4f} ms ("
+              + ", ".join(f"{short_name(name)} {v:.4f}"
+                          for name, v in parts.items())
+              + f"), events {ev:.4f} ms | {'ok ' if ok else 'BAD'} indices "
+              f"{'exact' if torch.equal(got[0], want_idx) else 'DIFFER'}, "
+              f"gates max_abs_err {err:.3g} | T={T} E={E} k={k}", flush=True)
+    if out is not None:
+        torch.save(outs, out)
+    return bad
 
 
 def main(argv=None) -> int:
@@ -113,16 +174,33 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", nargs="+", metavar="DIR",
                     help="checkouts to run in turn, one process each")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_bench: no CUDA device", file=sys.stderr)
         return 2
-    print(card_line(), flush=True)
     if not args.trees:
-        return run(args.iters)
-    return run_trees(args.trees, [
-        sys.executable, "-m", "repro_torch.launch.flash_bench", "--iters",
-        str(args.iters)])
+        if args.out is None:
+            print(card_line(), flush=True)
+        return run(args.iters, args.out)
+    print(card_line(), flush=True)
+    from repro_torch.kernels import build
+    outs = [build.BUILD_DIR / f"flash_bench_out_{i}.pt"
+            for i in range(len(args.trees))]
+    rc = 0
+    for tree, out in zip(args.trees, outs):   # this file, that tree's package
+        out.unlink(missing_ok=True)
+        rc |= run_trees([tree], [
+            sys.executable, os.path.abspath(__file__), "--iters",
+            str(args.iters), "--out", str(out)])
+    got = [torch.load(p) if p.exists() else {} for p in outs]
+    for key in sorted(set().union(*got)):
+        have = [i for i, g in enumerate(got) if key in g]
+        same = all(same_bits(a, b) for i in have
+                   for a, b in zip(got[i][key], got[have[0]][key]))
+        print(f"[bits] {key}: {'the same' if same else 'DIFFERENT'} bits "
+              f"in trees {have} of {args.trees}", flush=True)
+    return rc
 
 
 if __name__ == "__main__":

@@ -22,7 +22,14 @@ NaN and infinite coordinates, where both paths equal its plain version);
 the fused router (``router_topk``) runs at the serving model's
 prefill and decode shapes, its indices and gates equal to
 ``topk_gating_plain`` on its own logits and its logits within
-``router_topk.logit_tolerance`` of the float32 product.
+``router_topk.logit_tolerance`` of the float32 product.  ``hist_bin`` and
+``topk_gating`` run both of their paths (narrow and wide) on the same
+inputs, counts exact and top-k bits equal between the paths, on edge
+values (+inf, 3e9, -0.0 and NaN coordinates; rows of -inf and of values
+at or below -1e30, which select a chosen column again) and on inputs that
+start off the 16-byte boundary.  The three model-kernel wrappers refuse a
+gradient they cannot give: with grad enabled and an input that requires
+grad they raise.
 """
 
 import numpy as np
@@ -456,3 +463,199 @@ def test_router_topk_unfused_route_launches_topk_gating(cuda):
     want = router_topk.router_topk_plain(x, w, 4)
     torch.testing.assert_close(logits, want[0], atol=1e-5, rtol=0)
     assert torch.equal(idx, want[1])
+
+
+def _hist_coords(rng, n, n_bins, edges=False):
+    x = (rng.integers(0, n_bins, n) + 0.5).astype(np.float32)
+    x[::13] = -1.0                                  # ignored
+    if edges:            # +inf and 3e9 in the top bin, -0.0 in bin 0, NaN
+        x[1::17], x[2::17], x[3::17] = np.inf, 3e9, -0.0
+        x[4::17], x[5::17] = np.nan, -np.inf
+    return torch.from_numpy(x)
+
+
+HIST_CASES = [
+    (579_328, 10, False),           # message_histogram at main-10M
+    (300_000, 32, False), (300_000, 17, False), (300_000, 8, False),
+    (100_000, 1, False), (1, 4, False), (3, 7, False), (1001, 7, False),
+    (50_001, 10, True), (5, 3, True),
+]
+
+
+@pytest.mark.parametrize("n,n_bins,edges", HIST_CASES)
+@pytest.mark.parametrize("name", ["narrow", "wide"])
+def test_hist_bin_paths(cuda, n, n_bins, edges, name):
+    x = _hist_coords(np.random.default_rng(n + n_bins), n, n_bins,
+                     edges).to(cuda)
+    assert hist_bin.path(n_bins) == "narrow"
+    before = hist_bin.PATH_LAUNCHES[name]
+    _check(lambda *a: hist_bin.hist_bin_path(name, *a),
+           hist_bin.hist_bin_plain, (x, n_bins), exact=True)
+    assert hist_bin.PATH_LAUNCHES[name] == before + 2
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [2, 5, 4097, 70_003])
+def test_hist_bin_narrow_unaligned_equals_wide(cuda, offset, n):
+    """A slice that starts off the 16-byte boundary: the narrow path's
+    scalar head, its vectors and its tail count every record once, the
+    same counts as the wide path and the plain version."""
+    rng = np.random.default_rng(n + offset)
+    x = _hist_coords(rng, n + offset, 10, edges=True).to(cuda)[offset:]
+    assert x.data_ptr() % 16
+    narrow = hist_bin.hist_bin_path("narrow", x, 10)
+    wide = hist_bin.hist_bin_path("wide", x, 10)
+    assert torch.equal(narrow, wide)
+    assert torch.equal(narrow.cpu(), hist_bin.hist_bin_plain(x, 10).cpu())
+
+
+def test_hist_bin_above_narrow_is_wide(cuda):
+    x = _hist_coords(np.random.default_rng(9), 10_000, 33).to(cuda)
+    assert hist_bin.path(33) == "wide"
+    before = hist_bin.PATH_LAUNCHES["wide"]
+    _check(hist_bin.hist_bin, hist_bin.hist_bin_plain, (x, 33), exact=True)
+    assert hist_bin.PATH_LAUNCHES["wide"] == before + 2
+    with pytest.raises(ValueError):
+        hist_bin.hist_bin_path("narrow", x, 33)
+
+
+def test_hist_bin_narrow_on_two_streams(cuda):
+    """Each stream keeps its own ticket, so calls on two streams at once
+    give the counts of calls on one."""
+    x = _hist_coords(np.random.default_rng(3), 1_000_000, 10).to(cuda)
+    want = hist_bin.hist_bin_plain(x, 10)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(10):
+        for s in (s1, s2):
+            with torch.cuda.stream(s):
+                outs.append(hist_bin.hist_bin_path("narrow", x, 10))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+def _topk_logits(rng, T, E, kind=None):
+    x = rng.standard_normal((T, E)).astype(np.float32)
+    x[::3, 1::2] = 0.25                     # rows with exact ties
+    x[1::3] = np.round(x[1::3])             # many tied integers, signed zeros
+    x[2::7] = -x[2::7] * 0.0                # rows of +0.0 and -0.0
+    if kind == "-inf":
+        x[::2] = -np.inf                    # re-selects a chosen column
+    elif kind == "-1e30":
+        x[::2] = -1e30
+        x[1::2] = -3e30 - np.abs(x[1::2]) * 1e30
+    return torch.from_numpy(x)
+
+
+TOPK_CASES = [
+    (3488, 60, 4, None),            # the f32 router at the serving widths
+    (4096, 60, 4, None), (4099, 60, 4, None), (4, 60, 4, None),
+    (1000, 5, 1, None), (1000, 5, 5, None), (777, 33, 4, None),
+    (777, 64, 8, None), (513, 127, 8, None), (2048, 128, 8, None),
+    (999, 128, 1, None), (300, 60, 4, "-inf"), (300, 61, 8, "-inf"),
+    (300, 60, 4, "-1e30"), (300, 128, 8, "-1e30"), (1, 8, 8, None),
+]
+
+
+@pytest.mark.parametrize("T,E,k,kind", TOPK_CASES)
+@pytest.mark.parametrize("name", ["narrow", "wide"])
+def test_topk_gating_paths(cuda, T, E, k, kind, name):
+    logits = _topk_logits(np.random.default_rng(T + E + k), T, E,
+                          kind).to(cuda)
+    assert topk_gating.path(E) == "narrow"
+    before = topk_gating.PATH_LAUNCHES[name]
+    idx, gates = topk_gating.topk_gating_path(name, logits, k)
+    idx2, gates2 = topk_gating.topk_gating_path(name, logits, k)
+    assert topk_gating.PATH_LAUNCHES[name] == before + 2
+    assert same_bits(idx, idx2) and same_bits(gates, gates2)
+    want_idx, want_gates = topk_gating.topk_gating_plain(logits, k)
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(gates, want_gates, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("T,E,k,kind", TOPK_CASES)
+def test_topk_gating_narrow_bits_equal_wide(cuda, T, E, k, kind):
+    logits = _topk_logits(np.random.default_rng(T + E + k), T, E,
+                          kind).to(cuda)
+    narrow = topk_gating.topk_gating_path("narrow", logits, k)
+    wide = topk_gating.topk_gating_path("wide", logits, k)
+    assert all(same_bits(a, b) for a, b in zip(narrow, wide))
+
+
+@pytest.mark.parametrize("E", [60, 64, 128])
+def test_topk_gating_narrow_unaligned_rows(cuda, E):
+    """E % 4 == 0 but the logits start off the 16-byte boundary: the narrow
+    path loads scalars, with the same bits as the wide path."""
+    full = _topk_logits(np.random.default_rng(E), 501 * E + 1, 1)
+    logits = full.to(cuda).flatten()[1:].view(501, E)
+    assert logits.data_ptr() % 16
+    narrow = topk_gating.topk_gating_path("narrow", logits, 4)
+    wide = topk_gating.topk_gating_path("wide", logits, 4)
+    assert all(same_bits(a, b) for a, b in zip(narrow, wide))
+    assert torch.equal(narrow[0], topk_gating.topk_gating_plain(logits,
+                                                                 4)[0])
+
+
+def test_topk_gating_above_narrow_is_wide(cuda):
+    logits = _topk_logits(np.random.default_rng(1), 300, 129).to(cuda)
+    assert topk_gating.path(129) == "wide"
+    before = topk_gating.PATH_LAUNCHES["wide"]
+    idx, _ = topk_gating.topk_gating(logits, 8)
+    assert topk_gating.PATH_LAUNCHES["wide"] == before + 1
+    assert torch.equal(idx, topk_gating.topk_gating_plain(logits, 8)[0])
+    with pytest.raises(ValueError):
+        topk_gating.topk_gating_path("narrow", logits, 8)
+
+
+def _grad_cases(cuda):
+    """(name, call, floating inputs) for each CUDA model-kernel wrapper."""
+    rng = np.random.default_rng(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    q, k, v = (t(1, 64, 2, 64, dtype=torch.bfloat16) for _ in range(3))
+    qf, kf, vf = (t(1, 64, 2, 32) for _ in range(3))
+    x, w = t(64, 128, dtype=torch.bfloat16), t(128, 60, dtype=torch.bfloat16)
+    xf, wf = t(64, 32), t(32, 60)
+    logits = t(64, 60)
+    return {
+        "flash_attention": (flash_attention.flash_attention, (q, k, v)),
+        "flash_attention simt": (
+            lambda *a: flash_attention.flash_attention_variant("simt", *a),
+            (qf, kf, vf)),
+        "router_topk fused": (lambda *a: router_topk.router_topk(*a, 4),
+                              (x, w)),
+        "router_topk unfused": (lambda *a: router_topk.router_topk(*a, 4),
+                                (xf, wf)),
+        "topk_gating narrow": (lambda a: topk_gating.topk_gating(a, 4),
+                               (logits,)),
+        "topk_gating wide": (
+            lambda a: topk_gating.topk_gating_path("wide", a, 4), (logits,)),
+    }
+
+
+GRAD_CASES = ["flash_attention", "flash_attention simt", "router_topk fused",
+              "router_topk unfused", "topk_gating narrow", "topk_gating wide"]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+@pytest.mark.parametrize("which", [0, -1])
+def test_model_kernels_refuse_grad(cuda, case, which):
+    """With grad enabled and an input that requires grad, each CUDA
+    model-kernel wrapper raises, naming itself, instead of returning
+    outputs with no grad_fn; under torch.no_grad() the same call runs."""
+    fn, args = _grad_cases(cuda)[case]
+    args = list(args)
+    args[which] = args[which].detach().requires_grad_(True)
+    wrapper = case.split()[0]
+    with pytest.raises(RuntimeError, match=f"{wrapper}: .*no backward"):
+        fn(*args)
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.grad_fn is None for o in outs)
+    fn(*(a.detach() for a in args))             # no input requires grad

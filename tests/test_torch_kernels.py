@@ -208,3 +208,25 @@ def test_hist_bin_clamps_top_and_ignores_nan():
 def test_wrappers_reject_wrong_dtypes(fn, args):
     with pytest.raises(TypeError):
         fn(*args)
+
+
+@pytest.mark.parametrize("n_bins", [1, 4, 10, 32, 33])
+def test_hist_bin_plain_edge_coordinates_match_pallas(n_bins):
+    """+inf and 3e9 land in the top bin (the clamp is taken before the cast
+    to int), -0.0 counts in bin 0, NaN, -inf and negative coordinates are
+    ignored: the plain version (what both kernel paths are held to on the
+    card) equals the Pallas kernel and NumPy exactly."""
+    rng = np.random.default_rng(n_bins + 7)
+    x = (rng.integers(0, n_bins, 501) + 0.5).astype(np.float32)
+    x[1::9], x[2::9], x[3::9] = np.inf, 3e9, -0.0
+    x[4::9], x[5::9], x[6::9] = np.nan, -np.inf, -1.0
+    got = hist_bin.hist_bin(torch.from_numpy(x), n_bins).numpy()
+    pallas = np.asarray(histogram_counts(jnp.asarray(x), n_bins=n_bins,
+                                         be=256))
+    np.testing.assert_array_equal(got, np.rint(pallas).astype(np.int64))
+    keep = x >= 0
+    want = np.bincount(np.minimum(np.floor(x[keep]), n_bins - 1)
+                       .astype(np.int64), minlength=n_bins)
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() == keep.sum()
+    assert got[-1] >= len(x[1::9]) + len(x[2::9]) and got[0] >= len(x[3::9])

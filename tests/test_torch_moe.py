@@ -153,3 +153,24 @@ def test_capacity_rule(Tg, k, E, cf, dropless):
     else:
         want = -(-max(int(Tg * k / E * cf), 1) // 8) * 8
         assert C == min(want, Tg)
+
+
+@pytest.mark.parametrize("fill", [-np.inf, -1e30, -2e30])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_topk_plain_reselects_like_pallas(fill, k):
+    """A chosen column reads as -1e30 in later rounds (the Pallas kernel's
+    mask), so a row of -inf, or of values at or below -1e30, selects a
+    column it has already chosen: the plain version (what both kernel
+    paths are held to on the card) gives the Pallas kernel's indices and
+    gates, NaN gates of a k = 1 row of -inf included."""
+    x = _logits(12, 60, k + 1, ties=False)
+    x[::3] = fill                               # rows of one value
+    x[1::3] = fill - np.abs(x[1::3]) * 1e30     # at or below it
+    x[1::3, 7] = -1e30                          # one column at the mask
+    idx, gates = topk_gating.topk_gating(torch.from_numpy(x), k)
+    want_idx, want_gates = router_topk(jnp.asarray(x), k)
+    assert np.array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_allclose(gates.numpy(), np.asarray(want_gates),
+                               atol=1e-6, rtol=0, equal_nan=True)
+    if k > 1:            # row 0 picks column 0 in every round
+        assert idx[0].tolist() == [0] * k
