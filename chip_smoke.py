@@ -1,4 +1,4 @@
-"""Drive the PyTorch + CUDA port's two paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch + CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -31,23 +31,43 @@ Phases (any failure raises and exits non-zero):
              with k = 8, a ragged depth with odd E, all-zero rows, and a
              depth split over a cluster at odd E);
 4. reader  — a small ``big_trace`` jsonl trace through ``Trace.open`` and
-             the five ops on the card and on the CPU;
+             the six ops on the card and on the CPU;
 5. main    — the trace path: 10M events over 64 ranks (``big_trace``
-             parameters, seed 0): structure, then the six op calls on the
-             card, each held against the CPU path; the trace kernels'
-             launch counts (and those of ``seg_sum``, ``pair_sum`` and
-             ``time_bin`` by path) are reset just before and read just
+             parameters, seed 0): structure, then the seven op calls of
+             the six ops (``stragglers`` at a threshold of -1, every
+             rank) on the card, each held against the CPU path; the trace
+             kernels' launch counts (and those of ``seg_sum``, ``pair_sum``
+             and ``time_bin`` by path) are reset just before and read just
              after: each must have risen, every call of the three must
              have taken the private path and ``hist_bin``'s its narrow
              path;
-6. timing  — each trace kernel on the inputs the trace path gave it: its
+6. query   — lazy plans over the same in-memory trace on the card:
+             ``trace.query().filter(Name not-in [MpiSend])
+             .restrict_processes(range(32))`` (structure remapped) and
+             each op, then ``filter(Name not-in [halo_exchange()])``
+             (structure recomputed) and the two message ops; each result
+             the bits of the same selection made eagerly and reduced on
+             the card; ``stragglers`` on the whole trace and the first
+             plan within the gate of the CPU path; counts reset before the
+             plans and read after them, as in phase 5;
+7. stream  — ``Trace.open(paths, streaming=True, chunk_rows=65_536)``
+             over ``big_trace`` jsonl shards (64 ranks x 15,625 events,
+             about 1.0M, in a temporary directory) on the card: each op
+             the bits of ``Trace.open(paths)`` on the card and within the
+             gate of the CPU streaming route, counts as in phase 5; three
+             op calls again at 4,999 rows a chunk, which splits calls
+             across chunks, again the eager bits;
+8. timing  — each trace kernel on the inputs the trace path gave it (its
+             first call, and in ``other_calls`` each later call of another
+             shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
+             ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
              time, its plain version's, one library call's (for
              ``time_bin`` a chain of calls), and its bound; a private-path
              row also times the sorted path on the same inputs and fails
              if its profiler row holds a sort kernel, the ``hist_bin`` row
              the wide path, and fails unless the narrow path is one device
              kernel a call;
-7. serve   — the serving path: ``repro_torch.launch.serve`` serves 8
+9. serve   — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
@@ -59,15 +79,15 @@ Phases (any failure raises and exits non-zero):
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
-8. f32     — one ``moe_ffn`` call in float32 at the serving model's
+10. f32    — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
              route, so ``topk_gating`` is launched once, on its narrow
              path, and ``router_topk`` not at all (counts reset just
              before);
-9. path    — qwen2-moe-smoke in f32 with one seeded weight set served on
+11. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-10. timing — each model kernel on the inputs its path gave it, against
+12. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
@@ -82,7 +102,8 @@ overhead included where the kernel is shorter than the call);
 call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
 ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
-``prev_ms``, ``prev_device_ms``).
+``prev_ms``, ``prev_device_ms``); the four trace rows also give their
+launches on the query and stream routes (``route_launches``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -582,6 +603,9 @@ OPS = [
     ("load_imbalance", {}),
     ("comm_matrix", {}),
     ("message_histogram", {"bins": 10}),
+    # -1 reports every rank (a severity of -1 or more is a work of 0 or
+    # more), so the checks see every rank's busy sum
+    ("stragglers", {"threshold": -1.0}),
 ]
 
 
@@ -594,6 +618,19 @@ def _canonical(frame):
     return frame.take(np.lexsort(cols)) if cols else frame
 
 
+def same_findings(a, b) -> float:
+    """Two Findings frames by rank: the same rows, windows exact and
+    severities within the gate (explanations quote the f32 sums rounded to
+    the microsecond, so they are not compared)."""
+    ka, kb = (np.argsort(np.asarray(f["process"]), kind="stable")
+              for f in (a, b))
+    for c in ("detector", "location", "process", "function", "t_start",
+              "t_end"):
+        if not np.array_equal(np.asarray(a[c])[ka], np.asarray(b[c])[kb]):
+            raise AssertionError(f"stragglers: column {c} differs")
+    return gate(np.asarray(a["severity"])[ka], np.asarray(b["severity"])[kb])
+
+
 def same_result(op, a, b) -> float:
     """The port's op on the card vs on the CPU: sums within the gate,
     counts, edges, names and histogram counts exact."""
@@ -602,6 +639,8 @@ def same_result(op, a, b) -> float:
     if op == "message_histogram":
         exact(a[1], b[1])
         return exact(a[0], b[0])
+    if op == "stragglers":
+        return same_findings(a, b)
     if sorted(a.columns) != sorted(b.columns) or len(a) != len(b):
         raise AssertionError(f"{op}: columns / rows differ: {a.columns} "
                              f"{len(a)} vs {b.columns} {len(b)}")
@@ -627,14 +666,16 @@ def same_result(op, a, b) -> float:
 class DeviceTimer:
     """Wraps each given kernel module's wrapper for one path's run: CUDA
     events around every call (device time of the kernel calls, sorts
-    included) and the first call's inputs kept for the timing phase; and
-    the host clock around the host's canonical record sort."""
+    included); the first call's inputs (``inputs``) and those of the
+    first call of each shape (:meth:`calls`) kept for the timing phases;
+    and the host clock around the host's canonical record sort."""
 
     def __init__(self, mods):
         from repro_torch.core import accel
         self.mods = mods
         self.accel = accel
         self.events, self.inputs, self._orig = [], {}, {}
+        self.shapes = {}
         self.sort_s = 0.0
 
     def __enter__(self):
@@ -656,6 +697,10 @@ class DeviceTimer:
                 if not args[0].is_cuda:        # the CPU path's plain run
                     return _fn(*args, **kw)
                 self.inputs.setdefault(_name, (args, kw))
+                sig = (_name,) + tuple(
+                    tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                    for a in args) + tuple(sorted(kw.items()))
+                self.shapes.setdefault(sig, (args, kw))
                 t0 = torch.cuda.Event(enable_timing=True)
                 t1 = torch.cuda.Event(enable_timing=True)
                 t0.record()
@@ -679,6 +724,14 @@ class DeviceTimer:
         s = sum(a.elapsed_time(b) for _n, a, b in self.events) / 1e3
         out = (s, self.sort_s)
         self.events, self.sort_s = [], 0.0
+        return out
+
+    def calls(self) -> dict:
+        """{kernel: [(args, kw) of each call of another shape, in call
+        order]}."""
+        out = {}
+        for sig, inputs in self.shapes.items():
+            out.setdefault(sig[0], []).append(inputs)
         return out
 
     def seconds_by_kernel(self) -> dict:
@@ -721,6 +774,38 @@ def phase_reader() -> None:
     run_ops(t, "reader")
 
 
+def reset_counts() -> None:
+    """Every trace kernel's launch count, and its count by path, to 0."""
+    from repro_torch import kernels
+    for mod in kernels.TRACE_KERNELS:
+        mod.LAUNCHES = 0
+    for name in MAIN_PATHS:
+        counts = getattr(kernels, name).PATH_LAUNCHES
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def check_counts(label: str) -> dict:
+    """The trace kernels' launch counts since :func:`reset_counts`: each
+    kernel must have launched, and every call on its path
+    (:data:`MAIN_PATHS`)."""
+    from repro_torch import kernels
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in kernels.TRACE_KERNELS}
+    paths = {name: dict(getattr(kernels, name).PATH_LAUNCHES)
+             for name in MAIN_PATHS}
+    log(f"[{label}] launches {json.dumps(launches)}; by path "
+        f"{json.dumps(paths)}")
+    idle = [k for k, v in launches.items() if v <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the {label} "
+                             f"path: {idle}")
+    off = [k for k, p in MAIN_PATHS.items() if paths[k][p] != launches[k]]
+    if off:
+        raise AssertionError(f"{label}-path calls off their path "
+                             f"{MAIN_PATHS}: {off}")
+    return launches
+
+
 def phase_main():
     from repro_torch import Trace, kernels
     from repro_torch.tracegen import big_events
@@ -734,28 +819,161 @@ def phase_main():
     struct_s = time.perf_counter() - t0
     log(f"[main] {len(ev)} events, {trace.num_processes} ranks; "
         f"generate {gen_s:.2f} s, structure {struct_s:.2f} s (host)")
-    for mod in kernels.TRACE_KERNELS:
-        mod.LAUNCHES = 0
-    for name in MAIN_PATHS:
-        counts = getattr(kernels, name).PATH_LAUNCHES
-        counts.update(dict.fromkeys(counts, 0))
+    reset_counts()
     with DeviceTimer(kernels.TRACE_KERNELS) as timer:
         run_ops(trace, "main", timer)
-    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
-                for mod in kernels.TRACE_KERNELS}
-    paths = {name: dict(getattr(kernels, name).PATH_LAUNCHES)
-             for name in MAIN_PATHS}
-    log(f"[main] launches {json.dumps(launches)}; by path "
-        f"{json.dumps(paths)}")
-    idle = [k for k, v in launches.items() if v <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{idle}")
-    off = [k for k, p in MAIN_PATHS.items() if paths[k][p] != launches[k]]
-    if off:
-        raise AssertionError(f"main-path calls off their path "
-                             f"{MAIN_PATHS}: {off}")
-    return launches, timer.inputs
+    return trace, check_counts("main"), timer.calls()
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the lazy query and streaming routes
+# ---------------------------------------------------------------------------
+
+#: the query phase's plan: the one name of main-10M that
+#: ``detectors.is_comm_name`` calls communication, then half the ranks
+QUERY_DROP, QUERY_RANKS = "MpiSend", range(32)
+#: a second selection that keeps the sends: the halo-exchange calls go,
+#: their message instants stay, so the plan recomputes structure
+HALO_DROP = "halo_exchange()"
+#: the stream phase's trace: the port's ``big_trace`` jsonl shards
+STREAM = dict(nprocs=64, events_per_proc=15_625, calls_per_iter=500,
+              seed=0)
+STREAM_CHUNK_ROWS = 65_536
+#: a chunk size under one shard (about 15,600 rows), so that chunk
+#: boundaries split enter/leave pairs and parent chains
+SEAM_CHUNK_ROWS = 4_999
+
+
+def _route(ops, run) -> list:
+    """Each op through ``run(op, kw)`` on the card: [(result, wall s)]."""
+    out = []
+    for op, kw in ops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(op, kw)
+        torch.cuda.synchronize()
+        out.append((res, time.perf_counter() - t0))
+    return out
+
+
+def phase_query(trace) -> dict:
+    """Plans over main-10M's in-memory trace on the card: each result the
+    bits of the same selection made eagerly and reduced on the card."""
+    from repro_torch.core import NAME, Filter
+    from repro_torch.launch.cardcheck import digest
+
+    def plan(q):
+        return q.filter(Filter(NAME, "not-in", [QUERY_DROP])) \
+            .restrict_processes(QUERY_RANKS)
+
+    def halo(q):
+        return q.filter(Filter(NAME, "not-in", [HALO_DROP]))
+
+    halo_ops = [(op, kw) for op, kw in OPS
+                if op in ("comm_matrix", "message_histogram")]
+    reset_counts()
+    lazy = [(plan, OPS, _route(
+        OPS, lambda op, kw: plan(trace.query()).run(op, **kw)))]
+    lazy.append((halo, halo_ops, _route(
+        halo_ops, lambda op, kw: halo(trace.query()).run(op, **kw))))
+    launches = check_counts("query")
+    for sel, ops, results in lazy:
+        t0 = time.perf_counter()
+        sub = sel(trace.query()).collect()
+        collect_s = time.perf_counter() - t0
+        if sub.device != trace.device:
+            raise AssertionError(f"selection moved to {sub.device}")
+        log(f"[query] eager selection {len(sub)} of {len(trace)} events "
+            f"in {collect_s:.2f} s, structure "
+            f"{'remapped' if sub._structured else 'dropped (recompute)'}")
+        for (op, kw), (res, wall) in zip(ops, results):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = sub.run(op, **kw)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            same = digest(res) == digest(want)
+            log(f"[query] {op:17s} {json.dumps(kw, default=str):34s} "
+                f"plan {wall:.3f} s | eager {eager_s:.3f} s (+ selection) "
+                f"| bits {'equal' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"query {op}: the plan's result is "
+                                     f"not the eager selection's bits")
+    # the card against the CPU path: stragglers over the whole trace, and
+    # the first plan
+    for label, op, run in (
+            ("whole trace", "stragglers", lambda d: trace.run(
+                "stragglers", threshold=-1.0, device=d)),
+            ("plan", OPS[0][0], lambda d: plan(trace.query()).run(
+                OPS[0][0], device=d, **OPS[0][1]))):
+        t0 = time.perf_counter()
+        on_card = run("cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        err = same_result(op, on_card, on_cpu)
+        log(f"[query] {op} on the {label}: card {card_s:.3f} s, cpu path "
+            f"{cpu_s:.3f} s, max_abs_err {err:.6g}")
+    return launches
+
+
+def phase_stream() -> dict:
+    """``Trace.open(..., streaming=True)`` over jsonl shards on the card:
+    each op the bits of ``Trace.open(paths)`` on the card, and within the
+    gate of the CPU streaming route."""
+    import tempfile
+
+    from repro_torch import Trace
+    from repro_torch.launch.cardcheck import digest
+    from repro_torch.tracegen import big_trace
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = big_trace(d, **STREAM)
+        write_s = time.perf_counter() - t0
+        st = Trace.open(paths, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+                        device="cuda")
+        reset_counts()
+        streamed = _route(OPS, lambda op, kw: st.run(op, **kw))
+        launches = check_counts("stream")
+        t0 = time.perf_counter()
+        eager = Trace.open(paths, device="cuda")
+        eager._ensure_structure()
+        eager._ensure_messages()
+        open_s = time.perf_counter() - t0
+        log(f"[stream] {len(eager)} events in {len(paths)} jsonl shards: "
+            f"written in {write_s:.2f} s; eager open + structure "
+            f"{open_s:.2f} s; chunks of {STREAM_CHUNK_ROWS} rows")
+        for (op, kw), (res, wall) in zip(OPS, streamed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = eager.run(op, **kw)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_cpu = st.run(op, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            same = digest(res) == digest(want)
+            err = same_result(op, res, on_cpu)
+            log(f"[stream] {op:17s} {json.dumps(kw, default=str):34s} "
+                f"streaming {wall:.3f} s | eager {eager_s:.3f} s | bits "
+                f"{'equal' if same else 'DIFFER'} | cpu streaming "
+                f"{cpu_s:.3f} s, max_abs_err {err:.6g}")
+            if not same:
+                raise AssertionError(f"stream {op}: not the eager bits")
+        seams = Trace.open(paths, streaming=True, chunk_rows=SEAM_CHUNK_ROWS,
+                           device="cuda")
+        for op, kw in OPS[:3]:
+            t0 = time.perf_counter()
+            same = digest(seams.run(op, **kw)) == digest(eager.run(op, **kw))
+            log(f"[stream] {op:17s} {json.dumps(kw, default=str):34s} "
+                f"chunks of {SEAM_CHUNK_ROWS} rows "
+                f"{time.perf_counter() - t0:.3f} s | bits "
+                f"{'equal' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"stream {op} at {SEAM_CHUNK_ROWS} "
+                                     f"rows a chunk: not the eager bits")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -768,7 +986,10 @@ def _bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(launches, inputs) -> list:
+def phase_timing(launches, calls, routes) -> list:
+    """One row per trace kernel, timed on the inputs of its first call on
+    the main path; a kernel whose later main-path calls had other shapes
+    also times each of those (``other_calls``)."""
     from repro_torch import kernels
     src = "src/repro_torch/csrc/{}.cu"
     replaces = {"seg_sum": "src/repro/kernels/seg_sum.py:60",
@@ -778,108 +999,111 @@ def phase_timing(launches, inputs) -> list:
     rows = []
     for mod in kernels.TRACE_KERNELS:
         name = mod.__name__.rsplit(".", 1)[1]
-        args, kw = inputs[name]
-        kern = getattr(mod, name)
-        plain = getattr(mod, name + "_plain")
-        got, want = kern(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        if name == "hist_bin":
-            err = exact(got.cpu().numpy(), want.cpu().numpy())
-        else:
-            err = gate(got.cpu().numpy(), want.cpu().numpy())
-        library = None
-        path = None
-        if name == "seg_sum":
-            code, vals, n_seg = args
-            n, k = vals.shape
-            bytes_moved = n * 4 + n * k * 4 + n_seg * k * 4
-            ops = n * k
-            idx, acc = code.long(), torch.zeros((n_seg, k), device="cuda")
-            library = lambda: acc.index_add_(0, idx, vals)  # noqa: E731
-            call = "index_add_"
-            path = mod.path(n, n_seg * k)
-            keys = code if path == "sorted" else None
-            shape = f"N={n} K={k} n_seg={n_seg}"
-        elif name == "pair_sum":
-            a, b, w, n_a, n_b = args
-            n = a.shape[0]
-            bytes_moved = n * 12 + n_a * n_b * 4
-            ops = n
-            flat = a.long() * n_b + b.long()
-            acc = torch.zeros(n_a * n_b, device="cuda")
-            library = lambda: acc.index_add_(0, flat, w)  # noqa: E731
-            call = "index_add_ on flat cell keys"
-            path = mod.path(n, n_a * n_b)
-            keys = flat.int() if path == "sorted" else None
-            shape = f"N={n} {n_a}x{n_b}"
-        elif name == "time_bin":
-            s, e, f, r = args[:4]
-            n_funcs, n_bins = kw["n_funcs"], kw["n_bins"]
-            t0, t1 = kw["t0"], kw["t1"]
-            n = s.shape[0]
-            bytes_moved = n * 16 + n_funcs * n_bins * 4
-            # the (record, bin) terms this run's data needs: the bins its
-            # span touches, each min, max, sub, clamp, mul, add
-            bw = (t1 - t0) / n_bins
-            keep = (f >= 0) & (f < n_funcs) & (e > s)
-            first = torch.floor((s[keep] - t0) / bw).clamp(0, n_bins)
-            end = torch.ceil((e[keep] - t0) / bw).clamp(0, n_bins)
-            ops = 6 * float((end - first).clamp_min(0).double().sum())
-            library = _time_library(s, e, f, r, n_funcs, n_bins, t0, t1)
-            call = ("chain: torch.minimum / torch.maximum / clamp_min / "
-                    "mul on [N, n_bins], then index_add_")
-            path = mod.path(n, n_funcs * n_bins)
-            keys = f if path == "sorted" else None
-            shape = f"N={n} n_funcs={n_funcs} n_bins={n_bins}"
-        else:
-            coords, n_bins = args
-            n = coords.shape[0]
-            bytes_moved = n * 4 + n_bins * 8
-            ops = n
-            idx = torch.floor(coords).long()
-            library = lambda: torch.bincount(idx, minlength=n_bins)  # noqa
-            call = "bincount"
-            path = mod.path(n_bins)
-            keys = None
-            shape = f"N={n} n_bins={n_bins}"
-        ms = cuda_ms(lambda: kern(*args, **kw), iters=20)
-        dev_ms, by_kernel = device_ms(lambda: kern(*args, **kw))
-        names = sorted(by_kernel)
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5, warm=1)
-        library_ms = cuda_ms(library, iters=20) if library else None
-        # the wrapper's device sort of the record keys, part of ``ms``
-        sort_ms = (cuda_ms(lambda: torch.sort(keys, stable=True), iters=20)
-                   if keys is not None else 0.0)
-        bound_ms, bound_by = _bound(bytes_moved, ops)
-        log(f"[timing] {name:8s} {shape:32s} kernel {ms:.4f} ms (device "
-            f"{dev_ms:.4f} ms) | plain "
-            f"{plain_ms:.4f} ms | library "
-            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} | "
-            f"bound {bound_ms:.4f} ms ({bound_by}) | of which device "
-            f"sort {sort_ms:.4f} ms | device kernels {names}")
-        if path == "private":
-            sorts = [k for k in names if "sort" in k.lower()]
-            if sorts:
-                raise AssertionError(f"{name}: a sort kernel on the private "
-                                     f"path: {sorts}")
-        if path == "narrow" and len(names) != 1:
-            raise AssertionError(f"{name}: the narrow path is one device "
-                                 f"kernel a call, the profiler saw {names}")
-        rows.append({"name": name, "route": "cuda",
-                     "source": src.format(name),
-                     "replaces": replaces[name],
-                     "launches": launches[name], "max_abs_err": err,
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "library_call": call, "sort_ms": sort_ms,
-                     "device_kernels": names, "shape": shape,
-                     "checked": True})
-        if path is not None:
+        (args, kw), *others = calls[name]
+        row = {"name": name, "route": "cuda", "source": src.format(name),
+               "replaces": replaces[name], "launches": launches[name],
+               "route_launches": {r: c[name] for r, c in routes.items()}}
+        row.update(_time_trace_call(mod, name, args, kw))
+        if row["path"] is not None:
             check = exact if name == "hist_bin" else gate
-            rows[-1].update(path=path, **_path_prev(mod, name, args, kw,
-                                                    path, check))
+            row.update(_path_prev(mod, name, args, kw, row["path"], check))
+        if others:
+            row["other_calls"] = [_time_trace_call(mod, name, a, k)
+                                  for a, k in others]
+        rows.append(row)
     return rows
+
+
+def _time_trace_call(mod, name, args, kw) -> dict:
+    """A trace kernel on one call's inputs: checked against its plain
+    version, timed beside it and one library call, with its bound."""
+    kern = getattr(mod, name)
+    plain = getattr(mod, name + "_plain")
+    got, want = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    if name == "hist_bin":
+        err = exact(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        err = gate(got.cpu().numpy(), want.cpu().numpy())
+    if name == "seg_sum":
+        code, vals, n_seg = args
+        n, k = vals.shape
+        bytes_moved = n * 4 + n * k * 4 + n_seg * k * 4
+        ops = n * k
+        idx, acc = code.long(), torch.zeros((n_seg, k), device="cuda")
+        library = lambda: acc.index_add_(0, idx, vals)  # noqa: E731
+        call = "index_add_"
+        path = mod.path(n, n_seg * k)
+        keys = code if path == "sorted" else None
+        shape = f"N={n} K={k} n_seg={n_seg}"
+    elif name == "pair_sum":
+        a, b, w, n_a, n_b = args
+        n = a.shape[0]
+        bytes_moved = n * 12 + n_a * n_b * 4
+        ops = n
+        flat = a.long() * n_b + b.long()
+        acc = torch.zeros(n_a * n_b, device="cuda")
+        library = lambda: acc.index_add_(0, flat, w)  # noqa: E731
+        call = "index_add_ on flat cell keys"
+        path = mod.path(n, n_a * n_b)
+        keys = flat.int() if path == "sorted" else None
+        shape = f"N={n} {n_a}x{n_b}"
+    elif name == "time_bin":
+        s, e, f, r = args[:4]
+        n_funcs, n_bins = kw["n_funcs"], kw["n_bins"]
+        t0, t1 = kw["t0"], kw["t1"]
+        n = s.shape[0]
+        bytes_moved = n * 16 + n_funcs * n_bins * 4
+        # the (record, bin) terms this run's data needs: the bins its
+        # span touches, each min, max, sub, clamp, mul, add
+        bw = (t1 - t0) / n_bins
+        keep = (f >= 0) & (f < n_funcs) & (e > s)
+        first = torch.floor((s[keep] - t0) / bw).clamp(0, n_bins)
+        end = torch.ceil((e[keep] - t0) / bw).clamp(0, n_bins)
+        ops = 6 * float((end - first).clamp_min(0).double().sum())
+        library = _time_library(s, e, f, r, n_funcs, n_bins, t0, t1)
+        call = ("chain: torch.minimum / torch.maximum / clamp_min / "
+                "mul on [N, n_bins], then index_add_")
+        path = mod.path(n, n_funcs * n_bins)
+        keys = f if path == "sorted" else None
+        shape = f"N={n} n_funcs={n_funcs} n_bins={n_bins}"
+    else:
+        coords, n_bins = args
+        n = coords.shape[0]
+        bytes_moved = n * 4 + n_bins * 8
+        ops = n
+        idx = torch.floor(coords).long()
+        library = lambda: torch.bincount(idx, minlength=n_bins)  # noqa
+        call = "bincount"
+        path = mod.path(n_bins)
+        keys = None
+        shape = f"N={n} n_bins={n_bins}"
+    ms = cuda_ms(lambda: kern(*args, **kw), iters=20)
+    dev_ms, by_kernel = device_ms(lambda: kern(*args, **kw))
+    names = sorted(by_kernel)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5, warm=1)
+    library_ms = cuda_ms(library, iters=20)
+    # the wrapper's device sort of the record keys, part of ``ms``
+    sort_ms = (cuda_ms(lambda: torch.sort(keys, stable=True), iters=20)
+               if keys is not None else 0.0)
+    bound_ms, bound_by = _bound(bytes_moved, ops)
+    log(f"[timing] {name:8s} {shape:32s} kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms) | plain {plain_ms:.4f} ms | library "
+        f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) | of "
+        f"which device sort {sort_ms:.4f} ms | device kernels {names}")
+    if path == "private":
+        sorts = [k for k in names if "sort" in k.lower()]
+        if sorts:
+            raise AssertionError(f"{name}: a sort kernel on the private "
+                                 f"path: {sorts}")
+    if path == "narrow" and len(names) != 1:
+        raise AssertionError(f"{name}: the narrow path is one device "
+                             f"kernel a call, the profiler saw {names}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_call": call,
+            "sort_ms": sort_ms, "device_kernels": names, "shape": shape,
+            "path": path, "checked": True}
 
 
 def _time_library(s, e, f, r, n_funcs, n_bins, t0, t1):
@@ -1301,8 +1525,10 @@ def main() -> int:
     phase_kernels()
     phase_model_kernels()
     phase_reader()
-    launches, inputs = phase_main()
-    rows = phase_timing(launches, inputs)
+    trace, launches, calls = phase_main()
+    routes = {"query": phase_query(trace), "stream": phase_stream()}
+    del trace
+    rows = phase_timing(launches, calls, routes)
     serve_launches, serve_inputs = phase_serve()
     f32_launches, f32_inputs = phase_f32_router()
     phase_path()

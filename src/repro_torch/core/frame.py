@@ -67,6 +67,13 @@ class Categorical:
             return np.zeros(len(self.codes), dtype=bool)
         return self.codes == c
 
+    def mask_isin(self, names: Iterable[str]) -> np.ndarray:
+        codes = [self.lookup(n) for n in names]
+        codes = [c for c in codes if c >= 0]
+        if not codes:
+            return np.zeros(len(self.codes), dtype=bool)
+        return np.isin(self.codes, np.asarray(codes, np.int32))
+
     def take(self, idx: np.ndarray) -> "Categorical":
         return Categorical(self.codes[idx], self.categories)
 

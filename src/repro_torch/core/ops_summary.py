@@ -13,6 +13,13 @@ backend to f32 rounding.
 
 All functions take a Trace whose structure columns (matching, parent,
 time.inc/time.exc) are already materialized; Trace methods guarantee that.
+
+Each op also has a streaming aggregator (the reference's
+``backend="pallas"`` branch of ``_FlatProfileAgg``, ``_TimeProfileAgg``
+and ``_LoadImbalanceAgg``): it buffers the completed-call records chunk by
+chunk and, at the end, makes the in-memory op's one kernel call on the
+same records in the same canonical order, so both routes give the same
+bits.
 """
 
 from __future__ import annotations
@@ -24,9 +31,11 @@ import torch
 
 from ..kernels import time_bin as _time_bin
 from . import accel
-from .constants import ENTER, ET, EXC, MATCH, NAME, PROC, TS
+from .constants import ENTER, ET, EXC, INC, MATCH, NAME, PROC, TS
 from .frame import Categorical, EventFrame
-from .registry import register_op
+from .registry import register_op, register_streaming
+from .streaming import (RecordBuffer, StreamAgg, StreamingUnsupported,
+                        check_metric, grow_to)
 
 
 def _calls(trace):
@@ -264,3 +273,155 @@ def load_imbalance(trace, metric: str = EXC, num_processes: int = 5,
                          max(nprocs, 1), device=device)
     return _imbalance_assemble(tot, names_alpha, metric, num_processes,
                                top_functions, nprocs)
+
+
+# ---------------------------------------------------------------------------
+# streaming forms: buffer the records, one kernel call in result()
+# ---------------------------------------------------------------------------
+
+def call_metric(calls, metric: str) -> np.ndarray:
+    """A completed-call block's ``metric`` column, NaN-safe."""
+    return np.nan_to_num(calls.inc if metric == INC else calls.exc)
+
+
+def _pad_to(arr: np.ndarray, shape) -> np.ndarray:
+    """Zero-padded copy of ``arr`` with exactly ``shape`` (accumulators may
+    be under-grown when late chunks discovered names but no calls, and
+    over-grown by the power-of-two capacity)."""
+    out = np.zeros(shape, dtype=arr.dtype)
+    sub = arr[tuple(slice(0, min(a, s)) for a, s in zip(arr.shape, shape))]
+    out[tuple(slice(0, n) for n in sub.shape)] = sub
+    return out
+
+
+@register_streaming("flat_profile")
+class _FlatProfileAgg(StreamAgg):
+    """Streaming flat profile: call counts over every Enter row, accumulated
+    per chunk (exact int64), and the completed-call records buffered for
+    the in-memory op's one ``seg_sum`` (or ``pair_sum``) call.  A name with
+    a call left open at the end gets a total of 0, as an unmatched enter's
+    NaN gives it in memory."""
+
+    needs_calls = True
+
+    def __init__(self, metrics: Sequence[str] = (EXC,),
+                 groupby_column: str = NAME, per_process: bool = False,
+                 device="cuda"):
+        if groupby_column != NAME:
+            raise StreamingUnsupported(
+                f"streaming flat_profile groups by {NAME!r} only, got "
+                f"groupby_column={groupby_column!r}")
+        self.metrics = list(metrics)
+        for m in self.metrics:
+            check_metric(m, "flat_profile")
+        self.per_process = per_process
+        self.device = device
+        self._recs = RecordBuffer(len(self.metrics))
+        self._counts = np.zeros((0, 0) if per_process else (0,), np.int64)
+
+    def update(self, chunk) -> None:
+        ev = chunk.events
+        is_enter = ev.cat(ET).mask_eq(ENTER)
+        codes = chunk.gcodes[is_enter]
+        nf = len(chunk.names)
+        calls = chunk.calls
+        self._recs.add(calls, np.stack(
+            [call_metric(calls, m) for m in self.metrics], axis=1))
+        if self.per_process:
+            procs = np.asarray(ev[PROC], np.int64)[is_enter]
+            np_ = int(procs.max()) + 1 if len(procs) else 0
+            self._counts = grow_to(self._counts, (nf, np_))
+            np.add.at(self._counts, (codes, procs), 1)
+        else:
+            self._counts = grow_to(self._counts, (nf,))
+            np.add.at(self._counts, codes, 1)
+
+    def result(self, ctx) -> EventFrame:
+        nf = len(ctx.names)
+        names_alpha, order, inv = accel.alpha_positions(ctx.names.names)
+        acode, proc, start, end, vals = self._recs.gather(inv)
+        o = accel.canonical_order(start, end, proc, acode, vals[:, 0])
+        open_names, open_procs = ctx.open_calls
+        if self.per_process:
+            nprocs = max(ctx.num_processes, 1)
+            counts = _pad_to(self._counts, (nf, nprocs))[order]
+            sums = np.stack([accel.pair_sum(acode[o], proc[o], vals[o, i],
+                                            nf, nprocs, device=self.device)
+                             for i in range(len(self.metrics))])
+            sums[:, inv[open_names], open_procs] = 0.0
+        else:
+            counts = _pad_to(self._counts, (nf,))[order]
+            sums = accel.seg_sum(acode[o], vals[o], nf,
+                                 device=self.device).T
+            sums[:, inv[open_names]] = 0.0
+        return _flat_assemble(names_alpha, counts, sums, self.metrics,
+                              self.per_process)
+
+
+@register_streaming("time_profile")
+class _TimeProfileAgg(StreamAgg):
+    """Streaming time profile: the stream's time span tracked per chunk
+    (the bin edges of the in-memory op), the completed-call records
+    buffered for its one ``time_bin`` call."""
+
+    needs_calls = True
+
+    def __init__(self, num_bins: int = 32, metric: str = EXC,
+                 normalized: bool = False, device="cuda"):
+        check_metric(metric, "time_profile")
+        self.num_bins = num_bins
+        self.metric = metric
+        self.normalized = normalized
+        self.device = device
+        self._recs = RecordBuffer()
+        self._t0, self._t1 = np.inf, -np.inf
+
+    def update(self, chunk) -> None:
+        ts = np.asarray(chunk.events[TS], np.float64)
+        self._t0 = min(self._t0, float(ts.min()))
+        self._t1 = max(self._t1, float(ts.max()))
+        self._recs.add(chunk.calls, call_metric(chunk.calls, self.metric))
+
+    def result(self, ctx) -> EventFrame:
+        if self._t0 > self._t1:
+            return EventFrame({"bin_start": np.asarray([]),
+                               "bin_end": np.asarray([])})
+        t1 = self._t1 if self._t1 > self._t0 else self._t0 + 1.0
+        edges = np.linspace(self._t0, t1, self.num_bins + 1)
+        names_alpha, _order, inv = accel.alpha_positions(ctx.names.names)
+        acode, proc, start, end, w = self._recs.gather(inv)
+        return _profile_from_records(start, end, w[:, 0], proc, acode,
+                                     names_alpha, edges, self.num_bins,
+                                     self.normalized, self.device)
+
+
+@register_streaming("load_imbalance")
+class _LoadImbalanceAgg(StreamAgg):
+    """Streaming load imbalance: the completed-call records buffered for
+    the in-memory op's one ``pair_sum`` call (function × rank totals)."""
+
+    needs_calls = True
+
+    def __init__(self, metric: str = EXC, num_processes: int = 5,
+                 top_functions: Optional[int] = None, device="cuda"):
+        check_metric(metric, "load_imbalance")
+        self.metric = metric
+        self.num_processes = num_processes
+        self.top_functions = top_functions
+        self.device = device
+        self._recs = RecordBuffer()
+
+    def update(self, chunk) -> None:
+        self._recs.add(chunk.calls, call_metric(chunk.calls, self.metric))
+
+    def result(self, ctx) -> EventFrame:
+        names_alpha, _order, inv = accel.alpha_positions(ctx.names.names)
+        acode, proc, start, end, vals = self._recs.gather(inv)
+        vals = vals[:, 0]
+        nprocs = ctx.num_processes
+        o = accel.canonical_order(start, end, proc, acode, vals)
+        tot = accel.pair_sum(acode[o], proc[o], vals[o], len(names_alpha),
+                             max(nprocs, 1), device=self.device)
+        return _imbalance_assemble(tot, names_alpha, self.metric,
+                                   self.num_processes, self.top_functions,
+                                   nprocs)

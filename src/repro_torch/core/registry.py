@@ -8,22 +8,29 @@ registers a reader plus an optional content sniffer, so
 ``Trace.open(path, format="auto")`` resolves the format here.
 
 The port has no backend table: each op has one implementation, which runs
-its kernels on the ``device=`` it is given.  This module imports nothing
-of the trace or query layers, so every module can import it without
-cycles.
+its kernels on the ``device=`` it is given.  An op may also declare a
+streaming form (:func:`register_streaming`), and a reader a chunked one
+(``iter_chunks``), which the out-of-core executor
+(:mod:`repro_torch.core.streaming`) drives.  Shard skipping and parse
+pushdown (``shard_procs``, ``PlanHints``, work-unit planners) are not
+ported yet (ROADMAP §A.3): every chunk is read whole and masked by the
+plan.  This module imports nothing of the trace or query layers, so every
+module can import it without cycles.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, replace
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from .errors import TraceReadError
 
-__all__ = ["OpSpec", "register_op", "get_op", "list_ops", "ReaderSpec",
-           "register_reader", "get_reader", "list_readers", "sniff_format",
-           "resolve_reader"]
+__all__ = ["OpSpec", "register_op", "register_streaming", "get_op",
+           "list_ops", "terminal_op", "ReaderSpec",
+           "register_reader", "register_chunked", "get_reader",
+           "list_readers", "sniff_format", "resolve_reader"]
 
 
 @dataclass(frozen=True)
@@ -35,6 +42,10 @@ class OpSpec:
     fn: Callable[..., Any]
     needs_structure: bool = False
     needs_messages: bool = False
+    #: factory building a streaming aggregator
+    #: (:class:`repro_torch.core.streaming.StreamAgg`) for out-of-core
+    #: execution, or None when the op needs a materialized trace
+    streaming: Optional[Callable[..., Any]] = None
 
 
 _OP_REGISTRY: Dict[str, OpSpec] = {}
@@ -53,6 +64,24 @@ def register_op(name: Optional[str] = None, *, needs_structure: bool = False,
     return deco
 
 
+def register_streaming(op_name: str) -> Callable:
+    """Decorator declaring ``op_name``'s streaming (combinable) form: the
+    decorated factory, called with the op's own ``(*args, **kwargs)``
+    (``device=`` included), returns a streaming aggregator whose result
+    reproduces the in-memory op."""
+
+    def deco(factory: Callable) -> Callable:
+        spec = _OP_REGISTRY.get(op_name)
+        if spec is None:
+            raise ValueError(
+                f"cannot declare streaming form of unregistered op "
+                f"{op_name!r}; register the op first")
+        _OP_REGISTRY[op_name] = replace(spec, streaming=factory)
+        return factory
+
+    return deco
+
+
 def get_op(name: str) -> Optional[OpSpec]:
     return _OP_REGISTRY.get(name)
 
@@ -61,17 +90,44 @@ def list_ops() -> List[str]:
     return sorted(_OP_REGISTRY)
 
 
+def terminal_op(name: str, run: Callable[..., Any], owner: str) -> Callable:
+    """Resolve ``name`` as a registered-op terminal bound to ``run`` — the
+    shared ``__getattr__`` dispatch of TraceQuery and StreamingTrace.
+    Raises AttributeError for private names and unknown ops, so
+    ``getattr`` / ``hasattr`` keep their meaning on the owner."""
+    if name.startswith("_"):
+        raise AttributeError(name)
+    spec = get_op(name)
+    if spec is None:
+        raise AttributeError(
+            f"{name!r} is neither a {owner} method nor a registered "
+            f"analysis op (see repro_torch.core.registry.list_ops())")
+
+    def terminal(*args: Any, **kwargs: Any) -> Any:
+        return run(name, *args, **kwargs)
+
+    terminal.__name__ = name
+    terminal.__qualname__ = f"{owner}.{name}"
+    terminal.__doc__ = spec.fn.__doc__
+    return terminal
+
+
 @dataclass(frozen=True)
 class ReaderSpec:
     """A registered trace-format reader: ``read(path, **kw)`` returns a
     Trace; ``sniff(path, head)`` gets the path and the first few KB of
-    file text and returns True when the content is this format."""
+    file text and returns True when the content is this format.
+    ``iter_chunks(path, chunk_rows, **kw)`` optionally yields
+    successive EventFrames of at most ``chunk_rows`` events without
+    holding the whole file; formats without one stream a whole-file read
+    sliced into chunks."""
 
     name: str
     read: Callable[..., Any]
     extensions: Tuple[str, ...] = ()
     sniff: Optional[Callable[[str, str], bool]] = None
     priority: int = 0  # higher sniffs first
+    iter_chunks: Optional[Callable[..., Iterator[Any]]] = None
 
 
 _READER_REGISTRY: Dict[str, ReaderSpec] = {}
@@ -85,6 +141,22 @@ def register_reader(name: str, *, extensions: Sequence[str] = (),
     def deco(fn: Callable) -> Callable:
         _READER_REGISTRY[name] = ReaderSpec(
             name, fn, tuple(e.lower() for e in extensions), sniff, priority)
+        return fn
+
+    return deco
+
+
+def register_chunked(name: str) -> Callable:
+    """Decorator attaching a chunked reader to the already-registered
+    format ``name``."""
+
+    def deco(fn: Callable) -> Callable:
+        spec = _READER_REGISTRY.get(name)
+        if spec is None:
+            raise ValueError(
+                f"cannot attach chunked reader to unregistered format "
+                f"{name!r}; register the reader first")
+        _READER_REGISTRY[name] = replace(spec, iter_chunks=fn)
         return fn
 
     return deco

@@ -1,13 +1,20 @@
 """The Trace object — the port's user-facing entry point (paper §III).
 
 Mirrors :class:`repro.core.trace.Trace` along the main path: open a trace
-(``Trace.open`` sniffs the format; ``from_events`` wraps a frame), derive
-its structure lazily (enter/leave matching, parents, inclusive/exclusive
-time, message matching) and reduce it with the five kernel-backed ops.
+(``Trace.open`` sniffs the format; ``from_events`` wraps a frame; with
+``streaming=True`` it returns an out-of-core
+:class:`~repro_torch.core.streaming.StreamingTrace`), derive its structure
+lazily (enter/leave matching, parents, inclusive/exclusive time, message
+matching, the calling context tree) and reduce it with the six
+kernel-backed ops.  As in the reference, the op methods and the
+data-reduction methods (``filter``, ``slice_time``, ``filter_processes``)
+are one-step lazy query plans (:mod:`repro_torch.core.query`); chain them
+through :meth:`Trace.query` to fuse selections.
 
 A Trace carries a ``device``: the card (``"cuda"``) unless the caller asks
 for the CPU.  Its op methods run their kernels there unless given another
-``device=``; asking for the card on a machine without one raises.
+``device=``, and its selections keep it; asking for the card on a machine
+without one raises.
 """
 
 from __future__ import annotations
@@ -17,11 +24,17 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import ops_comm, ops_summary, structure  # noqa: F401 — registers ops
+# detectors, ops_comm and ops_summary register the ops every query
+# terminal resolves through the registry
+from . import detectors, ops_comm, ops_summary, structure  # noqa: F401
 from .accel import resolve_device
-from .constants import (EXC, INC, MATCH, MATCH_TS, NAME, PARENT, PROC, TS)
+from .cct import CCT
+from .constants import (CCT_NODE, DEPTH, EXC, INC, MATCH, MATCH_TS, NAME,
+                        PARENT, PROC, TS)
+from .filters import Filter
 from .frame import EventFrame, concat
-from .registry import get_op, list_ops, resolve_reader
+from .query import TraceQuery
+from .registry import resolve_reader
 
 __all__ = ["Trace"]
 
@@ -36,6 +49,7 @@ class Trace:
         self.label = label
         self.device = resolve_device(device)
         self._structured = False
+        self._cct: Optional[CCT] = None
         self._msg_match: Optional[np.ndarray] = None
         self._ingest = None  # IngestReport set by readers (see core.errors)
 
@@ -49,12 +63,32 @@ class Trace:
 
     @classmethod
     def open(cls, path, format: str = "auto", device="cuda",
-             **kw) -> "Trace":
+             streaming: bool = False, chunk_rows: Optional[int] = None,
+             live: bool = False, **kw):
         """Open a trace of any registered format (``format="auto"`` sniffs
         the content).  A list of paths is read as per-location shards, one
         after another, and merged in (process, time) order as the
-        reference's sharded driver merges them."""
+        reference's sharded reader merges them.
+
+        ``streaming=True`` returns a
+        :class:`~repro_torch.core.streaming.StreamingTrace` instead: an
+        out-of-core handle whose ops run chunk by chunk, at most
+        ``chunk_rows`` events in memory per chunk, their kernels on
+        ``device``.  ``live=True`` (live pack shards) and ``processes=``
+        (the parallel executor) are not yet ported (ROADMAP §A.3)."""
         from .. import readers  # noqa: F401 — populates the reader registry
+        if live:
+            raise NotImplementedError(
+                "Trace.open(live=True) needs live pack shards "
+                "(liveset.py, readers/pack.py), which are not yet ported "
+                "(ROADMAP §A.3)")
+        if streaming:
+            from .streaming import DEFAULT_CHUNK_ROWS, StreamingTrace
+            return StreamingTrace(path, format=format,
+                                  chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
+                                  device=device, **kw)
+        if chunk_rows is not None:
+            raise ValueError("chunk_rows only applies with streaming=True")
         if isinstance(path, (list, tuple)):
             frames = [resolve_reader(os.fspath(p), format)
                       .read(os.fspath(p), device=device, **kw).events
@@ -97,7 +131,7 @@ class Trace:
         ev = self.events
         matching, depth, parent, inc, exc = structure.derive_structure(ev)
         ev[MATCH] = matching
-        ev["_depth"] = depth
+        ev[DEPTH] = depth
         ev[PARENT] = parent
         ev[INC] = inc
         ev[EXC] = exc
@@ -110,19 +144,34 @@ class Trace:
         if self._msg_match is None:
             self._msg_match = structure.match_messages(self.events)
 
-    def run(self, op_name: str, *args, device=None, **kwargs):
-        """Run a registered op with its prerequisites materialized, on
-        ``device`` (default: the trace's)."""
-        spec = get_op(op_name)
-        if spec is None:
-            raise ValueError(f"unknown analysis op {op_name!r}; "
-                             f"registered: {list_ops()}")
-        dev = self.device if device is None else resolve_device(device)
-        if spec.needs_structure:
+    @property
+    def cct(self) -> CCT:
+        """The calling context tree, built once (with the structure it
+        needs); each Enter row's node id lands in the ``_cct_node``
+        column."""
+        if self._cct is None:
             self._ensure_structure()
-        if spec.needs_messages:
-            self._ensure_messages()
-        return spec.fn(self, *args, device=dev, **kwargs)
+            self._cct = CCT.build(self.events,
+                                  np.asarray(self.events.column(PARENT),
+                                             np.int64),
+                                  np.asarray(self.events.column(DEPTH)))
+            self.events[CCT_NODE] = self._cct.event_node
+        return self._cct
+
+    # ------------------------------------------------------------------
+    # lazy query plans (§IV-E)
+    # ------------------------------------------------------------------
+    def query(self) -> TraceQuery:
+        """Start a lazy, composable query plan over this trace: chained
+        selections fuse into one mask, derived structure is remapped
+        instead of recomputed when the selection keeps call pairs intact,
+        and registered ops are terminal methods on the returned query."""
+        return TraceQuery.from_trace(self)
+
+    def run(self, op_name: str, *args, device=None, **kwargs):
+        """Run a registered op as a one-step plan, its prerequisites
+        materialized, on ``device`` (default: the trace's)."""
+        return self.query().run(op_name, *args, device=device, **kwargs)
 
     # ------------------------------------------------------------------
     # the kernel-backed ops
@@ -152,3 +201,25 @@ class Trace:
         return self.run("load_imbalance", metric=metric,
                         num_processes=num_processes,
                         top_functions=top_functions, device=device)
+
+    def stragglers(self, threshold: float = 0.2, device=None) -> EventFrame:
+        return self.run("stragglers", threshold=threshold, device=device)
+
+    # ------------------------------------------------------------------
+    # §IV-E data reduction — one-step query plans (structure is remapped
+    # through the selection when call pairs stay intact)
+    # ------------------------------------------------------------------
+    def filter(self, f: Filter) -> "Trace":
+        """Subset trace by a Filter.  Time-window filters built with
+        ``time_window_filter(..., trim="overlap")`` keep the whole call
+        when any part of it overlaps the window."""
+        return self.query().filter(f).collect()
+
+    def slice_time(self, start: float, end: float,
+                   trim: str = "overlap") -> "Trace":
+        """Events whose call interval overlaps [start, end] (default), or
+        whose own timestamp falls inside with trim="within"."""
+        return self.query().slice_time(start, end, trim=trim).collect()
+
+    def filter_processes(self, procs: Sequence[int]) -> "Trace":
+        return self.query().restrict_processes(procs).collect()

@@ -1,13 +1,14 @@
 """Checks and timers for the port's kernels on the card.
 
-``chip_smoke.py``, :mod:`.flash_bench`, :mod:`.trace_bench` and
-``tests/test_torch_gpu.py`` take their gate, their relaunch check, their
-timers and their per-checkout runner from here, so that each is defined
-once.  Importing it needs no card; the timers and :func:`card_line` do.
+``chip_smoke.py``, :mod:`.flash_bench`, :mod:`.trace_bench` and the
+``tests/test_torch_*.py`` files take their gate, their relaunch check,
+their result digest, their timers and their per-checkout runner from
+here, so that each is defined once.  Importing it needs no card; the timers and :func:`card_line` do.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 import subprocess
@@ -16,8 +17,8 @@ from typing import Dict, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["gate", "exact", "same_bits", "cuda_ms", "device_ms",
-           "short_name", "card_line", "ptxas", "run_trees"]
+__all__ = ["gate", "exact", "same_bits", "digest", "cuda_ms",
+           "device_ms", "short_name", "card_line", "ptxas", "run_trees"]
 
 #: profiles :func:`device_ms` takes before it gives up on one that records
 #: no device activity (it happened once in a long ``chip_smoke.py`` run)
@@ -66,6 +67,31 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     false on NaN)."""
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def digest(result) -> str:
+    """SHA-256 over every bit of an op's result — an EventFrame (column
+    names in order, each column's dtype and bytes; list and string cells
+    by their ``repr``), an array, or a tuple of those — so two results
+    have one digest only when they are the same bits."""
+    h = hashlib.sha256()
+
+    def add(x) -> None:
+        if hasattr(x, "columns") and hasattr(x, "column"):
+            for c in x.columns:
+                h.update(repr(c).encode())
+                add(np.asarray(x[c]))
+        elif isinstance(x, tuple):
+            for part in x:
+                add(part)
+        else:
+            a = np.asarray(x)
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(repr(a.tolist()).encode() if a.dtype == object
+                     else np.ascontiguousarray(a).tobytes())
+
+    add(result)
+    return h.hexdigest()
 
 
 def cuda_ms(fn, iters: int, warm: int = 2) -> float:

@@ -29,7 +29,10 @@ values (+inf, 3e9, -0.0 and NaN coordinates; rows of -inf and of values
 at or below -1e30, which select a chosen column again) and on inputs that
 start off the 16-byte boundary.  The three model-kernel wrappers refuse a
 gradient they cannot give: with grad enabled and an input that requires
-grad they raise.
+grad they raise.  The lazy query and streaming routes give, on the card,
+the same bits as the in-memory route on the same selection for each of
+the six kernel-backed ops (``stragglers`` among them), and
+``stragglers`` on the card matches the CPU path within the gate.
 """
 
 import numpy as np
@@ -37,10 +40,11 @@ import pytest
 import torch
 
 from repro_torch import Trace
+from repro_torch.core import NAME, Filter
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
-from repro_torch.launch.cardcheck import gate, same_bits
-from repro_torch.tracegen import big_events
+from repro_torch.launch.cardcheck import digest, gate, same_bits
+from repro_torch.tracegen import big_events, big_trace
 
 pytestmark = pytest.mark.gpu
 
@@ -137,6 +141,69 @@ def test_ops_on_card_match_cpu_path(cuda):
     for c in q.columns:
         np.testing.assert_allclose(p[c], q[c], rtol=1e-4,
                                    atol=1e-6 * float(np.abs(q[c]).max()))
+
+
+ROUTE_OPS = [
+    ("flat_profile", {"metrics": ("time.exc", "time.inc")}),
+    ("flat_profile", {"per_process": True}),
+    ("time_profile", {"num_bins": 16}),
+    ("load_imbalance", {}),
+    ("comm_matrix", {}),
+    ("message_histogram", {"bins": 10}),
+    ("stragglers", {"threshold": -1.0}),
+]
+ROUTE_IDS = [f"{op}-{i}" for i, (op, _) in enumerate(ROUTE_OPS)]
+
+
+def _drop_halo(q):
+    return q.filter(Filter(NAME, "not-in", ["halo_exchange()"]))
+
+
+@pytest.mark.parametrize("op,kw", ROUTE_OPS, ids=ROUTE_IDS)
+def test_query_plan_on_card_equals_eager_selection(cuda, op, kw):
+    """A plan (remap or recompute, then an op) gives on the card the bits
+    of the same selection made eagerly and reduced on the card."""
+    t = Trace.from_events(big_events(nprocs=8, events_per_proc=20_000,
+                                     seed=4), device=cuda)
+    t._ensure_structure()
+    got = _drop_halo(t.query()).run(op, **kw)
+    eager = _drop_halo(t.query()).collect()
+    assert eager.device == cuda
+    assert digest(got) == digest(eager.run(op, **kw))
+    sub = t.query().restrict_processes(range(4)).collect()
+    if op != "comm_matrix":        # rank 3 sends to rank 4, cut out
+        assert digest(t.query().restrict_processes(range(4)).run(op, **kw)) \
+            == digest(sub.run(op, **kw))
+
+
+def test_stragglers_on_card_match_cpu_path(cuda):
+    t = Trace.from_events(big_events(nprocs=64, events_per_proc=2_000,
+                                     seed=4), device=cuda)
+    before = dict(seg_sum.PATH_LAUNCHES)
+    a = t.stragglers(threshold=-1.0)
+    assert seg_sum.PATH_LAUNCHES["private"] == before["private"] + 1
+    b = t.stragglers(threshold=-1.0, device="cpu")
+    assert sorted(np.asarray(a["process"])) == list(range(64))
+    ka, kb = np.argsort(np.asarray(a["process"])), \
+        np.argsort(np.asarray(b["process"]))
+    for c in ("t_start", "t_end"):
+        assert np.array_equal(np.asarray(a[c])[ka], np.asarray(b[c])[kb])
+    gate(np.asarray(a["severity"])[ka], np.asarray(b["severity"])[kb])
+
+
+@pytest.fixture(scope="module")
+def shards(tmp_path_factory):
+    return big_trace(str(tmp_path_factory.mktemp("card_stream")), nprocs=8,
+                     events_per_proc=4_000, calls_per_iter=50, seed=2)
+
+
+@pytest.mark.parametrize("op,kw", ROUTE_OPS, ids=ROUTE_IDS)
+@pytest.mark.parametrize("chunk_rows", [97, 65_536])
+def test_streaming_on_card_equals_eager(cuda, shards, chunk_rows, op, kw):
+    st = Trace.open(shards, streaming=True, chunk_rows=chunk_rows)
+    assert st.device.type == "cuda"
+    eager = Trace.open(shards)
+    assert digest(st.run(op, **kw)) == digest(eager.run(op, **kw))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),

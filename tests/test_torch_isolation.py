@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch import Trace
-from repro_torch.core import accel, ops_comm, ops_summary
+from repro_torch.core import accel, detectors, ops_comm, ops_summary
 from repro_torch.tracegen import big_events
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -75,7 +75,8 @@ def test_trace_defaults_to_the_card_and_raises_without_one(no_cuda):
                                 ops_summary.time_profile,
                                 ops_summary.load_imbalance,
                                 ops_comm.comm_matrix,
-                                ops_comm.message_histogram])
+                                ops_comm.message_histogram,
+                                detectors.stragglers])
 def test_op_without_device_raises_without_a_card(no_cuda, cpu_trace, op):
     with pytest.raises(RuntimeError, match="CUDA"):
         op(cpu_trace)
@@ -84,6 +85,11 @@ def test_op_without_device_raises_without_a_card(no_cuda, cpu_trace, op):
 def test_trace_method_with_cuda_device_raises(no_cuda, cpu_trace):
     with pytest.raises(RuntimeError, match="CUDA"):
         cpu_trace.comm_matrix(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cpu_trace.stragglers(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cpu_trace.query().restrict_processes([0]).flat_profile(
+            device="cuda")
 
 
 def test_adapters_without_device_raise(no_cuda):
