@@ -57,7 +57,34 @@ Phases (any failure raises and exits non-zero):
              gate of the CPU streaming route, counts as in phase 5; three
              op calls again at 4,999 rows a chunk, which splits calls
              across chunks, again the eager bits;
-8. timing  — each trace kernel on the inputs the trace path gave it (its
+   pool    — one spawn pool of ``min(os.cpu_count(), 8)`` workers for
+             phases 8-9, warmed up (its start-up time logged); every
+             worker reports ``torch.cuda.is_initialized()`` false;
+8. pack    — main-10M written as 64 ``big_trace(format="pack")`` shards
+             with structure sidecars (disk space logged first, a
+             temporary directory): ``Trace.open(shards)`` and the seven
+             op calls give phase 5's bits, structure derived once (the
+             merge drops the shards' sidecars), while one shard opened
+             alone derives none; ``scan(shards).filter(Process in 0..7)``
+             reads 8 shards, skips 56, and gives the eager selection's
+             bits;
+             ``Trace.open(shards, streaming=True)``, serial (no structure
+             derived: the sidecar slices) and over the pool, the same
+             bits; counts reset and read per route, each the eager
+             route's launches; one shard re-packed in 16,384-row groups
+             with one flipped byte: ``verify_pack`` names the group, the
+             file with its footer torn is refused under ``strict``,
+             ``skip_chunk`` and ``salvage`` keep every clean group byte
+             for byte;
+9. parallel — stream-1M's jsonl shards, and the same events joined into
+             one file (byte-span units cut calls, so the seam replay
+             runs), through ``processes=`` work units in the pool: each
+             op the eager bits of phase 7 and within the gate of the CPU
+             parallel route, the eager route's launches, every unit off
+             the card; a degradation warning is an error in both phases,
+             and each prints pool start-up, write, open, per-op wall and
+             events/s beside the card's name and power limit;
+10. timing — each trace kernel on the inputs the trace path gave it (its
              first call, and in ``other_calls`` each later call of another
              shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
              ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
@@ -67,7 +94,7 @@ Phases (any failure raises and exits non-zero):
              if its profiler row holds a sort kernel, the ``hist_bin`` row
              the wide path, and fails unless the narrow path is one device
              kernel a call;
-9. serve   — the serving path: ``repro_torch.launch.serve`` serves 8
+11. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
@@ -79,15 +106,15 @@ Phases (any failure raises and exits non-zero):
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
-10. f32    — one ``moe_ffn`` call in float32 at the serving model's
+12. f32    — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
              route, so ``topk_gating`` is launched once, on its narrow
              path, and ``router_topk`` not at all (counts reset just
              before);
-11. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
+13. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-12. timing — each model kernel on the inputs its path gave it, against
+14. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
@@ -103,7 +130,8 @@ call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
 ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
-launches on the query and stream routes (``route_launches``).
+launches on the query, stream, pack and parallel routes
+(``route_launches``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -135,6 +163,11 @@ SERVE = dict(arch=ARCH, requests=8, batch=4, prompt_len=1024,
              new_tokens=16, cache_len=2048, dtype="bfloat16")
 
 
+#: the card's name and power limit (``nvidia-smi``), set by phase 1 and
+#: printed beside every time the pack and parallel phases log
+SMI = ["card not read yet"]
+
+
 def log(*parts) -> None:
     print(*parts, flush=True)
 
@@ -146,7 +179,7 @@ def log(*parts) -> None:
 def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = card_line()
+    smi = SMI[0] = card_line()
     log(f"[device] {name} x{count}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(smi)
@@ -743,7 +776,11 @@ class DeviceTimer:
         return out
 
 
-def run_ops(trace, label: str, timer=None) -> None:
+def run_ops(trace, label: str, timer=None) -> list:
+    """Each op on the card and on the CPU path, within the gate; returns
+    the card results' digests."""
+    from repro_torch.launch.cardcheck import digest
+    digests = []
     for op, kw in OPS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -758,10 +795,12 @@ def run_ops(trace, label: str, timer=None) -> None:
         if timer is not None:
             timer.take_seconds()       # drop what the CPU path's run added
         err = same_result(op, on_card, on_cpu)
+        digests.append(digest(on_card))
         log(f"[{label}] {op:17s} {json.dumps(kw, default=str):40s} "
             f"card wall {wall:.4f} s = kernels {kern:.4f} s + host "
             f"{wall - kern:.4f} s (canonical sort {sort:.4f} s) | cpu path "
             f"{cpu_wall:.3f} s | max_abs_err {err:.6g}")
+    return digests
 
 
 def phase_reader() -> None:
@@ -821,8 +860,8 @@ def phase_main():
         f"generate {gen_s:.2f} s, structure {struct_s:.2f} s (host)")
     reset_counts()
     with DeviceTimer(kernels.TRACE_KERNELS) as timer:
-        run_ops(trace, "main", timer)
-    return trace, check_counts("main"), timer.calls()
+        digests = run_ops(trace, "main", timer)
+    return trace, check_counts("main"), timer.calls(), digests
 
 
 # ---------------------------------------------------------------------------
@@ -918,10 +957,11 @@ def phase_query(trace) -> dict:
     return launches
 
 
-def phase_stream() -> dict:
+def phase_stream():
     """``Trace.open(..., streaming=True)`` over jsonl shards on the card:
     each op the bits of ``Trace.open(paths)`` on the card, and within the
-    gate of the CPU streaming route."""
+    gate of the CPU streaming route.  Returns the launches and the eager
+    results' digests."""
     import tempfile
 
     from repro_torch import Trace
@@ -944,12 +984,14 @@ def phase_stream() -> dict:
         log(f"[stream] {len(eager)} events in {len(paths)} jsonl shards: "
             f"written in {write_s:.2f} s; eager open + structure "
             f"{open_s:.2f} s; chunks of {STREAM_CHUNK_ROWS} rows")
+        wants = []
         for (op, kw), (res, wall) in zip(OPS, streamed):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             want = eager.run(op, **kw)
             torch.cuda.synchronize()
             eager_s = time.perf_counter() - t0
+            wants.append(digest(want))
             t0 = time.perf_counter()
             on_cpu = st.run(op, device="cpu", **kw)
             cpu_s = time.perf_counter() - t0
@@ -973,11 +1015,299 @@ def phase_stream() -> dict:
             if not same:
                 raise AssertionError(f"stream {op} at {SEAM_CHUNK_ROWS} "
                                      f"rows a chunk: not the eager bits")
+    return launches, wants
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the pack and parallel work-unit routes
+# ---------------------------------------------------------------------------
+
+#: the pack phase's shards: main-10M's events as 64 ``rank_<p>.pack``
+#: files with structure sidecars
+PACK = dict(MAIN, calls_per_iter=500, format="pack")
+#: bytes a main-10M event takes in a pack: event columns (ts i8, et i1,
+#: name / proc i4, size f8, partner / tag i4) and sidecar (matching i8,
+#: depth i4, parent i8, inc f8, exc f8)
+PACK_BYTES_PER_EVENT = 37 + 36
+#: the corruption check re-packs one shard in groups of this many rows
+DAMAGE_GROUP_ROWS = 16_384
+#: the scan check's plan: the first 8 of 64 ranks
+SCAN_RANKS = range(8)
+
+
+def _worker_ready(_):
+    """Run in each spawn worker: import the port, report whether CUDA was
+    initialized there (it never should be)."""
+    import repro_torch.core.executor  # noqa: F401
+    return torch.cuda.is_initialized()
+
+
+def start_pool():
+    """One spawn pool of ``min(os.cpu_count(), 8)`` workers for the pooled
+    routes, warmed up: (pool, workers, start-up seconds)."""
+    from repro_torch.parallel_util import SharedPool
+    workers = min(os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    pool = SharedPool(workers)
+    ready = pool.map(_worker_ready, range(4 * workers))
+    start_s = time.perf_counter() - t0
+    if any(ready):
+        raise AssertionError("a pool worker initialized CUDA on start-up")
+    log(f"[pool] {workers} spawn workers (os.cpu_count() = "
+        f"{os.cpu_count()}) started and warm in {start_s:.2f} s "
+        f"(each imports torch and the port) | {SMI[0]}")
+    return pool, workers, start_s
+
+
+def _route_bits(label, route, ops, run, wants, n_events, expect,
+                pooled=None) -> list:
+    """``run(op, kw)`` for each op on the card, counts reset before and
+    read after: each result the bits of ``wants``, every kernel launched
+    ``expect`` times on its path; per-op wall and events/s logged.  For
+    a ``pooled`` handle, each op must have run over 2 or more units, none
+    of which initialized CUDA.  Returns (results, launches)."""
+    import warnings
+
+    from repro_torch.launch.cardcheck import digest
+
+    def pooled_run(op, kw):
+        pooled.units_cuda = []
+        res = run(op, kw)
+        if len(pooled.units_cuda) < 2 or any(pooled.units_cuda):
+            raise AssertionError(f"{label} {route} {op}: the units' "
+                                 f"torch.cuda.is_initialized() "
+                                 f"{pooled.units_cuda}")
+        return res
+
+    reset_counts()
+    with warnings.catch_warnings():
+        # a run that fell back to serial cannot pass as a parallel one
+        warnings.filterwarnings("error", message="parallel streaming",
+                                category=RuntimeWarning)
+        results = _route(ops, run if pooled is None else pooled_run)
+    launches = check_counts(f"{label} {route}")
+    if launches != expect:
+        raise AssertionError(f"{label} {route}: launches {launches}, the "
+                             f"eager route's are {expect}")
+    for (op, kw), (res, wall), want in zip(ops, results, wants):
+        same = digest(res) == want
+        log(f"[{label}] {route:16s} {op:17s} "
+            f"{json.dumps(kw, default=str):34s} wall {wall:.3f} s, "
+            f"{n_events / wall:,.0f} events/s | bits "
+            f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+        if not same:
+            raise AssertionError(f"{label} {route} {op}: not the eager "
+                                 f"bits")
+    return [r for r, _w in results], launches
+
+
+def phase_pack(main_digests, main_launches, pool, workers) -> dict:
+    """main-10M as 64 pack shards: the eager, serial-streamed and pooled
+    routes give phase 5's bits, ``scan`` skips the shards its plan
+    excludes, and a damaged shard is refused, dropped and salvaged.
+    Returns each route's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import Trace
+    from repro_torch.core import PROC, Filter, structure
+    from repro_torch.core.query import scan
+    from repro_torch.launch.cardcheck import digest
+    from repro_torch.readers import pack, parallel
+    from repro_torch.tracegen import big_trace
+    n_events = MAIN["nprocs"] * MAIN["events_per_proc"]  # about; exact below
+    need = n_events * PACK_BYTES_PER_EVENT
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        log(f"[pack] {d}: {free / 1e9:.2f} GB free, the shards need about "
+            f"{need / 1e9:.2f} GB")
+        if free < 1.5 * need:
+            raise RuntimeError(f"pack phase: {free / 1e9:.2f} GB free in "
+                               f"{d}, need about {1.5 * need / 1e9:.2f} GB")
+        t0 = time.perf_counter()
+        shards = big_trace(os.path.join(d, "pack"), **PACK)
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in shards)
+        n_events = sum(pack.read_footer(p)["rows"] for p in shards)
+        log(f"[pack] wrote {len(shards)} shards, {n_events} events, "
+            f"{size / 1e6:.1f} MB with sidecars, in {write_s:.2f} s | "
+            f"{SMI[0]}")
+
+        # eager: the open, then the seven op calls.  Merging the shards
+        # renumbers their rows, so the sidecars are dropped and the first
+        # op derives structure, once
+        derive0 = structure.DERIVE_CALLS
+        t0 = time.perf_counter()
+        eager = Trace.open(shards, device="cuda")
+        open_s = time.perf_counter() - t0
+        if len(eager) != n_events:
+            raise AssertionError(f"pack open: {len(eager)} events")
+        log(f"[pack] eager open of {len(shards)} shards: {len(eager)} "
+            f"events in {open_s:.2f} s, {len(eager) / open_s:,.0f} "
+            f"events/s | {SMI[0]}")
+        launches = {}
+        _res, launches["pack eager"] = _route_bits(
+            "pack", "eager", OPS, lambda op, kw: eager.run(op, **kw),
+            main_digests, n_events, main_launches)
+        derived = structure.DERIVE_CALLS - derive0
+        if derived != 1:
+            raise AssertionError(f"the eager sharded pack route derived "
+                                 f"structure {derived} times, not once")
+        # one shard opened alone: its sidecar is its structure
+        derive0 = structure.DERIVE_CALLS
+        t0 = time.perf_counter()
+        one = Trace.open(shards[0], device="cuda")
+        one.flat_profile()
+        one_s = time.perf_counter() - t0
+        if structure.DERIVE_CALLS != derive0:
+            raise AssertionError("a single pack shard with its sidecar "
+                                 "derived structure")
+        log(f"[pack] eager route: structure derived once, at the first op; "
+            f"one shard ({len(one)} events) opened alone with its sidecar "
+            f"and profiled in {one_s:.3f} s, no structure derived | "
+            f"{SMI[0]}")
+        del one
+
+        # the scan: 8 of 64 shards read, the eager selection's bits
+        sel = Filter(PROC, "in", list(SCAN_RANKS))
+        kept = parallel.select_shards(shards, procs=set(SCAN_RANKS))
+        t0 = time.perf_counter()
+        q = scan(shards).filter(sel)
+        got = q.flat_profile()
+        scan_s = time.perf_counter() - t0
+        sub = q.collect()
+        want = eager.query().filter(sel).collect().flat_profile()
+        same = digest(got) == digest(want)
+        log(f"[pack] scan(...).filter(Process in 0..7).flat_profile(): "
+            f"{scan_s:.3f} s, {len(shards) - len(kept)} of {len(shards)} "
+            f"shards skipped unread (read: {sub.label}) | bits "
+            f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+        if not same or len(kept) != len(SCAN_RANKS) or \
+                sub.label != f"parallel[{len(SCAN_RANKS)}]":
+            raise AssertionError("scan: wrong bits or shards")
+        del eager, _res, sub
+
+        # streamed, serial then pooled: sidecar slices, no derivation
+        st = Trace.open(shards, streaming=True, device="cuda")
+        derive0 = structure.DERIVE_CALLS
+        _res, launches["pack streamed"] = _route_bits(
+            "pack", "streamed", OPS, lambda op, kw: st.run(op, **kw),
+            main_digests, n_events, main_launches)
+        if structure.DERIVE_CALLS != derive0:
+            raise AssertionError("the streamed pack route derived "
+                                 "structure")
+        pst = Trace.open(shards, streaming=True, device="cuda",
+                         processes=workers)
+        pst._pool = pool
+        _res, launches["pack pooled"] = _route_bits(
+            "pack", f"pooled x{workers}", OPS,
+            lambda op, kw: pst.run(op, **kw), main_digests, n_events,
+            main_launches, pooled=pst)
+
+        # corruption: one shard re-packed in groups, one byte flipped
+        good = os.path.join(d, "groups.pack")
+        Trace.open(shards[0], device="cpu").save_pack(
+            good, chunk_rows=DAMAGE_GROUP_ROWS)
+        _damage_check(pack, good, d)
+    return launches
+
+
+def _damage_check(pack, good, d) -> None:
+    """A flipped byte in an interior group: ``verify_pack`` names it,
+    ``skip_chunk`` drops exactly its rows, the file with its footer torn
+    off is refused under ``strict`` and ``salvage`` recovers every other
+    group byte for byte."""
+    import warnings
+
+    from repro_torch.core.constants import NAME, PROC, TS
+    chunks = pack.read_footer(good)["chunks"]
+    victim = chunks[len(chunks) // 2]
+    with open(good, "rb") as f:
+        raw = bytearray(f.read())
+    raw[victim["offset"] + 7] ^= 0x10
+    flip, torn = os.path.join(d, "flip.pack"), os.path.join(d, "torn.pack")
+    with open(flip, "wb") as f:
+        f.write(raw)
+    end = max(c["offset"] + c["nbytes"] + c["tlen"] + 16 for c in chunks)
+    with open(torn, "wb") as f:
+        f.write(raw[:end + 5])
+    rep = pack.verify_pack(flip)
+    bad = [g["offset"] for g in rep["chunks_bad"]]
+    if bad != [victim["offset"]]:
+        raise AssertionError(f"verify_pack: bad groups {bad}")
+    whole = pack.read_pack(good, device="cpu").events
+    keep = np.ones(len(whole), bool)
+    keep[victim["lo"]:victim["hi"]] = False
+    try:
+        pack.read_pack(torn, device="cpu")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("strict opened a pack with a torn footer")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        dropped = pack.read_pack(flip, on_error="skip_chunk",
+                                 device="cpu").events
+        salvaged = pack.read_pack(torn, on_error="salvage",
+                                  device="cpu").events
+    for label, ev in (("skip_chunk", dropped), ("salvage", salvaged)):
+        for c in (TS, PROC):
+            if not np.array_equal(np.asarray(ev[c]),
+                                  np.asarray(whole[c])[keep]):
+                raise AssertionError(f"{label}: column {c} differs")
+        if not np.array_equal(ev[NAME], whole[NAME][keep]):
+            raise AssertionError(f"{label}: names differ")
+    log(f"[pack] damage: {len(chunks)} groups of {DAMAGE_GROUP_ROWS} rows, "
+        f"one byte flipped in group {chunks.index(victim)}: verify_pack "
+        f"names it; strict refuses the torn file ({refused[:60]}...); "
+        f"skip_chunk keeps {len(dropped)} rows and salvage {len(salvaged)}"
+        f" of {len(whole)}, every clean group byte for byte")
+
+
+def phase_parallel(wants, pool, workers) -> dict:
+    """stream-1M's jsonl shards, and the same events as one file, through
+    ``processes=`` work units in a spawn pool on the card: each op the
+    eager bits, within the gate of the CPU parallel route, every trace
+    kernel launched as on the eager route, no worker on the card.
+    Returns each route's launches."""
+    import tempfile
+
+    from repro_torch import Trace
+    from repro_torch.tracegen import big_trace
+    expect = {"seg_sum": 2, "pair_sum": 3, "time_bin": 1, "hist_bin": 1}
+    with tempfile.TemporaryDirectory() as d:
+        paths = big_trace(d, **STREAM)
+        joined = os.path.join(d, "joined.jsonl")
+        with open(joined, "wb") as out:
+            for p in paths:
+                with open(p, "rb") as f:
+                    out.write(f.read())
+        with open(joined, "rb") as f:
+            n_events = sum(1 for _ in f)
+        log(f"[parallel] {n_events} events in {len(paths)} jsonl shards "
+            f"and one joined file ({os.path.getsize(joined) / 1e6:.1f} MB), "
+            f"{workers} workers")
+        launches = {}
+        for route, src in (("shards", paths), ("one file", joined)):
+            st = Trace.open(src, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+                            device="cuda", processes=workers)
+            st._pool = pool
+            res, launches[f"parallel {route}"] = _route_bits(
+                "parallel", f"{route} x{workers}", OPS,
+                lambda op, kw: st.run(op, **kw), wants, n_events, expect,
+                pooled=st)
+            for (op, kw), r in zip(OPS, res):
+                t0 = time.perf_counter()
+                on_cpu = st.run(op, device="cpu", **kw)
+                cpu_s = time.perf_counter() - t0
+                err = same_result(op, r, on_cpu)
+                log(f"[parallel] {route:8s} {op:17s} cpu parallel route "
+                    f"{cpu_s:.3f} s, max_abs_err {err:.6g} | {SMI[0]}")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing on the main path's inputs
+# phase 10: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 
 def _bound(bytes_moved: float, ops: float):
@@ -1143,7 +1473,7 @@ def _path_prev(mod, name, args, kw, path, check) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-9: the serving path
+# phases 11-14: the serving path
 # ---------------------------------------------------------------------------
 
 def phase_serve():
@@ -1525,9 +1855,16 @@ def main() -> int:
     phase_kernels()
     phase_model_kernels()
     phase_reader()
-    trace, launches, calls = phase_main()
-    routes = {"query": phase_query(trace), "stream": phase_stream()}
+    trace, launches, calls, main_digests = phase_main()
+    stream_launches, stream_wants = phase_stream()
+    routes = {"query": phase_query(trace), "stream": stream_launches}
     del trace
+    pool, workers, _start_s = start_pool()
+    try:
+        routes.update(phase_pack(main_digests, launches, pool, workers))
+        routes.update(phase_parallel(stream_wants, pool, workers))
+    finally:
+        pool.close()
     rows = phase_timing(launches, calls, routes)
     serve_launches, serve_inputs = phase_serve()
     f32_launches, f32_inputs = phase_f32_router()

@@ -77,12 +77,22 @@ def canonical_order(start, end, proc, code, value) -> np.ndarray:
                        np.asarray(start, np.float64)))
 
 
+def _host(x, dtype) -> torch.Tensor:
+    """``x`` as a contiguous host tensor of ``dtype``.  A read-only array
+    (a pack column mapped from disk) is copied first: ``torch.from_numpy``
+    would otherwise share, and warn about, memory it cannot write."""
+    a = np.ascontiguousarray(x, dtype)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
 def _ids(x, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+    return _host(x, np.int32).to(dev)
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    return _host(x, np.float32).to(dev)
 
 
 def seg_sum(code: np.ndarray, values: np.ndarray, n_seg: int,

@@ -207,6 +207,7 @@ class _StragglerAgg(StreamAgg):
     op's one ``seg_sum`` call."""
 
     needs_calls = True
+    supports_parallel = True
 
     def __init__(self, threshold: float = 0.2, device="cuda"):
         self.threshold = float(threshold)
@@ -219,15 +220,28 @@ class _StragglerAgg(StreamAgg):
     def update(self, chunk) -> None:
         ev = chunk.events
         proc = np.asarray(ev[PROC], np.int64)
-        np_ = int(proc.max()) + 1
-        self._t0 = grow_to(self._t0, (np_,), fill=_T_MAX)
-        self._t1 = grow_to(self._t1, (np_,), fill=_T_MIN)
-        ts = np.asarray(ev[TS], np.int64)
-        np.minimum.at(self._t0, proc, ts)
-        np.maximum.at(self._t1, proc, ts)
+        if len(proc):  # a seam block of the parallel merge has no events
+            self._widen(int(proc.max()) + 1)
+            ts = np.asarray(ev[TS], np.int64)
+            np.minimum.at(self._t0, proc, ts)
+            np.maximum.at(self._t1, proc, ts)
         calls = chunk.calls
         keep = ~self._classes.mask(chunk.names)[calls.name]
         self._recs.add(calls, np.nan_to_num(calls.exc), keep)
+
+    def _widen(self, nprocs: int) -> None:
+        self._t0 = grow_to(self._t0, (nprocs,), fill=_T_MAX)
+        self._t1 = grow_to(self._t1, (nprocs,), fill=_T_MIN)
+
+    def merge_from(self, other, code_map) -> None:
+        """Per-rank bounds by min and max, records appended (a unit's
+        records were kept by its own name classes, the same names')."""
+        n = len(other._t0)
+        if n:
+            self._widen(n)
+            np.minimum(self._t0[:n], other._t0, out=self._t0[:n])
+            np.maximum(self._t1[:n], other._t1, out=self._t1[:n])
+        self._recs.merge(other._recs, code_map)
 
     def result(self, ctx) -> EventFrame:
         nprocs = ctx.num_processes

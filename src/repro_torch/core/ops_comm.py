@@ -121,7 +121,11 @@ def _histogram(sizes, bins: int, device) -> Tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 class _SendsAgg(StreamAgg):
-    """Send records of every chunk, kept for one kernel call at the end."""
+    """Send records of every chunk, kept for one kernel call at the end; a
+    later work unit's records merge in after this state's (they carry no
+    name codes)."""
+
+    supports_parallel = True
 
     def __init__(self, output: str, device):
         self.output = output
@@ -132,6 +136,9 @@ class _SendsAgg(StreamAgg):
         s = _sends(chunk.events, self.output)
         if s is not None:
             self._parts.append(s)
+
+    def merge_from(self, other, code_map) -> None:
+        self._parts.extend(other._parts)
 
     def sends(self):
         """(sender, partner, weight, timestamp) over the stream, or None."""

@@ -300,9 +300,11 @@ class _FlatProfileAgg(StreamAgg):
     per chunk (exact int64), and the completed-call records buffered for
     the in-memory op's one ``seg_sum`` (or ``pair_sum``) call.  A name with
     a call left open at the end gets a total of 0, as an unmatched enter's
-    NaN gives it in memory."""
+    NaN gives it in memory.  A work unit's state merges into another's by
+    remapping its name codes (:meth:`merge_from`)."""
 
     needs_calls = True
+    supports_parallel = True
 
     def __init__(self, metrics: Sequence[str] = (EXC,),
                  groupby_column: str = NAME, per_process: bool = False,
@@ -336,6 +338,20 @@ class _FlatProfileAgg(StreamAgg):
             self._counts = grow_to(self._counts, (nf,))
             np.add.at(self._counts, codes, 1)
 
+    def merge_from(self, other, code_map) -> None:
+        """Counts added at the merged codes (a unit's local codes map to
+        distinct merged ones), records appended after this state's."""
+        self._recs.merge(other._recs, code_map)
+        c = other._counts
+        rows = min(c.shape[0], len(code_map))
+        if rows == 0:
+            return
+        dst = code_map[:rows]
+        shape = (int(dst.max()) + 1,) + c.shape[1:]
+        self._counts = grow_to(self._counts, shape)
+        self._counts[(dst,) + tuple(slice(0, n) for n in c.shape[1:])] += \
+            c[:rows]
+
     def result(self, ctx) -> EventFrame:
         nf = len(ctx.names)
         names_alpha, order, inv = accel.alpha_positions(ctx.names.names)
@@ -365,6 +381,7 @@ class _TimeProfileAgg(StreamAgg):
     buffered for its one ``time_bin`` call."""
 
     needs_calls = True
+    supports_parallel = True
 
     def __init__(self, num_bins: int = 32, metric: str = EXC,
                  normalized: bool = False, device="cuda"):
@@ -378,9 +395,15 @@ class _TimeProfileAgg(StreamAgg):
 
     def update(self, chunk) -> None:
         ts = np.asarray(chunk.events[TS], np.float64)
-        self._t0 = min(self._t0, float(ts.min()))
-        self._t1 = max(self._t1, float(ts.max()))
+        if len(ts):  # a seam block of the parallel merge has no events
+            self._t0 = min(self._t0, float(ts.min()))
+            self._t1 = max(self._t1, float(ts.max()))
         self._recs.add(chunk.calls, call_metric(chunk.calls, self.metric))
+
+    def merge_from(self, other, code_map) -> None:
+        self._t0 = min(self._t0, other._t0)
+        self._t1 = max(self._t1, other._t1)
+        self._recs.merge(other._recs, code_map)
 
     def result(self, ctx) -> EventFrame:
         if self._t0 > self._t1:
@@ -401,6 +424,7 @@ class _LoadImbalanceAgg(StreamAgg):
     the in-memory op's one ``pair_sum`` call (function × rank totals)."""
 
     needs_calls = True
+    supports_parallel = True
 
     def __init__(self, metric: str = EXC, num_processes: int = 5,
                  top_functions: Optional[int] = None, device="cuda"):
@@ -413,6 +437,9 @@ class _LoadImbalanceAgg(StreamAgg):
 
     def update(self, chunk) -> None:
         self._recs.add(chunk.calls, call_metric(chunk.calls, self.metric))
+
+    def merge_from(self, other, code_map) -> None:
+        self._recs.merge(other._recs, code_map)
 
     def result(self, ctx) -> EventFrame:
         names_alpha, _order, inv = accel.alpha_positions(ctx.names.names)

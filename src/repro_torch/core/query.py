@@ -25,10 +25,11 @@ executes it on the first terminal op:
 Mirrors :mod:`repro.core.query`.  Selections happen on the host and keep
 the source trace's ``device``, so a sub-trace never changes device behind
 the caller's back.  Plans over a
-:class:`~repro_torch.core.streaming.StreamingTrace` execute chunk by chunk.
-Not yet ported: plans over unread shards (``scan``, which needs
-``readers/parallel.py``, ROADMAP §A.3) and the plan-result cache
-(``run(cache=True)``, ROADMAP §A.4).
+:class:`~repro_torch.core.streaming.StreamingTrace` execute chunk by chunk;
+plans over unread shards (:func:`scan`) read them at collect time, after
+the plan's process restriction is known, so shards it excludes are never
+parsed.  Not yet ported: the plan-result cache (``run(cache=True)``,
+ROADMAP §A.4).
 
 Example::
 
@@ -41,6 +42,7 @@ Example::
 
 from __future__ import annotations
 
+import os
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,6 +81,10 @@ class Step:
     def mask(self, trace) -> np.ndarray:
         raise NotImplementedError
 
+    def proc_hint(self):
+        """(bounds, explicit_set) restriction this step puts on Process."""
+        return None, None
+
     def describe(self) -> str:
         raise NotImplementedError
 
@@ -95,6 +101,9 @@ class FilterStep(Step):
 
     def mask(self, trace) -> np.ndarray:
         return np.asarray(self.filter.mask(trace.events), bool)
+
+    def proc_hint(self):
+        return self.filter.process_bounds(), None
 
     def describe(self) -> str:
         return f"filter {self.filter!r}"
@@ -125,6 +134,9 @@ class ProcessStep(Step):
 
     def mask(self, trace) -> np.ndarray:
         return np.isin(np.asarray(trace.events[PROC], np.int64), self.procs)
+
+    def proc_hint(self):
+        return None, frozenset(int(p) for p in self.procs)
 
     def describe(self) -> str:
         return f"restrict_processes {list(map(int, self.procs))}"
@@ -317,7 +329,7 @@ class _TraceSource:
         self.trace = trace
         self.device = trace.device
 
-    def load(self):
+    def load(self, procs=None, proc_bounds=None):
         return self.trace
 
     def describe(self) -> str:
@@ -334,13 +346,38 @@ class _StreamSource:
         self.handle = handle
         self.device = handle.device
 
-    def load(self):
-        return self.handle.load_raw()
+    def load(self, procs=None, proc_bounds=None):
+        return self.handle.load_raw(procs=procs, proc_bounds=proc_bounds)
 
     def describe(self) -> str:
         h = self.handle
         return (f"stream({len(h.paths)} path(s), format={h.format!r}, "
                 f"chunk_rows={h.chunk_rows})")
+
+
+class _ScanSource:
+    """Deferred sharded ingest: the paths are read (in a spawn pool when
+    ``processes`` > 1) at collect time, after the plan's process
+    restriction is known, so excluded shards are never parsed."""
+
+    def __init__(self, paths: Sequence[str], format: str = "auto",
+                 processes: Optional[int] = None, label: Optional[str] = None,
+                 device="cuda"):
+        self.paths = list(paths)
+        self.format = format
+        self.processes = processes
+        self.label = label
+        self.device = resolve_device(device)
+
+    def load(self, procs=None, proc_bounds=None):
+        from ..readers.parallel import read_parallel
+        return read_parallel(self.paths, kind=self.format,
+                             processes=self.processes, label=self.label,
+                             procs=procs, proc_bounds=proc_bounds,
+                             device=self.device)
+
+    def describe(self) -> str:
+        return f"scan({len(self.paths)} shard(s), format={self.format!r})"
 
 
 # ---------------------------------------------------------------------------
@@ -385,12 +422,19 @@ class TraceQuery:
 
     # -- planner introspection --------------------------------------------
     def explain(self) -> str:
-        """Human-readable plan: its fused segments.
+        """Human-readable plan: fused segments and pushdown restrictions.
 
         Mirrors collect()'s barrier decisions; a barrier that depends on
         runtime state (unmatched calls in the frame) is marked conditional.
         """
+        from .streaming import _steps_hints
         lines = [f"source: {self._source.describe()}"]
+        hints = _steps_hints(self._steps)
+        bounds, pset = hints.proc_bounds, hints.procs
+        if isinstance(self._source, _ScanSource) and (bounds or
+                                                      pset is not None):
+            lines.append(f"pushdown: procs={sorted(pset) if pset else None} "
+                         f"bounds={bounds}")
         seg = 0
         pending = False
         pair_preserving = True
@@ -442,7 +486,10 @@ class TraceQuery:
         change with the selection, and the eager chain sees the recomputed
         ones.
         """
-        cur = self._source.load()
+        from .streaming import _steps_hints
+        hints = _steps_hints(self._steps)
+        cur = self._source.load(procs=hints.procs,
+                                proc_bounds=hints.proc_bounds)
         if len(cur.events) == 0 and self._steps:
             # nothing to select from (e.g. every shard skipped); still hand
             # back a fresh Trace — selection must never alias its source
@@ -520,10 +567,13 @@ class TraceQuery:
 
 
 def scan(paths, format: str = "auto", processes: Optional[int] = None,
-         label: Optional[str] = None) -> TraceQuery:
-    """A query over unread shards, which skips the shards a plan's process
-    restriction excludes: not yet ported (ROADMAP §A.3)."""
-    raise NotImplementedError(
-        "scan(): plans over unread shards need readers/parallel.py, which "
-        "is not yet ported (ROADMAP §A.3); open the shards with "
-        "Trace.open(paths) or Trace.open(paths, streaming=True)")
+         label: Optional[str] = None, device="cuda") -> TraceQuery:
+    """A query over on-disk shards that reads none of them yet: ``paths``
+    is one path or a sequence of per-location shards, and the shards the
+    plan's process restriction excludes are skipped before parsing.  The
+    plan's ops run their kernels on ``device``."""
+    if isinstance(paths, (str, bytes)) or hasattr(paths, "__fspath__"):
+        paths = [paths]
+    return TraceQuery(_ScanSource([os.fspath(p) for p in paths],
+                                  format=format, processes=processes,
+                                  label=label, device=device))

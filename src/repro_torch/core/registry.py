@@ -11,26 +11,102 @@ The port has no backend table: each op has one implementation, which runs
 its kernels on the ``device=`` it is given.  An op may also declare a
 streaming form (:func:`register_streaming`), and a reader a chunked one
 (``iter_chunks``), which the out-of-core executor
-(:mod:`repro_torch.core.streaming`) drives.  Shard skipping and parse
-pushdown (``shard_procs``, ``PlanHints``, work-unit planners) are not
-ported yet (ROADMAP §A.3): every chunk is read whole and masked by the
-plan.  This module imports nothing of the trace or query layers, so every
-module can import it without cycles.
+(:mod:`repro_torch.core.streaming`) drives, a per-shard process hint
+(``shard_procs``: shards a process-restricted plan cannot need are skipped
+before parsing) and a work-unit planner (``plan_units``: :class:`ByteSpan`
+or :class:`RowSpan` units for the parallel executor,
+:mod:`repro_torch.core.executor`).  A plan hands chunked readers its
+process and time-window restriction as :class:`PlanHints`.  This module
+imports nothing of the trace or query layers, so every module can import
+it without cycles.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass, replace
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
-                    Tuple)
+                    Set, Tuple)
 
 from .errors import TraceReadError
 
 __all__ = ["OpSpec", "register_op", "register_streaming", "get_op",
            "list_ops", "terminal_op", "ReaderSpec",
-           "register_reader", "register_chunked", "get_reader",
-           "list_readers", "sniff_format", "resolve_reader"]
+           "register_reader", "register_chunked", "register_units",
+           "get_reader", "list_readers", "sniff_format", "resolve_reader",
+           "rank_shard_procs", "PlanHints", "ByteSpan", "RowSpan",
+           "even_edges", "even_groups"]
+
+
+@dataclass(frozen=True)
+class PlanHints:
+    """Pushdown hints a query plan hands to a chunked reader.
+
+    Every field is advisory: a reader may drop rows or chunks that provably
+    cannot satisfy the hints, or ignore them — the streaming executor
+    re-applies the plan's fused mask to every chunk.
+
+    * ``procs`` — explicit set of process ids the plan restricts to;
+    * ``proc_bounds`` — inclusive ``[lo, hi]`` bound on process ids;
+    * ``time_window`` — inclusive ``[t0, t1]`` ns window holding every
+      surviving row's own timestamp (only ``trim="within"`` windows).
+    """
+
+    procs: Optional[frozenset] = None
+    proc_bounds: Optional[Tuple[float, float]] = None
+    time_window: Optional[Tuple[float, float]] = None
+
+    def admits_proc(self, p: int) -> bool:
+        if self.procs is not None and p not in self.procs:
+            return False
+        if self.proc_bounds is not None and not (
+                self.proc_bounds[0] <= p <= self.proc_bounds[1]):
+            return False
+        return True
+
+
+# ---------------------------------------------------------------------------
+# parallel work units
+# ---------------------------------------------------------------------------
+
+def even_edges(lo: int, hi: int, n: int) -> List[int]:
+    """n+1 monotone edges splitting [lo, hi) into ~equal integer spans."""
+    return [lo + (hi - lo) * i // n for i in range(n + 1)]
+
+
+def even_groups(seq: Sequence, n: int) -> List[Tuple]:
+    """Split ``seq`` into up to ``n`` contiguous non-empty tuples of ~equal
+    length, in order."""
+    seq = list(seq)
+    out = []
+    for k in range(n):
+        part = tuple(seq[len(seq) * k // n: len(seq) * (k + 1) // n])
+        if part:
+            out.append(part)
+    return out
+
+
+@dataclass(frozen=True)
+class ByteSpan:
+    """One byte range of a line-oriented trace file: a work unit whose
+    reader keeps the records whose first byte lies in ``[lo, hi)``, so
+    spans planned over one file partition its records exactly."""
+
+    path: str
+    lo: int
+    hi: int
+
+
+@dataclass(frozen=True)
+class RowSpan:
+    """One row range ``[lo, hi)`` of a random-access columnar file (a
+    pipitpack): the reader slices rows directly, so spans partition the
+    rows by construction."""
+
+    path: str
+    lo: int
+    hi: int
 
 
 @dataclass(frozen=True)
@@ -46,6 +122,10 @@ class OpSpec:
     #: (:class:`repro_torch.core.streaming.StreamAgg`) for out-of-core
     #: execution, or None when the op needs a materialized trace
     streaming: Optional[Callable[..., Any]] = None
+    #: True when the streaming aggregator also declares a cross-worker
+    #: merge (``supports_parallel`` and ``merge_from``): the parallel
+    #: executor fans such ops over work units
+    parallel_safe: bool = False
 
 
 _OP_REGISTRY: Dict[str, OpSpec] = {}
@@ -68,7 +148,8 @@ def register_streaming(op_name: str) -> Callable:
     """Decorator declaring ``op_name``'s streaming (combinable) form: the
     decorated factory, called with the op's own ``(*args, **kwargs)``
     (``device=`` included), returns a streaming aggregator whose result
-    reproduces the in-memory op."""
+    reproduces the in-memory op.  A factory carrying ``supports_parallel =
+    True`` and a ``merge_from`` method marks the op parallel-safe."""
 
     def deco(factory: Callable) -> Callable:
         spec = _OP_REGISTRY.get(op_name)
@@ -76,7 +157,10 @@ def register_streaming(op_name: str) -> Callable:
             raise ValueError(
                 f"cannot declare streaming form of unregistered op "
                 f"{op_name!r}; register the op first")
-        _OP_REGISTRY[op_name] = replace(spec, streaming=factory)
+        par = bool(getattr(factory, "supports_parallel", False)
+                   and getattr(factory, "merge_from", None) is not None)
+        _OP_REGISTRY[op_name] = replace(spec, streaming=factory,
+                                        parallel_safe=par)
         return factory
 
     return deco
@@ -117,17 +201,24 @@ class ReaderSpec:
     """A registered trace-format reader: ``read(path, **kw)`` returns a
     Trace; ``sniff(path, head)`` gets the path and the first few KB of
     file text and returns True when the content is this format.
-    ``iter_chunks(path, chunk_rows, **kw)`` optionally yields
-    successive EventFrames of at most ``chunk_rows`` events without
-    holding the whole file; formats without one stream a whole-file read
-    sliced into chunks."""
+    ``shard_procs(path)`` optionally returns the process ids a shard holds
+    (None when unknown): shards a process-restricted plan cannot need are
+    skipped before parsing.  ``iter_chunks(path, chunk_rows, hints,
+    **kw)`` optionally yields successive EventFrames of at most
+    ``chunk_rows`` events without holding the whole file (``hints``: the
+    plan's :class:`PlanHints`, advisory); formats without one stream a
+    whole-file read sliced into chunks.  ``plan_units(path, n_units)``
+    optionally splits one file into up to ``n_units`` work units for the
+    parallel executor (None: the file is one unit)."""
 
     name: str
     read: Callable[..., Any]
     extensions: Tuple[str, ...] = ()
     sniff: Optional[Callable[[str, str], bool]] = None
+    shard_procs: Optional[Callable[[str], Optional[Set[int]]]] = None
     priority: int = 0  # higher sniffs first
     iter_chunks: Optional[Callable[..., Iterator[Any]]] = None
+    plan_units: Optional[Callable[[str, int], Optional[List[Any]]]] = None
 
 
 _READER_REGISTRY: Dict[str, ReaderSpec] = {}
@@ -135,12 +226,15 @@ _READER_REGISTRY: Dict[str, ReaderSpec] = {}
 
 def register_reader(name: str, *, extensions: Sequence[str] = (),
                     sniff: Optional[Callable[[str, str], bool]] = None,
+                    shard_procs: Optional[
+                        Callable[[str], Optional[Set[int]]]] = None,
                     priority: int = 0) -> Callable:
     """Decorator registering a reader callable under ``name``."""
 
     def deco(fn: Callable) -> Callable:
         _READER_REGISTRY[name] = ReaderSpec(
-            name, fn, tuple(e.lower() for e in extensions), sniff, priority)
+            name, fn, tuple(e.lower() for e in extensions), sniff,
+            shard_procs, priority)
         return fn
 
     return deco
@@ -157,6 +251,22 @@ def register_chunked(name: str) -> Callable:
                 f"cannot attach chunked reader to unregistered format "
                 f"{name!r}; register the reader first")
         _READER_REGISTRY[name] = replace(spec, iter_chunks=fn)
+        return fn
+
+    return deco
+
+
+def register_units(name: str) -> Callable:
+    """Decorator attaching a work-unit planner (``plan_units(path,
+    n_units)``) to the already-registered format ``name``."""
+
+    def deco(fn: Callable) -> Callable:
+        spec = _READER_REGISTRY.get(name)
+        if spec is None:
+            raise ValueError(
+                f"cannot attach unit planner to unregistered format "
+                f"{name!r}; register the reader first")
+        _READER_REGISTRY[name] = replace(spec, plan_units=fn)
         return fn
 
     return deco
@@ -211,6 +321,18 @@ def _describe_readers() -> str:
         sniffer = spec.sniff.__name__ if spec.sniff else "extension only"
         parts.append(f"{name} (extensions: {ext}; sniffer: {sniffer})")
     return ", ".join(parts)
+
+
+_RANK_RE = re.compile(r"^rank[_\-.](\d+)\.")
+
+
+def rank_shard_procs(path: str) -> Optional[Set[int]]:
+    """Default shard hint: a file named ``rank_<p>.*`` (the layout
+    ``split_jsonl_by_process`` and ``big_trace`` write) holds exactly one
+    process.  Anchored to the whole stem, so ``lowrank_2.csv`` gets no
+    hint and is never skipped."""
+    m = _RANK_RE.match(os.path.basename(path))
+    return {int(m.group(1))} if m else None
 
 
 def resolve_reader(path, format: str = "auto") -> ReaderSpec:

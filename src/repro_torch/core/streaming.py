@@ -1,12 +1,15 @@
 """Out-of-core streaming execution of lazy query plans (paper §VI scaled).
 
-Mirrors the serial route of :mod:`repro.core.streaming`.  A trace opened
-with ``Trace.open(paths, streaming=True)`` is a :class:`StreamingTrace`:
-a handle over its files that is never materialized.  A terminal op on it
-(or on a plan over it) runs chunk by chunk:
+Mirrors :mod:`repro.core.streaming` (its live handles excepted).  A trace
+opened with ``Trace.open(paths, streaming=True)`` is a
+:class:`StreamingTrace`: a handle over its files that is never
+materialized.  A terminal op on it (or on a plan over it) runs chunk by
+chunk:
 
 * readers yield bounded EventFrames (``iter_chunks`` in the reader
-  registry, or a whole-file read sliced into chunks);
+  registry, or a whole-file read sliced into chunks), with the plan's
+  process and time-window restriction pushed down (:class:`PlanHints`:
+  shards and pack chunks it excludes are skipped unread);
 * the plan's **fused mask** is applied to each chunk (one boolean AND per
   chunk, as the in-memory fusion path does);
 * structure-dependent ops get **completed-call records** stitched across
@@ -21,10 +24,14 @@ a handle over its files that is never materialized.  A terminal op on it
   same bits on both routes.
 
 A handle carries a ``device`` (``"cuda"`` unless the caller asks for the
-CPU) and hands it to its ops' kernel calls.  Ops with no streaming form
-raise :class:`StreamingUnsupported` naming the escape hatches.  Not yet
-ported: the parallel executor (``processes=``, ``executor="parallel"``)
-and live handles (ROADMAP §A.3).
+CPU) and hands it to its ops' kernel calls.  ``processes=N`` (or
+``executor="parallel"``) fans a terminal op over work units in a spawn
+pool (:mod:`repro_torch.core.executor`): workers parse, mask, stitch and
+buffer records on the host, the parent merges them in stream order and
+makes the op's one kernel call, so every route gives the same bits.  Ops
+with no streaming form raise :class:`StreamingUnsupported` naming the
+escape hatches.  Not yet ported: live handles (``LiveTrace``, ROADMAP
+§A.4, with the plan cache their incremental refresh needs).
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ import numpy as np
 
 from . import registry, structure
 from .accel import resolve_device
-from .constants import ENTER, ET, EXC, INC, LEAVE, NAME, PROC, THREAD, TS
+from .constants import (DERIVED_COLUMNS, ENTER, ET, EXC, INC, LEAVE, MATCH,
+                        NAME, PARENT, PROC, THREAD, TS)
 from .errors import IngestReport
 from .frame import Categorical, EventFrame, concat
+from .registry import PlanHints
 
 __all__ = ["StreamingTrace", "StreamingUnsupported", "StreamAgg",
            "GlobalNames", "CallBlock", "Chunk", "StreamStats",
@@ -53,12 +62,6 @@ class StreamingUnsupported(RuntimeError):
     """A plan or op has no out-of-core form.  The message always names the
     escape hatches: ``.collect()`` (materialize, then run eagerly) or
     ``Trace.open(..., streaming=False)``."""
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported (ROADMAP §A.3); the port streams "
-        f"serially")
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +85,9 @@ class GlobalNames:
         return local[cat.codes]
 
     def intern(self, name: str) -> int:
-        """Code of ``name``, assigning the next one on first sight."""
+        """Code of ``name``, assigning the next one on first sight — the
+        parallel executor merges the units' name tables through this, in
+        unit order, which reproduces the serial first-seen codes."""
         g = self._code.get(name)
         if g is None:
             g = len(self.names)
@@ -174,15 +179,32 @@ class StreamAgg:
     which its per-chunk histograms need.  The port's aggregators buffer the
     records their kernel reduces and fix bin edges in ``result``, from
     the same values the in-memory op uses, so none needs one.
+
+    Aggregators whose state also merges *across work units* set
+    ``supports_parallel = True`` and implement :meth:`merge_from`; the
+    parallel executor fans exactly those over a pool.  ``update`` and
+    ``merge_from`` run on the host and never touch the device (workers
+    build and update aggregators); only ``result`` launches kernels.
     """
 
     needs_calls = False   # completed-call records (structure across chunks)
+    #: declared by subclasses whose merge_from makes fan-out safe
+    supports_parallel = False
 
     def update(self, chunk: Chunk) -> None:
         raise NotImplementedError
 
     def result(self, ctx: "StreamContext") -> Any:
         raise NotImplementedError
+
+    def merge_from(self, other: "StreamAgg", code_map: np.ndarray) -> None:
+        """Fold the state of ``other`` (the same aggregator class, updated
+        over the next work unit in stream order) into this one;
+        ``code_map[c]`` is the merged global name code of the unit's local
+        code ``c``.  Only called when ``supports_parallel`` is True."""
+        raise StreamingUnsupported(
+            f"{type(self).__name__} declares no cross-worker merge; the op "
+            f"cannot run under the parallel executor")
 
 
 class StreamContext:
@@ -239,11 +261,25 @@ class CallStitcher:
     Requires each (process, thread) sub-stream to arrive in non-decreasing
     time order (files written per rank or in (process, time) order satisfy
     this); violations raise StreamingUnsupported.
+
+    ``defer_unmatched=True`` is the parallel-worker mode: events this
+    stream prefix cannot resolve (a Leave whose Enter lives in an earlier
+    work unit, and chunk-top call time owed to a call opened upstream) are
+    recorded as *seam events* instead of being dropped, and the parent
+    executor replays them against the carry stacks of the preceding units.
+    A chunk that carries the pack sidecar's row-localized structure
+    (:meth:`_precomputed`) is stitched from it without deriving again.
     """
 
-    def __init__(self):
+    def __init__(self, defer_unmatched: bool = False):
         self._stacks: Dict[int, List[_Frame]] = {}
         self._last_ts: Dict[int, float] = {}
+        self._first_ts: Dict[int, float] = {}
+        self._defer = defer_unmatched
+        # per group, in event order: ("a", inc) = attribute inc to the
+        # innermost call open upstream; ("l", ts, proc) = a Leave closing
+        # the innermost call open upstream
+        self._seams: Dict[int, List[tuple]] = {}
 
     # -- public ------------------------------------------------------------
     def push_chunk(self, ev: EventFrame, gcodes: np.ndarray) -> CallBlock:
@@ -255,7 +291,12 @@ class CallStitcher:
         ts = np.asarray(ev[TS], np.float64)
         self._check_sorted(gkey, ts)
 
-        matching, _depth, parent, inc, exc = structure.derive_structure(ev)
+        pre = self._precomputed(ev)
+        if pre is not None:
+            matching, parent, inc, exc = pre
+        else:
+            matching, _depth, parent, inc, exc = \
+                structure.derive_structure(ev)
 
         et = ev.cat(ET)
         is_enter = et.mask_eq(ENTER)
@@ -308,6 +349,22 @@ class CallStitcher:
         return (np.asarray([f.name for f in frames], np.int64),
                 np.asarray([f.proc for f in frames], np.int64))
 
+    # -- parallel-worker exports -------------------------------------------
+    def seams(self) -> Dict[int, List[tuple]]:
+        """Per-group seam events deferred to upstream units (worker mode)."""
+        return self._seams
+
+    def trailing(self) -> Dict[int, List[Tuple[int, int, float, float]]]:
+        """Per-group open frames at the end of this unit, innermost last:
+        (name code, proc, start ts, accumulated child inclusive ns)."""
+        return {g: [(f.name, f.proc, f.start, f.child_inc) for f in st]
+                for g, st in self._stacks.items() if st}
+
+    def group_span(self) -> Tuple[Dict[int, float], Dict[int, float]]:
+        """Per-group (first, last) event timestamps seen — the parent
+        executor checks cross-unit time order with these."""
+        return dict(self._first_ts), dict(self._last_ts)
+
     # -- internals -----------------------------------------------------------
     def _check_sorted(self, gkey: np.ndarray, ts: np.ndarray) -> None:
         order = np.lexsort((np.arange(len(gkey)), gkey))
@@ -321,7 +378,10 @@ class CallStitcher:
                 "streaming=False.")
         firsts = np.nonzero(np.concatenate([[True], ~same]))[0]
         for i in firsts:
-            last = self._last_ts.get(int(g_s[i]))
+            g = int(g_s[i])
+            if g not in self._first_ts:
+                self._first_ts[g] = float(t_s[i])
+            last = self._last_ts.get(g)
             if last is not None and t_s[i] < last:
                 raise StreamingUnsupported(
                     "streaming execution needs each (process, thread) event "
@@ -338,7 +398,12 @@ class CallStitcher:
         """Walk boundary events per group in row order, bucket-attributing
         chunk-top call time to the innermost open carried frame."""
         completed: List[tuple] = []
-        if len(boundary) == 0 and not self._stacks:
+        if len(boundary) == 0 and not self._stacks and not (
+                self._defer and len(top_ent)):
+            # nothing to stitch.  A deferring unit still owes the time of
+            # its chunk-top calls to the call open upstream, even in a
+            # chunk without boundary events (the reference returns here
+            # and loses it: ROADMAP §C)
             return completed
         # bucket chunk-top calls between boundary events, per group
         by_group_b: Dict[int, np.ndarray] = {}
@@ -364,8 +429,14 @@ class CallStitcher:
                 np.add.at(counts, bucket, 1)
 
             def attribute(k):
-                if counts[k] and stack:
-                    stack[-1].child_inc += float(sums[k])
+                if counts[k]:
+                    if stack:
+                        stack[-1].child_inc += float(sums[k])
+                    elif self._defer:
+                        # belongs to whatever call is open in an earlier
+                        # work unit — replayed by the parent at the seam
+                        self._seams.setdefault(g, []).append(
+                            ("a", float(sums[k])))
 
             attribute(0)
             for k, r in enumerate(b_rows):
@@ -381,12 +452,36 @@ class CallStitcher:
                                       float(ts[r]), c_inc, c_exc))
                     if stack:
                         stack[-1].child_inc += c_inc
+                    elif self._defer:
+                        # the completed call's parent is open upstream
+                        self._seams.setdefault(g, []).append(("a", c_inc))
+                elif self._defer:
+                    # a Leave whose Enter lives in an earlier unit: the
+                    # parent pops the matching upstream carry frame
+                    self._seams.setdefault(g, []).append(
+                        ("l", float(ts[r]), int(procs[r])))
                 # else: a leave with no open call anywhere upstream — the
                 # in-memory matcher leaves it unmatched too; ignore
                 attribute(k + 1)
             if not stack:
                 self._stacks.pop(g, None)
         return completed
+
+    @staticmethod
+    def _precomputed(ev: EventFrame
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray, np.ndarray]]:
+        """Chunk-localized structure the reader attached (pack sidecar
+        slices: partners and parents outside the chunk are -1, exactly the
+        within-chunk result ``derive_structure`` would give), or None.
+        Readers never attach these columns to a row-filtered chunk, and
+        ``mask_frames`` strips them before masking."""
+        if not (MATCH in ev and PARENT in ev and INC in ev and EXC in ev):
+            return None
+        return (np.asarray(ev.column(MATCH), np.int64),
+                np.asarray(ev.column(PARENT), np.int64),
+                np.asarray(ev.column(INC), np.float64),
+                np.asarray(ev.column(EXC), np.float64))
 
     @staticmethod
     def _group_key_rows(ev: EventFrame) -> np.ndarray:
@@ -423,6 +518,26 @@ def _validate_steps(steps: Sequence) -> None:
                 ".collect() / streaming=False.")
 
 
+def _steps_hints(steps: Sequence) -> PlanHints:
+    """Reader pushdown from the plan: the conjunction of process
+    restrictions plus the intersection of within-trimmed windows."""
+    from .query import SliceTimeStep
+    bounds = None
+    pset = None
+    window = None
+    for step in steps:
+        b, s = step.proc_hint()
+        if b is not None:
+            bounds = b if bounds is None else (max(bounds[0], b[0]),
+                                               min(bounds[1], b[1]))
+        if s is not None:
+            pset = s if pset is None else (pset & s)
+        if isinstance(step, SliceTimeStep) and step.trim == "within":
+            window = ((step.start, step.end) if window is None else
+                      (max(window[0], step.start), min(window[1], step.end)))
+    return PlanHints(procs=pset, proc_bounds=bounds, time_window=window)
+
+
 def mask_frames(frames: Iterator[EventFrame], steps: Sequence,
                 device="cuda") -> Iterator[EventFrame]:
     """The fused-mask-per-chunk pipeline: every frame the source yields is
@@ -438,7 +553,21 @@ def mask_frames(frames: Iterator[EventFrame], steps: Sequence,
         for step in steps:
             m = step.mask(t)
             mask = m if mask is None else (mask & m)
-        yield frame if mask.all() else frame.mask(mask)
+        if mask.all():
+            # the chunk as it is: precomputed structure columns (pack
+            # sidecar slices) stay valid when no row is dropped
+            yield frame
+        else:
+            # a row selection invalidates row-localized structure the
+            # reader attached: strip it, so the stitcher derives on the
+            # selected rows
+            yield frame.drop(*DERIVED_COLUMNS).mask(mask)
+
+
+def _masked_chunks(handle: "StreamingTrace", steps: Sequence
+                   ) -> Iterator[EventFrame]:
+    yield from mask_frames(handle._iter_frames(_steps_hints(steps)), steps,
+                           handle.device)
 
 
 def stats_from_frames(frames: Iterator[EventFrame]) -> StreamStats:
@@ -478,7 +607,13 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
                       kwargs: dict) -> Any:
     """Run one registered op out of core over ``handle`` under ``steps``:
     one pass that folds every masked chunk into the op's aggregator, then
-    its ``result()``."""
+    its ``result()``.
+
+    When the handle asks for parallel execution (``processes=N`` or
+    ``executor="parallel"``) the pass fans over work units through
+    :func:`repro_torch.core.executor.execute_parallel`; a degradation back
+    to the serial pass always warns with its reason (spawn-unsafe
+    ``__main__``, nothing to fan out, unsplittable input)."""
     if spec.streaming is None:
         raise StreamingUnsupported(
             f"op {spec.name!r} has no combinable streaming form (it needs "
@@ -487,10 +622,20 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
             f"with streaming=False.")
     _validate_steps(steps)
     agg: StreamAgg = spec.streaming(*args, **kwargs)
+    if handle.wants_parallel():
+        from . import executor
+        try:
+            return executor.execute_parallel(handle, steps, spec, args,
+                                             kwargs, agg)
+        except executor.ParallelDegraded as d:
+            import warnings
+            warnings.warn(
+                f"parallel streaming of op {spec.name!r} degraded to "
+                f"serial: {d}", RuntimeWarning, stacklevel=3)
     names = GlobalNames()
     stitcher = CallStitcher() if agg.needs_calls else None
-    proc_max = fold_frames(mask_frames(handle._iter_frames(), steps,
-                                       handle.device), agg, names, stitcher)
+    proc_max = fold_frames(_masked_chunks(handle, steps), agg, names,
+                           stitcher)
     open_calls = (stitcher.open_calls() if stitcher
                   else (np.empty(0, np.int64), np.empty(0, np.int64)))
     return agg.result(StreamContext(names, open_calls, proc_max))
@@ -529,6 +674,12 @@ class RecordBuffer:
                             calls.start[keep], calls.end[keep],
                             np.asarray(values, np.float64)[keep]))
 
+    def merge(self, other: "RecordBuffer", code_map: np.ndarray) -> None:
+        """Append the records of ``other`` (the next work unit's), their
+        local name codes mapped into this buffer's by ``code_map``."""
+        for name, proc, start, end, vals in other._parts:
+            self._parts.append((code_map[name], proc, start, end, vals))
+
     def gather(self, inv: np.ndarray):
         """(alphabetical positions, procs, starts, ends, values)."""
         if not self._parts:
@@ -545,6 +696,7 @@ class RecordBuffer:
 # ---------------------------------------------------------------------------
 
 def iter_chunks_fallback(path: str, chunk_rows: int,
+                         hints: Optional[PlanHints],
                          reader: Callable[..., Any],
                          **reader_kwargs) -> Iterator[EventFrame]:
     """Correctness fallback for formats without a chunked reader: read the
@@ -565,6 +717,12 @@ class StreamingTrace:
     ``materialize()`` is the escape hatch back to a fully loaded
     :class:`~repro_torch.core.trace.Trace`.  The ops run their kernels on
     ``device`` (the card unless the caller asks for the CPU).
+
+    ``processes=N`` (or ``executor="parallel"``) fans terminal ops over
+    work units in a spawn pool the handle keeps
+    (:mod:`repro_torch.core.executor`).  The reference's ``cache=`` is
+    not taken: the plan-result cache it switches is not ported yet
+    (ROADMAP §A.4).
     """
 
     def __init__(self, paths, format: str = "auto",
@@ -578,36 +736,63 @@ class StreamingTrace:
         if executor not in ("auto", "serial", "parallel"):
             raise ValueError(f'executor must be "auto", "serial" or '
                              f'"parallel", got {executor!r}')
-        if processes is not None or executor == "parallel":
-            raise _not_ported("the parallel executor (processes=, "
-                              "executor='parallel')")
         self.paths = [os.fspath(p) for p in paths]
         self.format = format
         self.chunk_rows = int(chunk_rows)
         self.label = label or (self.paths[0] if self.paths else "stream")
         self.device = resolve_device(device)
+        self.processes = processes
+        self.executor = executor
         self.reader_kwargs = reader_kwargs
+        self._steps: tuple = ()
         self._stats0: Optional[StreamStats] = None
+        self._pool = None  # SharedPool, made at the first pooled op
+        self._units_cache: dict = {}  # work-unit plans per (paths, workers)
         self._ingest = IngestReport()  # filled by tolerant (on_error) reads
+        #: ``torch.cuda.is_initialized()`` of each unit of the last
+        #: parallel run, in unit order (never True: workers stay on the
+        #: host)
+        self.units_cuda: List[bool] = []
+
+    def wants_parallel(self) -> bool:
+        """True when terminal ops should try the parallel executor."""
+        if self.executor == "serial":
+            return False
+        if self.executor == "parallel":
+            return True
+        return self.processes is not None and self.processes > 1
 
     # -- plumbing ----------------------------------------------------------
-    def _iter_frames(self) -> Iterator[EventFrame]:
-        """Chunks across all paths, in path order."""
+    def _iter_frames(self, hints: Optional[PlanHints] = None
+                     ) -> Iterator[EventFrame]:
+        """Chunks across all paths, in path order, with shard skipping
+        (registered ``shard_procs`` hints) and per-chunk pushdown."""
         from .. import readers  # noqa: F401 — populate the registry
+        from ..readers.parallel import select_shards
+        procs = set(hints.procs) if hints and hints.procs is not None \
+            else None
+        bounds = hints.proc_bounds if hints else None
+        paths = select_shards(self.paths, self.format, procs=procs,
+                              proc_bounds=bounds)
         kw = dict(self.reader_kwargs)
         if "on_error" in kw:
             # tolerant read: route per-record skip counts into this
             # handle's persistent report (readers reset their path entry
             # per pass, so multi-pass plans never double count)
             kw.setdefault("report", self._ingest)
-        for p in self.paths:
+        for p in paths:
             spec = registry.resolve_reader(p, self.format)
             if spec.iter_chunks is not None:
-                yield from spec.iter_chunks(p, self.chunk_rows, **kw)
+                yield from spec.iter_chunks(p, self.chunk_rows, hints, **kw)
             else:
-                yield from iter_chunks_fallback(p, self.chunk_rows,
+                yield from iter_chunks_fallback(p, self.chunk_rows, hints,
                                                 spec.read, device=self.device,
                                                 **kw)
+
+    def iter_chunks(self) -> Iterator[EventFrame]:
+        """Chunk frames with this handle's plan steps applied (masks fused
+        per chunk)."""
+        yield from _masked_chunks(self, self._steps)
 
     def ingest_report(self):
         """The :class:`~repro_torch.core.errors.IngestReport` accumulated
@@ -615,26 +800,47 @@ class StreamingTrace:
         return self._ingest
 
     # -- materialization escape hatch --------------------------------------
-    def load_raw(self):
+    def load_raw(self, procs=None, proc_bounds=None):
         """Concatenate every chunk into one in-memory Trace on this
-        handle's device (``_StreamSource.load``: the query engine applies
-        the plan's steps to it)."""
+        handle's device *without* its plan steps (``_StreamSource.load``:
+        the query engine applies them); shards the process restriction
+        excludes are skipped."""
         from .trace import Trace
-        frames = list(self._iter_frames())
+        hints = PlanHints(
+            procs=frozenset(procs) if procs is not None else None,
+            proc_bounds=proc_bounds)
+        # chunked readers may attach chunk-localized structure columns
+        # (pack sidecar); their indices are meaningless after concat
+        frames = [f.drop(*DERIVED_COLUMNS) for f in self._iter_frames(hints)]
         ev = concat(frames) if frames else EventFrame()
         return Trace(ev, label=self.label, device=self.device)
 
     def materialize(self):
         """Load everything into one in-memory Trace on this handle's
-        device."""
+        device (this handle's plan steps applied)."""
         return self.query().collect()
+
+    # -- conversion ---------------------------------------------------------
+    def save_pack(self, path: str, chunk_rows: Optional[int] = None,
+                  sidecar: bool = True) -> str:
+        """Convert this handle's stream (its plan steps applied) to the
+        columnar pack format (:mod:`repro_torch.readers.pack`) without
+        materializing it; ``sidecar=True`` also stores the structure
+        sidecar, from one memmap-backed pass over the written columns.
+        Returns ``path``."""
+        from ..readers.pack import DEFAULT_PACK_CHUNK_ROWS, PackWriter
+        with PackWriter(path, chunk_rows=chunk_rows or
+                        DEFAULT_PACK_CHUNK_ROWS) as w:
+            for frame in self.iter_chunks():
+                w.append(frame.drop(*DERIVED_COLUMNS))
+            return w.finish(sidecar=sidecar)
 
     # -- cheap whole-stream facts ------------------------------------------
     def stats(self) -> StreamStats:
-        """One pass over the stream: event count, time span, process
-        count, message-size range.  Cached."""
+        """One pass over the (selection-masked) stream: event count, time
+        span, process count.  Cached."""
         if self._stats0 is None:
-            self._stats0 = stats_from_frames(self._iter_frames())
+            self._stats0 = stats_from_frames(self.iter_chunks())
         return self._stats0
 
     @property
@@ -647,12 +853,12 @@ class StreamingTrace:
     def __repr__(self) -> str:  # pragma: no cover
         return (f"StreamingTrace(label={self.label!r}, "
                 f"{len(self.paths)} path(s), chunk_rows={self.chunk_rows}, "
-                f"device={self.device})")
+                f"steps={len(self._steps)}, device={self.device})")
 
     # -- query / terminal ops ----------------------------------------------
     def query(self):
         from .query import TraceQuery, _StreamSource
-        return TraceQuery(_StreamSource(self))
+        return TraceQuery(_StreamSource(self), self._steps)
 
     def run(self, op_name: str, *args: Any, **kwargs: Any) -> Any:
         return self.query().run(op_name, *args, **kwargs)

@@ -202,13 +202,24 @@ def compute_inc_exc(events: EventFrame, matching: np.ndarray, parent: np.ndarray
     return inc, exc
 
 
+#: process-local call counter for :func:`derive_structure` — the test hook
+#: proving that reopening a pack with a structure sidecar (or streaming it
+#: chunk by chunk) never derives structure again.  Monotonic: snapshot
+#: before, compare after.
+DERIVE_CALLS = 0
+
+
 def derive_structure(events: EventFrame) -> Tuple[np.ndarray, np.ndarray,
                                                   np.ndarray, np.ndarray,
                                                   np.ndarray]:
     """The full structural derivation in one call:
     ``(matching, depth, parent, inc, exc)`` — the match → parents →
-    inc/exc pipeline ``Trace._ensure_structure`` runs on whole traces.
+    inc/exc pipeline ``Trace._ensure_structure`` runs on whole traces and
+    the streaming stitcher on every chunk.  Every call bumps
+    :data:`DERIVE_CALLS`.
     """
+    global DERIVE_CALLS
+    DERIVE_CALLS += 1
     matching, depth, order = match_events(events)
     parent = compute_parents(events, matching, depth, order)
     inc, exc = compute_inc_exc(events, matching, parent)

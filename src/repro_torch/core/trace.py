@@ -6,7 +6,8 @@ Mirrors :class:`repro.core.trace.Trace` along the main path: open a trace
 :class:`~repro_torch.core.streaming.StreamingTrace`), derive its structure
 lazily (enter/leave matching, parents, inclusive/exclusive time, message
 matching, the calling context tree) and reduce it with the six
-kernel-backed ops.  As in the reference, the op methods and the
+kernel-backed ops, or write it as a columnar pack (:meth:`Trace.save_pack`,
+:mod:`repro_torch.readers.pack`).  As in the reference, the op methods and the
 data-reduction methods (``filter``, ``slice_time``, ``filter_processes``)
 are one-step lazy query plans (:mod:`repro_torch.core.query`); chain them
 through :meth:`Trace.query` to fuse selections.
@@ -32,9 +33,8 @@ from .cct import CCT
 from .constants import (CCT_NODE, DEPTH, EXC, INC, MATCH, MATCH_TS, NAME,
                         PARENT, PROC, TS)
 from .filters import Filter
-from .frame import EventFrame, concat
+from .frame import EventFrame
 from .query import TraceQuery
-from .registry import resolve_reader
 
 __all__ = ["Trace"]
 
@@ -64,39 +64,62 @@ class Trace:
     @classmethod
     def open(cls, path, format: str = "auto", device="cuda",
              streaming: bool = False, chunk_rows: Optional[int] = None,
-             live: bool = False, **kw):
+             live: bool = False, processes: Optional[int] = None,
+             executor: str = "auto", **kw):
         """Open a trace of any registered format (``format="auto"`` sniffs
-        the content).  A list of paths is read as per-location shards, one
-        after another, and merged in (process, time) order as the
-        reference's sharded reader merges them.
+        the content: jsonl text or a pipitpack).  A list of paths is read
+        as per-location shards through the sharded reader
+        (:func:`~repro_torch.readers.parallel.read_parallel`;
+        ``processes=N`` fans the shard reads over a spawn pool) and merged
+        in (process, time) order.
 
         ``streaming=True`` returns a
         :class:`~repro_torch.core.streaming.StreamingTrace` instead: an
         out-of-core handle whose ops run chunk by chunk, at most
         ``chunk_rows`` events in memory per chunk, their kernels on
-        ``device``.  ``live=True`` (live pack shards) and ``processes=``
-        (the parallel executor) are not yet ported (ROADMAP §A.3)."""
+        ``device``; ``processes=N`` / ``executor="parallel"`` fan those
+        ops over work units.  ``live=True`` (live pack shards) is not
+        ported yet (ROADMAP §A.4)."""
         from .. import readers  # noqa: F401 — populates the reader registry
+        from .registry import resolve_reader
         if live:
             raise NotImplementedError(
-                "Trace.open(live=True) needs live pack shards "
-                "(liveset.py, readers/pack.py), which are not yet ported "
-                "(ROADMAP §A.3)")
+                "Trace.open(live=True) needs LiveTrace and liveset.py, "
+                "which come with the plan cache their incremental "
+                "refresh() uses: not yet ported (ROADMAP §A.4)")
         if streaming:
             from .streaming import DEFAULT_CHUNK_ROWS, StreamingTrace
             return StreamingTrace(path, format=format,
                                   chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
-                                  device=device, **kw)
+                                  device=device, processes=processes,
+                                  executor=executor, **kw)
         if chunk_rows is not None:
             raise ValueError("chunk_rows only applies with streaming=True")
+        if executor != "auto":
+            raise ValueError("executor only applies with streaming=True")
         if isinstance(path, (list, tuple)):
-            frames = [resolve_reader(os.fspath(p), format)
-                      .read(os.fspath(p), device=device, **kw).events
-                      for p in path]
-            ev = concat(frames).sort_by([PROC, TS])
-            return cls(ev, label=f"parallel[{len(frames)}]", device=device)
+            from ..readers.parallel import read_parallel
+            return read_parallel([os.fspath(p) for p in path], kind=format,
+                                 processes=processes, device=device, **kw)
+        if processes is not None:
+            raise ValueError("processes needs streaming=True or a list of "
+                             "shard paths")
         path = os.fspath(path)
         return resolve_reader(path, format).read(path, device=device, **kw)
+
+    # ------------------------------------------------------------------
+    # serialization — the columnar binary store
+    # ------------------------------------------------------------------
+    def save_pack(self, path, chunk_rows: Optional[int] = None,
+                  sidecar: bool = True) -> str:
+        """Write this trace as a ``pipitpack`` columnar file: reopening it
+        (``Trace.open(path)``) maps each column with zero parsing, and with
+        ``sidecar=True`` (default) the derived structure is stored too, so
+        the reopened trace skips ``derive_structure``.  Returns ``path``."""
+        from ..readers.pack import DEFAULT_PACK_CHUNK_ROWS, write_pack
+        return write_pack(self, os.fspath(path),
+                          chunk_rows=chunk_rows or DEFAULT_PACK_CHUNK_ROWS,
+                          sidecar=sidecar)
 
     # ------------------------------------------------------------------
     # basics

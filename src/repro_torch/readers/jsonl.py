@@ -5,10 +5,12 @@ Mirrors :mod:`repro.readers.jsonl`.  Keys: ``ts`` (ns), ``et``
 ``size``/``partner``/``tag``.  Function names are interned while parsing
 and remapped onto a sorted category table; integer id columns are downcast
 to the narrowest safe dtype.  The chunked reader (``iter_chunks``, which
-the streaming executor drives) never holds more than ``chunk_rows`` events
-and can read one byte span of a file.  The reference's parse pushdown
-(``PlanHints``) and parallel work-unit planner are not ported yet
-(ROADMAP §A.3).
+the streaming executor drives) never holds more than ``chunk_rows`` events,
+drops while parsing the rows a plan's process or time-window hints
+exclude, and can read one byte span of a file: :func:`plan_units_jsonl`
+splits a file into :class:`~repro_torch.core.registry.ByteSpan` work units
+for the parallel executor.  Shards named ``rank_<p>.jsonl`` carry the
+process hint that lets a plan skip them unread.
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ from ..core.constants import (ENTER, ET, INSTANT, LEAVE, MSG_SIZE, NAME,
 from ..core.errors import (IngestReport, TraceReadError, check_on_error,
                            require_nonempty)
 from ..core.frame import Categorical, EventFrame, optimize_dtypes
-from ..core.registry import register_chunked, register_reader
+from ..core.registry import (ByteSpan, PlanHints, even_edges,
+                             rank_shard_procs, register_chunked,
+                             register_reader, register_units)
 from ..core.trace import Trace
 
-__all__ = ["read_jsonl", "write_jsonl"]
+__all__ = ["read_jsonl", "write_jsonl", "iter_chunks_jsonl",
+           "plan_units_jsonl"]
 
 _ET_CODE = {ENTER: 0, LEAVE: 1, INSTANT: 2}
 _ET_CATS = np.asarray([ENTER, LEAVE, INSTANT])
@@ -71,9 +76,14 @@ class _JsonlParser:
         self._names = []
         self._line = 0
 
-    def parse(self, lines) -> Optional[EventFrame]:
-        """One EventFrame for the lines (None when none survived), in the
-        uniform column set (thread and message columns included)."""
+    def parse(self, lines, hints: Optional[PlanHints] = None
+              ) -> Optional[EventFrame]:
+        """One EventFrame for the lines (None when none survived the parse
+        or the ``hints``), in the uniform column set (thread and message
+        columns included)."""
+        tw = hints.time_window if hints is not None else None
+        check_proc = hints is not None and (hints.procs is not None
+                                            or hints.proc_bounds is not None)
         name_code, names = self._name_code, self._names
         ts, et, ncodes, procs, threads = [], [], [], [], []
         sizes, partners, tags = [], [], []
@@ -105,6 +115,10 @@ class _JsonlParser:
                                          f"malformed event line ({e})",
                                          locus=locus) from e
                 self.report.skip(self.path, 1, locus, str(e))
+                continue
+            if check_proc and not hints.admits_proc(p):
+                continue
+            if tw is not None and not (tw[0] <= t <= tw[1]):
                 continue
             c = name_code.get(nm)
             if c is None:
@@ -162,7 +176,7 @@ def finish_frame(ev: EventFrame) -> EventFrame:
 
 
 @register_reader("jsonl", extensions=(".jsonl",), sniff=_sniff_jsonl,
-                 priority=10)
+                 shard_procs=rank_shard_procs, priority=10)
 def read_jsonl(path_or_buf, label: Optional[str] = None,
                on_error: str = "strict",
                report: Optional[IngestReport] = None,
@@ -193,32 +207,34 @@ def read_jsonl(path_or_buf, label: Optional[str] = None,
 def iter_lines_range(f, lo: int, hi: int) -> Iterator[bytes]:
     """Lines of the binary stream ``f`` whose first byte lies in [lo, hi):
     split offsets may land anywhere, and every line belongs to exactly one
-    range."""
+    range.  The position is counted from the lines read, not asked of the
+    file: ``tell()`` on a buffered file is a system call each line."""
     if lo > 0:
         f.seek(lo - 1)
         if f.read(1) != b"\n":
             f.readline()  # skip the tail of the line owned by the range below
     else:
         f.seek(0)
-    while True:
-        if f.tell() >= hi:
-            return
+    pos = f.tell()
+    while pos < hi:
         line = f.readline()
         if not line:
             return
+        pos += len(line)
         yield line
 
 
 @register_chunked("jsonl")
 def iter_chunks_jsonl(path: str, chunk_rows: int,
+                      hints: Optional[PlanHints] = None,
                       byte_range: Optional[Tuple[int, int]] = None,
                       on_error: str = "strict",
                       report: Optional[IngestReport] = None
                       ) -> Iterator[EventFrame]:
     """Stream ``path`` in EventFrames of at most ``chunk_rows`` events
-    without ever holding the file.  ``byte_range=(lo, hi)`` reads only the
-    lines that start inside that span.  The streaming executor masks
-    every chunk with the plan itself: the reader pushes nothing down."""
+    without ever holding the file, dropping while parsing the rows that
+    ``hints`` exclude.  ``byte_range=(lo, hi)`` reads only the lines that
+    start inside that span (a work unit)."""
     check_on_error(on_error, ("strict", "skip"))
     require_nonempty(path, os.path.getsize(path), what="jsonl trace")
     rpt = report if report is not None else IngestReport()
@@ -233,9 +249,23 @@ def iter_chunks_jsonl(path: str, chunk_rows: int,
             batch = list(itertools.islice(lines, chunk_rows))
             if not batch:
                 return
-            ev = parser.parse(batch)
+            ev = parser.parse(batch, hints)
             if ev is not None:
                 yield optimize_dtypes(ev)
+
+
+@register_units("jsonl")
+def plan_units_jsonl(path: str, n_units: int) -> Optional[list]:
+    """Split one jsonl file into ~equal byte spans; the chunked reader
+    aligns each span to line boundaries, so the spans partition the events
+    exactly.  None when the file cannot be split."""
+    size = os.path.getsize(path)
+    n = max(min(int(n_units), size), 1)
+    if n <= 1:
+        return None
+    edges = even_edges(0, size, n)
+    return [ByteSpan(path, lo, hi)
+            for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
 
 
 def write_jsonl(trace_or_events, path: str) -> None:

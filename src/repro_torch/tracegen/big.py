@@ -2,11 +2,13 @@
 
 Mirrors :mod:`repro.tracegen.big` with the same RNG draws
 (``_rank_batches``, ``_leaf_batch`` are copies), so both packages generate
-identical events from one seed.  :func:`big_trace` writes one
-``rank_<p>.jsonl`` shard per rank in bounded batches; :func:`big_events`
-builds the same events in memory, as the frame ``Trace.open`` gives for
-those shards, without the text round trip.  The reference's ``pack``
-format is not part of this slice.
+identical events from one seed.  :func:`big_trace` writes one shard per
+rank in bounded batches: ``rank_<p>.jsonl`` text, or with
+``format="pack"`` ``rank_<p>.pack`` columnar shards written straight from
+the column batches through a :class:`~repro_torch.readers.pack.PackWriter`
+(no text round trip; each shard gets a structure sidecar), the same files
+byte for byte as the reference writes.  :func:`big_events` builds the same
+events in memory, as the frame ``Trace.open`` gives for those shards.
 
 Each rank's stream is, in time order::
 
@@ -46,16 +48,17 @@ def big_trace(out_dir: str, nprocs: int = 8, events_per_proc: int = 125_000,
               batch_calls: int = 50_000, format: str = "jsonl") -> List[str]:
     """Write a sharded synthetic trace of about ``nprocs * events_per_proc``
     events without holding it in memory; returns the shard paths in rank
-    order (``out_dir/rank_<p>.jsonl``)."""
-    if format != "jsonl":
-        raise ValueError(f'format must be "jsonl" in this port, got '
-                         f'{format!r}')
+    order (``out_dir/rank_<p>.<format>``, ``format`` ``"jsonl"`` or
+    ``"pack"``)."""
+    if format not in ("jsonl", "pack"):
+        raise ValueError(f'format must be "jsonl" or "pack", got {format!r}')
+    write = _write_rank_jsonl if format == "jsonl" else _write_rank_pack
     os.makedirs(out_dir, exist_ok=True)
     paths = []
     for p in range(nprocs):
-        path = os.path.join(out_dir, f"rank_{p}.jsonl")
-        _write_rank_jsonl(path, p, nprocs, events_per_proc, calls_per_iter,
-                          seed, batch_calls)
+        path = os.path.join(out_dir, f"rank_{p}.{format}")
+        write(path, p, nprocs, events_per_proc, calls_per_iter, seed,
+              batch_calls)
         paths.append(path)
     return paths
 
@@ -192,3 +195,30 @@ def _write_rank_jsonl(path: str, p: int, nprocs: int, events_per_proc: int,
                         f'{{"ts":{ts[i]},"et":"{_ET_STR[et[i]]}",'
                         f'"name":"{_NAMES[name[i]]}","proc":{p}}}\n')
             f.writelines(lines)
+
+
+def _write_rank_pack(path: str, p: int, nprocs: int, events_per_proc: int,
+                     calls_per_iter: int, seed: int,
+                     batch_calls: int) -> None:
+    from ..readers.pack import PackWriter
+    dst = (p + 1) % nprocs
+    cats = np.asarray(_NAMES, dtype=object).astype(str)
+    et_cats = np.asarray(_ET_STR)
+    # in-place (non-atomic) write: a killed generator leaves finished chunk
+    # groups at the destination, which salvage recovers
+    with PackWriter(path, atomic=False) as w:
+        for ts, et, name, size, tag in _rank_batches(
+                p, nprocs, events_per_proc, calls_per_iter, seed,
+                batch_calls):
+            n = len(ts)
+            partner = np.where(np.isnan(size), -1, dst).astype(np.int64)
+            w.append(EventFrame({
+                TS: ts,
+                ET: Categorical(et.astype(np.int32), et_cats),
+                NAME: Categorical(name, cats),
+                PROC: np.full(n, p, np.int64),
+                MSG_SIZE: size,
+                PARTNER: partner,
+                TAG: np.where(partner >= 0, tag, 0),
+            }))
+        w.finish(sidecar=True)

@@ -32,7 +32,11 @@ gradient they cannot give: with grad enabled and an input that requires
 grad they raise.  The lazy query and streaming routes give, on the card,
 the same bits as the in-memory route on the same selection for each of
 the six kernel-backed ops (``stragglers`` among them), and
-``stragglers`` on the card matches the CPU path within the gate.
+``stragglers`` on the card matches the CPU path within the gate.  So do
+the pack routes (eager, streamed, row-span work units, ``scan``) and the
+jsonl work units; a real spawn pool, driven from a script on disk, gives
+the eager bits while no worker initializes CUDA; and a read-only mapped
+column reaches the card without a warning.
 """
 
 import numpy as np
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch import Trace
 from repro_torch.core import NAME, Filter
+from repro_torch.core.query import scan
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
 from repro_torch.launch.cardcheck import digest, gate, same_bits
@@ -204,6 +209,115 @@ def test_streaming_on_card_equals_eager(cuda, shards, chunk_rows, op, kw):
     assert st.device.type == "cuda"
     eager = Trace.open(shards)
     assert digest(st.run(op, **kw)) == digest(eager.run(op, **kw))
+
+
+@pytest.fixture(scope="module")
+def pack_shards(tmp_path_factory):
+    return big_trace(str(tmp_path_factory.mktemp("card_pack")), nprocs=8,
+                     events_per_proc=4_000, calls_per_iter=50, seed=2,
+                     format="pack")
+
+
+def _units(paths, op, kw, n_units):
+    from repro_torch.core import executor, registry
+    from repro_torch.core.streaming import StreamingTrace
+    h = StreamingTrace(paths, chunk_rows=997, processes=2)
+    spec = registry.get_op(op)
+    kw = dict(kw, device=h.device)
+    return executor.execute_parallel(h, (), spec, (), kw,
+                                     spec.streaming(**kw), n_units=n_units,
+                                     use_pool=False)
+
+
+PACK_ROUTES = {
+    "pack-eager": lambda s, p, op, kw: Trace.open(p).run(op, **kw),
+    "pack-streamed": lambda s, p, op, kw: Trace.open(
+        p, streaming=True, chunk_rows=997).run(op, **kw),
+    "pack-units": lambda s, p, op, kw: _units(p, op, kw, 19),
+    "jsonl-units": lambda s, p, op, kw: _units(s, op, kw, 19),
+    "scan": lambda s, p, op, kw: scan(p).run(op, **kw),
+}
+
+
+@pytest.mark.parametrize("op,kw", ROUTE_OPS, ids=ROUTE_IDS)
+@pytest.mark.parametrize("route", list(PACK_ROUTES))
+def test_pack_and_parallel_routes_on_card_equal_eager(cuda, shards,
+                                                      pack_shards, route,
+                                                      op, kw):
+    """The pack routes (eager, streamed, row-span units, ``scan``) and the
+    jsonl work units give on the card the eager jsonl route's bits."""
+    want = digest(Trace.open(shards).run(op, **kw))
+    assert digest(PACK_ROUTES[route](shards, pack_shards, op, kw)) == want
+
+
+_POOL_SCRIPT = """
+import sys, warnings
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch import Trace
+from repro_torch.launch.cardcheck import digest
+
+
+def main():
+    warnings.simplefilter("error", RuntimeWarning)  # no degradation
+    st = Trace.open({paths!r}, streaming=True, chunk_rows=997, processes=2)
+    eager = Trace.open({paths!r})
+    for op, kw in {ops!r}:
+        assert digest(st.run(op, **kw)) == digest(eager.run(op, **kw)), op
+        assert len(st.units_cuda) >= 2
+        assert not any(st.units_cuda), st.units_cuda
+    assert torch.cuda.is_initialized()  # the parent ran the kernels
+    st._pool.close()
+    print("POOLED")
+
+
+if __name__ == "__main__":
+    main()
+"""
+
+
+def test_pooled_workers_never_initialize_cuda(cuda, pack_shards, tmp_path):
+    """A real spawn pool over pack shards from a script on disk: each op
+    the eager bits on the card, and every worker reports
+    ``torch.cuda.is_initialized()`` false."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                       "src"))
+    script = tmp_path / "run_pool.py"
+    script.write_text(textwrap.dedent(_POOL_SCRIPT.format(
+        src=src, paths=pack_shards, ops=ROUTE_OPS)))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("POOLED")
+
+
+def test_read_only_arrays_reach_the_card_without_a_warning(cuda,
+                                                           pack_shards):
+    import warnings
+
+    from repro_torch.core import accel
+    from repro_torch.readers import pack
+    footer = pack.read_footer(pack_shards[0])
+    raw = np.memmap(pack_shards[0], dtype=np.uint8, mode="r")
+    ch = footer["chunks"][0]
+    off = ch["offset"]
+    cols = {}
+    for key, dt, nb in ch["cols"]:
+        cols[key] = raw[off:off + nb].view(dt)
+        off += nb
+    codes = cols["name"]                  # read-only int32, mapped
+    vals = np.asarray(cols["ts"] % 1000, np.float32)
+    vals.flags.writeable = False          # read-only float32
+    assert not codes.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = accel.seg_sum(codes, vals, len(footer["names"]), device=cuda)
+    want = accel.seg_sum(codes, vals, len(footer["names"]), device="cpu")
+    gate(got, want)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),

@@ -39,9 +39,21 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
+               "repro_torch.readers.parallel", "repro_torch.readers.pack")
+
+
+def test_new_modules_are_checked():
+    """The parallel and pack modules are among the files checked above."""
+    checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
+               for p in PORT_FILES if "src" in p.parts}
+    assert set(NEW_MODULES) <= checked
+
+
 def test_import_leaves_jax_and_repro_unloaded():
     code = ("import sys, repro_torch, repro_torch.readers, "
-            "repro_torch.tracegen, repro_torch.convert; "
+            "repro_torch.tracegen, repro_torch.convert, "
+            + ", ".join(NEW_MODULES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

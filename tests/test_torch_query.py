@@ -358,8 +358,10 @@ def test_cct_node_column_is_dropped_by_selection():
 # ---------------------------------------------------------------------------
 
 def test_scan_and_the_plan_cache_are_not_yet_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.3"):
-        scan([str(tmp_path / "rank_0.jsonl")])
+    """``scan`` is ported (``tests/test_torch_parallel.py`` drives it): it
+    builds a plan without reading.  The plan cache is not (ROADMAP §A.4)."""
+    q = scan([str(tmp_path / "rank_0.jsonl")], device="cpu")
+    assert "scan(1 shard(s)" in q.explain()
     port = to_port(tg.gol(nprocs=2, iters=1))
     with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.4"):
         port.query().flat_profile(cache=True)

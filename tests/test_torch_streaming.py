@@ -216,8 +216,15 @@ def test_grow_to_keeps_values_and_fill():
                                 {"live": True}],
                          ids=["processes", "parallel", "live"])
 def test_parallel_and_live_are_not_yet_ported(files, kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.3"):
-        _open(files["straggler"], streaming=True, **kw)
+    """The parallel executor is ported (``tests/test_torch_parallel.py``
+    drives it): its options open a handle that asks for it.  Live handles
+    wait for the plan cache (ROADMAP §A.4)."""
+    if "live" in kw:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.4"):
+            _open(files["straggler"], streaming=True, **kw)
+        return
+    st = _open(files["straggler"], streaming=True, **kw)
+    assert isinstance(st, StreamingTrace) and st.wants_parallel()
 
 
 def test_streaming_handle_defaults_to_the_card(files):
