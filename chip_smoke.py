@@ -84,7 +84,36 @@ Phases (any failure raises and exits non-zero):
              the card; a degradation warning is an error in both phases,
              and each prints pool start-up, write, open, per-op wall and
              events/s beside the card's name and power limit;
-10. timing — each trace kernel on the inputs the trace path gave it (its
+10. live   — with the plan cache on (phases 3-9 run with it off, so no
+             stored result answers their checks), a ``TraceServer`` on
+             127.0.0.1:0 on the card in a thread of this process;
+             main-10M's events as 64 append-mode shards in groups of
+             65,536 rows, grown in two commits a rank (the first half of
+             each rank, then the rest and ``finalize``):
+             ``Trace.open(shards, live=True)`` at each watermark gives, for
+             the seven op calls, one digest incrementally (cache on), on a
+             cold ``cache=False`` handle and eagerly over the same
+             committed rows (after ``finalize``, every row: phase 5's
+             digests, the eager route over the same events), each pass
+             launching ``seg_sum`` 2, ``pair_sum`` 3, ``time_bin`` 1 and
+             ``hist_bin`` 1 on their paths; a repeat with no growth returns
+             the stored results and launches nothing; no op falls back to
+             the full pass.  ``POST /live`` over 8 of the shards: 200, 429
+             ``watermark_stalled`` with ``retry_after_ms``, 200 after the
+             second commit.  Then a fleet of 8 ``Tracer`` ranks with sinks
+             (about 20,000 enters, leaves and sends each), one heartbeat
+             back-dated past ``dead_timeout``: ``LiveTraceSet`` names that
+             rank missing, the survivors' seven op calls are a direct live
+             open's bits, and ``POST /live`` on the fleet answers 206
+             partial naming it;
+11. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
+             (``streaming=True``): each op call the library call's digest on
+             the same handle configuration (and phase 5's), the misses
+             launching as a cold pass, a repeat a cache hit that launches
+             nothing, and 4 identical concurrent requests executed once; the
+             server then drains, the live store is cleared and the
+             scheduler's threads stop;
+12. timing — each trace kernel on the inputs the trace path gave it (its
              first call, and in ``other_calls`` each later call of another
              shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
              ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
@@ -94,7 +123,7 @@ Phases (any failure raises and exits non-zero):
              if its profiler row holds a sort kernel, the ``hist_bin`` row
              the wide path, and fails unless the narrow path is one device
              kernel a call;
-11. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
+13. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
@@ -106,15 +135,15 @@ Phases (any failure raises and exits non-zero):
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
-12. f32    — one ``moe_ffn`` call in float32 at the serving model's
+14. f32    — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
              route, so ``topk_gating`` is launched once, on its narrow
              path, and ``router_topk`` not at all (counts reset just
              before);
-13. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
+15. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-14. timing — each model kernel on the inputs its path gave it, against
+16. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
@@ -130,8 +159,8 @@ call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
 ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
-launches on the query, stream, pack and parallel routes
-(``route_launches``).
+launches on the query, stream, pack, parallel, live and served routes
+(``route_launches``; a cache hit's are 0).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -1101,13 +1130,12 @@ def _route_bits(label, route, ops, run, wants, n_events, expect,
     return [r for r, _w in results], launches
 
 
-def phase_pack(main_digests, main_launches, pool, workers) -> dict:
-    """main-10M as 64 pack shards: the eager, serial-streamed and pooled
-    routes give phase 5's bits, ``scan`` skips the shards its plan
-    excludes, and a damaged shard is refused, dropped and salvaged.
-    Returns each route's launches."""
+def phase_pack(main_digests, main_launches, pool, workers, d) -> dict:
+    """main-10M as 64 pack shards in ``d``/pack (left there for the served
+    phase): the eager, serial-streamed and pooled routes give phase 5's
+    bits, ``scan`` skips the shards its plan excludes, and a damaged shard
+    is refused, dropped and salvaged.  Returns each route's launches."""
     import shutil
-    import tempfile
 
     from repro_torch import Trace
     from repro_torch.core import PROC, Filter, structure
@@ -1117,98 +1145,97 @@ def phase_pack(main_digests, main_launches, pool, workers) -> dict:
     from repro_torch.tracegen import big_trace
     n_events = MAIN["nprocs"] * MAIN["events_per_proc"]  # about; exact below
     need = n_events * PACK_BYTES_PER_EVENT
-    with tempfile.TemporaryDirectory() as d:
-        free = shutil.disk_usage(d).free
-        log(f"[pack] {d}: {free / 1e9:.2f} GB free, the shards need about "
-            f"{need / 1e9:.2f} GB")
-        if free < 1.5 * need:
-            raise RuntimeError(f"pack phase: {free / 1e9:.2f} GB free in "
-                               f"{d}, need about {1.5 * need / 1e9:.2f} GB")
-        t0 = time.perf_counter()
-        shards = big_trace(os.path.join(d, "pack"), **PACK)
-        write_s = time.perf_counter() - t0
-        size = sum(os.path.getsize(p) for p in shards)
-        n_events = sum(pack.read_footer(p)["rows"] for p in shards)
-        log(f"[pack] wrote {len(shards)} shards, {n_events} events, "
-            f"{size / 1e6:.1f} MB with sidecars, in {write_s:.2f} s | "
-            f"{SMI[0]}")
+    free = shutil.disk_usage(d).free
+    log(f"[pack] {d}: {free / 1e9:.2f} GB free, the shards need about "
+        f"{need / 1e9:.2f} GB")
+    if free < 1.5 * need:
+        raise RuntimeError(f"pack phase: {free / 1e9:.2f} GB free in "
+                           f"{d}, need about {1.5 * need / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    shards = big_trace(os.path.join(d, "pack"), **PACK)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(p) for p in shards)
+    n_events = sum(pack.read_footer(p)["rows"] for p in shards)
+    log(f"[pack] wrote {len(shards)} shards, {n_events} events, "
+        f"{size / 1e6:.1f} MB with sidecars, in {write_s:.2f} s | "
+        f"{SMI[0]}")
 
-        # eager: the open, then the seven op calls.  Merging the shards
-        # renumbers their rows, so the sidecars are dropped and the first
-        # op derives structure, once
-        derive0 = structure.DERIVE_CALLS
-        t0 = time.perf_counter()
-        eager = Trace.open(shards, device="cuda")
-        open_s = time.perf_counter() - t0
-        if len(eager) != n_events:
-            raise AssertionError(f"pack open: {len(eager)} events")
-        log(f"[pack] eager open of {len(shards)} shards: {len(eager)} "
-            f"events in {open_s:.2f} s, {len(eager) / open_s:,.0f} "
-            f"events/s | {SMI[0]}")
-        launches = {}
-        _res, launches["pack eager"] = _route_bits(
-            "pack", "eager", OPS, lambda op, kw: eager.run(op, **kw),
-            main_digests, n_events, main_launches)
-        derived = structure.DERIVE_CALLS - derive0
-        if derived != 1:
-            raise AssertionError(f"the eager sharded pack route derived "
-                                 f"structure {derived} times, not once")
-        # one shard opened alone: its sidecar is its structure
-        derive0 = structure.DERIVE_CALLS
-        t0 = time.perf_counter()
-        one = Trace.open(shards[0], device="cuda")
-        one.flat_profile()
-        one_s = time.perf_counter() - t0
-        if structure.DERIVE_CALLS != derive0:
-            raise AssertionError("a single pack shard with its sidecar "
-                                 "derived structure")
-        log(f"[pack] eager route: structure derived once, at the first op; "
-            f"one shard ({len(one)} events) opened alone with its sidecar "
-            f"and profiled in {one_s:.3f} s, no structure derived | "
-            f"{SMI[0]}")
-        del one
+    # eager: the open, then the seven op calls.  Merging the shards
+    # renumbers their rows, so the sidecars are dropped and the first
+    # op derives structure, once
+    derive0 = structure.DERIVE_CALLS
+    t0 = time.perf_counter()
+    eager = Trace.open(shards, device="cuda")
+    open_s = time.perf_counter() - t0
+    if len(eager) != n_events:
+        raise AssertionError(f"pack open: {len(eager)} events")
+    log(f"[pack] eager open of {len(shards)} shards: {len(eager)} "
+        f"events in {open_s:.2f} s, {len(eager) / open_s:,.0f} "
+        f"events/s | {SMI[0]}")
+    launches = {}
+    _res, launches["pack eager"] = _route_bits(
+        "pack", "eager", OPS, lambda op, kw: eager.run(op, **kw),
+        main_digests, n_events, main_launches)
+    derived = structure.DERIVE_CALLS - derive0
+    if derived != 1:
+        raise AssertionError(f"the eager sharded pack route derived "
+                             f"structure {derived} times, not once")
+    # one shard opened alone: its sidecar is its structure
+    derive0 = structure.DERIVE_CALLS
+    t0 = time.perf_counter()
+    one = Trace.open(shards[0], device="cuda")
+    one.flat_profile()
+    one_s = time.perf_counter() - t0
+    if structure.DERIVE_CALLS != derive0:
+        raise AssertionError("a single pack shard with its sidecar "
+                             "derived structure")
+    log(f"[pack] eager route: structure derived once, at the first op; "
+        f"one shard ({len(one)} events) opened alone with its sidecar "
+        f"and profiled in {one_s:.3f} s, no structure derived | "
+        f"{SMI[0]}")
+    del one
 
-        # the scan: 8 of 64 shards read, the eager selection's bits
-        sel = Filter(PROC, "in", list(SCAN_RANKS))
-        kept = parallel.select_shards(shards, procs=set(SCAN_RANKS))
-        t0 = time.perf_counter()
-        q = scan(shards).filter(sel)
-        got = q.flat_profile()
-        scan_s = time.perf_counter() - t0
-        sub = q.collect()
-        want = eager.query().filter(sel).collect().flat_profile()
-        same = digest(got) == digest(want)
-        log(f"[pack] scan(...).filter(Process in 0..7).flat_profile(): "
-            f"{scan_s:.3f} s, {len(shards) - len(kept)} of {len(shards)} "
-            f"shards skipped unread (read: {sub.label}) | bits "
-            f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
-        if not same or len(kept) != len(SCAN_RANKS) or \
-                sub.label != f"parallel[{len(SCAN_RANKS)}]":
-            raise AssertionError("scan: wrong bits or shards")
-        del eager, _res, sub
+    # the scan: 8 of 64 shards read, the eager selection's bits
+    sel = Filter(PROC, "in", list(SCAN_RANKS))
+    kept = parallel.select_shards(shards, procs=set(SCAN_RANKS))
+    t0 = time.perf_counter()
+    q = scan(shards).filter(sel)
+    got = q.flat_profile()
+    scan_s = time.perf_counter() - t0
+    sub = q.collect()
+    want = eager.query().filter(sel).collect().flat_profile()
+    same = digest(got) == digest(want)
+    log(f"[pack] scan(...).filter(Process in 0..7).flat_profile(): "
+        f"{scan_s:.3f} s, {len(shards) - len(kept)} of {len(shards)} "
+        f"shards skipped unread (read: {sub.label}) | bits "
+        f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+    if not same or len(kept) != len(SCAN_RANKS) or \
+            sub.label != f"parallel[{len(SCAN_RANKS)}]":
+        raise AssertionError("scan: wrong bits or shards")
+    del eager, _res, sub
 
-        # streamed, serial then pooled: sidecar slices, no derivation
-        st = Trace.open(shards, streaming=True, device="cuda")
-        derive0 = structure.DERIVE_CALLS
-        _res, launches["pack streamed"] = _route_bits(
-            "pack", "streamed", OPS, lambda op, kw: st.run(op, **kw),
-            main_digests, n_events, main_launches)
-        if structure.DERIVE_CALLS != derive0:
-            raise AssertionError("the streamed pack route derived "
-                                 "structure")
-        pst = Trace.open(shards, streaming=True, device="cuda",
-                         processes=workers)
-        pst._pool = pool
-        _res, launches["pack pooled"] = _route_bits(
-            "pack", f"pooled x{workers}", OPS,
-            lambda op, kw: pst.run(op, **kw), main_digests, n_events,
-            main_launches, pooled=pst)
+    # streamed, serial then pooled: sidecar slices, no derivation
+    st = Trace.open(shards, streaming=True, device="cuda")
+    derive0 = structure.DERIVE_CALLS
+    _res, launches["pack streamed"] = _route_bits(
+        "pack", "streamed", OPS, lambda op, kw: st.run(op, **kw),
+        main_digests, n_events, main_launches)
+    if structure.DERIVE_CALLS != derive0:
+        raise AssertionError("the streamed pack route derived "
+                             "structure")
+    pst = Trace.open(shards, streaming=True, device="cuda",
+                     processes=workers)
+    pst._pool = pool
+    _res, launches["pack pooled"] = _route_bits(
+        "pack", f"pooled x{workers}", OPS,
+        lambda op, kw: pst.run(op, **kw), main_digests, n_events,
+        main_launches, pooled=pst)
 
-        # corruption: one shard re-packed in groups, one byte flipped
-        good = os.path.join(d, "groups.pack")
-        Trace.open(shards[0], device="cpu").save_pack(
-            good, chunk_rows=DAMAGE_GROUP_ROWS)
-        _damage_check(pack, good, d)
+    # corruption: one shard re-packed in groups, one byte flipped
+    good = os.path.join(d, "groups.pack")
+    Trace.open(shards[0], device="cpu").save_pack(
+        good, chunk_rows=DAMAGE_GROUP_ROWS)
+    _damage_check(pack, good, d)
     return launches
 
 
@@ -1307,7 +1334,400 @@ def phase_parallel(wants, pool, workers) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: timing on the main path's inputs
+# phases 10-11: the live and served routes
+# ---------------------------------------------------------------------------
+
+#: launches of the seven op calls on every route, cold or incremental
+ROUTE_LAUNCHES = {"seg_sum": 2, "pair_sum": 3, "time_bin": 1, "hist_bin": 1}
+#: rows a chunk group of the live shards holds (commits land whole groups)
+LIVE_GROUP_ROWS = 65_536
+#: the /live session's shard set: the first 8 live-10M shards
+LIVE_SESSION_RANKS = 8
+#: the tracer fleet: 8 ranks of about 20,000 events each
+FLEET = dict(ranks=8, iters=200, calls=33, flush_every=4096)
+#: the fleet's classification windows (seconds of heartbeat age)
+FLEET_LAG_S, FLEET_DEAD_S = 30.0, 120.0
+#: concurrent identical requests that must coalesce into one execution
+COALESCE = 4
+
+
+def _no_launches(label: str) -> None:
+    """Every trace kernel's count since :func:`reset_counts` is 0."""
+    from repro_torch import kernels
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in kernels.TRACE_KERNELS}
+    log(f"[{label}] launches {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a cache hit launched {launches}")
+
+
+def _counted(label: str, run) -> tuple:
+    """``run()`` with the counts reset just before and read just after:
+    every kernel on its path, launched :data:`ROUTE_LAUNCHES` times.
+    Returns (its result, the launches)."""
+    reset_counts()
+    out = run()
+    launches = check_counts(label)
+    if launches != ROUTE_LAUNCHES:
+        raise AssertionError(f"{label}: launches {launches}, a cold pass "
+                             f"launches {ROUTE_LAUNCHES}")
+    return out, launches
+
+
+def start_service(device="cuda"):
+    """A ``TraceServer`` on 127.0.0.1:0 on ``device``, its event loop in a
+    thread of this process: (server, thread)."""
+    import asyncio
+    import threading
+
+    from repro_torch.core.accel import resolve_device
+    from repro_torch.serving.tracequery import TraceServer, TraceService
+    box, ready = {}, threading.Event()
+
+    def serve():
+        async def main():
+            box["server"] = await TraceServer(TraceService(device=device),
+                                              port=0).start()
+            ready.set()
+            await box["server"].serve_forever()
+
+        try:
+            asyncio.run(main())
+        finally:
+            ready.set()
+
+    thread = threading.Thread(target=serve, name="tracequery-loop",
+                              daemon=True)
+    thread.start()
+    if not ready.wait(60) or "server" not in box:
+        raise RuntimeError("the trace-query server did not start")
+    server = box["server"]
+    if server.service.device != resolve_device(device):
+        raise AssertionError(f"service on {server.service.device}")
+    log(f"[tracequery] server on 127.0.0.1:{server.port}, device "
+        f"{server.service.device}")
+    return server, thread
+
+
+def _write_live(events, d):
+    """main-10M's events as 64 append-mode shards, each rank's first half
+    (whole groups) committed; returns (paths, writers with their rest)."""
+    from repro_torch.core import PROC
+    from repro_torch.readers.pack import PackWriter
+    procs = np.asarray(events[PROC])
+    bounds = np.searchsorted(procs, np.arange(MAIN["nprocs"] + 1))
+    paths, rest = [], []
+    for r in range(MAIN["nprocs"]):
+        lo, hi = int(bounds[r]), int(bounds[r + 1])
+        half = lo + (hi - lo) // 2 // LIVE_GROUP_ROWS * LIVE_GROUP_ROWS
+        p = os.path.join(d, f"rank_{r}.pack")
+        w = PackWriter.open_append(p, chunk_rows=LIVE_GROUP_ROWS,
+                                   fsync=False)
+        w.append(events.take(np.arange(lo, half)))
+        w.commit()
+        paths.append(p)
+        rest.append((w, half, hi))
+    return paths, rest
+
+
+def _live_stage(label, lt, paths, launches, eager=None) -> list:
+    """At ``lt``'s watermark: the seven op calls incrementally (cache on),
+    on a cold ``cache=False`` handle and eagerly over the same committed
+    rows, one digest each.  ``eager``: the eager route's digests over
+    these rows when they are known already (phase 5's, once every row is
+    committed: the same events), in place of materializing them again."""
+    from repro_torch import Trace
+    from repro_torch.launch.cardcheck import digest
+    inc, launches[f"live {label} incremental"] = _counted(
+        f"live {label} incremental",
+        lambda: _route(OPS, lambda op, kw: lt.run(op, **kw)))
+    cold_h = Trace.open(paths, live=True, cache=False, device="cuda")
+    if cold_h.watermark.rows != lt.watermark.rows:
+        raise AssertionError("the cold handle pinned other rows")
+    cold, launches[f"live {label} cold"] = _counted(
+        f"live {label} cold",
+        lambda: _route(OPS, lambda op, kw: cold_h.run(op, **kw)))
+    if eager is None:
+        t0 = time.perf_counter()
+        eager_t = lt.materialize()
+        mat_s = time.perf_counter() - t0
+        runs, launches[f"live {label} eager"] = _counted(
+            f"live {label} eager",
+            lambda: _route(OPS, lambda op, kw: eager_t.run(op, **kw)))
+        eager = [(digest(r), f"eager {w:.3f} s") for r, w in runs]
+        log(f"[live] {label}: watermark {lt.watermark.rows} rows "
+            f"({len(eager_t)} materialized in {mat_s:.2f} s), finalized "
+            f"{lt.watermark.finalized} | {SMI[0]}")
+        del eager_t
+    else:
+        eager = [(d, "eager: phase 5's") for d in eager]
+        log(f"[live] {label}: watermark {lt.watermark.rows} rows, "
+            f"finalized {lt.watermark.finalized} | {SMI[0]}")
+    for i, (op, kw) in enumerate(OPS):
+        same = digest(inc[i][0]) == digest(cold[i][0]) == eager[i][0]
+        log(f"[live] {label} {op:17s} {json.dumps(kw, default=str):34s} "
+            f"incremental {inc[i][1]:.3f} s | cold {cold[i][1]:.3f} s | "
+            f"{eager[i][1]} | bits {'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"live {label} {op}: incremental, cold "
+                                 f"and eager differ")
+    return [r for r, _w in inc]
+
+
+def _live_polls(client, paths, before_commit: bool) -> None:
+    """``POST /live`` over the first live-10M shards: before a commit 200
+    then 429 ``watermark_stalled`` with ``retry_after_ms``; after it 200."""
+    from repro_torch.serving.client import RemoteError
+    live = client.open_live(paths[:LIVE_SESSION_RANKS])
+    t0 = time.perf_counter()
+    out = live.poll("flat_profile", digest_only=True)
+    wall = time.perf_counter() - t0
+    log(f"[tracequery] /live 200: {out['watermark']['rows']} rows, "
+        f"advanced {out['advanced_rows']}, {wall:.3f} s")
+    if not before_commit:
+        if out["advanced_rows"] <= 0:
+            raise AssertionError("/live: no advance after the commit")
+        return
+    try:
+        live.poll("flat_profile", digest_only=True)
+    except RemoteError as e:
+        if e.status != 429 or e.code != "watermark_stalled" or \
+                e.extra.get("retry_after_ms", 0) <= 0:
+            raise
+        log(f"[tracequery] /live {e.status} {e.code}, retry_after_ms "
+            f"{e.extra['retry_after_ms']}")
+    else:
+        raise AssertionError("/live: a poll with no growth was served")
+
+
+def phase_live(main_digests, client) -> dict:
+    """live-10M: main-10M's events as 64 append-mode shards grown in two
+    commits a rank; at each watermark the seven op calls incrementally,
+    cold and eagerly give one digest (after ``finalize`` the eager route
+    over every row is phase 5's), with :data:`ROUTE_LAUNCHES` each; a repeat with no growth launches nothing;
+    no op falls back to the full pass.  ``POST /live`` over 8 of the
+    shards around the second commit.  Returns the routes' launches."""
+    import tempfile
+
+    from repro_torch import Trace
+    from repro_torch.core import streaming
+    from repro_torch.tracegen import big_events
+    launches = {}
+    fallbacks = streaming.INCREMENTAL_FALLBACKS
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        events = big_events(**MAIN, calls_per_iter=500)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths, rest = _write_live(events, d)
+        lt = Trace.open(paths, live=True, device="cuda")
+        log(f"[live] {len(events)} events generated in {gen_s:.2f} s; "
+            f"first commits of {len(paths)} shards in "
+            f"{time.perf_counter() - t0:.2f} s (groups of "
+            f"{LIVE_GROUP_ROWS} rows) | {SMI[0]}")
+        _live_stage("half", lt, paths, launches)
+        _live_polls(client, paths, before_commit=True)
+        t0 = time.perf_counter()
+        for w, half, hi in rest:
+            w.append(events.take(np.arange(half, hi)))
+            w.commit()
+            w.finalize(sidecar=False)
+        del events, rest
+        log(f"[live] second commits and finalize in "
+            f"{time.perf_counter() - t0:.2f} s; refresh to "
+            f"{lt.refresh().rows} rows")
+        _live_polls(client, paths, before_commit=False)
+        last = _live_stage("all", lt, paths, launches, eager=main_digests)
+        reset_counts()
+        again = _route(OPS, lambda op, kw: lt.run(op, **kw))
+        _no_launches("live repeat")
+        launches["live repeat"] = dict.fromkeys(ROUTE_LAUNCHES, 0)
+        if any(a is not b for (a, _w), b in zip(again, last)):
+            raise AssertionError("live repeat: not the stored results")
+        log(f"[live] repeat with no growth: {len(OPS)} stored results, "
+            f"{sum(w for _r, w in again):.4f} s")
+        n_fb = streaming.INCREMENTAL_FALLBACKS - fallbacks
+        log(f"[live] incremental fallbacks {n_fb}")
+        if n_fb:
+            raise AssertionError(f"{n_fb} live ops fell back to the full "
+                                 f"pass")
+        del lt
+    return launches
+
+
+def _fleet_write(d) -> list:
+    """8 ``Tracer`` ranks with sinks under ``d``: iterations of calls that
+    each send a message to one of the first 7 ranks (the survivors, whose
+    comm matrix holds no partner past them); returns the shard paths."""
+    from repro_torch.runtime.tracer import Tracer
+    paths = []
+    peers = FLEET["ranks"] - 1
+    for r in range(FLEET["ranks"]):
+        sink = os.path.join(d, f"rank_{r}.pack")
+        tr = Tracer(process=r, sink=sink, flush_every=FLEET["flush_every"],
+                    fsync=False)
+        for _ in range(FLEET["iters"]):
+            with tr.span("iteration"):
+                for c in range(FLEET["calls"]):
+                    with tr.span(f"compute_{c % 3}"):
+                        tr.message("send", partner=(r + 1) % peers,
+                                   size=float(64 << (c % 10)))
+        tr.flush()
+        paths.append(sink)
+    return paths
+
+
+def phase_fleet(client) -> None:
+    """A tracer fleet with one rank's heartbeat back-dated past
+    ``dead_timeout``: ``LiveTraceSet`` names it missing and its survivors'
+    seven op calls are a direct live open's bits; ``POST /live`` on the
+    fleet answers 206 partial naming it."""
+    import tempfile
+
+    from repro_torch import Trace
+    from repro_torch.core.liveset import LiveTraceSet
+    from repro_torch.launch.cardcheck import digest
+    from repro_torch.readers.pack import committed_prefix
+    from repro_torch.runtime.tracer import read_heartbeat, write_heartbeat
+    dead = FLEET["ranks"] - 1
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = _fleet_write(d)
+        rows = [committed_prefix(p)["rows"] for p in paths]
+        hb = read_heartbeat(paths[dead])
+        write_heartbeat(paths[dead], dead, hb["events"], hb["ts_max"],
+                        hb["seq"], wall=time.time() - 2 * FLEET_DEAD_S)
+        log(f"[fleet] {len(paths)} tracer ranks, {sum(rows)} events "
+            f"committed ({min(rows)}-{max(rows)} a rank) in "
+            f"{time.perf_counter() - t0:.2f} s; rank {dead}'s heartbeat "
+            f"back-dated {2 * FLEET_DEAD_S:.0f} s")
+        ls = LiveTraceSet(d, lag_timeout=FLEET_LAG_S,
+                          dead_timeout=FLEET_DEAD_S, device="cuda")
+        direct = Trace.open(paths[:dead], live=True, cache=False,
+                            device="cuda")
+        for op, kw in OPS:
+            val, cov, wm = ls.run(op, **kw)
+            if cov.missing != [dead]:
+                raise AssertionError(f"fleet: missing {cov.missing}")
+            same = digest(val) == digest(direct.run(op, **kw))
+            log(f"[fleet] {op:17s} {json.dumps(kw, default=str):34s} "
+                f"survivors {cov.included} ({wm.rows} rows) | bits "
+                f"{'equal' if same else 'DIFFER'} to a direct live open")
+            if not same:
+                raise AssertionError(f"fleet {op}: not the direct bits")
+        part = client.open_liveset(d, lag_timeout=FLEET_LAG_S,
+                                   dead_timeout=FLEET_DEAD_S).poll(
+            "flat_profile", min_advance_rows=0, digest_only=True)
+        if not part["partial"] or part["missing_ranks"] != [dead]:
+            raise AssertionError(f"/live liveset: {part.get('partial')} "
+                                 f"{part.get('missing_ranks')}")
+        log(f"[tracequery] /live liveset 206 partial, missing_ranks "
+            f"{part['missing_ranks']}")
+
+
+def phase_served(client, pack_dir, main_digests) -> dict:
+    """pack-10M's 64 shards through the service (``streaming=True``): each
+    op call the library call's bits on the same handle configuration (and
+    phase 5's), :data:`ROUTE_LAUNCHES` on the misses, none on a repeat, and
+    ``COALESCE`` identical concurrent requests executed once.  Returns the
+    routes' launches."""
+    import threading
+
+    from repro_torch import Trace
+    from repro_torch.launch.cardcheck import digest
+    from repro_torch.serving import protocol
+    from repro_torch.serving.client import ServiceClient
+    shards = [os.path.join(pack_dir, f"rank_{r}.pack")
+              for r in range(MAIN["nprocs"])]
+    remote = client.open(shards, streaming=True)
+    launches = {}
+    served, launches["served miss"] = _counted(
+        "served miss",
+        lambda: _route(OPS, lambda op, kw: remote.query().run(op, **kw)))
+    lib_h = Trace.open(shards, streaming=True, cache=False, device="cuda")
+    lib = _route(OPS, lambda op, kw: lib_h.run(op, **kw))
+    reset_counts()
+    hits, metas = [], []
+    for op, kw in OPS:
+        t0 = time.perf_counter()
+        remote.query().run(op, **kw)
+        hits.append(time.perf_counter() - t0)
+        metas.append(dict(client.last_meta))
+    _no_launches("served hit")
+    launches["served hit"] = dict.fromkeys(ROUTE_LAUNCHES, 0)
+    for i, (op, kw) in enumerate(OPS):
+        (got, wall), (want, lib_s) = served[i], lib[i]
+        same = (protocol.result_digest(got) == protocol.result_digest(want)
+                == metas[i]["digest"] and digest(want) == main_digests[i])
+        log(f"[tracequery] {op:17s} {json.dumps(kw, default=str):34s} "
+            f"served {wall:.3f} s | hit {hits[i]:.4f} s (cached "
+            f"{metas[i]['cached']}) | library {lib_s:.3f} s | digest "
+            f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+        if not same or not metas[i]["cached"]:
+            raise AssertionError(f"served {op}: not the library digest, "
+                                 f"or the repeat was no hit")
+    # identical concurrent requests: one execution, the rest coalesce
+    op, kw = OPS[0]
+    st0 = client.stats()["service"]
+    barrier, out = threading.Barrier(COALESCE), []
+
+    def send():
+        with ServiceClient("127.0.0.1", client.port) as c:
+            barrier.wait(timeout=60)
+            out.append(c.open(shards, streaming=True).query().run(
+                op, cache=False, digest_only=True, **kw))
+
+    threads = [threading.Thread(target=send) for _ in range(COALESCE)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    st1 = client.stats()["service"]
+    executed = st1["executed"] - st0["executed"]
+    coalesced = st1["coalesced"] - st0["coalesced"]
+    log(f"[tracequery] {COALESCE} concurrent {op}: executed {executed}, "
+        f"coalesced {coalesced}, {wall:.3f} s; digests "
+        f"{len(set(out))} distinct")
+    if executed != 1 or coalesced != COALESCE - 1 or len(out) != COALESCE \
+            or set(out) != {metas[0]["digest"]}:
+        raise AssertionError("concurrent identical requests did not "
+                             "coalesce into one execution")
+    return launches
+
+
+def phase_live_and_served(main_digests, pack_dir) -> dict:
+    """Phases 10-11 with the plan cache on (the earlier phases run with it
+    off), around one trace-query server; the live store is cleared and
+    every service thread stopped after."""
+    from repro_torch.core import plancache
+    from repro_torch.core.scheduler import get_scheduler
+    from repro_torch.serving.client import ServiceClient
+    plancache.clear()
+    plancache.configure(enabled=True)
+    server, thread = start_service()
+    try:
+        with ServiceClient("127.0.0.1", server.port, tenant="smoke") as c:
+            launches = phase_live(main_digests, c)
+            plancache.clear()
+            phase_fleet(c)
+            launches.update(phase_served(c, pack_dir, main_digests))
+            st = c.stats()
+            log(f"[tracequery] service {json.dumps(st['service'])}")
+            c.shutdown(grace=30)
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise RuntimeError("the trace-query server did not stop")
+    finally:
+        plancache.clear()
+        plancache.configure(enabled=False)
+        get_scheduler().shutdown()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 
 def _bound(bytes_moved: float, ops: float):
@@ -1473,7 +1893,7 @@ def _path_prev(mod, name, args, kw, path, check) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 11-14: the serving path
+# phases 13-16: the serving path
 # ---------------------------------------------------------------------------
 
 def phase_serve():
@@ -1847,8 +2267,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
         return 2
+    import tempfile
+
+    from repro_torch.core import plancache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 3-9 compare routes, count launches and time calls: a stored
+    # result would answer them with no launch.  The cache is on only for
+    # the live and served phases, which check it
+    plancache.configure(enabled=False)
     t_start = time.perf_counter()
     device = phase_device()
     phase_build()
@@ -1859,12 +2286,16 @@ def main() -> int:
     stream_launches, stream_wants = phase_stream()
     routes = {"query": phase_query(trace), "stream": stream_launches}
     del trace
-    pool, workers, _start_s = start_pool()
-    try:
-        routes.update(phase_pack(main_digests, launches, pool, workers))
-        routes.update(phase_parallel(stream_wants, pool, workers))
-    finally:
-        pool.close()
+    with tempfile.TemporaryDirectory() as d:
+        pool, workers, _start_s = start_pool()
+        try:
+            routes.update(phase_pack(main_digests, launches, pool, workers,
+                                     d))
+            routes.update(phase_parallel(stream_wants, pool, workers))
+        finally:
+            pool.close()
+        routes.update(phase_live_and_served(main_digests,
+                                            os.path.join(d, "pack")))
     rows = phase_timing(launches, calls, routes)
     serve_launches, serve_inputs = phase_serve()
     f32_launches, f32_inputs = phase_f32_router()

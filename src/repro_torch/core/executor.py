@@ -49,7 +49,7 @@ from .streaming import (CallBlock, CallStitcher, Chunk, GlobalNames,
                         StreamAgg, StreamContext, StreamingUnsupported,
                         _steps_hints, fold_frames, iter_chunks_fallback,
                         mask_frames)
-from ..parallel_util import SharedPool, resolve_processes, spawn_unsafe_reason
+from ..parallel_util import resolve_processes, spawn_unsafe_reason
 
 __all__ = ["execute_parallel", "plan_units", "ParallelDegraded"]
 
@@ -75,7 +75,9 @@ def plan_units(handle, steps: Sequence, n_workers: int) -> List[Any]:
     """Partition the handle's (shard-skipped) input into work units, in
     stream order — path order, spans in offset order — which is what makes
     the seam replay equivalent to the serial chunk sequence.  A unit is a
-    whole path (str), a ByteSpan or a RowSpan.
+    whole path (str), a ByteSpan or a RowSpan.  A handle with a
+    ``plan_units_for(path, n)`` method (a live handle) plans each path
+    itself.
 
     Plans are memoized on the handle per (selected paths with their size
     and mtime, n_workers): a file that grows between ops is planned
@@ -94,9 +96,16 @@ def plan_units(handle, steps: Sequence, n_workers: int) -> List[Any]:
     sizes = [max(_stat(p)[0], 0) for p in paths]
     total = max(sum(sizes), 1)
     units: List[Any] = []
+    planner = getattr(handle, "plan_units_for", None)
     for p, sz in zip(paths, sizes):
         # a share of the worker budget proportional to file size
         want = max(1, round(sz * n_workers / total))
+        if planner is not None:
+            # handle-owned planning (live handles): its units are the
+            # plan even when there is one, since a whole-path unit would
+            # read past the pinned snapshot
+            units.extend(planner(p, want))
+            continue
         spec = registry.resolve_reader(p, handle.format)
         sub = None
         if want > 1 and spec.plan_units is not None:
@@ -309,7 +318,10 @@ def execute_parallel(handle, steps: Sequence, spec: registry.OpSpec,
         if reason is not None:
             raise ParallelDegraded(reason)
         if handle._pool is None:
-            handle._pool = SharedPool(n)
+            # the shared scheduler owns the pools: every handle (and every
+            # service session) asking for n workers fans into one pool
+            from .scheduler import get_scheduler
+            handle._pool = get_scheduler().spawn_pool(n)
         try:
             handle._pool.get()
         except RuntimeError as e:  # pragma: no cover - raced __main__ state

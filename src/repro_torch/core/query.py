@@ -28,8 +28,9 @@ the caller's back.  Plans over a
 :class:`~repro_torch.core.streaming.StreamingTrace` execute chunk by chunk;
 plans over unread shards (:func:`scan`) read them at collect time, after
 the plan's process restriction is known, so shards it excludes are never
-parsed.  Not yet ported: the plan-result cache (``run(cache=True)``,
-ROADMAP §A.4).
+parsed.  Terminal results of streaming and scan sources are memoized in
+the plan-result cache (:mod:`repro_torch.core.plancache`); an in-memory
+trace joins it per call with ``cache=True``.
 
 Example::
 
@@ -534,33 +535,46 @@ class TraceQuery:
     def run(self, op_name: str, *args: Any, device=None, cache=None,
             **kwargs: Any) -> Any:
         """Execute a registered terminal op over this plan, its kernels on
-        ``device`` (default: the source's).  ``cache=True`` asks for the
-        plan-result cache, which is not ported yet; ``None`` and ``False``
-        run uncached."""
-        if cache:
-            raise NotImplementedError(
-                "run(cache=True): the plan-result cache (core/plancache.py) "
-                "is not yet ported (ROADMAP §A.4); pass cache=False")
+        ``device`` (default: the source's).
+
+        ``cache=`` (consumed here, never passed to the op) controls the
+        plan-result cache (:mod:`repro_torch.core.plancache`): ``False``
+        bypasses it, ``True`` opts an in-memory trace into content-hashed
+        caching; the default caches streaming and scan sources only.  The
+        device is part of the key, so a card result never answers a CPU
+        call."""
         spec = registry.get_op(op_name)
         if spec is None:
             raise ValueError(f"unknown analysis op {op_name!r}; "
                              f"registered: {registry.list_ops()}")
         dev = self._source.device if device is None else \
             resolve_device(device)
+        kwargs = dict(kwargs, device=dev)
+        from . import plancache
+        key = plancache.plan_key(self._source, self._steps, spec, args,
+                                 kwargs, cache)
+        if key is not None:
+            hit, value = plancache.lookup(key)
+            if hit:
+                return value
         if isinstance(self._source, _StreamSource):
             # out-of-core execution: fused masks run per chunk and the op's
             # aggregator buffers records for one kernel call at the end.
             # Ops without a streaming form raise StreamingUnsupported with
             # the escape hatches spelled out.
             from .streaming import execute_streaming
-            return execute_streaming(self._source.handle, self._steps,
-                                     spec, args, dict(kwargs, device=dev))
-        trace = self.collect()
-        if spec.needs_structure:
-            trace._ensure_structure()
-        if spec.needs_messages:
-            trace._ensure_messages()
-        return spec.fn(trace, *args, device=dev, **kwargs)
+            result = execute_streaming(self._source.handle, self._steps,
+                                       spec, args, kwargs, cache_flag=cache)
+        else:
+            trace = self.collect()
+            if spec.needs_structure:
+                trace._ensure_structure()
+            if spec.needs_messages:
+                trace._ensure_messages()
+            result = spec.fn(trace, *args, **kwargs)
+        if key is not None:
+            plancache.store(key, result)
+        return result
 
     def __getattr__(self, name: str):
         return registry.terminal_op(name, self.run, "TraceQuery")

@@ -1,6 +1,6 @@
 """Out-of-core streaming execution of lazy query plans (paper §VI scaled).
 
-Mirrors :mod:`repro.core.streaming` (its live handles excepted).  A trace
+Mirrors :mod:`repro.core.streaming`.  A trace
 opened with ``Trace.open(paths, streaming=True)`` is a
 :class:`StreamingTrace`: a handle over its files that is never
 materialized.  A terminal op on it (or on a plan over it) runs chunk by
@@ -30,12 +30,22 @@ pool (:mod:`repro_torch.core.executor`): workers parse, mask, stitch and
 buffer records on the host, the parent merges them in stream order and
 makes the op's one kernel call, so every route gives the same bits.  Ops
 with no streaming form raise :class:`StreamingUnsupported` naming the
-escape hatches.  Not yet ported: live handles (``LiveTrace``, ROADMAP
-§A.4, with the plan cache their incremental refresh needs).
+escape hatches.
+
+A :class:`LiveTrace` (``Trace.open(shards, live=True)``) runs over the
+committed prefix of still-growing append-mode pack shards, pinned at its
+last ``refresh()``, and its results carry a :class:`Watermark`.  A
+repeated op folds only the rows committed since the last call into the
+running aggregator kept in the plan cache's live store
+(:mod:`repro_torch.core.plancache`); its ``result()`` then sorts and
+reduces the whole record buffer in one kernel launch, as the cold pass
+does, so the incremental result is the cold pass's bits.
 """
 
 from __future__ import annotations
 
+import copy
+import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
     Tuple
 
@@ -49,7 +59,8 @@ from .errors import IngestReport
 from .frame import Categorical, EventFrame, concat
 from .registry import PlanHints
 
-__all__ = ["StreamingTrace", "StreamingUnsupported", "StreamAgg",
+__all__ = ["StreamingTrace", "LiveTrace", "Watermark", "LiveResult",
+           "StreamingUnsupported", "StreamAgg",
            "GlobalNames", "CallBlock", "Chunk", "StreamStats",
            "StreamContext", "CallStitcher", "execute_streaming",
            "iter_chunks_fallback", "grow_to", "fold_frames", "mask_frames",
@@ -295,8 +306,12 @@ class CallStitcher:
         if pre is not None:
             matching, parent, inc, exc = pre
         else:
+            # a serial stream's chunk starts inside calls opened before it:
+            # match what opens and closes in it here, not one call at a
+            # time on the carry stacks.  A deferring unit derives as the
+            # reference does, so its seam events are the reference's
             matching, _depth, parent, inc, exc = \
-                structure.derive_structure(ev)
+                structure.derive_structure(ev, open_head=not self._defer)
 
         et = ev.cat(ET)
         is_enter = et.mask_eq(ENTER)
@@ -604,7 +619,8 @@ def fold_frames(frames: Iterator[EventFrame], agg: StreamAgg,
 
 def execute_streaming(handle: "StreamingTrace", steps: Sequence,
                       spec: registry.OpSpec, args: tuple,
-                      kwargs: dict) -> Any:
+                      kwargs: dict, cache_flag: Optional[bool] = None
+                      ) -> Any:
     """Run one registered op out of core over ``handle`` under ``steps``:
     one pass that folds every masked chunk into the op's aggregator, then
     its ``result()``.
@@ -613,7 +629,15 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
     ``executor="parallel"``) the pass fans over work units through
     :func:`repro_torch.core.executor.execute_parallel`; a degradation back
     to the serial pass always warns with its reason (spawn-unsafe
-    ``__main__``, nothing to fan out, unsplittable input)."""
+    ``__main__``, nothing to fan out, unsplittable input).
+
+    A serial live handle (:class:`LiveTrace`) with caching on takes the
+    **incremental** path: only the rows committed since the previous call
+    are folded into the running aggregator kept in the plan cache's live
+    store.  Where it cannot (a plan with no exact digest, a stored state
+    folded past the handle's snapshot by another thread, or a fold the
+    stored state refuses) it falls back to the full pass and counts it in
+    :data:`INCREMENTAL_FALLBACKS`."""
     if spec.streaming is None:
         raise StreamingUnsupported(
             f"op {spec.name!r} has no combinable streaming form (it needs "
@@ -622,6 +646,13 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
             f"with streaming=False.")
     _validate_steps(steps)
     agg: StreamAgg = spec.streaming(*args, **kwargs)
+    if (getattr(handle, "is_live", False) and handle.cache
+            and cache_flag is not False and not handle.wants_parallel()):
+        res = _execute_live_incremental(handle, steps, spec, args, kwargs,
+                                        agg)
+        if res is not _NO_INCREMENTAL:
+            return res
+        _count_fallback()
     if handle.wants_parallel():
         from . import executor
         try:
@@ -639,6 +670,190 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
     open_calls = (stitcher.open_calls() if stitcher
                   else (np.empty(0, np.int64), np.empty(0, np.int64)))
     return agg.result(StreamContext(names, open_calls, proc_max))
+
+
+# ---------------------------------------------------------------------------
+# live incremental execution (valid-up-to-row plan-cache semantics)
+# ---------------------------------------------------------------------------
+
+_NO_INCREMENTAL = object()  # sentinel: fall through to the full pass
+#: live ops that asked for the incremental path and ran the full pass
+INCREMENTAL_FALLBACKS = 0
+_FALLBACK_LOCK = threading.Lock()
+
+
+def _count_fallback() -> None:
+    global INCREMENTAL_FALLBACKS
+    with _FALLBACK_LOCK:
+        INCREMENTAL_FALLBACKS += 1
+
+
+class _LiveEntry:
+    """Running aggregation state of one live plan: the aggregator, name
+    interner and call stitcher, how many rows of each path are folded in,
+    a fingerprint of each path's folded prefix (group count, last group's
+    offset and CRC) that proves a later snapshot *extends* it, and the
+    result of the last finalize (``value``, None once more rows were
+    folded).  Its lock serializes polls of one plan from several lane
+    threads."""
+
+    __slots__ = ("agg", "names", "stitcher", "proc_max", "done", "marks",
+                 "value", "lock")
+
+    def __init__(self, agg: StreamAgg):
+        self.agg = agg
+        self.names = GlobalNames()
+        self.stitcher = CallStitcher() if agg.needs_calls else None
+        self.proc_max = -1
+        self.done: Dict[str, int] = {}    # path -> rows already folded
+        self.marks: Dict[str, tuple] = {}  # path -> prefix fingerprint
+        self.value: Any = None
+        self.lock = threading.Lock()
+
+
+def _prefix_mark(snap: dict, rows: int) -> tuple:
+    """Fingerprint of the first ``rows`` rows of a committed-prefix
+    snapshot: (groups, last group's offset, last group's CRC).  ``rows``
+    is a group boundary (commits land whole groups)."""
+    chunks = [c for c in snap["chunks"] if c["hi"] <= rows]
+    if not chunks:
+        return (0, 0, 0)
+    last = chunks[-1]
+    return (len(chunks), int(last["offset"]), int(last["crc"]))
+
+
+def _extends(entry: _LiveEntry, handle: "LiveTrace") -> bool:
+    """Does every path's current snapshot extend the prefix the entry has
+    folded?  False means a shard was rewritten or truncated under it: the
+    partial must be dropped."""
+    for p, done in entry.done.items():
+        if done == 0:
+            continue
+        snap = handle._snapshots.get(p)
+        if snap is None or snap["rows"] < done:
+            return False
+        if entry.marks.get(p) != _prefix_mark(snap, done):
+            return False
+    return True
+
+
+def _execute_live_incremental(handle: "LiveTrace", steps: Sequence,
+                              spec: registry.OpSpec, args: tuple,
+                              kwargs: dict, agg: StreamAgg) -> Any:
+    """Incremental fold over a live handle's pinned snapshots.
+
+    The rows fed into the stored aggregator across all calls form the
+    same sequence one full pass feeds (per path, rows [0, pinned) in
+    order; paths in handle order), so first-seen name codes, the
+    stitcher's carry state and every buffered record agree with a cold
+    pass over the same committed prefix.  ``result()`` leaves the
+    aggregator's state as it was (it gathers and sorts copies of the
+    buffered records), so it finalizes the stored state itself, under the
+    entry's lock; with no new rows the last result is returned and no
+    kernel launches.  A stored state that does not extend to this
+    handle's snapshot is dropped (:func:`_extends`); one that another
+    thread folded past it after that check falls back to the full pass.
+    """
+    from . import plancache
+    from ..readers.pack import iter_chunks_pack
+    key = plancache.live_plan_key(handle, steps, spec, args, kwargs)
+    if key is None:
+        return _NO_INCREMENTAL
+    entry = plancache.live_lookup(key)
+    if entry is not None and type(entry.agg) is not type(agg):
+        entry = None  # a key collision across aggregator classes
+    if entry is not None and not _extends(entry, handle):
+        plancache.live_invalidate(key)
+        entry = None
+    fresh = entry is None
+    if fresh:
+        entry = _LiveEntry(agg)
+    hints = _steps_hints(steps)
+    kw = {k: v for k, v in handle.reader_kwargs.items()
+          if k not in ("live", "upto_rows", "report")}
+    with entry.lock:
+        pinned = {p: (handle._snapshots[p]["rows"]
+                      if p in handle._snapshots else 0)
+                  for p in handle.paths}
+        if any(pinned[p] < entry.done.get(p, 0) for p in handle.paths):
+            return _NO_INCREMENTAL  # folded past our snapshot meanwhile
+        try:
+            for p in handle.paths:
+                done = entry.done.get(p, 0)
+                if pinned[p] <= done:
+                    continue
+                frames = iter_chunks_pack(p, handle.chunk_rows, hints,
+                                          row_range=(done, pinned[p]),
+                                          live=True, upto_rows=pinned[p],
+                                          **kw)
+                pm = fold_frames(mask_frames(frames, steps, handle.device),
+                                 entry.agg, entry.names, entry.stitcher)
+                entry.proc_max = max(entry.proc_max, pm)
+                entry.done[p] = pinned[p]
+                entry.marks[p] = _prefix_mark(handle._snapshots[p],
+                                              pinned[p])
+                entry.value = None
+        except Exception:
+            # a partly folded entry is unusable: drop it.  A fresh entry's
+            # failure is the op's own (the full pass would meet it too);
+            # a reused one may fail on state the full pass never sees
+            # (cross-path time order only broken when fed in pieces)
+            plancache.live_invalidate(key)
+            if fresh:
+                raise
+            return _NO_INCREMENTAL
+        plancache.live_store(key, entry)
+        if entry.value is None:
+            open_calls = (entry.stitcher.open_calls() if entry.stitcher
+                          else (np.empty(0, np.int64),
+                                np.empty(0, np.int64)))
+            entry.value = entry.agg.result(
+                StreamContext(entry.names, open_calls, entry.proc_max))
+        return entry.value
+
+
+class Watermark:
+    """Valid-up-to marker of a live read: the result covers exactly
+    ``rows`` committed rows (per path in ``per_path``) with events up to
+    ``ts_max``.  ``finalized`` means every shard has sealed its footer:
+    nothing more will arrive."""
+
+    __slots__ = ("rows", "ts_max", "per_path", "finalized")
+
+    def __init__(self, per_path: Dict[str, dict]):
+        self.per_path = {p: dict(w) for p, w in per_path.items()}
+        self.rows = sum(w["rows"] for w in self.per_path.values())
+        ts = [w["ts_max"] for w in self.per_path.values()
+              if w["ts_max"] is not None]
+        self.ts_max = max(ts) if ts else None
+        self.finalized = (all(w["finalized"]
+                              for w in self.per_path.values())
+                          if self.per_path else False)
+
+    def as_dict(self) -> dict:
+        return {"rows": self.rows, "ts_max": self.ts_max,
+                "finalized": self.finalized,
+                "per_path": {p: dict(w) for p, w in self.per_path.items()}}
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"Watermark(rows={self.rows}, ts_max={self.ts_max}, "
+                f"finalized={self.finalized})")
+
+
+class LiveResult:
+    """A live query's value and the watermark it is valid up to."""
+
+    __slots__ = ("value", "watermark")
+
+    def __init__(self, value: Any, watermark: Watermark):
+        self.value = value
+        self.watermark = watermark
+
+    def __iter__(self):  # tuple-style unpacking: value, watermark
+        return iter((self.value, self.watermark))
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"LiveResult({self.value!r}, {self.watermark!r})"
 
 
 # ---------------------------------------------------------------------------
@@ -719,17 +934,17 @@ class StreamingTrace:
     ``device`` (the card unless the caller asks for the CPU).
 
     ``processes=N`` (or ``executor="parallel"``) fans terminal ops over
-    work units in a spawn pool the handle keeps
-    (:mod:`repro_torch.core.executor`).  The reference's ``cache=`` is
-    not taken: the plan-result cache it switches is not ported yet
-    (ROADMAP §A.4).
+    work units in the shared scheduler's spawn pool
+    (:mod:`repro_torch.core.executor`, :mod:`repro_torch.core.scheduler`);
+    ``cache=False`` opts this handle out of the plan-result cache
+    (:mod:`repro_torch.core.plancache`).
     """
 
     def __init__(self, paths, format: str = "auto",
                  chunk_rows: int = DEFAULT_CHUNK_ROWS,
                  label: Optional[str] = None, device="cuda",
                  processes: Optional[int] = None, executor: str = "auto",
-                 **reader_kwargs):
+                 cache: bool = True, **reader_kwargs):
         import os
         if isinstance(paths, (str, bytes)) or hasattr(paths, "__fspath__"):
             paths = [paths]
@@ -743,10 +958,11 @@ class StreamingTrace:
         self.device = resolve_device(device)
         self.processes = processes
         self.executor = executor
+        self.cache = cache
         self.reader_kwargs = reader_kwargs
         self._steps: tuple = ()
         self._stats0: Optional[StreamStats] = None
-        self._pool = None  # SharedPool, made at the first pooled op
+        self._pool = None  # the scheduler's SharedPool, at the first pooled op
         self._units_cache: dict = {}  # work-unit plans per (paths, workers)
         self._ingest = IngestReport()  # filled by tolerant (on_error) reads
         #: ``torch.cuda.is_initialized()`` of each unit of the last
@@ -766,9 +982,13 @@ class StreamingTrace:
     def _iter_frames(self, hints: Optional[PlanHints] = None
                      ) -> Iterator[EventFrame]:
         """Chunks across all paths, in path order, with shard skipping
-        (registered ``shard_procs`` hints) and per-chunk pushdown."""
+        (registered ``shard_procs`` hints) and per-chunk pushdown.  Each
+        chunk is a cancellation point (:func:`~repro_torch.core.
+        cancellation.check_cancelled`): a request past its deadline frees
+        its service lane at the next chunk."""
         from .. import readers  # noqa: F401 — populate the registry
         from ..readers.parallel import select_shards
+        from .cancellation import check_cancelled
         procs = set(hints.procs) if hints and hints.procs is not None \
             else None
         bounds = hints.proc_bounds if hints else None
@@ -783,11 +1003,14 @@ class StreamingTrace:
         for p in paths:
             spec = registry.resolve_reader(p, self.format)
             if spec.iter_chunks is not None:
-                yield from spec.iter_chunks(p, self.chunk_rows, hints, **kw)
+                frames = spec.iter_chunks(p, self.chunk_rows, hints, **kw)
             else:
-                yield from iter_chunks_fallback(p, self.chunk_rows, hints,
-                                                spec.read, device=self.device,
-                                                **kw)
+                frames = iter_chunks_fallback(p, self.chunk_rows, hints,
+                                              spec.read, device=self.device,
+                                              **kw)
+            for frame in frames:
+                check_cancelled()
+                yield frame
 
     def iter_chunks(self) -> Iterator[EventFrame]:
         """Chunk frames with this handle's plan steps applied (masks fused
@@ -798,6 +1021,20 @@ class StreamingTrace:
         """The :class:`~repro_torch.core.errors.IngestReport` accumulated
         by tolerant (``on_error="skip"``) reads through this handle."""
         return self._ingest
+
+    def with_steps(self, steps: Sequence) -> "StreamingTrace":
+        """Shallow copy carrying plan ``steps``, sharing this handle's
+        worker pool, unit plans and ingest report."""
+        clone = StreamingTrace(self.paths, format=self.format,
+                               chunk_rows=self.chunk_rows, label=self.label,
+                               device=self.device, processes=self.processes,
+                               executor=self.executor, cache=self.cache,
+                               **self.reader_kwargs)
+        clone._steps = tuple(steps)
+        clone._pool = self._pool
+        clone._units_cache = self._units_cache  # same paths, same plans
+        clone._ingest = self._ingest  # one report per logical handle
+        return clone
 
     # -- materialization escape hatch --------------------------------------
     def load_raw(self, procs=None, proc_bounds=None):
@@ -865,3 +1102,118 @@ class StreamingTrace:
 
     def __getattr__(self, name: str):
         return registry.terminal_op(name, self.run, "StreamingTrace")
+
+
+class LiveTrace(StreamingTrace):
+    """A still-growing trace opened live: plans run over the **committed
+    prefix** pinned at the last :meth:`refresh`, and results carry a
+    :class:`Watermark` saying how far they are valid.
+
+    The handle snapshots each shard's committed prefix (group index and
+    name table) when created and on every ``refresh()``; every read
+    (serial, parallel row-span units, stats) is pinned to that snapshot, so
+    a writer committing mid-query cannot leak rows into the result, and the
+    eager, streamed and parallel routes give the same bits on the prefix.
+    With caching on (the default), a repeated op folds only the rows
+    committed since the previous call (:func:`execute_streaming`).  The
+    ops run their kernels on ``device``.
+
+    A shard that does not exist yet, or has no committed group, reads as
+    empty: a live pipeline whose data has not arrived is not an error.
+    """
+
+    is_live = True
+
+    def __init__(self, paths, format: str = "auto",
+                 chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                 label: Optional[str] = None, device="cuda",
+                 processes: Optional[int] = None, executor: str = "auto",
+                 cache: bool = True, **reader_kwargs):
+        if format not in ("auto", "pack"):
+            raise ValueError(
+                f"live=True requires pack shards (the append/commit "
+                f"protocol is a pack v2 feature), got format={format!r}")
+        # workers inherit live reads through reader_kwargs: a RowSpan unit
+        # resolves the committed prefix, never a (missing) footer
+        reader_kwargs = dict(reader_kwargs)
+        reader_kwargs["live"] = True
+        super().__init__(paths, format="pack", chunk_rows=chunk_rows,
+                         label=label, device=device, processes=processes,
+                         executor=executor, cache=cache, **reader_kwargs)
+        self._snapshots: Dict[str, dict] = {}
+        self.refresh()
+
+    # -- snapshot control ----------------------------------------------------
+    def refresh(self) -> Watermark:
+        """Snapshot every shard's committed prefix again and return the new
+        :attr:`watermark`.  Cheap on unchanged shards (the pack layer's
+        incremental cursor); drops this handle's stats and work-unit
+        plans, which were pinned to the old snapshot."""
+        from ..readers.pack import committed_prefix
+        self._snapshots = {p: committed_prefix(p) for p in self.paths}
+        self._stats0 = None
+        self._units_cache.clear()
+        return self.watermark
+
+    @property
+    def watermark(self) -> Watermark:
+        """The pinned snapshot's validity marker (per path too): what every
+        result of this handle is valid up to."""
+        return Watermark({p: s["watermark"]
+                          for p, s in self._snapshots.items()})
+
+    # -- pinned plumbing -----------------------------------------------------
+    def _iter_frames(self, hints: Optional[PlanHints] = None
+                     ) -> Iterator[EventFrame]:
+        from ..readers.pack import iter_chunks_pack
+        from .cancellation import check_cancelled
+        kw = {k: v for k, v in self.reader_kwargs.items()
+              if k not in ("live", "upto_rows")}
+        for p in self.paths:
+            snap = self._snapshots.get(p)
+            pinned = snap["rows"] if snap else 0
+            if pinned == 0:
+                continue
+            for frame in iter_chunks_pack(p, self.chunk_rows, hints,
+                                          live=True, upto_rows=pinned,
+                                          **kw):
+                check_cancelled()
+                yield frame
+
+    def plan_units_for(self, path: str, n_units: int) -> List[Any]:
+        """Work units for one shard, bounded by the pinned snapshot:
+        RowSpans on committed group boundaries.  The parallel planner uses
+        these in place of the registry's (whose footer read fails on an
+        unfinalized shard, and whose whole-path unit would read past the
+        watermark)."""
+        snap = self._snapshots.get(path)
+        chunks = snap["chunks"] if snap else []
+        if not chunks:
+            return []
+        if n_units <= 1 or len(chunks) == 1:
+            return [registry.RowSpan(path, 0, chunks[-1]["hi"])]
+        groups = registry.even_groups(chunks, n_units)
+        return [registry.RowSpan(path, g[0]["lo"], g[-1]["hi"])
+                for g in groups]
+
+    def with_steps(self, steps: Sequence) -> "LiveTrace":
+        """Clone carrying plan ``steps`` that **shares this handle's pinned
+        snapshots** (by reference)."""
+        clone = copy.copy(self)
+        clone._steps = tuple(steps)
+        clone._stats0 = None
+        return clone
+
+    # -- watermarked results -------------------------------------------------
+    def run_with_watermark(self, op_name: str, *args: Any,
+                           **kwargs: Any) -> LiveResult:
+        """Run a terminal op and return ``LiveResult(value, watermark)``,
+        the watermark of the pinned snapshot the run covered."""
+        wm = self.watermark
+        return LiveResult(self.query().run(op_name, *args, **kwargs), wm)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        wm = self.watermark
+        return (f"LiveTrace(label={self.label!r}, {len(self.paths)} "
+                f"path(s), rows={wm.rows}, finalized={wm.finalized}, "
+                f"device={self.device})")

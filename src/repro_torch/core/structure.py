@@ -7,6 +7,8 @@ fallbacks, never over events.
 
 A copy of :mod:`repro.core.structure` (the port imports nothing of the JAX
 package).  Structure is derived on the host, exactly as the reference does.
+One addition, for the streaming stitcher: ``open_head=True`` matches a
+chunk that starts inside calls opened before it (see :func:`match_events`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ def _group_ids(events: EventFrame) -> np.ndarray:
     return gid.astype(np.int64)
 
 
-def match_events(events: EventFrame) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def match_events(events: EventFrame, open_head: bool = False
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Vectorized enter/leave matching.
 
     Returns ``(matching, depth, order)`` where ``matching[i]`` is the row index
@@ -44,6 +47,14 @@ def match_events(events: EventFrame) -> Tuple[np.ndarray, np.ndarray, np.ndarray
     running depth via segmented cumsum.  Within one (group, depth) level,
     enters and leaves strictly alternate in time order, so the k-th enter
     matches the k-th leave — a pure sort-and-align, no stack machine.
+
+    A Leave below depth 0 (a truncated head) is unmatched, and so, by
+    default, is every event after it in its (process, thread), as in the
+    reference.  ``open_head=True`` is for a chunk that continues a stream
+    (the streaming stitcher's): such a Leave closes a call opened before
+    the chunk, and the depths after it count from it, so the calls that
+    open and close inside the chunk after it still match here, not one
+    by one in the stitcher's carry stacks.
     """
     n = len(events)
     matching = np.full(n, -1, np.int64)
@@ -73,6 +84,15 @@ def match_events(events: EventFrame) -> Tuple[np.ndarray, np.ndarray, np.ndarray
 
     e_s = is_enter[order]
     l_s = is_leave[order]
+    if open_head:
+        # the group's lowest depth before each event (0 at its start): a
+        # Leave that goes below it closes a call opened before the chunk
+        big = 2 * n + 2
+        low = np.minimum.accumulate(post - seg * big) + seg * big
+        floor = np.zeros(n, np.int64)
+        floor[1:] = np.minimum(low[:-1], 0)
+        floor[grp_start] = 0
+        post = post - floor
     # depth of the call an event belongs to
     depth_call = np.where(e_s, post - 1, post).astype(np.int64)
     neg = depth_call < 0  # unbalanced leaves (truncated head) — unmatched
@@ -209,18 +229,18 @@ def compute_inc_exc(events: EventFrame, matching: np.ndarray, parent: np.ndarray
 DERIVE_CALLS = 0
 
 
-def derive_structure(events: EventFrame) -> Tuple[np.ndarray, np.ndarray,
-                                                  np.ndarray, np.ndarray,
-                                                  np.ndarray]:
+def derive_structure(events: EventFrame, open_head: bool = False
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, np.ndarray]:
     """The full structural derivation in one call:
     ``(matching, depth, parent, inc, exc)`` — the match → parents →
     inc/exc pipeline ``Trace._ensure_structure`` runs on whole traces and
-    the streaming stitcher on every chunk.  Every call bumps
-    :data:`DERIVE_CALLS`.
+    the streaming stitcher on every chunk (with ``open_head=True``, see
+    :func:`match_events`).  Every call bumps :data:`DERIVE_CALLS`.
     """
     global DERIVE_CALLS
     DERIVE_CALLS += 1
-    matching, depth, order = match_events(events)
+    matching, depth, order = match_events(events, open_head)
     parent = compute_parents(events, matching, depth, order)
     inc, exc = compute_inc_exc(events, matching, parent)
     return matching, depth, parent, inc, exc

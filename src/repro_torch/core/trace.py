@@ -3,7 +3,8 @@
 Mirrors :class:`repro.core.trace.Trace` along the main path: open a trace
 (``Trace.open`` sniffs the format; ``from_events`` wraps a frame; with
 ``streaming=True`` it returns an out-of-core
-:class:`~repro_torch.core.streaming.StreamingTrace`), derive its structure
+:class:`~repro_torch.core.streaming.StreamingTrace`, with ``live=True`` a
+:class:`~repro_torch.core.streaming.LiveTrace`), derive its structure
 lazily (enter/leave matching, parents, inclusive/exclusive time, message
 matching, the calling context tree) and reduce it with the six
 kernel-backed ops, or write it as a columnar pack (:meth:`Trace.save_pack`,
@@ -65,7 +66,7 @@ class Trace:
     def open(cls, path, format: str = "auto", device="cuda",
              streaming: bool = False, chunk_rows: Optional[int] = None,
              live: bool = False, processes: Optional[int] = None,
-             executor: str = "auto", **kw):
+             executor: str = "auto", cache: bool = True, **kw):
         """Open a trace of any registered format (``format="auto"`` sniffs
         the content: jsonl text or a pipitpack).  A list of paths is read
         as per-location shards through the sharded reader
@@ -78,25 +79,38 @@ class Trace:
         out-of-core handle whose ops run chunk by chunk, at most
         ``chunk_rows`` events in memory per chunk, their kernels on
         ``device``; ``processes=N`` / ``executor="parallel"`` fan those
-        ops over work units.  ``live=True`` (live pack shards) is not
-        ported yet (ROADMAP §A.4)."""
+        ops over work units, and ``cache=False`` opts the handle out of the
+        plan-result cache (:mod:`repro_torch.core.plancache`).
+
+        ``live=True`` (implies streaming) returns a
+        :class:`~repro_torch.core.streaming.LiveTrace` over still-growing
+        append-mode pack shards: plans run over the committed prefix
+        pinned at the last ``refresh()``, results carry a ``watermark``,
+        and a repeated op folds only the newly committed rows."""
         from .. import readers  # noqa: F401 — populates the reader registry
         from .registry import resolve_reader
         if live:
-            raise NotImplementedError(
-                "Trace.open(live=True) needs LiveTrace and liveset.py, "
-                "which come with the plan cache their incremental "
-                "refresh() uses: not yet ported (ROADMAP §A.4)")
+            from .streaming import DEFAULT_CHUNK_ROWS, LiveTrace
+            return LiveTrace(path, format=format,
+                             chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
+                             device=device, processes=processes,
+                             executor=executor, cache=cache, **kw)
         if streaming:
             from .streaming import DEFAULT_CHUNK_ROWS, StreamingTrace
             return StreamingTrace(path, format=format,
                                   chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
                                   device=device, processes=processes,
-                                  executor=executor, **kw)
+                                  executor=executor, cache=cache, **kw)
         if chunk_rows is not None:
             raise ValueError("chunk_rows only applies with streaming=True")
         if executor != "auto":
             raise ValueError("executor only applies with streaming=True")
+        if cache is not True:
+            # an eager open has no handle to opt out; the query terminal's
+            # per-call cache= is the in-memory control
+            raise ValueError("cache only applies with streaming=True; "
+                             "in-memory caching is opt-in per call "
+                             "(query terminal cache=True)")
         if isinstance(path, (list, tuple)):
             from ..readers.parallel import read_parallel
             return read_parallel([os.fspath(p) for p in path], kind=format,

@@ -7,7 +7,10 @@ Each kernel's entry point has a plain C interface and is called through
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.  The build runs at first use, never at import, and a failed build
 raises with the compiler's output.  The library's file name carries a hash
-of the sources and flags, so an edited source is rebuilt.
+of the sources and flags, so an edited source is rebuilt.  The first call
+may come from several threads at once (the trace-query service's lanes):
+:func:`library` builds and loads under a lock, and each process compiles
+into object files of its own.
 """
 
 from __future__ import annotations
@@ -16,12 +19,13 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
 
 __all__ = ["library", "build", "check", "refuse_grad", "raw_stream",
-           "stream_of", "BUILD_DIR", "SOURCES"]
+           "stream_of", "BUILD_DIR", "SOURCES", "COUNT_LOCK"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -72,6 +76,10 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+#: guards every wrapper's launch counters (a read-modify-write) and
+#: ``hist_bin``'s scratch map: lane threads launch concurrently
+COUNT_LOCK = threading.Lock()
 #: what the last build printed (ptxas register / shared-memory / spill
 #: lines) and how long it took; empty when the library was already built
 BUILD_LOG = ""
@@ -106,7 +114,7 @@ def build() -> Path:
     nvcc = _nvcc()
     procs = []
     for src in SOURCES:
-        obj = BUILD_DIR / (Path(src).stem + ".o")
+        obj = BUILD_DIR / f"{Path(src).stem}.{os.getpid()}.o"
         cmd = [nvcc, *FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -126,21 +134,27 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, out)
+    for _src, obj, _p in procs:
+        obj.unlink(missing_ok=True)
     BUILD_LOG = "\n".join(logs)
     BUILD_SECONDS = time.perf_counter() - t0
     return out
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (once, whichever
+    thread asks first)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _LIB_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -198,6 +198,7 @@ def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
         int(window or 0), int(prefix_len), int(q_offset),
         float(scale or D ** -0.5), build.stream_of(q)),
         f"flash_attention ({name})")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[name] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        VARIANT_LAUNCHES[name] += 1
     return out

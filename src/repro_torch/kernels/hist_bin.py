@@ -96,10 +96,12 @@ def hist_bin_path(name: str, coords: torch.Tensor,
     lib = build.library()
     if name == "narrow":
         out = torch.empty((n_bins,), dtype=torch.int64, device=coords.device)
-        scratch = _SCRATCH.get((dev, stream))
-        if scratch is None:
-            scratch = _SCRATCH[dev, stream] = torch.zeros(
-                (NARROW_BINS + 1,), dtype=torch.int64, device=coords.device)
+        with build.COUNT_LOCK:
+            scratch = _SCRATCH.get((dev, stream))
+            if scratch is None:
+                scratch = _SCRATCH[dev, stream] = torch.zeros(
+                    (NARROW_BINS + 1,), dtype=torch.int64,
+                    device=coords.device)
         build.check(lib.pipit_hist_bin_narrow(
             dev, coords.data_ptr(), n, n_bins, scratch.data_ptr(),
             out.data_ptr(), stream), "hist_bin (narrow)")
@@ -108,6 +110,7 @@ def hist_bin_path(name: str, coords: torch.Tensor,
         build.check(lib.pipit_hist_bin(
             dev, coords.data_ptr(), n, n_bins, out.data_ptr(), stream),
             "hist_bin (wide)")
-    LAUNCHES += 1
-    PATH_LAUNCHES[name] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        PATH_LAUNCHES[name] += 1
     return out

@@ -132,6 +132,7 @@ def pair_sum_path(name: str, a: torch.Tensor, b: torch.Tensor,
                                        n_cells, partial.data_ptr(),
                                        out.data_ptr(), stream),
                     "pair_sum (sorted)")
-    LAUNCHES += 1
-    PATH_LAUNCHES[name] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        PATH_LAUNCHES[name] += 1
     return out

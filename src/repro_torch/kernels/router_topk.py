@@ -96,7 +96,8 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
         raise ValueError(f"router_topk: unsupported device {x.device}")
     build.refuse_grad("router_topk", x, w)
     if w.dtype != x.dtype or router_variant(x.dtype, d, E, k) == "unfused":
-        VARIANT_CALLS["unfused"] += 1
+        with build.COUNT_LOCK:
+            VARIANT_CALLS["unfused"] += 1
         logits = x.float() @ w.float()
         idx, gates = _topk.topk_gating(logits, k)
         return logits, idx, gates
@@ -117,6 +118,7 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
         dev, x.data_ptr(), w.data_ptr(), T, d, E, k, logits.data_ptr(),
         idx.data_ptr(), gates.data_ptr(), build.raw_stream(dev)),
         "router_topk")
-    LAUNCHES += 1
-    VARIANT_CALLS["fused"] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        VARIANT_CALLS["fused"] += 1
     return logits, idx, gates

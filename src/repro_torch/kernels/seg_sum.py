@@ -114,6 +114,7 @@ def seg_sum_path(name: str, code: torch.Tensor, values: torch.Tensor,
             dev, skeys.data_ptr(), perm.data_ptr(), values.data_ptr(), n, k,
             n_seg, partial.data_ptr(), out.data_ptr(), stream),
             "seg_sum (sorted)")
-    LAUNCHES += 1
-    PATH_LAUNCHES[name] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        PATH_LAUNCHES[name] += 1
     return out

@@ -150,6 +150,7 @@ def time_bin_path(name: str, start: torch.Tensor, end: torch.Tensor,
             end.data_ptr(), rate.data_ptr(), n, n_funcs, n_bins, float(t0),
             bw, partial.data_ptr(), out.data_ptr(), stream),
             "time_bin (sorted)")
-    LAUNCHES += 1
-    PATH_LAUNCHES[name] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        PATH_LAUNCHES[name] += 1
     return out

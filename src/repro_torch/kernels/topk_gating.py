@@ -114,6 +114,7 @@ def topk_gating_path(name: str, logits: torch.Tensor,
     build.check(entry(dev, logits.data_ptr(), T, E, k, idx.data_ptr(),
                       gates.data_ptr(), build.raw_stream(dev)),
                 f"topk_gating ({name})")
-    LAUNCHES += 1
-    PATH_LAUNCHES[name] += 1
+    with build.COUNT_LOCK:
+        LAUNCHES += 1
+        PATH_LAUNCHES[name] += 1
     return idx, gates

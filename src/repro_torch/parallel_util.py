@@ -87,9 +87,10 @@ def map_maybe_parallel(fn: Callable[[Any], Any], items: Sequence,
 class SharedPool:
     """A lazily-created spawn pool shared across several consumers.
 
-    A streaming handle keeps one SharedPool, so worker startup
-    (interpreter, NumPy and PyTorch imports) is paid once per handle, not
-    once per terminal op.
+    The shared scheduler (:mod:`repro_torch.core.scheduler`) keeps one
+    per worker count for every handle, so worker startup (interpreter,
+    NumPy and PyTorch imports) is paid once per process, not once per
+    handle or terminal op.
     """
 
     def __init__(self, processes: Optional[int] = None):

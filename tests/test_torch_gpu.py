@@ -36,7 +36,10 @@ the six kernel-backed ops (``stragglers`` among them), and
 the pack routes (eager, streamed, row-span work units, ``scan``) and the
 jsonl work units; a real spawn pool, driven from a script on disk, gives
 the eager bits while no worker initializes CUDA; and a read-only mapped
-column reaches the card without a warning.
+column reaches the card without a warning.  The seven op calls from 4
+threads give the serial bits and 4 times its launches; the live route
+(incremental, cold, eager) and the served route give the eager and library
+bits, and their cache hits launch nothing.
 """
 
 import numpy as np
@@ -44,7 +47,7 @@ import pytest
 import torch
 
 from repro_torch import Trace
-from repro_torch.core import NAME, Filter
+from repro_torch.core import NAME, Filter, plancache
 from repro_torch.core.query import scan
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
@@ -52,6 +55,15 @@ from repro_torch.launch.cardcheck import digest, gate, same_bits
 from repro_torch.tracegen import big_events, big_trace
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def fresh_plan_cache():
+    """An empty plan cache around each test: a stored result must not
+    answer another test's call (and launch nothing)."""
+    plancache.clear()
+    yield
+    plancache.clear()
 
 
 @pytest.fixture
@@ -293,6 +305,112 @@ def test_pooled_workers_never_initialize_cuda(cuda, pack_shards, tmp_path):
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("POOLED")
+
+
+TRACE_MODS = (seg_sum, pair_sum, time_bin, hist_bin)
+
+
+def _launches():
+    return sum(m.LAUNCHES for m in TRACE_MODS)
+
+
+def test_lane_threads_give_the_serial_bits_and_launches(cuda, pack_shards):
+    """The seven op calls from 4 threads at once on the card (cache off):
+    every thread's results are the serial bits, and the kernels launched 4
+    times the serial count (the counters lose no update)."""
+    import threading
+
+    def calls(out):
+        h = Trace.open(pack_shards, streaming=True, cache=False)
+        out.extend(digest(h.run(op, **kw)) for op, kw in ROUTE_OPS)
+
+    serial = []
+    before = _launches()
+    calls(serial)
+    once = _launches() - before
+    outs = [[] for _ in range(4)]
+    threads = [threading.Thread(target=calls, args=(o,)) for o in outs]
+    before = _launches()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert all(o == serial for o in outs)
+    assert once > 0 and _launches() - before == 4 * once
+
+
+def _grow_live(d, paths, frac):
+    """The first ``frac`` of each pack shard's rows (in whole groups of 512)
+    on a live shard of the same rank under ``d``, one commit each, sealed
+    at ``frac`` 1; returns the live paths."""
+    from repro_torch.readers.pack import PackWriter
+    out = []
+    for r, p in enumerate(paths):
+        ev = Trace.open(p, device="cpu").events
+        lp = str(d / f"rank_{r}.pack")
+        w = PackWriter.open_append(lp, chunk_rows=512, fsync=False)
+        have = w.watermark["rows"]
+        hi = int(len(ev) * frac) // 512 * 512 if frac < 1 else len(ev)
+        if hi > have:
+            w.append(ev.take(np.arange(have, hi)))
+        w.commit()
+        if frac >= 1:
+            w.finalize(sidecar=False)
+        out.append(lp)
+    return out
+
+
+def test_live_route_on_card_incremental_cold_eager(cuda, pack_shards,
+                                                   tmp_path):
+    """Live shards grown in two commits: at each watermark every op's
+    incremental result (cache on) is the bits of a cold ``cache=False``
+    handle and of the eager route over the same rows; after finalize, the
+    eager pack route's bits; a repeat with no growth launches nothing."""
+    from repro_torch.core import streaming
+    lt = None
+    fallbacks = streaming.INCREMENTAL_FALLBACKS
+    for frac in (0.5, 1.0):
+        live = _grow_live(tmp_path, pack_shards, frac)
+        if lt is None:
+            lt = Trace.open(live, live=True, chunk_rows=997)
+        lt.refresh()
+        eager = lt.materialize()
+        for op, kw in ROUTE_OPS:
+            inc = digest(lt.run(op, **kw))
+            cold = digest(Trace.open(live, live=True, chunk_rows=997,
+                                     cache=False).run(op, **kw))
+            assert inc == cold == digest(eager.run(op, **kw)), (op, frac)
+    assert lt.watermark.finalized
+    for op, kw in ROUTE_OPS:
+        assert digest(lt.run(op, **kw)) == digest(
+            Trace.open(pack_shards).run(op, **kw))
+    before = _launches()
+    for op, kw in ROUTE_OPS:
+        lt.run(op, **kw)
+    assert _launches() == before
+    assert streaming.INCREMENTAL_FALLBACKS == fallbacks
+
+
+def test_served_route_on_card_equals_library(cuda, pack_shards):
+    """Each op through the service on the card: the library call's bits on
+    the same handle configuration; a repeat launches nothing."""
+    import asyncio
+
+    from repro_torch.serving import protocol
+    from repro_torch.serving.tracequery import TraceService
+    svc = TraceService()
+    for op, kw in ROUTE_OPS:
+        body = {"open": {"paths": list(pack_shards), "streaming": True},
+                "op": op, "kwargs": {k: protocol.encode_value(v)
+                                     for k, v in kw.items()}}
+        out = asyncio.run(svc.query(body))
+        lib = Trace.open(pack_shards, streaming=True, cache=False).run(
+            op, **kw)
+        assert out["digest"] == protocol.result_digest(lib), op
+        before = _launches()
+        again = asyncio.run(svc.query(body))
+        assert again["cached"] and _launches() == before
 
 
 def test_read_only_arrays_reach_the_card_without_a_warning(cuda,

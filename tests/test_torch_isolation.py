@@ -40,11 +40,17 @@ def test_no_jax_or_reference_imports(path):
 
 
 NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
-               "repro_torch.readers.parallel", "repro_torch.readers.pack")
+               "repro_torch.readers.parallel", "repro_torch.readers.pack",
+               "repro_torch.core.plancache", "repro_torch.core.cancellation",
+               "repro_torch.core.scheduler", "repro_torch.core.liveset",
+               "repro_torch.runtime.tracer", "repro_torch.serving.protocol",
+               "repro_torch.serving.tracequery", "repro_torch.serving.client",
+               "repro_torch.launch.trace_serve")
 
 
 def test_new_modules_are_checked():
-    """The parallel and pack modules are among the files checked above."""
+    """The parallel, pack, live and service modules are among the files
+    checked above."""
     checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
                for p in PORT_FILES if "src" in p.parts}
     assert set(NEW_MODULES) <= checked

@@ -25,7 +25,7 @@ from repro.core.frame import Categorical as RefCategorical
 from repro.core.trace import Trace as RefTrace
 from repro.tracegen.builder import TraceBuilder
 from repro_torch import Trace, convert
-from repro_torch.core import ops_comm, ops_summary
+from repro_torch.core import ops_comm, ops_summary, plancache
 
 OPS = [
     ("flat_profile", {"metrics": (EXC, INC)}),
@@ -35,6 +35,17 @@ OPS = [
     ("comm_matrix", {}),
     ("message_histogram", {"bins": 8}),
 ]
+
+
+@pytest.fixture(autouse=True)
+def fresh_plan_cache():
+    """Each test starts and ends with an empty plan cache of the port, so
+    that no test's check is answered by another test's stored result.  A
+    test file that runs streaming, pack, scan, live or served ops imports
+    this fixture, which makes it autouse there too."""
+    plancache.clear()
+    yield
+    plancache.clear()
 
 
 def to_port(ref_trace) -> Trace:

@@ -31,6 +31,7 @@ from repro_torch.launch.cardcheck import digest
 from repro_torch.readers import pack, write_jsonl
 from repro_torch.tracegen import big_trace
 
+from test_torch_ops import fresh_plan_cache  # noqa: F401
 from test_torch_ops import OPS, to_port
 
 TERMINALS = OPS + [("stragglers", {"threshold": -1.0})]

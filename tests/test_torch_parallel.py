@@ -35,7 +35,7 @@ from repro.readers import jsonl as ref_jsonl
 from repro.readers import parallel as ref_parallel
 from repro_torch import Trace
 from repro_torch.core import (Filter, StreamingUnsupported, executor,
-                              registry)
+                              plancache, registry)
 from repro_torch.core.constants import NAME, PROC, TS
 from repro_torch.core.query import scan
 from repro_torch.core.streaming import (CallStitcher, GlobalNames,
@@ -44,6 +44,7 @@ from repro_torch.launch.cardcheck import digest
 from repro_torch.readers import jsonl, parallel, write_jsonl
 from repro_torch.tracegen import big_trace
 
+from test_torch_ops import fresh_plan_cache  # noqa: F401
 from test_torch_ops import OPS, assert_equivalent, to_port
 from test_torch_stragglers import assert_findings
 
@@ -177,12 +178,24 @@ def test_units_under_a_plan_give_the_eager_selection(files, op, kw):
 
 @pytest.mark.parametrize("streaming", [True, False])
 def test_open_takes_no_cache_argument(files, streaming):
-    """The plan-result cache is not ported, so ``cache=`` is no argument of
-    the port's open: it is refused, never taken and ignored."""
+    """``cache=`` is an argument of the streamed open since the plan cache
+    is ported (the name is kept from when it was not), as in the
+    reference: a streamed handle opened with ``cache=False`` stores
+    nothing and gives the cached handle's bits, and an eager open refuses
+    it (its control is the query terminal's per-call ``cache=``)."""
     paths = files["big_trace"]
-    with pytest.raises(TypeError, match="cache"):
-        Trace.open(paths, streaming=streaming, cache=False,
-                   device="cpu").flat_profile()
+    if not streaming:
+        with pytest.raises(ValueError, match="cache only applies"):
+            Trace.open(paths, streaming=False, cache=False, device="cpu")
+        return
+    entries = plancache.stats()["entries"]
+    off = Trace.open(paths, streaming=True, cache=False, device="cpu")
+    got = off.flat_profile()
+    assert plancache.stats()["entries"] == entries
+    on = Trace.open(paths, streaming=True, device="cpu")
+    assert digest(on.flat_profile()) == digest(got)
+    assert plancache.stats()["entries"] == entries + 1
+    assert on.flat_profile() is on.flat_profile()
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 19, 10_000])

@@ -16,11 +16,14 @@ from repro import tracegen as tg
 from repro.core.filters import Filter as RefFilter
 from repro.core.filters import time_window_filter as ref_window
 from repro_torch import Trace
-from repro_torch.core import Filter, TraceQuery, time_window_filter
+from repro_torch.core import (Filter, TraceQuery, plancache,
+                              time_window_filter)
 from repro_torch.core.constants import (DERIVED_COLUMNS, ET, EXC, INC, NAME,
                                         PROC, TS)
 from repro_torch.core.query import scan
+from repro_torch.launch.cardcheck import digest
 
+from test_torch_ops import fresh_plan_cache  # noqa: F401
 from test_torch_ops import OPS, assert_equivalent, to_port
 from test_torch_stragglers import assert_findings
 
@@ -354,15 +357,25 @@ def test_cct_node_column_is_dropped_by_selection():
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet
+# scan and the plan cache (both ported since)
 # ---------------------------------------------------------------------------
 
 def test_scan_and_the_plan_cache_are_not_yet_ported(tmp_path):
-    """``scan`` is ported (``tests/test_torch_parallel.py`` drives it): it
-    builds a plan without reading.  The plan cache is not (ROADMAP §A.4)."""
+    """Both are ported now (the name is kept from when they were not).
+    ``scan`` builds a plan without reading (``tests/test_torch_parallel.py``
+    drives it).  ``cache=True`` opts an in-memory plan into the plan cache:
+    a repeat returns the stored object, the uncached run's bits, and a
+    mutated trace misses."""
     q = scan([str(tmp_path / "rank_0.jsonl")], device="cpu")
     assert "scan(1 shard(s)" in q.explain()
     port = to_port(tg.gol(nprocs=2, iters=1))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.4"):
-        port.query().flat_profile(cache=True)
+    first = port.query().flat_profile(cache=True)
+    hits = plancache.stats()["hits"]
+    assert port.query().flat_profile(cache=True) is first
+    assert plancache.stats()["hits"] == hits + 1
+    assert digest(first) == digest(port.query().flat_profile(cache=False))
+    assert port.query().flat_profile() is not first   # in memory: opt-in
+    other = to_port(tg.gol(nprocs=2, iters=2))
+    assert port.query().flat_profile(cache=True) is first
+    assert other.query().flat_profile(cache=True) is not first
     assert isinstance(port.query(), TraceQuery)

@@ -29,7 +29,9 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import flash_attention, topk_gating
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
+from repro_torch import Trace
 from repro_torch.runtime import Tracer
+from repro_torch.runtime.tracer import read_heartbeat
 from repro_torch.serving import Request, ServeEngine
 
 ARCH = "qwen2-moe-a2.7b"
@@ -247,9 +249,31 @@ def test_unported_families_raise_in_the_model(name):
         build_model(port_cfg, device="cpu")
 
 
-def test_tracer_sink_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Tracer(sink="rank_0.pack")
+def test_tracer_sink_raises(tmp_path):
+    """The live sink is ported now (the name is kept from when it raised).
+    On the same clock the port's tracer and the reference's spill the same
+    enters, leaves and messages, in commits of ``flush_every`` events, into
+    the same pack bytes; the buffer stays under its bound, and the final
+    heartbeat counts every event."""
+    sinks = {}
+    for name, cls in (("reference", JaxTracer), ("port", Tracer)):
+        ticks = iter(range(0, 10 ** 9, 7))
+        sink = str(tmp_path / f"{name}.pack")
+        tr = cls(process=3, clock=lambda t=ticks: next(t), sink=sink,
+                 flush_every=64, fsync=False, wall_clock=lambda: 1000.0)
+        for i in range(200):
+            with tr.span(f"f{i % 3}"):
+                tr.message("send", partner=i % 4, size=8.0 * i)
+            assert len(tr.ts) < 64
+        tr.close()
+        sinks[name] = sink
+    with open(sinks["port"], "rb") as a, open(sinks["reference"], "rb") as b:
+        assert a.read() == b.read()
+    hb = read_heartbeat(sinks["port"])
+    assert hb["final"] and hb["rank"] == 3 and hb["events"] == 600
+    t = Trace.open(sinks["port"], device="cpu")
+    assert len(t) == 600 and t.comm_matrix()[3].sum() == 8.0 * sum(
+        range(200))
 
 
 @pytest.fixture

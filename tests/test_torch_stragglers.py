@@ -19,6 +19,7 @@ from repro_torch.kernels import seg_sum
 from repro_torch.launch.cardcheck import digest
 from repro_torch.readers import write_jsonl
 
+from test_torch_ops import fresh_plan_cache  # noqa: F401
 from test_torch_ops import TRACES, to_port
 
 SEVERITY = "severity"

@@ -19,11 +19,14 @@ from repro_torch import Trace
 from repro_torch.core import (EventFrame, Filter, StreamingTrace,
                               StreamingUnsupported, registry)
 from repro_torch.core.constants import EXC, NAME, PROC, TS
-from repro_torch.core.streaming import CallStitcher, GlobalNames, grow_to
+from repro_torch.core.errors import TraceReadError
+from repro_torch.core.streaming import (CallStitcher, GlobalNames, LiveTrace,
+                                        grow_to)
 from repro_torch.launch.cardcheck import digest
 from repro_torch.readers import jsonl, write_jsonl
 from repro_torch.tracegen import big_trace
 
+from test_torch_ops import fresh_plan_cache  # noqa: F401
 from test_torch_ops import OPS, assert_equivalent, to_port
 from test_torch_stragglers import assert_findings
 
@@ -215,13 +218,22 @@ def test_grow_to_keeps_values_and_fill():
 @pytest.mark.parametrize("kw", [{"processes": 2}, {"executor": "parallel"},
                                 {"live": True}],
                          ids=["processes", "parallel", "live"])
-def test_parallel_and_live_are_not_yet_ported(files, kw):
-    """The parallel executor is ported (``tests/test_torch_parallel.py``
-    drives it): its options open a handle that asks for it.  Live handles
-    wait for the plan cache (ROADMAP §A.4)."""
+def test_parallel_and_live_are_not_yet_ported(files, tmp_path, kw):
+    """Both are ported now (the name is kept from when they were not).
+    The parallel options open a handle that asks for the executor
+    (``tests/test_torch_parallel.py`` drives it).  ``live=True`` opens a
+    ``LiveTrace`` over a pack shard, with the eager bits over its committed
+    rows (``tests/test_torch_live.py`` drives it), and refuses a jsonl
+    file: the append protocol is a pack v2 feature."""
     if "live" in kw:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.4"):
+        with pytest.raises(TraceReadError, match="pipitpack v2"):
             _open(files["straggler"], streaming=True, **kw)
+        p = str(tmp_path / "rank_0.pack")
+        _open(files["straggler"]).save_pack(p, chunk_rows=97)
+        lt = _open([p], **kw)
+        assert isinstance(lt, LiveTrace) and lt.is_live
+        assert lt.watermark.rows == len(_open([p])) and lt.watermark.finalized
+        assert digest(lt.flat_profile()) == digest(_open([p]).flat_profile())
         return
     st = _open(files["straggler"], streaming=True, **kw)
     assert isinstance(st, StreamingTrace) and st.wants_parallel()
@@ -235,3 +247,75 @@ def test_streaming_handle_defaults_to_the_card(files):
     st = _open(files["straggler"], streaming=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         st.flat_profile(device="cuda")
+
+
+def _stack_matching(ev) -> np.ndarray:
+    """Enter/leave partners by a stack per (process, thread), one event at
+    a time: a Leave with no open call is unmatched, and so is an Enter
+    still open at the end."""
+    from repro_torch.core.constants import ENTER, ET, LEAVE, THREAD
+    ts = np.asarray(ev[TS])
+    key = np.asarray(ev[PROC], np.int64) * 1000 + (
+        np.asarray(ev[THREAD], np.int64) if THREAD in ev else 0)
+    et = ev.cat(ET)
+    enter, leave = et.mask_eq(ENTER), et.mask_eq(LEAVE)
+    out = np.full(len(ev), -1, np.int64)
+    stacks = {}
+    for i in np.lexsort((np.arange(len(ev)), ts, key)):
+        st = stacks.setdefault(key[i], [])
+        if enter[i]:
+            st.append(i)
+        elif leave[i] and st:
+            j = st.pop()
+            out[i], out[j] = j, i
+    return out
+
+
+@pytest.mark.parametrize("start", [1, 337, 701, 1201])
+def test_open_head_matches_a_chunk_that_starts_inside_calls(files, start):
+    """A chunk cut out of a rank's stream inside open calls.  With
+    ``open_head`` the calls that open and close in it match there (the
+    stitcher walks only the leaves of calls opened before it and the
+    enters still open at its end): its partners are a stack machine's.
+    The default keeps the reference's matching, where every event after
+    the first such leave stays unmatched.  The serial stitcher gives the
+    reference stitcher's completed calls, as a multiset."""
+    from repro.core import structure as ref_structure
+    from repro.core.frame import Categorical as RefCat
+    from repro.core.frame import EventFrame as RefFrame
+    from repro.core.streaming import CallStitcher as RefStitcher
+    from repro.core.streaming import GlobalNames as RefNames
+    from repro_torch.core import Categorical, structure
+    from repro_torch.core.constants import DERIVED_COLUMNS
+    ev = _open(files["big_trace"][:1]).events.drop(*DERIVED_COLUMNS)
+    cut = ev.take(np.arange(start, len(ev)))
+    got, _d, _o = structure.match_events(cut, open_head=True)
+    np.testing.assert_array_equal(got, _stack_matching(cut))
+    cols = {c: (RefCat.from_codes(cut.column(c).codes,
+                                  cut.column(c).categories)
+                if isinstance(cut.column(c), Categorical)
+                else np.asarray(cut.column(c))) for c in cut.columns}
+    ref = RefFrame(cols)
+    np.testing.assert_array_equal(structure.match_events(cut)[0],
+                                  ref_structure.match_events(ref)[0])
+    port, theirs = CallStitcher(), RefStitcher()
+    pn, rn = GlobalNames(), RefNames()
+    rows = {}
+    for who, st, names, frame in (("port", port, pn, ev),
+                                  ("ref", theirs, rn, RefFrame(
+                                      {c: (RefCat.from_codes(
+                                          ev.column(c).codes,
+                                          ev.column(c).categories)
+                                          if isinstance(ev.column(c),
+                                                        Categorical)
+                                          else np.asarray(ev.column(c)))
+                                       for c in ev.columns}))):
+        blocks = [st.push_chunk(part, names.encode(part.cat(NAME)))
+                  for part in (frame.take(np.arange(0, start)),
+                               frame.take(np.arange(start, len(frame))))]
+        recs = np.stack([np.concatenate([getattr(b, c) for b in blocks])
+                         .astype(np.float64)
+                         for c in ("name", "proc", "start", "end", "inc",
+                                   "exc")], axis=1)
+        rows[who] = recs[np.lexsort(recs.T[::-1])]
+    np.testing.assert_array_equal(rows["port"], rows["ref"])
