@@ -57,9 +57,10 @@ Phases (any failure raises and exits non-zero):
              gate of the CPU streaming route, counts as in phase 5; three
              op calls again at 4,999 rows a chunk, which splits calls
              across chunks, again the eager bits;
-   pool    — one spawn pool of ``min(os.cpu_count(), 8)`` workers for
-             phases 8-9, warmed up (its start-up time logged); every
-             worker reports ``torch.cuda.is_initialized()`` false;
+   pool    — the shared scheduler's spawn pool of ``min(os.cpu_count(),
+             8)`` workers for phases 8-12, warmed up (its start-up time
+             logged); every worker reports ``torch.cuda.is_initialized()``
+             false;
 8. pack    — main-10M written as 64 ``big_trace(format="pack")`` shards
              with structure sidecars (disk space logged first, a
              temporary directory): ``Trace.open(shards)`` and the seven
@@ -84,7 +85,32 @@ Phases (any failure raises and exits non-zero):
              the card; a degradation warning is an error in both phases,
              and each prints pool start-up, write, open, per-op wall and
              events/s beside the card's name and power limit;
-10. live   — with the plan cache on (phases 3-9 run with it off, so no
+10. set    — set-10M: ``TraceSet([main-10M, scale-10M])``, scale-10M
+             ``big_events(nprocs=32, events_per_proc=312_500, seed=1)``
+             (one application at two process counts): the five set ops
+             and a mapped ``message_histogram`` on the card, each within
+             the gate of the CPU route (rows keyed by name) and carrying
+             each member's own op bits; launches ``seg_sum`` 2,
+             ``pair_sum`` 2, ``time_bin`` 2, ``hist_bin`` 2 (the profile
+             cache answers two ``flat_profile`` passes); one ``SetQuery``
+             plan (``filter(Name not-in [MpiSend])``) chaining
+             ``regression_report`` and ``diff_flat_profile`` prepares
+             each member once (``seg_sum`` 2) and gives the eager
+             selection's bits;
+11. set-stream — ``TraceSet.open([stream-1M's 64 shards, the first 32],
+             streaming=True)``, serially and with ``processes=`` over the
+             pool (every member on the scheduler's one pool, no unit on
+             the card): ``regression_report``, ``diff_time_profile`` and
+             ``scaling_analysis`` give the eager set's bits;
+12. diagnose — the five pathologies on 64 ranks x 1,170 iterations
+             (1,048,320 events): each matching detector names the ground
+             truth at top 1 on the card, the clean baseline gives no
+             findings; ``diagnose()`` on main-10M within the CPU route's
+             findings (host detectors exact, ``stragglers`` within the
+             gate), one ``seg_sum`` launch; over stream-1M streamed,
+             pooled, from pack and streamed pack the eager digest; each of
+             phases 10-12 logs its wall beside the card;
+13. live   — with the plan cache on (phases 3-12 run with it off, so no
              stored result answers their checks), a ``TraceServer`` on
              127.0.0.1:0 on the card in a thread of this process;
              main-10M's events as 64 append-mode shards in groups of
@@ -104,16 +130,21 @@ Phases (any failure raises and exits non-zero):
              (about 20,000 enters, leaves and sends each), one heartbeat
              back-dated past ``dead_timeout``: ``LiveTraceSet`` names that
              rank missing, the survivors' seven op calls are a direct live
-             open's bits, and ``POST /live`` on the fleet answers 206
-             partial naming it;
-11. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
+             open's bits, ``POST /live`` on the fleet answers 206 partial
+             naming it, and ``to_traceset().regression_report()`` over
+             the survivors is a set of direct live opens' bits;
+14. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
              (``streaming=True``): each op call the library call's digest on
              the same handle configuration (and phase 5's), the misses
              launching as a cold pass, a repeat a cache hit that launches
-             nothing, and 4 identical concurrent requests executed once; the
+             nothing, and 4 identical concurrent requests executed once;
+             ``open_set`` over the 64 shards and the first 32
+             (``/setquery``, ``regression_report``) and ``/diagnose`` over
+             the 64: the library's digests, a miss launching as the
+             library call, a repeat a cache hit that launches nothing; the
              server then drains, the live store is cleared and the
              scheduler's threads stop;
-12. timing — each trace kernel on the inputs the trace path gave it (its
+15. timing — each trace kernel on the inputs the trace path gave it (its
              first call, and in ``other_calls`` each later call of another
              shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
              ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
@@ -123,7 +154,7 @@ Phases (any failure raises and exits non-zero):
              if its profiler row holds a sort kernel, the ``hist_bin`` row
              the wide path, and fails unless the narrow path is one device
              kernel a call;
-13. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
+16. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
@@ -135,15 +166,15 @@ Phases (any failure raises and exits non-zero):
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
-14. f32    — one ``moe_ffn`` call in float32 at the serving model's
+17. f32    — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
              route, so ``topk_gating`` is launched once, on its narrow
              path, and ``router_topk`` not at all (counts reset just
              before);
-15. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
+18. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-16. timing — each model kernel on the inputs its path gave it, against
+19. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
@@ -159,8 +190,8 @@ call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
 ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
-launches on the query, stream, pack, parallel, live and served routes
-(``route_launches``; a cache hit's are 0).
+launches on the query, stream, pack, parallel, set, diagnose, live and
+served routes (``route_launches``; a cache hit's are 0).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -1072,12 +1103,14 @@ def _worker_ready(_):
 
 
 def start_pool():
-    """One spawn pool of ``min(os.cpu_count(), 8)`` workers for the pooled
-    routes, warmed up: (pool, workers, start-up seconds)."""
-    from repro_torch.parallel_util import SharedPool
+    """The shared scheduler's spawn pool of ``min(os.cpu_count(), 8)``
+    workers for the pooled routes (a set opened with that many processes
+    fans into the same pool), warmed up: (pool, workers, start-up
+    seconds)."""
+    from repro_torch.core.scheduler import get_scheduler
     workers = min(os.cpu_count() or 1, 8)
     t0 = time.perf_counter()
-    pool = SharedPool(workers)
+    pool = get_scheduler().spawn_pool(workers)
     ready = pool.map(_worker_ready, range(4 * workers))
     start_s = time.perf_counter() - t0
     if any(ready):
@@ -1291,50 +1324,363 @@ def _damage_check(pack, good, d) -> None:
         f" of {len(whole)}, every clean group byte for byte")
 
 
-def phase_parallel(wants, pool, workers) -> dict:
-    """stream-1M's jsonl shards, and the same events as one file, through
-    ``processes=`` work units in a spawn pool on the card: each op the
-    eager bits, within the gate of the CPU parallel route, every trace
-    kernel launched as on the eager route, no worker on the card.
-    Returns each route's launches."""
-    import tempfile
-
+def phase_parallel(wants, pool, workers, paths, d) -> dict:
+    """stream-1M's jsonl shards (``paths``), and the same events as one
+    file in ``d``, through ``processes=`` work units in a spawn pool on
+    the card: each op the eager bits, within the gate of the CPU parallel
+    route, every trace kernel launched as on the eager route, no worker on
+    the card.  Returns each route's launches."""
     from repro_torch import Trace
-    from repro_torch.tracegen import big_trace
     expect = {"seg_sum": 2, "pair_sum": 3, "time_bin": 1, "hist_bin": 1}
-    with tempfile.TemporaryDirectory() as d:
-        paths = big_trace(d, **STREAM)
-        joined = os.path.join(d, "joined.jsonl")
-        with open(joined, "wb") as out:
-            for p in paths:
-                with open(p, "rb") as f:
-                    out.write(f.read())
-        with open(joined, "rb") as f:
-            n_events = sum(1 for _ in f)
-        log(f"[parallel] {n_events} events in {len(paths)} jsonl shards "
-            f"and one joined file ({os.path.getsize(joined) / 1e6:.1f} MB), "
-            f"{workers} workers")
-        launches = {}
-        for route, src in (("shards", paths), ("one file", joined)):
-            st = Trace.open(src, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
-                            device="cuda", processes=workers)
-            st._pool = pool
-            res, launches[f"parallel {route}"] = _route_bits(
-                "parallel", f"{route} x{workers}", OPS,
-                lambda op, kw: st.run(op, **kw), wants, n_events, expect,
-                pooled=st)
-            for (op, kw), r in zip(OPS, res):
-                t0 = time.perf_counter()
-                on_cpu = st.run(op, device="cpu", **kw)
-                cpu_s = time.perf_counter() - t0
-                err = same_result(op, r, on_cpu)
-                log(f"[parallel] {route:8s} {op:17s} cpu parallel route "
-                    f"{cpu_s:.3f} s, max_abs_err {err:.6g} | {SMI[0]}")
+    joined = os.path.join(d, "joined.jsonl")
+    with open(joined, "wb") as out:
+        for p in paths:
+            with open(p, "rb") as f:
+                out.write(f.read())
+    with open(joined, "rb") as f:
+        n_events = sum(1 for _ in f)
+    log(f"[parallel] {n_events} events in {len(paths)} jsonl shards "
+        f"and one joined file ({os.path.getsize(joined) / 1e6:.1f} MB), "
+        f"{workers} workers")
+    launches = {}
+    for route, src in (("shards", paths), ("one file", joined)):
+        st = Trace.open(src, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+                        device="cuda", processes=workers)
+        st._pool = pool
+        res, launches[f"parallel {route}"] = _route_bits(
+            "parallel", f"{route} x{workers}", OPS,
+            lambda op, kw: st.run(op, **kw), wants, n_events, expect,
+            pooled=st)
+        for (op, kw), r in zip(OPS, res):
+            t0 = time.perf_counter()
+            on_cpu = st.run(op, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            err = same_result(op, r, on_cpu)
+            log(f"[parallel] {route:8s} {op:17s} cpu parallel route "
+                f"{cpu_s:.3f} s, max_abs_err {err:.6g} | {SMI[0]}")
     return launches
 
 
 # ---------------------------------------------------------------------------
-# phases 10-11: the live and served routes
+# phases 10-12: TraceSet comparison and the detector suite
+# ---------------------------------------------------------------------------
+
+#: the set phase's second member: the same application at half the ranks,
+#: about 10M events over 32 ranks (the paper's Fig. 12 use: one
+#: application at two process counts)
+SCALE = dict(nprocs=32, events_per_proc=312_500, calls_per_iter=500, seed=1)
+SET_LABELS = ["main-64", "scale-32"]
+#: the five set ops, and a trace op mapped over the members
+SET_OPS = [("diff_flat_profile", {}), ("regression_report", {}),
+           ("scaling_analysis", {}), ("diff_time_profile", {}),
+           ("diff_load_imbalance", {})]
+MAPPED = ("message_histogram", {"bins": 10})
+#: launches of the five set ops plus the mapped op over two members: one
+#: per member and kernel (the profile cache answers the other two
+#: ``flat_profile`` passes)
+SET_LAUNCHES = {"seg_sum": 2, "pair_sum": 2, "time_bin": 2, "hist_bin": 2}
+#: the SetQuery plan's two chained ops: one profile a member
+PLAN_LAUNCHES = {"seg_sum": 2, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}
+#: the set-stream phase's ops, on stream-1M's shards and its first half
+STREAM_SET_OPS = [("regression_report", {}), ("diff_time_profile", {}),
+                  ("scaling_analysis", {})]
+#: the closed loop: the five pathologies on 64 ranks x 1,170 iterations
+#: (1,048,320 events), each at the reference tests' middle magnitude
+PATHO = dict(nprocs=64, iters=1_170, seed=0)
+PATHO_MAGNITUDE = {"late_sender": 4.0, "straggler": 2.0,
+                   "serialization": 5.0, "imbalance": 4.0,
+                   "efficiency_drop": 0.6}
+#: ``diagnose`` launches ``stragglers``' one ``seg_sum`` call
+DIAG_LAUNCHES = {"seg_sum": 1, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}
+
+
+def expect_counts(label: str, expect: dict) -> dict:
+    """The trace kernels' launch counts since :func:`reset_counts`: equal to
+    ``expect``, every launch on its path (:data:`MAIN_PATHS`)."""
+    from repro_torch import kernels
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in kernels.TRACE_KERNELS}
+    paths = {name: dict(getattr(kernels, name).PATH_LAUNCHES)
+             for name in MAIN_PATHS}
+    log(f"[{label}] launches {json.dumps(launches)}; by path "
+        f"{json.dumps(paths)}")
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect}")
+    off = [k for k, p in MAIN_PATHS.items() if paths[k][p] != launches[k]]
+    if off:
+        raise AssertionError(f"{label}: calls off their path {off}")
+    return launches
+
+
+def _columns_are_members(op, res, own):
+    """Each member's column in a set result is that member's own eager op
+    on the card, bit for bit: ``own[op][i]`` is member i's result."""
+    from repro_torch.core import NAME
+    names = [str(x) for x in res[NAME]] if NAME in res.columns else None
+    for i, lbl in enumerate(SET_LABELS):
+        if op in ("diff_flat_profile", "regression_report"):
+            prof = own["flat_profile"][i]
+            want = dict(zip(map(str, prof[NAME]),
+                            np.asarray(prof["time.exc"])))
+            got = dict(zip(names, np.asarray(res[f"time.exc|{lbl}"])))
+        elif op == "diff_load_imbalance":
+            imb = own["load_imbalance"][i]
+            want = dict(zip(map(str, imb[NAME]),
+                            np.asarray(imb["time.exc.imbalance"])))
+            got = dict(zip(names, np.asarray(res[f"imbalance|{lbl}"])))
+        elif op == "scaling_analysis":
+            prof = own["flat_profile"][i]
+            want = dict(zip(map(str, prof[NAME]),
+                            np.asarray(prof["time.exc"])))
+            row = [str(r) for r in res["Run"]].index(lbl)
+            got = {c: np.asarray(res[c])[row] for c in res.columns
+                   if c in want}
+        else:  # diff_time_profile: target's profile minus baseline's
+            base, tgt = own["time_profile"]
+            cols = [c for c in res.columns if c not in ("bin", "bin_frac")]
+            z = np.zeros(len(res))
+            for c in cols:
+                d = (np.asarray(tgt[c]) if c in tgt.columns else z) - \
+                    (np.asarray(base[c]) if c in base.columns else z)
+                if not np.array_equal(np.asarray(res[c]), d):
+                    raise AssertionError(f"set {op}: column {c} is not "
+                                         f"the members' own profiles")
+            return
+        bad = [k for k, v in got.items() if k in want and v != want[k]]
+        if bad or not got:
+            raise AssertionError(f"set {op} {lbl}: columns {bad} are not "
+                                 f"the member's own bits")
+
+
+def phase_set(trace) -> dict:
+    """set-10M: main-10M and scale-10M as one ``TraceSet`` on the card.
+    The five set ops and a mapped ``message_histogram``: within the gate
+    of the CPU route, each member's columns the member's own op on the
+    card bit for bit, :data:`SET_LAUNCHES`; a ``SetQuery`` plan chaining
+    two ops prepares each member once.  Returns the launches."""
+    from repro_torch import Trace, TraceSet
+    from repro_torch.core import NAME, Filter, structure
+    from repro_torch.launch.cardcheck import digest, set_gate
+    from repro_torch.tracegen import big_events
+    t0 = time.perf_counter()
+    scale = Trace.from_events(big_events(**SCALE), device="cuda")
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scale._ensure_structure()
+    struct_s = time.perf_counter() - t0
+    log(f"[set] scale-10M: {len(scale)} events over "
+        f"{scale.num_processes} ranks, generated in {gen_s:.2f} s, "
+        f"structure {struct_s:.2f} s (host) | {SMI[0]}")
+    ts = TraceSet([trace, scale], labels=SET_LABELS)
+    launches = {}
+    reset_counts()
+    card = _route(SET_OPS + [MAPPED], lambda op, kw: ts.run(op, **kw))
+    launches["set"] = expect_counts("set", SET_LAUNCHES)
+    members = list(ts)
+    own = {"flat_profile": [], "load_imbalance": [], "time_profile": []}
+    t0 = time.perf_counter()
+    for t in members:
+        own["flat_profile"].append(t.flat_profile(metrics=["time.exc"]))
+        own["load_imbalance"].append(t.load_imbalance())
+        own["time_profile"].append(t.time_profile())
+    own_s = time.perf_counter() - t0
+    tp_scale = max(float(np.abs(np.asarray(p[c])).max())
+                   for p in own["time_profile"] for c in p.columns
+                   if not c.startswith("bin_"))
+    for (op, kw), (res, wall) in zip(SET_OPS + [MAPPED], card):
+        t0 = time.perf_counter()
+        on_cpu = ts.run(op, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        if op == MAPPED[0]:
+            err = max(same_result(op, a, b) for a, b in zip(res, on_cpu))
+            bits = all(digest(a) == digest(t.run(op, **kw))
+                       for a, t in zip(res, members))
+        else:
+            err = set_gate(op, res, on_cpu, member_scale=(
+                tp_scale if op == "diff_time_profile" else None))
+            _columns_are_members(op, res, own)
+            bits = True
+        log(f"[set] {op:19s} card {wall:.3f} s | cpu route {cpu_s:.3f} s, "
+            f"max_abs_err {err:.6g} | members' own bits "
+            f"{'equal' if bits else 'DIFFER'} | {SMI[0]}")
+        if not bits:
+            raise AssertionError(f"set {op}: not the members' own bits")
+    log(f"[set] the members' own eager ops on the card: {own_s:.2f} s")
+    # one SetQuery plan, two chained ops: each member selected and
+    # profiled once; each result the eager selection's bits
+    sel = Filter(NAME, "not-in", [QUERY_DROP])
+    q = ts.query().filter(sel)
+    derive0 = structure.DERIVE_CALLS
+    reset_counts()
+    plan = _route([("regression_report", {}), ("diff_flat_profile", {})],
+                  lambda op, kw: q.run(op, **kw))
+    launches["set plan"] = expect_counts("set plan", PLAN_LAUNCHES)
+    derived = structure.DERIVE_CALLS - derive0
+    first = q.collect()
+    if derived > len(members) or any(
+            a is not b for a, b in zip(first, q.collect())):
+        raise AssertionError("set plan: a member was prepared twice")
+    eager = TraceSet([t.query().filter(sel).collect() for t in members],
+                     labels=SET_LABELS)
+    for (op, _kw), (res, wall) in zip(
+            [("regression_report", {}), ("diff_flat_profile", {})], plan):
+        same = digest(res) == digest(eager.run(op))
+        log(f"[set] plan filter(Name not-in [{QUERY_DROP}]).{op}: "
+            f"{wall:.3f} s, structure derived {derived}x | eager "
+            f"selection's bits {'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"set plan {op}: not the eager bits")
+    del eager, q, first
+    return launches
+
+
+def phase_set_stream(paths, pool, workers) -> dict:
+    """set-stream: ``TraceSet.open([stream-1M's shards, their first
+    half], streaming=True)`` serially and with ``processes=`` over the
+    shared pool: each op the eager set's bits; one pool serves the set and
+    no worker initializes CUDA.  Returns the launches."""
+    import warnings
+
+    from repro_torch import TraceSet
+    from repro_torch.launch.cardcheck import digest
+    members = [paths, paths[:len(paths) // 2]]
+    labels = [f"stream-{len(m)}" for m in members]
+    t0 = time.perf_counter()
+    eager = TraceSet.open(members, labels=labels, device="cuda")
+    for t in eager:
+        t._ensure_structure()
+    open_s = time.perf_counter() - t0
+    wants = [digest(r) for r, _w in _route(
+        STREAM_SET_OPS, lambda op, kw: eager.run(op, **kw))]
+    log(f"[set-stream] eager set of {[len(t) for t in eager]} events "
+        f"opened in {open_s:.2f} s | {SMI[0]}")
+    del eager
+    launches = {}
+    for route, procs in (("serial", None), (f"pooled x{workers}", workers)):
+        st = TraceSet.open(members, streaming=True,
+                           chunk_rows=STREAM_CHUNK_ROWS, processes=procs,
+                           labels=labels, device="cuda")
+        if procs:
+            if len({id(m._pool) for m in st}) != 1 or st[0]._pool is not \
+                    pool:
+                raise AssertionError("set-stream: the members do not share "
+                                     "the scheduler's one pool")
+        q = st.query()
+        reset_counts()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="parallel streaming",
+                                    category=RuntimeWarning)
+            res = _route(STREAM_SET_OPS, lambda op, kw: q.run(op, **kw))
+        launches[f"set stream {route.split()[0]}"] = expect_counts(
+            f"set-stream {route}", {"seg_sum": 2, "pair_sum": 0,
+                                    "time_bin": 2, "hist_bin": 0})
+        if procs:
+            units = [m.units_cuda for m in q.collect()]
+            if any(len(u) < 2 or any(u) for u in units):
+                raise AssertionError(f"set-stream: units {units}")
+        for (op, _kw), (r, wall), want in zip(STREAM_SET_OPS, res, wants):
+            same = digest(r) == want
+            log(f"[set-stream] {route:12s} {op:19s} {wall:.3f} s | eager "
+                f"set's bits {'equal' if same else 'DIFFER'} | {SMI[0]}")
+            if not same:
+                raise AssertionError(f"set-stream {route} {op}: not the "
+                                     f"eager bits")
+    return launches
+
+
+def phase_diagnose(trace, paths, pool, workers, d) -> dict:
+    """The detector suite on the card: the closed loop (each pathology's
+    detector names the ground truth at top 1; the clean baseline gives no
+    findings), ``diagnose`` at 10M against the CPU route with one
+    ``seg_sum`` launch, and over stream-1M streamed, pooled and from pack
+    the eager digest.  Returns the launches."""
+    import warnings
+
+    from repro_torch import Trace
+    from repro_torch.launch.cardcheck import digest, findings_gate
+    from repro_torch.tracegen import (PATHOLOGIES, baseline, big_trace,
+                                      pathology_trace)
+    for p in sorted(PATHOLOGIES):
+        t0 = time.perf_counter()
+        tr, gt = pathology_trace(p, magnitude=PATHO_MAGNITUDE[p],
+                                 device="cuda", **PATHO)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        top = tr.run(PATHOLOGIES[p])
+        det_s = time.perf_counter() - t0
+        row = {c: top[c][0] for c in top.columns} if len(top) else {}
+        ok = (len(top) > 0 and str(row["detector"]) == gt.detector
+              and (gt.process == -1 or int(row["process"]) == gt.process)
+              and (not gt.function or str(row["function"]) == gt.function)
+              and row["t_start"] < gt.t_end and row["t_end"] > gt.t_start)
+        log(f"[diagnose] {p:15s} {len(tr)} events built in {build_s:.2f} s;"
+            f" {PATHOLOGIES[p]} {det_s:.3f} s: top 1 "
+            f"{row.get('location')!s} ({gt.detector}, rank {gt.process}, "
+            f"{gt.function or '-'}) {'recovered' if ok else 'MISSED'}")
+        if not ok:
+            raise AssertionError(f"diagnose: {p} not recovered at top 1")
+    clean = baseline(device="cuda", **PATHO)
+    found = clean.diagnose()
+    log(f"[diagnose] clean baseline, {len(clean)} events: {len(found)} "
+        f"findings")
+    if len(found):
+        raise AssertionError("diagnose: findings on the clean baseline")
+    del tr, clean
+    launches = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    card = trace.diagnose()
+    card_s = time.perf_counter() - t0
+    launches["diagnose"] = expect_counts("diagnose", DIAG_LAUNCHES)
+    t0 = time.perf_counter()
+    err = findings_gate(card, trace.diagnose(device="cpu"))
+    log(f"[diagnose] main-10M: {len(card)} findings "
+        f"({sorted(set(map(str, card['detector'])))}), card {card_s:.3f} s,"
+        f" cpu route {time.perf_counter() - t0:.3f} s, max_abs_err "
+        f"{err:.6g} | {SMI[0]}")
+    # every route over stream-1M: the eager digest
+    eager = Trace.open(paths, device="cuda")
+    want = digest(eager.diagnose())
+    del eager
+    packs = big_trace(os.path.join(d, "stream-pack"), format="pack",
+                      **STREAM)
+    pst = Trace.open(paths, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+                     device="cuda", processes=workers)
+    pst._pool = pool
+    routes = {
+        "streamed": lambda: Trace.open(paths, streaming=True,
+                                       chunk_rows=STREAM_CHUNK_ROWS,
+                                       device="cuda").diagnose(),
+        f"pooled x{workers}": pst.diagnose,
+        "pack": lambda: Trace.open(packs, device="cuda").diagnose(),
+        "pack streamed": lambda: Trace.open(
+            packs, streaming=True, device="cuda").diagnose(),
+    }
+    for route, run in routes.items():
+        reset_counts()
+        pst.units_cuda = []
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="parallel streaming",
+                                    category=RuntimeWarning)
+            got = run()
+        wall = time.perf_counter() - t0
+        launches[f"diagnose {route.split()[0]}"] = expect_counts(
+            f"diagnose {route}", DIAG_LAUNCHES)
+        same = digest(got) == want
+        log(f"[diagnose] stream-1M {route:12s} {wall:.3f} s | eager digest "
+            f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+        if not same:
+            raise AssertionError(f"diagnose {route}: not the eager digest")
+        if route.startswith("pooled") and (len(pst.units_cuda) < 2
+                                           or any(pst.units_cuda)):
+            raise AssertionError(f"diagnose pooled: units {pst.units_cuda}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: the live and served routes
 # ---------------------------------------------------------------------------
 
 #: launches of the seven op calls on every route, cold or incremental
@@ -1623,6 +1969,23 @@ def phase_fleet(client) -> None:
                                  f"{part.get('missing_ranks')}")
         log(f"[tracequery] /live liveset 206 partial, missing_ranks "
             f"{part['missing_ranks']}")
+        # the survivors as a set of per-rank live handles: the comparison
+        # of direct live opens of the same ranks
+        from repro_torch import TraceSet
+        t0 = time.perf_counter()
+        ts = ls.to_traceset()
+        got = ts.regression_report()
+        set_s = time.perf_counter() - t0
+        labels = [f"rank{r}" for r in range(dead)]
+        want = TraceSet([Trace.open([p], live=True, device="cuda")
+                         for p in paths[:dead]],
+                        labels=labels).regression_report()
+        same = ts.labels == labels and digest(got) == digest(want)
+        log(f"[fleet] to_traceset(): {len(ts)} survivors {ts.labels}, "
+            f"regression_report {set_s:.3f} s | bits "
+            f"{'equal' if same else 'DIFFER'} to direct live opens")
+        if not same or any(m.device != ls.device for m in ts):
+            raise AssertionError("fleet to_traceset: not the direct bits")
 
 
 def phase_served(client, pack_dir, main_digests) -> dict:
@@ -1694,11 +2057,64 @@ def phase_served(client, pack_dir, main_digests) -> dict:
             or set(out) != {metas[0]["digest"]}:
         raise AssertionError("concurrent identical requests did not "
                              "coalesce into one execution")
+    launches.update(_served_set_and_diagnose(client, shards))
+    return launches
+
+
+def _served_set_and_diagnose(client, shards) -> dict:
+    """``/setquery`` (``open_set`` over all 64 shards and the first 32,
+    streamed) and ``/diagnose`` over pack-10M: the library's digests, a
+    miss launching as the library call does, a repeat a cache hit that
+    launches nothing.  Returns the launches."""
+    from repro_torch import Trace, TraceSet
+    from repro_torch.serving import protocol
+    members = [shards, shards[:len(shards) // 2]]
+    labels = [f"pack-{len(m)}" for m in members]
+    rset = client.open_set(members, streaming=True, labels=labels)
+    remote = client.open(shards, streaming=True)
+    cases = [
+        ("set", "/setquery regression_report",
+         lambda: rset.query().regression_report(),
+         lambda: TraceSet.open(members, streaming=True, labels=labels,
+                               cache=False,
+                               device="cuda").regression_report(),
+         {"seg_sum": 2, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}),
+        ("diagnose", "/diagnose", remote.diagnose,
+         lambda: Trace.open(shards, streaming=True, cache=False,
+                            device="cuda").diagnose(), DIAG_LAUNCHES),
+    ]
+    launches = {}
+    for name, label, served, library, expect in cases:
+        reset_counts()
+        t0 = time.perf_counter()
+        got = served()
+        wall = time.perf_counter() - t0
+        launches[f"served {name} miss"] = expect_counts(
+            f"served {name} miss", expect)
+        t0 = time.perf_counter()
+        want = library()
+        lib_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        served()
+        hit_s = time.perf_counter() - t0
+        meta = dict(client.last_meta)
+        _no_launches(f"served {name} hit")
+        launches[f"served {name} hit"] = dict.fromkeys(ROUTE_LAUNCHES, 0)
+        same = (protocol.result_digest(got) == protocol.result_digest(want)
+                == meta["digest"])
+        log(f"[tracequery] {label:28s} served {wall:.3f} s | hit "
+            f"{hit_s:.4f} s (cached {meta['cached']}) | library "
+            f"{lib_s:.3f} s | digest {'equal' if same else 'DIFFER'} | "
+            f"{SMI[0]}")
+        if not same or not meta["cached"]:
+            raise AssertionError(f"served {label}: not the library digest, "
+                                 f"or the repeat was no hit")
     return launches
 
 
 def phase_live_and_served(main_digests, pack_dir) -> dict:
-    """Phases 10-11 with the plan cache on (the earlier phases run with it
+    """Phases 13-14 with the plan cache on (the earlier phases run with it
     off), around one trace-query server; the live store is cleared and
     every service thread stopped after."""
     from repro_torch.core import plancache
@@ -1727,7 +2143,7 @@ def phase_live_and_served(main_digests, pack_dir) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: timing on the main path's inputs
+# phase 15: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 
 def _bound(bytes_moved: float, ops: float):
@@ -1893,7 +2309,7 @@ def _path_prev(mod, name, args, kw, path, check) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 13-16: the serving path
+# phases 16-19: the serving path
 # ---------------------------------------------------------------------------
 
 def phase_serve():
@@ -2272,7 +2688,7 @@ def main() -> int:
     from repro_torch.core import plancache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # phases 3-9 compare routes, count launches and time calls: a stored
+    # phases 3-12 compare routes, count launches and time calls: a stored
     # result would answer them with no launch.  The cache is on only for
     # the live and served phases, which check it
     plancache.configure(enabled=False)
@@ -2285,15 +2701,28 @@ def main() -> int:
     trace, launches, calls, main_digests = phase_main()
     stream_launches, stream_wants = phase_stream()
     routes = {"query": phase_query(trace), "stream": stream_launches}
-    del trace
     with tempfile.TemporaryDirectory() as d:
         pool, workers, _start_s = start_pool()
         try:
             routes.update(phase_pack(main_digests, launches, pool, workers,
                                      d))
-            routes.update(phase_parallel(stream_wants, pool, workers))
+            from repro_torch.tracegen import big_trace
+            stream_paths = big_trace(os.path.join(d, "stream"), **STREAM)
+            routes.update(phase_parallel(stream_wants, pool, workers,
+                                         stream_paths, d))
+            for label, phase in (
+                    ("set", lambda: phase_set(trace)),
+                    ("set-stream", lambda: phase_set_stream(
+                        stream_paths, pool, workers)),
+                    ("diagnose", lambda: phase_diagnose(
+                        trace, stream_paths, pool, workers, d))):
+                t0 = time.perf_counter()
+                routes.update(phase())
+                log(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s "
+                    f"| {SMI[0]}")
         finally:
             pool.close()
+        del trace
         routes.update(phase_live_and_served(main_digests,
                                             os.path.join(d, "pack")))
     rows = phase_timing(launches, calls, routes)

@@ -20,8 +20,8 @@ committed watermark, and the staleness spread, so a missing rank is part
 of the answer, never a silent omission.
 
 Timeouts read an injectable ``clock`` (``time.time`` by default), so
-tests can age ranks without sleeping.  ``to_traceset`` waits for
-``TraceSet`` (ROADMAP §A).
+tests can age ranks without sleeping.  ``to_traceset`` hands the
+survivors to the comparison ops as a ``TraceSet`` of per-rank handles.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import glob
 import os
 import re
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from .accel import resolve_device
 from .streaming import DEFAULT_CHUNK_ROWS, LiveTrace, Watermark
@@ -220,11 +220,21 @@ class LiveTraceSet:
         return self.trace().query()
 
     def to_traceset(self):
-        """The survivors as a ``TraceSet`` of per-rank live handles: not
-        yet ported, since ``TraceSet`` comes with ``core/diff.py``."""
-        raise NotImplementedError(
-            "LiveTraceSet.to_traceset needs TraceSet (core/diff.py): not "
-            "yet ported (ROADMAP §A)")
+        """The survivors as a :class:`~repro_torch.core.diff.TraceSet` of
+        per-rank live handles labelled ``rank<r>``, on the set's device —
+        for cross-rank comparison ops over the committed prefixes."""
+        from .diff import TraceSet
+        cov = self._coverage
+        members: List[LiveTrace] = []
+        labels: List[str] = []
+        for r in cov.included:
+            members.append(LiveTrace(
+                [cov.per_rank[r]["path"]],
+                chunk_rows=self.chunk_rows or DEFAULT_CHUNK_ROWS,
+                cache=self.cache, label=f"rank{r}", device=self.device,
+                **self.reader_kwargs))
+            labels.append(f"rank{r}")
+        return TraceSet(members, labels=labels)
 
     def __repr__(self) -> str:  # pragma: no cover
         c = self._coverage

@@ -294,6 +294,33 @@ def _pad_to(arr: np.ndarray, shape) -> np.ndarray:
     return out
 
 
+def _scatter_names(dst: np.ndarray, src: np.ndarray, code_map: np.ndarray,
+                   axis: int) -> np.ndarray:
+    """Add ``src`` (a work unit's accumulator whose ``axis`` is indexed by
+    the unit's local name codes) into ``dst`` with that axis remapped
+    through ``code_map``.  ``src`` is padded to exactly ``len(code_map)``
+    names (and ``dst``'s extents on the other axes); ``dst`` is grown to
+    hold the remapped codes.  ``code_map`` entries are unique, so a
+    fancy-indexed ``+=`` is exact."""
+    k = len(code_map)
+    if k == 0:
+        return dst
+    want = list(dst.shape)
+    for ax in range(dst.ndim):
+        if ax == axis:
+            want[ax] = k
+        else:
+            want[ax] = max(want[ax], src.shape[ax] if ax < src.ndim else 0)
+    src = _pad_to(src, tuple(want))
+    grown = list(src.shape)
+    grown[axis] = int(code_map.max()) + 1
+    dst = grow_to(dst, tuple(grown))
+    idx = [slice(0, n) for n in src.shape]
+    idx[axis] = code_map
+    dst[tuple(idx)] += src
+    return dst
+
+
 @register_streaming("flat_profile")
 class _FlatProfileAgg(StreamAgg):
     """Streaming flat profile: call counts over every Enter row, accumulated

@@ -547,6 +547,11 @@ class TraceQuery:
         if spec is None:
             raise ValueError(f"unknown analysis op {op_name!r}; "
                              f"registered: {registry.list_ops()}")
+        if spec.scope == "set":
+            raise ValueError(
+                f"{op_name!r} is a multi-trace comparison op; run it on a "
+                f"TraceSet (repro_torch.core.diff.TraceSet) instead of a "
+                f"single-trace query")
         dev = self._source.device if device is None else \
             resolve_device(device)
         kwargs = dict(kwargs, device=dev)

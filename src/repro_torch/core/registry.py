@@ -111,13 +111,21 @@ class RowSpan:
 
 @dataclass(frozen=True)
 class OpSpec:
-    """A registered analysis operation: ``fn(trace, *args, **kwargs)``
-    runs with the declared prerequisites already materialized."""
+    """A registered analysis operation.
+
+    ``scope`` declares the op's input shape: a ``"trace"`` op is
+    ``fn(trace, *args, **kwargs)`` and terminates a single-trace
+    :class:`~repro_torch.core.query.TraceQuery`; a ``"set"`` op is
+    ``fn(traces, *args, **kwargs)`` over a sequence of traces and
+    terminates a :class:`~repro_torch.core.diff.TraceSet` query.  Either
+    way ``fn`` runs with the declared prerequisites already materialized
+    (on every member trace for set-scoped ops)."""
 
     name: str
     fn: Callable[..., Any]
     needs_structure: bool = False
     needs_messages: bool = False
+    scope: str = "trace"
     #: factory building a streaming aggregator
     #: (:class:`repro_torch.core.streaming.StreamAgg`) for out-of-core
     #: execution, or None when the op needs a materialized trace
@@ -132,13 +140,18 @@ _OP_REGISTRY: Dict[str, OpSpec] = {}
 
 
 def register_op(name: Optional[str] = None, *, needs_structure: bool = False,
-                needs_messages: bool = False) -> Callable:
-    """Decorator registering an analysis op (last registration wins)."""
+                needs_messages: bool = False,
+                scope: str = "trace") -> Callable:
+    """Decorator registering an analysis op usable from ``TraceQuery``
+    (``scope="trace"``, the default) or ``TraceSet`` (``scope="set"``);
+    the last registration of a name wins."""
+    if scope not in ("trace", "set"):
+        raise ValueError(f'scope must be "trace" or "set", got {scope!r}')
 
     def deco(fn: Callable) -> Callable:
         op_name = name or fn.__name__
         _OP_REGISTRY[op_name] = OpSpec(op_name, fn, needs_structure,
-                                       needs_messages)
+                                       needs_messages, scope)
         return fn
 
     return deco

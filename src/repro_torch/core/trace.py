@@ -7,8 +7,9 @@ Mirrors :class:`repro.core.trace.Trace` along the main path: open a trace
 :class:`~repro_torch.core.streaming.LiveTrace`), derive its structure
 lazily (enter/leave matching, parents, inclusive/exclusive time, message
 matching, the calling context tree) and reduce it with the six
-kernel-backed ops, or write it as a columnar pack (:meth:`Trace.save_pack`,
-:mod:`repro_torch.readers.pack`).  As in the reference, the op methods and the
+kernel-backed ops or the detectors (``diagnose``), or write it as a
+columnar pack (:meth:`Trace.save_pack`, :mod:`repro_torch.readers.pack`).
+As in the reference, the op methods and the
 data-reduction methods (``filter``, ``slice_time``, ``filter_processes``)
 are one-step lazy query plans (:mod:`repro_torch.core.query`); chain them
 through :meth:`Trace.query` to fuse selections.
@@ -239,8 +240,34 @@ class Trace:
                         num_processes=num_processes,
                         top_functions=top_functions, device=device)
 
+    # ------------------------------------------------------------------
+    # automated diagnostics (repro_torch.core.detectors)
+    # ------------------------------------------------------------------
     def stragglers(self, threshold: float = 0.2, device=None) -> EventFrame:
         return self.run("stragglers", threshold=threshold, device=device)
+
+    def diagnose(self, detectors: Optional[Sequence[str]] = None,
+                 device=None) -> EventFrame:
+        """Run every registered detector (or a named subset) and return one
+        severity-ranked Findings frame."""
+        return self.run("diagnose", detectors=detectors, device=device)
+
+    def efficiency_metrics(self, num_windows: int = 16,
+                           device=None) -> EventFrame:
+        return self.run("efficiency_metrics", num_windows=num_windows,
+                        device=device)
+
+    def late_sender(self, device=None, **kw) -> EventFrame:
+        return self.run("late_sender", device=device, **kw)
+
+    def serialization(self, device=None, **kw) -> EventFrame:
+        return self.run("serialization", device=device, **kw)
+
+    def imbalance_root_cause(self, device=None, **kw) -> EventFrame:
+        return self.run("imbalance_root_cause", device=device, **kw)
+
+    def pop_efficiency(self, device=None, **kw) -> EventFrame:
+        return self.run("pop_efficiency", device=device, **kw)
 
     # ------------------------------------------------------------------
     # §IV-E data reduction — one-step query plans (structure is remapped

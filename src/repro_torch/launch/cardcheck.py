@@ -17,8 +17,9 @@ from typing import Dict, Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["gate", "exact", "same_bits", "digest", "cuda_ms",
-           "device_ms", "short_name", "card_line", "ptxas", "run_trees"]
+__all__ = ["gate", "exact", "same_bits", "digest", "set_gate",
+           "findings_gate", "cuda_ms", "device_ms", "short_name",
+           "card_line", "ptxas", "run_trees"]
 
 #: profiles :func:`device_ms` takes before it gives up on one that records
 #: no device activity (it happened once in a long ``chip_smoke.py`` run)
@@ -72,8 +73,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def digest(result) -> str:
     """SHA-256 over every bit of an op's result — an EventFrame (column
     names in order, each column's dtype and bytes; list and string cells
-    by their ``repr``), an array, or a tuple of those — so two results
-    have one digest only when they are the same bits."""
+    by their ``repr``), an array, or a tuple or list of those — so two
+    results have one digest only when they are the same bits."""
     h = hashlib.sha256()
 
     def add(x) -> None:
@@ -84,6 +85,10 @@ def digest(result) -> str:
         elif isinstance(x, tuple):
             for part in x:
                 add(part)
+        elif isinstance(x, list):  # a trace op mapped over a set
+            h.update(b"list")
+            for part in x:
+                add(part)
         else:
             a = np.asarray(x)
             h.update(f"{a.dtype.str}{a.shape}".encode())
@@ -92,6 +97,92 @@ def digest(result) -> str:
 
     add(result)
     return h.hexdigest()
+
+
+#: set-op columns whose values are exact on every device: names, runs,
+#: process counts, durations and totals (host float64 of integer ns),
+#: bins and statuses
+SET_EXACT = ("Name", "Run", "num_processes", "duration", "speedup",
+             "efficiency", "time.exc.total", "time.inc.total", "bin",
+             "bin_frac", "status")
+
+
+def _scale(values) -> float:
+    v = np.asarray(values, np.float64)
+    v = v[np.isfinite(v)]
+    return float(np.abs(v).max()) if len(v) else 0.0
+
+
+def set_gate(op: str, got, want, member_scale: float = None) -> float:
+    """A set op's result ``got`` against ``want`` (``core/diff.py``), rows
+    keyed by ``Name`` (or ``Run``, or ``bin``): the exact columns
+    (:data:`SET_EXACT`) equal, a member's sums within :func:`gate`, a
+    delta of two members within the gate of what it subtracts (rtol 1e-4
+    plus 2 x (1e-4 + 1e-6) x ``member_scale``, the largest magnitude the
+    members hold; by default that of ``want``'s member columns).  Returns
+    the max abs error over the float columns; raises ``AssertionError``."""
+    key = ("Name" if "Name" in want.columns else
+           "Run" if "Run" in want.columns else "bin")
+    kg, kw = ([str(x) for x in f[key]] for f in (got, want))
+    if sorted(got.columns) != sorted(want.columns) or \
+            sorted(kg) != sorted(kw):
+        raise AssertionError(f"{op}: columns or rows differ")
+    at = {k: i for i, k in enumerate(kg)}
+    perm = np.asarray([at[k] for k in kw], np.int64)
+    if member_scale is None:
+        member_scale = max([0.0] + [_scale(want[c]) for c in want.columns
+                                    if "|" in c
+                                    and not c.startswith("delta")])
+    err = 0.0
+    for c in want.columns:
+        a, b = np.asarray(got[c])[perm], np.asarray(want[c])
+        if c in SET_EXACT or b.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{op}: column {c} differs")
+            continue
+        delta = c.startswith("delta") and c != "delta_rel" or \
+            op == "diff_time_profile"
+        atol = 1e-6 * max(_scale(b), 1.0)
+        if delta:
+            atol = max(atol, 2 * (1e-4 + 1e-6) * member_scale)
+        if not np.allclose(a, b, rtol=1e-4, atol=atol, equal_nan=True):
+            raise AssertionError(f"{op}: column {c} outside the gate")
+        fin = np.isfinite(b)
+        if not np.array_equal(a[~fin], b[~fin]):
+            raise AssertionError(f"{op}: column {c}: non-finite differ")
+        if fin.any():
+            err = max(err, float(np.abs(a[fin] - b[fin]).max()))
+    return err
+
+
+def findings_gate(got, want) -> float:
+    """Two Findings frames keyed by (detector, location): the same rows,
+    every field exact but the ``stragglers`` rows' severity (within
+    :func:`gate`: ``seg_sum`` sums in f32) and explanation (which quotes
+    those sums).  Returns the max abs severity error; raises
+    ``AssertionError``."""
+    def keys(f):
+        return [(str(d), str(loc)) for d, loc in zip(f["detector"],
+                                                     f["location"])]
+
+    kg, kw = keys(got), keys(want)
+    if sorted(kg) != sorted(kw):
+        raise AssertionError(f"findings differ: {kg} vs {kw}")
+    at = {k: i for i, k in enumerate(kg)}
+    perm = np.asarray([at[k] for k in kw], np.int64)
+    strag = np.asarray([d == "stragglers" for d, _ in kw], bool)
+    for c in ("process", "function", "t_start", "t_end"):
+        if not np.array_equal(np.asarray(got[c])[perm],
+                              np.asarray(want[c])):
+            raise AssertionError(f"findings: column {c} differs")
+    a = np.asarray(got["severity"], np.float64)[perm]
+    b = np.asarray(want["severity"], np.float64)
+    ea = np.asarray(got["explanation"])[perm]
+    eb = np.asarray(want["explanation"])
+    if not (np.array_equal(a[~strag], b[~strag])
+            and list(ea[~strag]) == list(eb[~strag])):
+        raise AssertionError("findings: a host detector's row differs")
+    return gate(a[strag], b[strag]) if strag.any() else 0.0
 
 
 def cuda_ms(fn, iters: int, warm: int = 2) -> float:

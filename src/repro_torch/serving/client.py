@@ -21,9 +21,9 @@ runs locally: the plan is serialized with
 its pooled handle, and the columnar result is decoded back into the
 ``EventFrame`` / ndarray types a library call returns.  Per-call
 ``cache=`` / ``lane=`` / ``digest_only=`` map onto the service's cache,
-admission lanes and digest-only responses.  Set handles (``open_set``)
-and ``diagnose`` wait for ``TraceSet`` and the detector table (ROADMAP
-§A) and raise.
+admission lanes and digest-only responses.  ``open_set`` is a remote
+``TraceSet`` (its plans go to ``/setquery``) and ``RemoteTrace.diagnose``
+runs the detector suite through ``/diagnose``.
 
 Transport is the standard library's ``http.client`` over one keep-alive
 connection; a lock serializes requests on it, so one client may be shared
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import http.client
 import json
+import os
 import random
 import threading
 import time
@@ -43,7 +44,7 @@ from ..core import registry
 from ..core.filters import Filter
 from . import protocol
 
-__all__ = ["RemoteError", "ServiceClient", "RemoteTrace",
+__all__ = ["RemoteError", "ServiceClient", "RemoteTrace", "RemoteTraceSet",
            "RemoteLiveTrace", "RemoteQuery"]
 
 
@@ -65,7 +66,7 @@ class RemoteError(RuntimeError):
 #: connection fault cannot change service state beyond what one send
 #: does.  GETs always qualify; the plan-execution POSTs qualify because
 #: a replayed plan coalesces/caches onto the same digest-keyed result.
-_IDEMPOTENT_POSTS = ("/query", "/live")
+_IDEMPOTENT_POSTS = ("/query", "/setquery", "/diagnose", "/live")
 
 
 class ServiceClient:
@@ -227,12 +228,21 @@ class ServiceClient:
                 "processes": processes, "executor": executor}
         return RemoteLiveTrace(self, spec)
 
-    def open_set(self, paths: Sequence, **kw):
-        """A remote ``TraceSet``: not yet ported (ROADMAP §A), since the
-        service's set mode needs ``TraceSet`` (``core/diff.py``)."""
-        raise NotImplementedError(
-            "ServiceClient.open_set needs TraceSet (core/diff.py) on the "
-            "server: not yet ported (ROADMAP §A)")
+    def open_set(self, paths: Sequence, format: str = "auto",
+                 processes: Optional[int] = None,
+                 labels: Optional[Sequence[str]] = None,
+                 streaming: bool = False,
+                 chunk_rows: Optional[int] = None) -> "RemoteTraceSet":
+        """A remote ``TraceSet`` over per-run paths (for the diff /
+        regression comparison ops); a member may be one path or a list
+        of per-rank shard paths."""
+        members = [str(p) if isinstance(p, (str, os.PathLike))
+                   else [str(q) for q in p] for p in paths]
+        spec = {"mode": "set", "paths": members, "format": format,
+                "processes": processes,
+                "labels": list(labels) if labels is not None else None,
+                "streaming": streaming, "chunk_rows": chunk_rows}
+        return RemoteTraceSet(self, spec)
 
     # -- execution ---------------------------------------------------------
     def _run(self, open_spec: dict, steps: List[dict], op: str, args,
@@ -259,7 +269,8 @@ class ServiceClient:
             deadline_ms = self.deadline_ms
         if deadline_ms is not None:
             payload["deadline_ms"] = float(deadline_ms)
-        out = self._request("POST", "/query", payload)
+        endpoint = "/setquery" if open_spec["mode"] == "set" else "/query"
+        out = self._request("POST", endpoint, payload)
         self.last_meta = {k: out.get(k) for k in
                           ("digest", "cached", "coalesced", "elapsed_ms",
                            "tenant")}
@@ -302,7 +313,7 @@ class ServiceClient:
 
 class RemoteQuery:
     """A lazy plan executed server-side, with the builder surface of
-    ``TraceQuery``."""
+    ``TraceQuery`` (and of ``SetQuery`` when built from a remote set)."""
 
     def __init__(self, client: ServiceClient, open_spec: dict,
                  steps: Optional[List[dict]] = None):
@@ -360,11 +371,22 @@ class RemoteTrace:
 
     def diagnose(self, detectors: Optional[Sequence[str]] = None,
                  cache: Optional[bool] = None) -> Any:
-        """The diagnostics suite through ``/diagnose``: not yet ported
-        (ROADMAP §A), since it needs the detector table."""
-        raise NotImplementedError(
-            "RemoteTrace.diagnose needs the detector table "
-            "(core/detectors.py) on the server: not yet ported (ROADMAP §A)")
+        """Run the diagnostics suite server-side through the ``/diagnose``
+        endpoint; returns the decoded, ranked Findings frame (the same as
+        ``query().diagnose(...)``, which goes through ``/query``: both
+        coalesce and cache as one plan)."""
+        payload: Dict[str, Any] = {"open": self._open, "steps": []}
+        if detectors is not None:
+            payload["detectors"] = [str(d) for d in detectors]
+        if self._client.tenant is not None:
+            payload["tenant"] = self._client.tenant
+        if cache is not None:
+            payload["cache"] = cache
+        out = self._client._request("POST", "/diagnose", payload)
+        self._client.last_meta = {k: out.get(k) for k in
+                                  ("digest", "cached", "coalesced",
+                                   "elapsed_ms", "tenant")}
+        return protocol.decode_value(out["result"])
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"RemoteTrace({self._open['paths']!r})"
@@ -392,3 +414,17 @@ class RemoteLiveTrace:
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"RemoteLiveTrace({self._open['paths']!r})"
+
+
+class RemoteTraceSet:
+    """Remote stand-in for a ``TraceSet`` (the comparison ops)."""
+
+    def __init__(self, client: ServiceClient, open_spec: dict):
+        self._client = client
+        self._open = open_spec
+
+    def query(self) -> RemoteQuery:
+        return RemoteQuery(self._client, self._open)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"RemoteTraceSet({self._open['paths']!r})"

@@ -31,15 +31,17 @@ cannot (no card, a failed build, a launch error) fails its request with a
 500; nothing moves to the CPU behind the caller's back.
 
 The HTTP surface (``asyncio.start_server`` and hand-written HTTP/1.1 with
-keep-alive): ``POST /query`` runs a plan, ``POST /live`` polls a
-watermarked live session over still-growing shards (429
-``watermark_stalled`` when the watermark has not advanced; 206 partial
-responses naming the missing ranks of a degraded fleet), ``GET /stats``,
-``GET /ops``, ``GET /health`` and ``POST /shutdown`` (a graceful drain).
-Not yet ported (ROADMAP §A): ``mode: "set"`` with ``/setquery``, which
-need ``TraceSet``, and ``/diagnose``, which needs the detector table;
-both answer 501.  :mod:`repro_torch.serving.client` wraps the protocol in
-the library's own query-chain API.
+keep-alive): ``POST /query`` and ``POST /setquery`` (a ``TraceSet``
+opened with ``mode: "set"``, for the comparison ops) run plans, ``POST
+/diagnose`` runs the detector suite (sugar over ``/query`` that forces the
+``diagnose`` terminal), ``POST /live`` polls a watermarked live session
+over still-growing shards (429 ``watermark_stalled`` when the watermark
+has not advanced; 206 partial responses naming the missing ranks of a
+degraded fleet), ``GET /stats``, ``GET /ops``, ``GET /health`` and ``POST
+/shutdown`` (a graceful drain).  A set member may be one path or a list
+of per-rank shard paths, as ``TraceSet.open`` takes them.
+:mod:`repro_torch.serving.client` wraps the protocol in the library's own
+query-chain API.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ class _Handle:
 
     def __init__(self, key: str, kind: str, obj, ident: tuple):
         self.key = key
-        self.kind = kind    # "trace" | "stream" | "live" | "liveset"
+        self.kind = kind    # "trace" | "stream" | "set" | "live" | "liveset"
         self.obj = obj
         self.ident = ident          # _paths_token at open time
         self.lock = threading.Lock()
@@ -106,12 +108,11 @@ class _Handle:
         """Whether executions on this handle must hold :attr:`lock`.
 
         Eager traces materialize derived structure *in place* on first
-        use: concurrent runs would race those writes.  Streaming handles
-        only carry
-        idempotent caches (chunk stats, work-unit plans), so concurrent
-        plans over one pack handle are safe — that is what lets the
-        interactive lane make progress while bulk scans hammer the same
-        pack.  Live handles serialize too: ``refresh()`` moves the pinned
+        use, and set preparation does the same per member: concurrent runs
+        would race those writes.  Streaming handles only carry idempotent
+        caches (chunk stats, work-unit plans), so concurrent plans over one
+        pack handle are safe — that is what lets the interactive lane make
+        progress while bulk scans hammer the same pack.  Live handles serialize too: ``refresh()`` moves the pinned
         snapshot and the incremental fold mutates a running aggregate.
         """
         return self.kind != "stream"
@@ -130,24 +131,32 @@ def _normalize_open(spec: Any) -> dict:
         if p is None:
             raise ProtocolError('open spec needs "path" or "paths"')
         paths = [p]
+    mode = spec.get("mode", "trace")
+    if mode not in ("trace", "set", "live", "liveset"):
+        raise ProtocolError(f'open mode must be "trace", "set", "live" or '
+                            f'"liveset", got {mode!r}')
+
+    def member(p) -> bool:
+        # a set member may be one path or a list of per-rank shards
+        if mode == "set" and isinstance(p, (list, tuple)):
+            return bool(p) and all(isinstance(q, str) for q in p)
+        return isinstance(p, str)
+
     if (not isinstance(paths, (list, tuple)) or not paths
-            or not all(isinstance(p, str) for p in paths)):
+            or not all(member(p) for p in paths)):
         raise ProtocolError(f'open spec "paths" must be a non-empty list '
                             f'of strings, got {paths!r}')
-    mode = spec.get("mode", "trace")
-    if mode == "set":
-        raise ServiceError(501, "not_ported",
-                           'open mode "set" needs TraceSet (core/diff.py): '
-                           'not yet ported (ROADMAP §A)')
-    if mode not in ("trace", "live", "liveset"):
-        raise ProtocolError(f'open mode must be "trace", "live" or '
-                            f'"liveset", got {mode!r}')
     if mode == "liveset" and len(paths) != 1:
         raise ProtocolError('mode "liveset" takes exactly one path: the '
                             'shard directory')
+    labels = spec.get("labels")
+    if labels is not None and (not isinstance(labels, (list, tuple))
+                               or len(labels) != len(paths)):
+        raise ProtocolError('"labels" must match "paths" in length')
     out = {
         "mode": mode,
-        "paths": [str(p) for p in paths],
+        "paths": [str(p) if isinstance(p, str) else [str(q) for q in p]
+                  for p in paths],
         "format": str(spec.get("format", "auto")),
         "streaming": bool(spec.get("streaming", False)),
         "chunk_rows": (int(spec["chunk_rows"])
@@ -155,6 +164,7 @@ def _normalize_open(spec: Any) -> dict:
         "processes": (int(spec["processes"])
                       if spec.get("processes") is not None else None),
         "executor": str(spec.get("executor", "auto")),
+        "labels": [str(x) for x in labels] if labels is not None else None,
     }
     if mode == "liveset":
         out["pattern"] = str(spec.get("pattern", "rank_*.pack"))
@@ -189,11 +199,13 @@ class HandlePool:
         self.breaker_trips = 0
         self.breaker_fastfails = 0
 
-    def _ident(self, paths: List[str]) -> tuple:
+    def _ident(self, paths: List) -> tuple:
         from ..core.plancache import _paths_token
-        return _paths_token(paths)
+        return _paths_token([q for p in paths
+                             for q in ([p] if isinstance(p, str) else p)])
 
     def _open(self, spec: dict):
+        from ..core.diff import TraceSet
         from ..core.trace import Trace
         dev = self.device
         if spec["mode"] == "live":
@@ -211,6 +223,12 @@ class HandlePool:
                 dead_timeout=spec["dead_timeout"],
                 chunk_rows=spec["chunk_rows"],
                 processes=spec["processes"], executor=spec["executor"],
+                device=dev)
+        if spec["mode"] == "set":
+            return "set", TraceSet.open(
+                spec["paths"], format=spec["format"],
+                processes=spec["processes"], labels=spec["labels"],
+                streaming=spec["streaming"], chunk_rows=spec["chunk_rows"],
                 device=dev)
         if spec["streaming"]:
             src = (spec["paths"][0] if len(spec["paths"]) == 1
@@ -415,10 +433,19 @@ class TraceService:
         return sem
 
     # -- request decoding --------------------------------------------------
-    def _decode(self, payload: dict):
+    def _decode(self, payload: dict, set_scope: bool = False):
         if not isinstance(payload, dict):
             raise ProtocolError("request body must be a JSON object")
-        open_spec = _normalize_open(payload.get("open"))
+        raw = payload.get("open")
+        if set_scope:
+            # /setquery opens a set whatever mode the spec names
+            if isinstance(raw, str):
+                raw = {"path": raw}
+            if isinstance(raw, dict):
+                raw = dict(raw, mode="set")
+        open_spec = _normalize_open(raw)
+        if not set_scope and open_spec["mode"] == "set":
+            raise ProtocolError('mode "set" plans go to /setquery')
         if open_spec["mode"] in ("live", "liveset"):
             raise ProtocolError(
                 f'mode {open_spec["mode"]!r} plans go to /live')
@@ -429,6 +456,10 @@ class TraceService:
         if spec is None:
             raise ProtocolError(f"unknown analysis op {op!r}; registered: "
                                 f"{registry.list_ops()}")
+        if spec.scope == "set" and open_spec["mode"] != "set":
+            raise ProtocolError(
+                f"{op!r} is a multi-trace comparison op; submit it to "
+                f"/setquery with a set open spec")
         steps = protocol.decode_steps(payload.get("steps") or [])
         args = tuple(protocol.decode_value(x)
                      for x in (payload.get("args") or []))
@@ -479,7 +510,7 @@ class TraceService:
         handle, execute, encode."""
         q = protocol.apply_steps(handle.query(), steps)
         kw = dict(kwargs)
-        if cache_flag is not None:
+        if handle.kind != "set" and cache_flag is not None:
             # forward the client's cache choice to the library-level plan
             # cache (streaming sources participate by default)
             kw["cache"] = cache_flag
@@ -496,7 +527,7 @@ class TraceService:
             out["result"] = protocol.encode_value(value)
         return out
 
-    async def query(self, payload: dict) -> dict:
+    async def query(self, payload: dict, set_scope: bool = False) -> dict:
         """Execute one wire request; returns the JSON-able response body.
         Raises :class:`ServiceError` for refusals and
         :class:`ProtocolError` for malformed requests."""
@@ -507,7 +538,7 @@ class TraceService:
             raise ServiceError(503, "draining",
                                "service is draining; no new queries")
         (open_spec, op, spec, steps, args, kwargs, cache_flag, lane,
-         digest_only) = self._decode(payload)
+         digest_only) = self._decode(payload, set_scope)
         deadline = payload.get("deadline_ms")
         if deadline is not None:
             if not isinstance(deadline, (int, float)) or deadline <= 0:
@@ -646,6 +677,10 @@ class TraceService:
         if spec is None:
             raise ProtocolError(f"unknown analysis op {op!r}; registered: "
                                 f"{registry.list_ops()}")
+        if spec.scope == "set":
+            raise ProtocolError(
+                f"{op!r} is a set-scoped op; live sessions execute "
+                f"single-scope ops over the (combined) committed prefix")
         steps = protocol.decode_steps(payload.get("steps") or [])
         args = tuple(protocol.decode_value(x)
                      for x in (payload.get("args") or []))
@@ -796,7 +831,7 @@ class TraceService:
         out = []
         for name in registry.list_ops():
             s = registry.get_op(name)
-            out.append({"name": name,
+            out.append({"name": name, "scope": s.scope,
                         "streaming": s.streaming is not None,
                         "parallel_safe": bool(s.parallel_safe),
                         "needs_structure": bool(s.needs_structure),
@@ -833,10 +868,6 @@ class TraceService:
 # ---------------------------------------------------------------------------
 
 _MAX_BODY = 64 * 1024 * 1024
-#: endpoints of the reference that wait for a later slice, and what each
-#: needs
-_NOT_PORTED = {"/setquery": "needs TraceSet (core/diff.py)",
-               "/diagnose": "needs the detector table (core/detectors.py)"}
 
 
 async def _read_request(reader: asyncio.StreamReader):
@@ -874,8 +905,7 @@ def _response(status: int, body: dict) -> bytes:
               404: "Not Found",
               405: "Method Not Allowed", 413: "Payload Too Large",
               422: "Unprocessable Entity", 429: "Too Many Requests",
-              500: "Internal Server Error", 501: "Not Implemented",
-              503: "Service Unavailable",
+              500: "Internal Server Error", 503: "Service Unavailable",
               504: "Gateway Timeout"}.get(status, "Error")
     head = (f"HTTP/1.1 {status} {reason}\r\n{_JSON_HEADERS}"
             f"Content-Length: {len(payload)}\r\n"
@@ -938,12 +968,7 @@ class TraceServer:
                 self.shutdown(float(payload.get(
                     "grace", self.drain_timeout))))
             return 200, {"ok": True, "draining": True}
-        if path in _NOT_PORTED:
-            return 501, {"ok": False, "error": {
-                "code": "not_ported",
-                "message": f"{path} {_NOT_PORTED[path]}: not yet ported "
-                           f"(ROADMAP §A)"}}
-        if path not in ("/query", "/live"):
+        if path not in ("/query", "/setquery", "/diagnose", "/live"):
             return 404, {"ok": False, "error": {"code": "not_found",
                                                 "message": path}}
         try:
@@ -957,7 +982,19 @@ class TraceServer:
                 # a degraded-coverage result is correct but incomplete:
                 # 206 tells the client which ranks are missing
                 return (206 if result.get("partial") else 200), result
-            result = await svc.query(payload)
+            if path == "/diagnose":
+                # sugar over /query: force the diagnose terminal so clients
+                # can POST just {"open": ..., "detectors": [...]}; it
+                # coalesces and caches like any other plan
+                payload = dict(payload)
+                payload["op"] = "diagnose"
+                detectors = payload.pop("detectors", None)
+                if detectors is not None:
+                    kwargs = dict(payload.get("kwargs") or {})
+                    kwargs["detectors"] = detectors
+                    payload["kwargs"] = kwargs
+            result = await svc.query(payload,
+                                     set_scope=(path == "/setquery"))
             return 200, result
         except ProtocolError as e:
             return 400, {"ok": False, "error": {"code": "protocol",

@@ -39,7 +39,13 @@ the eager bits while no worker initializes CUDA; and a read-only mapped
 column reaches the card without a warning.  The seven op calls from 4
 threads give the serial bits and 4 times its launches; the live route
 (incremental, cold, eager) and the served route give the eager and library
-bits, and their cache hits launch nothing.
+bits, and their cache hits launch nothing.  The five set ops of
+``core/diff.py`` on the card match the CPU route within the gate, carry
+each member's own op bits and launch each record kernel once a member;
+streamed sets give the eager set's bits; each pathology's detector names
+the ground truth at top 1 on the card, ``diagnose`` matches the CPU
+route and gives the eager digest on every route; ``/setquery`` and
+``/diagnose`` give the library's digests and repeats launch nothing.
 """
 
 import numpy as np
@@ -51,7 +57,8 @@ from repro_torch.core import NAME, Filter, plancache
 from repro_torch.core.query import scan
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
-from repro_torch.launch.cardcheck import digest, gate, same_bits
+from repro_torch.launch.cardcheck import (digest, findings_gate, gate,
+                                         same_bits, set_gate)
 from repro_torch.tracegen import big_events, big_trace
 
 pytestmark = pytest.mark.gpu
@@ -411,6 +418,138 @@ def test_served_route_on_card_equals_library(cuda, pack_shards):
         before = _launches()
         again = asyncio.run(svc.query(body))
         assert again["cached"] and _launches() == before
+
+
+# ---------------------------------------------------------------------------
+# sets (core/diff.py) and the detector suite on the card
+# ---------------------------------------------------------------------------
+
+SET_OPS = ["diff_flat_profile", "regression_report", "scaling_analysis",
+           "diff_time_profile", "diff_load_imbalance"]
+
+
+def _per_kernel():
+    return {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in TRACE_MODS}
+
+
+def test_set_ops_on_card_match_cpu_and_carry_member_bits(cuda):
+    """The five set ops over two in-memory traces on the card: within the
+    gate of the CPU route; each member's column is that member's own op
+    on the card, bit for bit; the launches are one per member and kernel
+    (the profile cache answers the other two ``flat_profile`` passes), and
+    a trace op mapped over the set launches ``hist_bin`` once a member."""
+    from repro_torch import TraceSet
+    a = Trace.from_events(big_events(nprocs=8, events_per_proc=8_000,
+                                     seed=3), device=cuda)
+    b = Trace.from_events(big_events(nprocs=4, events_per_proc=16_000,
+                                     seed=4), device=cuda)
+    ts = TraceSet([a, b], labels=["n8", "n4"])
+    for t in ts:
+        t._ensure_structure()
+    before = _per_kernel()
+    card = {op: ts.run(op) for op in SET_OPS}
+    mapped = ts.message_histogram()
+    after = _per_kernel()
+    assert {k: after[k] - before[k] for k in after} == {
+        "seg_sum": 2, "pair_sum": 2, "time_bin": 2, "hist_bin": 2}
+    for op in SET_OPS:
+        set_gate(op, card[op], ts.run(op, device="cpu"),
+                 member_scale=None if op != "diff_time_profile" else max(
+                     float(np.abs(np.asarray(p[c])).max())
+                     for t in ts for p in [t.time_profile()]
+                     for c in p.columns if not c.startswith("bin_")))
+    for lbl, t in zip(("n8", "n4"), ts):
+        prof = t.flat_profile(metrics=["time.exc"])
+        own = dict(zip(map(str, prof["Name"]), np.asarray(prof["time.exc"])))
+        d = card["diff_flat_profile"]
+        col = dict(zip(map(str, d["Name"]), np.asarray(d[f"time.exc|{lbl}"])))
+        assert all(own[k] == v for k, v in col.items() if k in own), lbl
+        imb = t.load_imbalance()
+        own = dict(zip(map(str, imb["Name"]),
+                       np.asarray(imb["time.exc.imbalance"])))
+        d = card["diff_load_imbalance"]
+        col = dict(zip(map(str, d["Name"]),
+                       np.asarray(d[f"imbalance|{lbl}"])))
+        assert all(own[k] == v for k, v in col.items() if k in own), lbl
+    assert [digest(h) for h in mapped] == [digest(t.message_histogram())
+                                           for t in ts]
+
+
+def test_streaming_set_on_card_equals_eager(cuda, shards):
+    """A streamed set (all eight ranks, then the first four) gives on the
+    card the eager set's bits."""
+    from repro_torch import TraceSet
+    members = [shards, shards[:4]]
+    st = TraceSet.open(members, streaming=True, chunk_rows=997,
+                       labels=["n8", "n4"])
+    eager = TraceSet.open(members, labels=["n8", "n4"])
+    for op in ("regression_report", "diff_time_profile", "scaling_analysis",
+               "diff_load_imbalance"):
+        assert digest(st.run(op)) == digest(eager.run(op)), op
+
+
+@pytest.mark.parametrize("pathology", ["late_sender", "straggler",
+                                       "serialization", "imbalance",
+                                       "efficiency_drop"])
+def test_pathologies_recovered_on_card(cuda, pathology):
+    """Each pathology's detector names the ground truth at top 1 on the
+    card; ``diagnose`` on the card equals the CPU route (the host
+    detectors exactly, ``stragglers`` within the gate) and launches
+    ``seg_sum`` once."""
+    from repro_torch.tracegen import PATHOLOGIES, pathology_trace
+    tr, gt = pathology_trace(pathology, nprocs=8, iters=64,
+                             magnitude=4.0 if pathology != "efficiency_drop"
+                             else 0.6, seed=1)
+    top = tr.run(PATHOLOGIES[pathology])
+    assert str(top["detector"][0]) == gt.detector
+    if gt.process != -1:
+        assert int(top["process"][0]) == gt.process
+    if gt.function:
+        assert str(top["function"][0]) == gt.function
+    assert top["t_start"][0] < gt.t_end and top["t_end"][0] > gt.t_start
+    before = seg_sum.LAUNCHES
+    card = tr.diagnose()
+    assert seg_sum.LAUNCHES - before == 1
+    findings_gate(card, tr.diagnose(device="cpu"))
+
+
+def test_diagnose_routes_on_card_equal_eager(cuda, shards, pack_shards):
+    """``diagnose`` streamed, over work units, from pack and streamed pack
+    gives on the card the eager route's digest."""
+    want = digest(Trace.open(shards).diagnose())
+    assert digest(Trace.open(shards, streaming=True,
+                             chunk_rows=997).diagnose()) == want
+    assert digest(_units(shards, "diagnose", {}, 7)) == want
+    assert digest(Trace.open(pack_shards).diagnose()) == want
+    assert digest(Trace.open(pack_shards, streaming=True).diagnose()) == want
+
+
+def test_served_set_and_diagnose_on_card(cuda, pack_shards):
+    """``/setquery`` (members of shard lists) and ``/diagnose`` on the
+    card: the library's digests; a repeat is a cache hit and launches
+    nothing."""
+    import asyncio
+
+    from repro_torch import TraceSet
+    from repro_torch.serving import protocol
+    from repro_torch.serving.tracequery import TraceService
+    svc = TraceService()
+    members = [list(pack_shards), list(pack_shards[:4])]
+    body = {"open": {"mode": "set", "paths": members, "streaming": True,
+                     "labels": ["n8", "n4"]}, "op": "regression_report"}
+    out = asyncio.run(svc.query(body, set_scope=True))
+    lib = TraceSet.open(members, streaming=True, labels=["n8", "n4"],
+                        cache=False).regression_report()
+    assert out["digest"] == protocol.result_digest(lib)
+    diag = {"open": {"paths": list(pack_shards), "streaming": True},
+            "op": "diagnose"}
+    out = asyncio.run(svc.query(diag))
+    lib = Trace.open(pack_shards, streaming=True, cache=False).diagnose()
+    assert out["digest"] == protocol.result_digest(lib)
+    before = _launches()
+    assert asyncio.run(svc.query(body, set_scope=True))["cached"]
+    assert asyncio.run(svc.query(diag))["cached"]
+    assert _launches() == before
 
 
 def test_read_only_arrays_reach_the_card_without_a_warning(cuda,

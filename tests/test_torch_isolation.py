@@ -45,12 +45,14 @@ NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
                "repro_torch.core.scheduler", "repro_torch.core.liveset",
                "repro_torch.runtime.tracer", "repro_torch.serving.protocol",
                "repro_torch.serving.tracequery", "repro_torch.serving.client",
-               "repro_torch.launch.trace_serve")
+               "repro_torch.launch.trace_serve", "repro_torch.core.diff",
+               "repro_torch.tracegen.builder",
+               "repro_torch.tracegen.pathologies")
 
 
 def test_new_modules_are_checked():
-    """The parallel, pack, live and service modules are among the files
-    checked above."""
+    """The parallel, pack, live, service, set and pathology modules are
+    among the files checked above."""
     checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
                for p in PORT_FILES if "src" in p.parts}
     assert set(NEW_MODULES) <= checked
@@ -94,7 +96,13 @@ def test_trace_defaults_to_the_card_and_raises_without_one(no_cuda):
                                 ops_summary.load_imbalance,
                                 ops_comm.comm_matrix,
                                 ops_comm.message_histogram,
-                                detectors.stragglers])
+                                detectors.stragglers,
+                                detectors.late_sender,
+                                detectors.serialization,
+                                detectors.imbalance_root_cause,
+                                detectors.efficiency_metrics,
+                                detectors.pop_efficiency,
+                                detectors.diagnose])
 def test_op_without_device_raises_without_a_card(no_cuda, cpu_trace, op):
     with pytest.raises(RuntimeError, match="CUDA"):
         op(cpu_trace)
@@ -108,6 +116,21 @@ def test_trace_method_with_cuda_device_raises(no_cuda, cpu_trace):
     with pytest.raises(RuntimeError, match="CUDA"):
         cpu_trace.query().restrict_processes([0]).flat_profile(
             device="cuda")
+
+
+def test_set_ops_asked_for_the_card_raise(no_cuda, cpu_trace):
+    """A set op runs each member on its own device, and asked for the card
+    without one it raises; a set opened without ``device=`` asks for the
+    card."""
+    from repro_torch import TraceSet
+    ts = TraceSet([cpu_trace, cpu_trace])
+    assert len(ts.regression_report()) > 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ts.regression_report(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ts.query().diff_flat_profile(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TraceSet.open(["a.jsonl"], streaming=True)
 
 
 def test_adapters_without_device_raise(no_cuda):

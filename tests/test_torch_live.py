@@ -2,7 +2,7 @@
 incremental re-query, the tracer's live sink, ``LiveTraceSet`` and the
 service's ``/live`` sessions.
 
-Mirrors ``tests/test_live.py`` (its set cases excepted).  The shards are
+Mirrors ``tests/test_live.py``, its set cases included.  The shards are
 written once by the port and read by both packages.  The load-bearing
 properties:
 
@@ -553,6 +553,35 @@ def test_liveset_final_heartbeat_never_goes_dead(tmp_path):
     assert not ls.coverage.degraded
 
 
+def test_liveset_to_traceset_compares_the_survivors(tmp_path):
+    """The survivors as a set of per-rank live handles labelled
+    ``rank<r>``, on the set's device: a comparison over them equals the
+    same comparison over direct live opens of each rank, and a dead rank
+    is not a member."""
+    from repro_torch import TraceSet
+    fake = [1000.0]
+    clock = lambda: fake[0]                                     # noqa: E731
+    tracers = _fleet(tmp_path, 3, clock)
+    fake[0] += 30.0
+    for r in (0, 1):
+        tracers[r].instant("t", proc=r)
+        tracers[r].flush()
+    ls = LiveTraceSet(str(tmp_path), lag_timeout=2.0, dead_timeout=10.0,
+                      clock=clock, device="cpu")
+    assert ls.coverage.missing == [2]
+    ts = ls.to_traceset()
+    assert ts.labels == ["rank0", "rank1"]
+    assert all(isinstance(m, LiveTrace) and m.device == ls.device
+               for m in ts)
+    direct = TraceSet([Trace.open([str(tmp_path / f"rank_{r}.pack")],
+                                  live=True, device="cpu")
+                       for r in (0, 1)], labels=["rank0", "rank1"])
+    for op in ("regression_report", "diff_load_imbalance"):
+        assert digest(ts.run(op)) == digest(direct.run(op)), op
+    assert [digest(x) for x in ts.flat_profile()] == \
+        [digest(x) for x in direct.flat_profile()]
+
+
 def test_liveset_all_dead_raises(tmp_path):
     fake = [1000.0]
     clock = lambda: fake[0]                                     # noqa: E731
@@ -562,7 +591,8 @@ def test_liveset_all_dead_raises(tmp_path):
     assert ls.coverage.missing == [0, 1]
     with pytest.raises(RuntimeError, match="no surviving ranks"):
         ls.run("flat_profile")
-    with pytest.raises(NotImplementedError, match="TraceSet"):
+    # no survivor: an empty set, which TraceSet refuses
+    with pytest.raises(ValueError, match="at least one trace"):
         ls.to_traceset()
     empty = tmp_path / "empty"
     empty.mkdir()
@@ -655,10 +685,12 @@ def test_query_endpoint_rejects_live_modes(tmp_path):
     with pytest.raises(ProtocolError, match="/live"):
         run(svc.query({"open": {"path": p, "mode": "live"},
                        "op": "flat_profile"}))
-    with pytest.raises(ServiceError, match="not yet ported") as exc:
+    with pytest.raises(ProtocolError, match="/live takes"):
         run(svc.live({"open": {"path": p, "mode": "set"},
                       "op": "flat_profile"}))
-    assert exc.value.status == 501
+    with pytest.raises(ProtocolError, match="set-scoped"):
+        run(svc.live({"open": {"path": p, "mode": "live"},
+                      "op": "regression_report"}))
 
 
 def test_live_handle_not_reopened_on_growth(tmp_path):
@@ -675,3 +707,25 @@ def test_live_handle_not_reopened_on_growth(tmp_path):
     st = svc.handles.stats()
     assert st["opens"] == 1 and st["reopens"] == 0
     assert st["device"] == "cpu"
+
+
+def test_live_set_follows_the_watermark(tmp_path):
+    """A set of live members compared again after growth and ``refresh()``
+    covers the new rows: the profiles a set op shares are keyed by each
+    member's pinned snapshot."""
+    from repro_torch import TraceSet
+    paths = [str(tmp_path / f"rank_{r}.pack") for r in range(2)]
+    writers = [_grow(p, n_commits=1, rows_per=100, proc=r)
+               for r, p in enumerate(paths)]
+    ts = TraceSet([Trace.open([p], live=True, device="cpu") for p in paths],
+                  labels=["a", "b"])
+    before = ts.regression_report()
+    for r, w in enumerate(writers):
+        w.append(_events(60, proc=r, t0=committed_prefix(paths[r])["rows"]))
+        w.commit()
+    for m in ts:
+        m.refresh()
+    after = ts.regression_report()
+    cold = TraceSet([Trace.open([p], live=True, cache=False, device="cpu")
+                     for p in paths], labels=["a", "b"]).regression_report()
+    assert digest(after) == digest(cold) != digest(before)

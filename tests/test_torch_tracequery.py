@@ -3,11 +3,11 @@ the library, single-flight coalescing, admission control, deadlines,
 graceful shutdown, the HTTP client, and the kernel layer under its lane
 threads.
 
-Mirrors ``tests/test_serving.py`` (its set and diagnose cases excepted:
-they wait for ``TraceSet`` and the detector table, and answer 501).  The
-same pack shards go to the reference's service and the port's: the port's
-served result is its library call's bits, and within the
-``bench_backends.py`` gate of the reference's served ``pallas`` result.
+Mirrors ``tests/test_serving.py``, its set (``/setquery``) and diagnose
+(``/diagnose``) cases included.  The same pack shards go to the
+reference's service and the port's: the port's served result is its
+library call's bits, and within the ``bench_backends.py`` gate of the
+reference's served ``pallas`` result.
 """
 
 import asyncio
@@ -25,7 +25,7 @@ from repro.core.filters import Filter as RefFilter
 from repro.core.frame import EventFrame as RefEventFrame
 from repro.serving import protocol as ref_protocol
 from repro.serving.tracequery import TraceService as RefTraceService
-from repro_torch import Trace
+from repro_torch import Trace, TraceSet
 from repro_torch.core import plancache, registry
 from repro_torch.core.cancellation import (CancelToken, ExecutionCancelled,
                                            cancel_scope, check_cancelled)
@@ -202,6 +202,152 @@ def test_every_op_served_equals_library_and_reference(pack_paths, op, kw,
         assert_findings(got, want, op)
     else:
         assert_equivalent(op, got, want, context=op)
+
+
+# ---------------------------------------------------------------------------
+# sets (/setquery) and the detector suite (/diagnose)
+# ---------------------------------------------------------------------------
+
+def set_payload(paths, op, **extra):
+    body = payload(paths, op, **extra)
+    body["open"]["mode"] = "set"
+    return body
+
+
+SET_OPS = ["diff_flat_profile", "diff_time_profile", "scaling_analysis",
+           "diff_load_imbalance", "regression_report"]
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("op", SET_OPS)
+def test_every_set_op_roundtrips(pack_paths, op, streaming):
+    """Each set op served through ``/setquery`` is the library's bits, and
+    within the gate of the reference service's result on the same
+    shards (rows keyed by name, as in ``test_torch_diff.py``)."""
+    from repro.core.trace import Trace as RefTrace
+    from test_torch_diff import assert_set_result
+
+    async def main():
+        ours = await service(max_handles=4).query(
+            set_payload(pack_paths[:2], op, streaming=streaming),
+            set_scope=True)
+        ref_plancache.clear()
+        theirs = await RefTraceService(max_handles=4).query(
+            set_payload(pack_paths[:2], op, streaming=streaming,
+                        cache=False), set_scope=True)
+        return ours, theirs
+
+    ours, theirs = run(main())
+    got = protocol.decode_value(json.loads(json.dumps(ours["result"])))
+    lib = TraceSet.open(pack_paths[:2], streaming=streaming,
+                        device="cpu").run(op)
+    assert ours["digest"] == result_digest(lib) == result_digest(got)
+    want = ref_protocol.decode_value(theirs["result"])
+    refs = [RefTrace.open(p) for p in pack_paths[:2]]
+    assert_set_result(op, got, want, refs, {}, op)
+
+
+def test_trace_op_mapped_over_set(pack_paths):
+    async def main():
+        return await service().query(
+            set_payload(pack_paths[:2], "flat_profile"), set_scope=True)
+
+    got = protocol.decode_value(run(main())["result"])
+    want = TraceSet.open(pack_paths[:2], device="cpu").query().run(
+        "flat_profile")
+    assert isinstance(got, list) and len(got) == 2
+    assert result_digest(got) == result_digest(want)
+
+
+def test_http_setquery_roundtrip(pack_paths):
+    """``open_set`` with members that are lists of shards (all four ranks,
+    then the first two), labelled and streamed: the library's digest, and
+    a repeat answered from the cache."""
+    members = [list(pack_paths), list(pack_paths[:2])]
+    local = TraceSet.open(members, streaming=True, labels=["n4", "n2"],
+                          device="cpu").query().run("regression_report")
+
+    async def main():
+        server = await TraceServer(service(), port=0).start()
+
+        def client_work():
+            with ServiceClient("127.0.0.1", server.port) as c:
+                tset = c.open_set(members, streaming=True,
+                                  labels=["n4", "n2"])
+                got = tset.query().regression_report()
+                again = tset.query().regression_report()
+                return got, again, dict(c.last_meta)
+
+        out = await asyncio.to_thread(client_work)
+        await server.shutdown(grace=5)
+        return out
+
+    got, again, meta = run(main())
+    assert result_digest(got) == result_digest(local) == \
+        result_digest(again)
+    assert meta["cached"]
+
+
+@pytest.fixture(scope="module")
+def pathology_pack(tmp_path_factory):
+    from repro_torch.readers.pack import write_pack
+    from repro_torch.tracegen import pathology_trace
+    tr, gt = pathology_trace("straggler", nprocs=3, iters=12, magnitude=2.0,
+                             seed=4, device="cpu")
+    p = str(tmp_path_factory.mktemp("diag_serve") / "patho.pack")
+    write_pack(tr, p)
+    return p, gt
+
+
+def test_diagnose_endpoint_digest_equals_library(pathology_pack):
+    from test_torch_detectors import assert_findings_match
+    path, gt = pathology_pack
+    local = Trace.open(path, device="cpu").query().run("diagnose")
+
+    async def main():
+        server = await TraceServer(service(), port=0).start()
+
+        def client_work():
+            with ServiceClient("127.0.0.1", server.port, tenant="t") as c:
+                trace = c.open(path)
+                return (trace.diagnose(), trace.query().diagnose(),
+                        trace.diagnose(detectors=["stragglers"]))
+
+        result = await asyncio.to_thread(client_work)
+        await server.shutdown(grace=5)
+        ref_plancache.clear()
+        theirs = await RefTraceService().query(
+            payload([path], "diagnose", cache=False))
+        return result, theirs
+
+    (via_endpoint, via_query, subset), theirs = run(main())
+    assert result_digest(via_endpoint) == result_digest(local)
+    assert result_digest(via_query) == result_digest(local)
+    assert result_digest(subset) == result_digest(
+        Trace.open(path, device="cpu").query().run(
+            "diagnose", detectors=["stragglers"]))
+    assert int(subset["process"][0]) == gt.process
+    assert_findings_match(via_endpoint,
+                          ref_protocol.decode_value(theirs["result"]),
+                          "diagnose")
+
+
+def test_diagnose_requests_coalesce_and_cache(pathology_pack):
+    path, _ = pathology_pack
+
+    async def main():
+        svc = service()
+        body = payload([path], "diagnose")
+        results = await asyncio.gather(
+            *[svc.query(dict(body)) for _ in range(5)])
+        again = await svc.query(dict(body))
+        return svc, results, again
+
+    svc, results, again = run(main())
+    assert svc.counters["executed"] == 1
+    assert svc.counters["coalesced"] == 4
+    assert len({r["digest"] for r in results}) == 1
+    assert again.get("cached") and again["digest"] == results[0]["digest"]
 
 
 def test_streaming_digest_matches_eager(pack_paths):
@@ -470,11 +616,24 @@ def test_unknown_op_and_bad_requests(pack_paths):
         assert exc.value.status == 404
         body = payload(pack_paths[:2], "flat_profile")
         body["open"]["mode"] = "set"
-        with pytest.raises(ServiceError, match="TraceSet") as exc:
+        with pytest.raises(ProtocolError, match="/setquery"):
             await svc.query(body)
-        assert exc.value.status == 501
+        with pytest.raises(ProtocolError, match="comparison op"):
+            await svc.query(payload(pack_paths[:2], "regression_report"))
+        body["op"] = "regression_report"
+        res = await svc.query(body, set_scope=True)
+        assert res["ok"]
+        with pytest.raises(ProtocolError, match="paths"):
+            await svc.query({"open": {"paths": [["a"]]}, "op": "diagnose"})
+        with pytest.raises(ProtocolError, match="labels"):
+            await svc.query({"open": {"paths": pack_paths[:2],
+                                      "labels": ["x"]},
+                             "op": "regression_report"}, set_scope=True)
+        return res
 
-    run(main())
+    res = run(main())
+    want = TraceSet.open(pack_paths[:2], device="cpu").regression_report()
+    assert res["digest"] == result_digest(want)
 
 
 def test_breaker_recovers_after_repair(tmp_path):
@@ -543,20 +702,22 @@ def test_http_client_roundtrip(pack_paths):
                 for path in ("/setquery", "/diagnose"):
                     with pytest.raises(RemoteError) as exc:
                         c._request("POST", path, {})
-                    assert exc.value.status == 501
-                with pytest.raises(NotImplementedError, match="TraceSet"):
-                    c.open_set(pack_paths[:2])
-                with pytest.raises(NotImplementedError, match="detector"):
-                    trace.diagnose()
-                return prof, w, dig, c.stats()
+                    assert exc.value.status == 400
+                diff = c.open_set(pack_paths[:2]).query().diff_flat_profile()
+                diag = trace.diagnose()
+                return prof, w, dig, c.stats(), diff, diag
 
         result = await asyncio.to_thread(client_work)
         await server.shutdown(grace=5)
         return result
 
-    prof, w, dig, stats = run(main())
+    prof, w, dig, stats, diff, diag = run(main())
     assert result_digest(prof) == result_digest(local) == dig
     assert result_digest(w) == result_digest(windowed)
+    assert result_digest(diff) == result_digest(
+        TraceSet.open(pack_paths[:2], device="cpu").diff_flat_profile())
+    assert result_digest(diag) == result_digest(
+        Trace.open(pack_paths, streaming=True, device="cpu").diagnose())
     assert stats["service"]["requests"] >= 4 and "alice" in stats["tenants"]
     assert stats["device"] == "cpu"
 
