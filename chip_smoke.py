@@ -58,7 +58,7 @@ Phases (any failure raises and exits non-zero):
              op calls again at 4,999 rows a chunk, which splits calls
              across chunks, again the eager bits;
    pool    — the shared scheduler's spawn pool of ``min(os.cpu_count(),
-             8)`` workers for phases 8-12, warmed up (its start-up time
+             8)`` workers for phases 8-13, warmed up (its start-up time
              logged); every worker reports ``torch.cuda.is_initialized()``
              false;
 8. pack    — main-10M written as 64 ``big_trace(format="pack")`` shards
@@ -108,9 +108,37 @@ Phases (any failure raises and exits non-zero):
              findings; ``diagnose()`` on main-10M within the CPU route's
              findings (host detectors exact, ``stragglers`` within the
              gate), one ``seg_sum`` launch; over stream-1M streamed,
-             pooled, from pack and streamed pack the eager digest; each of
-             phases 10-12 logs its wall beside the card;
-13. live   — with the plan cache on (phases 3-12 run with it off, so no
+             pooled, from pack and streamed pack the eager digest;
+13. analysis — the rest of the paper's analysis API on main-10M in memory
+             on the card: twelve host-op calls (``idle_time``,
+             ``comm_by_process`` by size and by count,
+             ``comm_over_time``, ``comm_comp_breakdown``,
+             ``logical_steps``, ``calculate_lateness``,
+             ``lateness_by_process``, ``critical_path_analysis``,
+             ``activity_series``, ``detect_pattern`` with and without a
+             start event), each wall logged, 0 kernel launches, each the
+             bits of the same call on a CPU ``Trace`` of the same events; a
+             lazy plan (``filter(Name not-in [MpiSend])
+             .restrict_processes(range(32))``) with ``idle_time`` and
+             ``comm_over_time``, the eager selection's bits;
+             ``multirun_analysis`` over ``tortuga(nprocs=n, iters=6)`` for
+             n = 16, 32, 64, 128 (paper Fig. 12): ``seg_sum`` 4, private
+             path, within the gate of the CPU route; over set-10M's
+             members (main-10M and scale-10M): no launch (phase 10 left
+             both profiles in the comparison's cache), within the gate of
+             the CPU route; the
+             paper's claims on the app generators at their defaults
+             (``loimos``' hot ranks idle least, ``kripke_sweep``'s
+             critical path crosses 4 or more ranks, ``tortuga(iters=6)``
+             gives 6 ``time-loop`` patterns, ``axonn_training`` v2
+             overlaps more than v0 and v1 and v2 expose less comm, and
+             ``gol(imbalance=0.5)``'s maximum lateness is above 0);
+             ``idle_time``, ``comm_by_process`` and ``comm_over_time`` over
+             stream-1M streamed (65,536 and 4,999 rows a chunk) and pooled,
+             the eager digest, and over pack-10M streamed, the main-10M
+             digest, no launch; each of phases 10-13 logs its wall beside
+             the card;
+14. live   — with the plan cache on (phases 3-13 run with it off, so no
              stored result answers their checks), a ``TraceServer`` on
              127.0.0.1:0 on the card in a thread of this process;
              main-10M's events as 64 append-mode shards in groups of
@@ -132,8 +160,11 @@ Phases (any failure raises and exits non-zero):
              rank missing, the survivors' seven op calls are a direct live
              open's bits, ``POST /live`` on the fleet answers 206 partial
              naming it, and ``to_traceset().regression_report()`` over
-             the survivors is a set of direct live opens' bits;
-14. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
+             the survivors is a set of direct live opens' bits; phase 13's
+             three streamed ops at the final watermark, incrementally
+             (folded on from the first watermark) and on a cold handle,
+             the main-10M digest with no launch;
+15. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
              (``streaming=True``): each op call the library call's digest on
              the same handle configuration (and phase 5's), the misses
              launching as a cold pass, a repeat a cache hit that launches
@@ -141,10 +172,11 @@ Phases (any failure raises and exits non-zero):
              ``open_set`` over the 64 shards and the first 32
              (``/setquery``, ``regression_report``) and ``/diagnose`` over
              the 64: the library's digests, a miss launching as the
-             library call, a repeat a cache hit that launches nothing; the
-             server then drains, the live store is cleared and the
-             scheduler's threads stop;
-15. timing — each trace kernel on the inputs the trace path gave it (its
+             library call, a repeat a cache hit that launches nothing;
+             phase 13's three streamed ops, a miss the library's digest and
+             a hit, neither launching; the server then drains, the live
+             store is cleared and the scheduler's threads stop;
+16. timing — each trace kernel on the inputs the trace path gave it (its
              first call, and in ``other_calls`` each later call of another
              shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
              ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
@@ -154,7 +186,7 @@ Phases (any failure raises and exits non-zero):
              if its profiler row holds a sort kernel, the ``hist_bin`` row
              the wide path, and fails unless the narrow path is one device
              kernel a call;
-16. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
+17. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
@@ -166,15 +198,15 @@ Phases (any failure raises and exits non-zero):
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
              ``torch.profiler`` (device busy share, the largest kernels);
-17. f32    — one ``moe_ffn`` call in float32 at the serving model's
+18. f32    — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
              route, so ``topk_gating`` is launched once, on its narrow
              path, and ``router_topk`` not at all (counts reset just
              before);
-18. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
+19. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-19. timing — each model kernel on the inputs its path gave it, against
+20. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
@@ -190,8 +222,9 @@ call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
 ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
-launches on the query, stream, pack, parallel, set, diagnose, live and
-served routes (``route_launches``; a cache hit's are 0).
+launches on the query, stream, pack, parallel, set, diagnose, analysis,
+live and served routes (``route_launches``; a cache hit's are 0, and so
+are the host ops' of phase 13).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -1453,12 +1486,13 @@ def _columns_are_members(op, res, own):
                                  f"the member's own bits")
 
 
-def phase_set(trace) -> dict:
+def phase_set(trace, kept: dict) -> dict:
     """set-10M: main-10M and scale-10M as one ``TraceSet`` on the card.
     The five set ops and a mapped ``message_histogram``: within the gate
     of the CPU route, each member's columns the member's own op on the
     card bit for bit, :data:`SET_LAUNCHES`; a ``SetQuery`` plan chaining
-    two ops prepares each member once.  Returns the launches."""
+    two ops prepares each member once.  Keeps the set's members in
+    ``kept`` for phase 13.  Returns the launches."""
     from repro_torch import Trace, TraceSet
     from repro_torch.core import NAME, Filter, structure
     from repro_torch.launch.cardcheck import digest, set_gate
@@ -1473,6 +1507,7 @@ def phase_set(trace) -> dict:
         f"{scale.num_processes} ranks, generated in {gen_s:.2f} s, "
         f"structure {struct_s:.2f} s (host) | {SMI[0]}")
     ts = TraceSet([trace, scale], labels=SET_LABELS)
+    kept["members"] = list(ts)
     launches = {}
     reset_counts()
     card = _route(SET_OPS + [MAPPED], lambda op, kw: ts.run(op, **kw))
@@ -1680,7 +1715,244 @@ def phase_diagnose(trace, paths, pool, workers, d) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 13-14: the live and served routes
+# phase 13: the rest of the paper's analysis API
+# ---------------------------------------------------------------------------
+
+#: the twelve host-op calls of phase 13 on main-10M
+ANALYSIS_CALLS = [
+    ("idle_time", {}), ("comm_by_process", {}),
+    ("comm_by_process", {"output": "count"}),
+    ("comm_over_time", {"num_bins": 32}), ("comm_comp_breakdown", {}),
+    ("logical_steps", {}), ("calculate_lateness", {}),
+    ("lateness_by_process", {}), ("critical_path_analysis", {}),
+    ("activity_series", {"num_bins": 512}), ("detect_pattern", {}),
+    ("detect_pattern", {"start_event": "iteration"}),
+]
+#: the three ops with streaming forms, checked on every route
+ANALYSIS_STREAMED = [("idle_time", {}), ("comm_by_process", {}),
+                     ("comm_over_time", {"num_bins": 32})]
+#: the ops the lazy plan of phase 6 runs here
+ANALYSIS_PLAN = [("idle_time", {}), ("comm_over_time", {"num_bins": 32})]
+#: ranks of the multirun scaling study (``tortuga``, paper Fig. 12)
+STUDY_RANKS = (16, 32, 64, 128)
+#: host ops launch no kernel
+NO_LAUNCHES = {"seg_sum": 0, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}
+#: one ``seg_sum`` a run of the study: four profiles not yet cached
+STUDY_LAUNCHES = dict(NO_LAUNCHES, seg_sum=len(STUDY_RANKS))
+
+
+def _size(res) -> str:
+    """A result's size for the log: rows, or a list's frames."""
+    if isinstance(res, list):
+        return f"{len(res)} frames"
+    if isinstance(res, tuple):
+        return f"{len(res[0])} bins"
+    return f"{len(res)} rows"
+
+
+def _analysis_in_memory(trace) -> tuple:
+    """The twelve calls on main-10M on the card, no launch, each the bits of
+    the same call on a CPU Trace of the same events (sharing their derived
+    structure); then the lazy plan.  Returns (launches, the streamed ops'
+    digests)."""
+    from repro_torch import Trace
+    from repro_torch.core import NAME, Filter
+    from repro_torch.launch.cardcheck import digest
+    launches = {}
+    reset_counts()
+    card = _route(ANALYSIS_CALLS, lambda op, kw: trace.run(op, **kw))
+    launches["analysis"] = expect_counts("analysis", NO_LAUNCHES)
+    cpu = Trace(trace.events, label=trace.label, device="cpu")
+    cpu._structured, cpu._msg_match = trace._structured, trace._msg_match
+    digests = {}
+    for (op, kw), (res, wall) in zip(ANALYSIS_CALLS, card):
+        t0 = time.perf_counter()
+        want = cpu.run(op, **kw)
+        cpu_s = time.perf_counter() - t0
+        same = digest(res) == digest(want)
+        digests[(op, json.dumps(kw))] = digest(res)
+        log(f"[analysis] {op:22s} {json.dumps(kw):30s} card {wall:.3f} s "
+            f"| cpu trace {cpu_s:.3f} s | {_size(res)} | bits "
+            f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+        if not same:
+            raise AssertionError(f"analysis {op}: the card trace's result "
+                                 f"is not the CPU trace's bits")
+    del cpu
+
+    def plan(q):
+        return q.filter(Filter(NAME, "not-in", [QUERY_DROP])) \
+            .restrict_processes(QUERY_RANKS)
+
+    reset_counts()
+    lazy = _route(ANALYSIS_PLAN,
+                  lambda op, kw: plan(trace.query()).run(op, **kw))
+    launches["analysis plan"] = expect_counts("analysis plan", NO_LAUNCHES)
+    sub = plan(trace.query()).collect()
+    for (op, kw), (res, wall) in zip(ANALYSIS_PLAN, lazy):
+        same = digest(res) == digest(sub.run(op, **kw))
+        log(f"[analysis] plan filter(Name not-in [{QUERY_DROP}])"
+            f".restrict_processes(range({len(QUERY_RANKS)})).{op}: "
+            f"{wall:.3f} s | eager selection's bits "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"analysis plan {op}: not the eager "
+                                 f"selection's bits")
+    del sub
+    return launches, [digests[(op, json.dumps(kw))]
+                      for op, kw in ANALYSIS_STREAMED]
+
+
+def _multirun(traces, label, expect, why) -> dict:
+    """``multirun_analysis`` on the card with the counts reset just before
+    and read just after (``expect``, for the reason ``why``), held within
+    the gate of the CPU route.  Returns the launches."""
+    from repro_torch import Trace
+    reset_counts()
+    t0 = time.perf_counter()
+    card = Trace.multirun_analysis(traces)
+    wall = time.perf_counter() - t0
+    got = expect_counts(f"multirun {label}", expect)
+    t0 = time.perf_counter()
+    cpu = Trace.multirun_analysis(traces, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if list(card.columns) != list(cpu.columns) or \
+            list(card["Run"]) != list(cpu["Run"]):
+        raise AssertionError(f"multirun {label}: columns {card.columns} "
+                             f"!= {cpu.columns}")
+    err = max(gate(np.asarray(card[c]), np.asarray(cpu[c]))
+              for c in list(card.columns)[1:])
+    log(f"[analysis] multirun {label}: runs "
+        f"{[str(r) for r in card['Run']]}, "
+        f"{len(card.columns) - 1} functions, card {wall:.3f} s ({why}) | "
+        f"cpu route {cpu_s:.3f} s, max_abs_err {err:.6g} | {SMI[0]}")
+    return got
+
+
+def _paper_claims() -> None:
+    """``tests/test_ops.py``'s claims on the app generators at their
+    defaults, on the card's Traces; no launch."""
+    from repro_torch.core import PROC
+    from repro_torch.tracegen import (axonn_training, gol, kripke_sweep,
+                                      loimos, tortuga)
+    reset_counts()
+    t0 = time.perf_counter()
+    hot = {21, 22, 23, 24, 29}
+    idle = [int(p) for p in loimos(device="cuda").idle_time()[PROC]]
+    path = kripke_sweep(device="cuda").critical_path_analysis()[0]
+    ranks = len(set(np.asarray(path[PROC]).tolist()))
+    pats = tortuga(iters=6, device="cuda").detect_pattern(
+        start_event="time-loop")
+    bd = {v: axonn_training(version=v, device="cuda").comm_comp_breakdown()
+          for v in (0, 1, 2)}
+    ov = {v: float(np.asarray(b["overlap"]).mean()) for v, b in bd.items()}
+    comm = {v: float(np.asarray(b["comm_only"]).mean())
+            for v, b in bd.items()}
+    late = float(np.asarray(gol(imbalance=0.5, device="cuda")
+                            .lateness_by_process()["max_lateness"]).max())
+    wall = time.perf_counter() - t0
+    expect_counts("analysis claims", NO_LAUNCHES)
+    claims = [
+        (f"loimos: the hot ranks {sorted(hot)} idle least (last five "
+         f"{idle[-5:]})", set(idle[-5:]) == hot),
+        (f"kripke_sweep: the critical path ({len(path)} calls) crosses "
+         f"{ranks} ranks >= 4", ranks >= 4),
+        (f"tortuga(iters=6): detect_pattern(start_event='time-loop') finds "
+         f"{len(pats)} iterations", len(pats) == 6),
+        (f"axonn_training: overlap v2 {ov[2]:.0f} ns > v0 {ov[0]:.0f} ns; "
+         f"exposed comm v1 {comm[1]:.0f}, v2 {comm[2]:.0f} < v0 "
+         f"{comm[0]:.0f} ns",
+         ov[2] > ov[0] and comm[1] < comm[0] and comm[2] < comm[0]),
+        (f"gol(imbalance=0.5): max lateness {late:.0f} ns > 0", late > 0),
+    ]
+    for text, ok in claims:
+        log(f"[analysis] claim {text}: {'holds' if ok else 'FAILS'}")
+    if not all(ok for _t, ok in claims):
+        raise AssertionError("analysis: a paper claim fails on the card")
+    log(f"[analysis] the five claims in {wall:.2f} s")
+
+
+def _analysis_routes(stream_paths, pool, workers, pack_dir,
+                     main_digests) -> dict:
+    """The three streamed ops over stream-1M (streamed at two chunk sizes
+    and pooled: the eager digest) and pack-10M streamed (main-10M's
+    digest), no launch.  Returns the launches."""
+    import warnings
+
+    from repro_torch import Trace
+    from repro_torch.launch.cardcheck import digest
+    eager = Trace.open(stream_paths, device="cuda")
+    wants = [digest(eager.run(op, **kw)) for op, kw in ANALYSIS_STREAMED]
+    del eager
+    pst = Trace.open(stream_paths, streaming=True,
+                     chunk_rows=STREAM_CHUNK_ROWS, device="cuda",
+                     processes=workers)
+    pst._pool = pool
+    packs = [os.path.join(pack_dir, f"rank_{r}.pack")
+             for r in range(MAIN["nprocs"])]
+    routes = [
+        ("stream-1M", "streamed", wants, lambda: Trace.open(
+            stream_paths, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+            device="cuda")),
+        ("stream-1M", f"streamed {SEAM_CHUNK_ROWS}", wants,
+         lambda: Trace.open(stream_paths, streaming=True,
+                            chunk_rows=SEAM_CHUNK_ROWS, device="cuda")),
+        ("stream-1M", f"pooled x{workers}", wants, lambda: pst),
+        ("pack-10M", "streamed", main_digests, lambda: Trace.open(
+            packs, streaming=True, device="cuda")),
+    ]
+    launches = {}
+    for data, route, want, handle in routes:
+        h = handle()
+        reset_counts()
+        for (op, kw), w in zip(ANALYSIS_STREAMED, want):
+            h.units_cuda = []
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message="parallel streaming",
+                                        category=RuntimeWarning)
+                got = h.run(op, **kw)
+            wall = time.perf_counter() - t0
+            same = digest(got) == w
+            log(f"[analysis] {data} {route:16s} {op:16s} {wall:.3f} s | "
+                f"eager digest {'equal' if same else 'DIFFER'} | {SMI[0]}")
+            if not same:
+                raise AssertionError(f"analysis {data} {route} {op}: not "
+                                     f"the eager digest")
+            if h is pst and (len(pst.units_cuda) < 2 or any(pst.units_cuda)):
+                raise AssertionError(f"analysis pooled: units "
+                                     f"{pst.units_cuda}")
+        launches[f"analysis {data} {route.split()[0]}"] = expect_counts(
+            f"analysis {data} {route}", NO_LAUNCHES)
+    return launches
+
+
+def phase_analysis(trace, members, stream_paths, pool, workers,
+                   d) -> tuple:
+    """The rest of the paper's analysis API: main-10M's twelve host calls
+    and a lazy plan, ``multirun_analysis`` (the phase's kernel, ``seg_sum``)
+    over a scaling study and over set-10M's ``members`` (main-10M and
+    scale-10M under their labels, as phase 10's set holds them), the
+    paper's claims on the app generators, and the three streamed ops on
+    the stream and pack routes.  Returns (the launches, the streamed ops'
+    main-10M digests for the live and served phases)."""
+    from repro_torch.tracegen import tortuga
+    launches, digests = _analysis_in_memory(trace)
+    study = [tortuga(nprocs=n, iters=6, device="cuda") for n in STUDY_RANKS]
+    launches["analysis multirun study"] = _multirun(
+        study, "tortuga study", STUDY_LAUNCHES,
+        f"one seg_sum a run: {len(STUDY_RANKS)} profiles not cached yet")
+    launches["analysis multirun 10M"] = _multirun(
+        members, "set-10M", NO_LAUNCHES,
+        "no launch: phase 10's set ops left both members' (time.exc, "
+        "device) profiles in the comparison's cache")
+    _paper_claims()
+    launches.update(_analysis_routes(stream_paths, pool, workers,
+                                     os.path.join(d, "pack"), digests))
+    return launches, digests
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: the live and served routes
 # ---------------------------------------------------------------------------
 
 #: launches of the seven op calls on every route, cold or incremental
@@ -1846,17 +2118,21 @@ def _live_polls(client, paths, before_commit: bool) -> None:
         raise AssertionError("/live: a poll with no growth was served")
 
 
-def phase_live(main_digests, client) -> dict:
+def phase_live(main_digests, client, analysis_digests) -> dict:
     """live-10M: main-10M's events as 64 append-mode shards grown in two
     commits a rank; at each watermark the seven op calls incrementally,
     cold and eagerly give one digest (after ``finalize`` the eager route
     over every row is phase 5's), with :data:`ROUTE_LAUNCHES` each; a repeat with no growth launches nothing;
     no op falls back to the full pass.  ``POST /live`` over 8 of the
-    shards around the second commit.  Returns the routes' launches."""
+    shards around the second commit.  Phase 13's three streamed ops run
+    at the first watermark and are checked at the final one: folded on
+    incrementally and on a cold handle, the main-10M digest with no
+    launch.  Returns the routes' launches."""
     import tempfile
 
     from repro_torch import Trace
     from repro_torch.core import streaming
+    from repro_torch.launch.cardcheck import digest
     from repro_torch.tracegen import big_events
     launches = {}
     fallbacks = streaming.INCREMENTAL_FALLBACKS
@@ -1872,6 +2148,11 @@ def phase_live(main_digests, client) -> dict:
             f"{time.perf_counter() - t0:.2f} s (groups of "
             f"{LIVE_GROUP_ROWS} rows) | {SMI[0]}")
         _live_stage("half", lt, paths, launches)
+        t0 = time.perf_counter()
+        for op, kw in ANALYSIS_STREAMED:
+            lt.run(op, **kw)
+        log(f"[live] half: the three analysis ops folded in "
+            f"{time.perf_counter() - t0:.3f} s")
         _live_polls(client, paths, before_commit=True)
         t0 = time.perf_counter()
         for w, half, hi in rest:
@@ -1892,6 +2173,25 @@ def phase_live(main_digests, client) -> dict:
             raise AssertionError("live repeat: not the stored results")
         log(f"[live] repeat with no growth: {len(OPS)} stored results, "
             f"{sum(w for _r, w in again):.4f} s")
+        cold_h = Trace.open(paths, live=True, cache=False, device="cuda")
+        reset_counts()
+        for (op, kw), want in zip(ANALYSIS_STREAMED, analysis_digests):
+            t0 = time.perf_counter()
+            inc = digest(lt.run(op, **kw))
+            inc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cold = digest(cold_h.run(op, **kw))
+            cold_s = time.perf_counter() - t0
+            same = inc == cold == want
+            log(f"[live] all {op:16s} incremental {inc_s:.3f} s | cold "
+                f"{cold_s:.3f} s | main-10M digest "
+                f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
+            if not same:
+                raise AssertionError(f"live analysis {op}: incremental, "
+                                     f"cold and eager differ")
+        launches["live analysis"] = expect_counts("live analysis",
+                                                  NO_LAUNCHES)
+        del cold_h
         n_fb = streaming.INCREMENTAL_FALLBACKS - fallbacks
         log(f"[live] incremental fallbacks {n_fb}")
         if n_fb:
@@ -1988,12 +2288,15 @@ def phase_fleet(client) -> None:
             raise AssertionError("fleet to_traceset: not the direct bits")
 
 
-def phase_served(client, pack_dir, main_digests) -> dict:
+def phase_served(client, pack_dir, main_digests,
+                 analysis_digests) -> dict:
     """pack-10M's 64 shards through the service (``streaming=True``): each
     op call the library call's bits on the same handle configuration (and
     phase 5's), :data:`ROUTE_LAUNCHES` on the misses, none on a repeat, and
-    ``COALESCE`` identical concurrent requests executed once.  Returns the
-    routes' launches."""
+    ``COALESCE`` identical concurrent requests executed once; phase 13's
+    three streamed ops, a miss the library's digest (phase 13 showed the
+    library call over these shards gives main-10M's) and a repeat a hit,
+    neither launching.  Returns the routes' launches."""
     import threading
 
     from repro_torch import Trace
@@ -2029,6 +2332,26 @@ def phase_served(client, pack_dir, main_digests) -> dict:
         if not same or not metas[i]["cached"]:
             raise AssertionError(f"served {op}: not the library digest, "
                                  f"or the repeat was no hit")
+    reset_counts()
+    for (op, kw), want in zip(ANALYSIS_STREAMED, analysis_digests):
+        t0 = time.perf_counter()
+        got = remote.query().run(op, **kw)
+        wall = time.perf_counter() - t0
+        miss = dict(client.last_meta)
+        t0 = time.perf_counter()
+        remote.query().run(op, **kw)
+        hit_s = time.perf_counter() - t0
+        hit = dict(client.last_meta)
+        same = (digest(got) == want and protocol.result_digest(got)
+                == miss["digest"] == hit["digest"])
+        log(f"[tracequery] {op:17s} {json.dumps(kw):34s} served {wall:.3f} "
+            f"s | hit {hit_s:.4f} s (cached {hit['cached']}) | library "
+            f"digest {'equal' if same else 'DIFFER'} | {SMI[0]}")
+        if not same or miss["cached"] or not hit["cached"]:
+            raise AssertionError(f"served {op}: not the library digest, "
+                                 f"or no miss then hit")
+    launches["served analysis"] = expect_counts("served analysis",
+                                                NO_LAUNCHES)
     # identical concurrent requests: one execution, the rest coalesce
     op, kw = OPS[0]
     st0 = client.stats()["service"]
@@ -2113,8 +2436,9 @@ def _served_set_and_diagnose(client, shards) -> dict:
     return launches
 
 
-def phase_live_and_served(main_digests, pack_dir) -> dict:
-    """Phases 13-14 with the plan cache on (the earlier phases run with it
+def phase_live_and_served(main_digests, pack_dir,
+                          analysis_digests) -> dict:
+    """Phases 14-15 with the plan cache on (the earlier phases run with it
     off), around one trace-query server; the live store is cleared and
     every service thread stopped after."""
     from repro_torch.core import plancache
@@ -2125,10 +2449,11 @@ def phase_live_and_served(main_digests, pack_dir) -> dict:
     server, thread = start_service()
     try:
         with ServiceClient("127.0.0.1", server.port, tenant="smoke") as c:
-            launches = phase_live(main_digests, c)
+            launches = phase_live(main_digests, c, analysis_digests)
             plancache.clear()
             phase_fleet(c)
-            launches.update(phase_served(c, pack_dir, main_digests))
+            launches.update(phase_served(c, pack_dir, main_digests,
+                                         analysis_digests))
             st = c.stats()
             log(f"[tracequery] service {json.dumps(st['service'])}")
             c.shutdown(grace=30)
@@ -2143,7 +2468,7 @@ def phase_live_and_served(main_digests, pack_dir) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: timing on the main path's inputs
+# phase 16: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 
 def _bound(bytes_moved: float, ops: float):
@@ -2309,7 +2634,7 @@ def _path_prev(mod, name, args, kw, path, check) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 16-19: the serving path
+# phases 17-20: the serving path
 # ---------------------------------------------------------------------------
 
 def phase_serve():
@@ -2688,7 +3013,7 @@ def main() -> int:
     from repro_torch.core import plancache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # phases 3-12 compare routes, count launches and time calls: a stored
+    # phases 3-13 compare routes, count launches and time calls: a stored
     # result would answer them with no launch.  The cache is on only for
     # the live and served phases, which check it
     plancache.configure(enabled=False)
@@ -2710,12 +3035,21 @@ def main() -> int:
             stream_paths = big_trace(os.path.join(d, "stream"), **STREAM)
             routes.update(phase_parallel(stream_wants, pool, workers,
                                          stream_paths, d))
+            kept, analysis = {}, {}
+
+            def analysis_phase():
+                out, analysis["digests"] = phase_analysis(
+                    trace, kept.pop("members"), stream_paths, pool,
+                    workers, d)
+                return out
+
             for label, phase in (
-                    ("set", lambda: phase_set(trace)),
+                    ("set", lambda: phase_set(trace, kept)),
                     ("set-stream", lambda: phase_set_stream(
                         stream_paths, pool, workers)),
                     ("diagnose", lambda: phase_diagnose(
-                        trace, stream_paths, pool, workers, d))):
+                        trace, stream_paths, pool, workers, d)),
+                    ("analysis", analysis_phase)):
                 t0 = time.perf_counter()
                 routes.update(phase())
                 log(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s "
@@ -2724,7 +3058,8 @@ def main() -> int:
             pool.close()
         del trace
         routes.update(phase_live_and_served(main_digests,
-                                            os.path.join(d, "pack")))
+                                            os.path.join(d, "pack"),
+                                            analysis["digests"]))
     rows = phase_timing(launches, calls, routes)
     serve_launches, serve_inputs = phase_serve()
     f32_launches, f32_inputs = phase_f32_router()

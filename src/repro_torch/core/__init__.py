@@ -2,8 +2,9 @@
 the columnar event model, structure derivation and the calling context
 tree, the op and reader registries, filters and lazy query plans, the
 out-of-core streaming executor, the six kernel-backed analysis ops behind
-``Trace`` (``stragglers`` among them), the detector suite (``diagnose``)
-and multi-trace comparison (``TraceSet``, ``SetQuery``)."""
+``Trace`` (``stragglers`` among them), the host ops of the rest of the
+paper's analysis API, the detector suite (``diagnose``) and multi-trace
+comparison (``TraceSet``, ``SetQuery``)."""
 
 from .constants import (ENTER, ET, EXC, INC, INSTANT, LEAVE, MPI_RECV,
                         MPI_SEND, MSG_SIZE, NAME, PARTNER, PROC, TAG, THREAD,

@@ -185,6 +185,9 @@ class EventFrame:
     def mask(self, m: np.ndarray) -> "EventFrame":
         return self.take(np.nonzero(np.asarray(m, bool))[0])
 
+    def head(self, n: int = 5) -> "EventFrame":
+        return self.take(np.arange(min(n, self._n)))
+
     def copy(self) -> "EventFrame":
         out = EventFrame()
         out._n = self._n

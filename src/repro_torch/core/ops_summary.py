@@ -1,5 +1,6 @@
-"""Summary ops on the card: ``flat_profile``, ``time_profile`` and
-``load_imbalance`` (paper §IV-B, §IV-D).
+"""Summary ops: ``flat_profile``, ``time_profile`` and ``load_imbalance``
+on the card, ``idle_time`` on the host, and ``multi_run_analysis`` over
+the comparison machinery (paper §IV-B, §IV-D).
 
 Mirrors the kernel paths of :mod:`repro.core.ops_summary`
 (``_flat_profile_pallas``, ``_profile_from_records`` with
@@ -10,6 +11,13 @@ and reduces them with one kernel launch on ``device`` — the card by
 default, the kernels' plain versions with ``device="cpu"``.  Counts stay
 exact host int64; metric sums agree with the reference's ``numpy``
 backend to f32 rounding.
+
+``idle_time`` has no kernel, in the reference or here: it sums in NumPy
+on the host whatever the ``device`` (which is still checked).  Its
+streaming form buffers the idle calls and sums them once, in the order
+the in-memory op uses.  ``multi_run_analysis`` joins flat profiles
+(:func:`repro_torch.core.diff.align_flat_profiles`): one ``seg_sum``
+launch per run whose profile is not cached yet.
 
 All functions take a Trace whose structure columns (matching, parent,
 time.inc/time.exc) are already materialized; Trace methods guarantee that.
@@ -31,7 +39,9 @@ import torch
 
 from ..kernels import time_bin as _time_bin
 from . import accel
-from .constants import ENTER, ET, EXC, INC, MATCH, NAME, PROC, TS
+from .accel import resolve_device
+from .constants import (DEFAULT_IDLE_NAMES, ENTER, ET, EXC, INC, MATCH, NAME,
+                        PROC, TS)
 from .frame import Categorical, EventFrame
 from .registry import register_op, register_streaming
 from .streaming import (RecordBuffer, StreamAgg, StreamingUnsupported,
@@ -479,3 +489,105 @@ class _LoadImbalanceAgg(StreamAgg):
         return _imbalance_assemble(tot, names_alpha, self.metric,
                                    self.num_processes, self.top_functions,
                                    nprocs)
+
+
+# ---------------------------------------------------------------------------
+# idle time (host) and the multi-run table
+# ---------------------------------------------------------------------------
+
+def _idle_sum(proc, start, end, inc, nprocs: int,
+              k: Optional[int]) -> EventFrame:
+    """Idle ns per process, most idle first (stable).  Each process sums
+    its calls in Enter order — start, then the outer of two calls that
+    start together — which is the row order of a trace kept in (process,
+    time) order, whatever order a route gathered the records in."""
+    out = np.zeros(max(nprocs, 0))
+    o = np.lexsort((inc, -end, start, proc))
+    np.add.at(out, proc[o], np.nan_to_num(inc[o]))
+    order = np.argsort(-out, kind="stable")
+    res = EventFrame({PROC: order.astype(np.int32), "idle_time": out[order]})
+    return res.head(k) if k else res
+
+
+@register_op("idle_time", needs_structure=True)
+def idle_time(trace, idle_functions: Sequence[str] = DEFAULT_IDLE_NAMES,
+              k: Optional[int] = None, device="cuda") -> EventFrame:
+    """Total idle (wait/recv) time per process (§IV-D), sorted descending.
+
+    Sums the *inclusive* time (ns) of every completed call whose name is
+    in ``idle_functions`` — inclusive, because the whole span of an
+    MPI_Wait counts as idle regardless of what bookkeeping runs inside it.
+
+    Args:
+        idle_functions: names treated as idleness (default: MPI_Wait,
+            MPI_Waitall, MPI_Recv, Idle, MPI_Barrier).
+        k: keep only the k most-idle processes (None = all).
+        device: the op's device (host NumPy either way).
+
+    Returns:
+        EventFrame with ``Process`` and ``idle_time`` (ns), most idle first.
+    """
+    resolve_device(device)
+    ev = trace.events
+    is_enter, match, ts, _sel = _calls(trace)
+    sel = np.nonzero(is_enter & (match >= 0)
+                     & ev.cat(NAME).mask_isin(idle_functions))[0]
+    return _idle_sum(np.asarray(ev[PROC], np.int64)[sel], ts[sel],
+                     ts[match[sel]],
+                     np.asarray(ev.column(INC), np.float64)[sel],
+                     trace.num_processes, k)
+
+
+@register_streaming("idle_time")
+class _IdleTimeAgg(StreamAgg):
+    """Streaming idle time: the idle-named completed calls buffered, then
+    summed once as the in-memory op sums them."""
+
+    needs_calls = True
+    supports_parallel = True
+
+    def __init__(self, idle_functions: Sequence[str] = DEFAULT_IDLE_NAMES,
+                 k: Optional[int] = None, device="cuda"):
+        resolve_device(device)
+        self.idle = [str(n) for n in idle_functions]
+        self.k = k
+        self._recs = RecordBuffer()
+
+    def update(self, chunk) -> None:
+        calls = chunk.calls
+        codes = [c for c in map(chunk.names.code, self.idle) if c >= 0]
+        if not codes or len(calls.name) == 0:
+            return
+        keep = np.isin(calls.name, np.asarray(codes, np.int64))
+        if keep.any():
+            self._recs.add(calls, calls.inc, keep)
+
+    def merge_from(self, other, code_map) -> None:
+        self._recs.merge(other._recs, code_map)
+
+    def result(self, ctx) -> EventFrame:
+        _code, proc, start, end, inc = self._recs.gather(
+            np.arange(len(ctx.names)))
+        return _idle_sum(proc, start, end, inc[:, 0], ctx.num_processes,
+                         self.k)
+
+
+def multi_run_analysis(traces: Sequence, metric: str = EXC, top_n: int = 16,
+                       label_column: str = "Run", device=None) -> EventFrame:
+    """Joined flat profiles across runs (§IV-D, Fig. 12).
+
+    A thin wrapper over the comparison machinery
+    (:func:`repro_torch.core.diff.align_flat_profiles`): one row per run,
+    one column per function in the union of each run's top-``top_n``
+    functions by ``metric`` (columns ordered by total weight across runs).
+    Each run's profile is one ``seg_sum`` launch on its own device
+    (``device=None``) or on ``device``, shared with the set ops through
+    the per-(metric, device) profile cache.
+    """
+    from .diff import align_flat_profiles
+    labels, cols, mat, _present = align_flat_profiles(
+        traces, metric=metric, top_n=top_n, device=device)
+    out = EventFrame({label_column: np.asarray(labels, dtype=object)})
+    for j, c in enumerate(cols):
+        out[c] = mat[:, j]
+    return out

@@ -106,6 +106,10 @@ class GlobalNames:
             self.names.append(name)
         return g
 
+    def code(self, name: str) -> int:
+        """Code of ``name``, or -1 when no chunk has held it yet."""
+        return self._code.get(name, -1)
+
     def __len__(self) -> int:
         return len(self.names)
 

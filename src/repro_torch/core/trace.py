@@ -7,7 +7,11 @@ Mirrors :class:`repro.core.trace.Trace` along the main path: open a trace
 :class:`~repro_torch.core.streaming.LiveTrace`), derive its structure
 lazily (enter/leave matching, parents, inclusive/exclusive time, message
 matching, the calling context tree) and reduce it with the six
-kernel-backed ops or the detectors (``diagnose``), or write it as a
+kernel-backed ops, the host ops of the rest of the paper's analysis API
+(idle time, per-process and over-time communication, comm/comp overlap,
+lateness and the critical path, pattern detection), the detectors
+(``diagnose``) or :meth:`Trace.multirun_analysis`; plot it
+(``plot_*``, matplotlib imported on first use), or write it as a
 columnar pack (:meth:`Trace.save_pack`, :mod:`repro_torch.readers.pack`).
 As in the reference, the op methods and the
 data-reduction methods (``filter``, ``slice_time``, ``filter_processes``)
@@ -23,17 +27,18 @@ without one raises.
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# detectors, ops_comm and ops_summary register the ops every query
-# terminal resolves through the registry
-from . import detectors, ops_comm, ops_summary, structure  # noqa: F401
+# detectors, ops_comm, ops_logical, ops_patterns and ops_summary register
+# the ops every query terminal resolves through the registry
+from . import (detectors, ops_comm, ops_logical, ops_patterns,  # noqa: F401
+               ops_summary, structure)
 from .accel import resolve_device
 from .cct import CCT
-from .constants import (CCT_NODE, DEPTH, EXC, INC, MATCH, MATCH_TS, NAME,
-                        PARENT, PROC, TS)
+from .constants import (CCT_NODE, DEFAULT_IDLE_NAMES, DEPTH, EXC, INC, MATCH,
+                        MATCH_TS, NAME, PARENT, PROC, TS)
 from .filters import Filter
 from .frame import EventFrame
 from .query import TraceQuery
@@ -58,6 +63,13 @@ class Trace:
     # ------------------------------------------------------------------
     # constructors
     # ------------------------------------------------------------------
+    @classmethod
+    def from_jsonl(cls, path, device="cuda", **kw) -> "Trace":
+        """Read a JSON-lines trace (:func:`repro_torch.readers.jsonl.
+        read_jsonl`)."""
+        from ..readers.jsonl import read_jsonl
+        return read_jsonl(os.fspath(path), device=device, **kw)
+
     @classmethod
     def from_events(cls, events: EventFrame, label: Optional[str] = None,
                     device="cuda") -> "Trace":
@@ -182,6 +194,19 @@ class Trace:
         if self._msg_match is None:
             self._msg_match = structure.match_messages(self.events)
 
+    # paper-named entry points: each derives the structure once
+    def _match_caller_callee(self) -> None:
+        self._ensure_structure()
+
+    def calc_inc_metrics(self) -> None:
+        self._ensure_structure()
+
+    def calc_exc_metrics(self) -> None:
+        self._ensure_structure()
+
+    def _create_cct(self) -> CCT:
+        return self.cct
+
     @property
     def cct(self) -> CCT:
         """The calling context tree, built once (with the structure it
@@ -240,6 +265,52 @@ class Trace:
                         num_processes=num_processes,
                         top_functions=top_functions, device=device)
 
+    @staticmethod
+    def multirun_analysis(traces: Sequence["Trace"], metric: str = EXC,
+                          top_n: int = 16, device=None) -> EventFrame:
+        """Joined flat profiles across runs (§IV-D, Fig. 12): one
+        ``seg_sum`` launch per run, on its own device unless ``device``
+        names one."""
+        return ops_summary.multi_run_analysis(traces, metric=metric,
+                                              top_n=top_n, device=device)
+
+    # ------------------------------------------------------------------
+    # host ops of the rest of the analysis API (no kernel backs them)
+    # ------------------------------------------------------------------
+    def idle_time(self, idle_functions: Sequence[str] = DEFAULT_IDLE_NAMES,
+                  k: Optional[int] = None, device=None) -> EventFrame:
+        return self.run("idle_time", idle_functions=idle_functions, k=k,
+                        device=device)
+
+    def comm_by_process(self, output: str = "size",
+                        device=None) -> EventFrame:
+        return self.run("comm_by_process", output=output, device=device)
+
+    def comm_over_time(self, num_bins: int = 32, output: str = "size",
+                       device=None) -> Tuple[np.ndarray, np.ndarray]:
+        return self.run("comm_over_time", num_bins=num_bins, output=output,
+                        device=device)
+
+    def comm_comp_breakdown(
+            self, comm_matcher: Optional[Callable[[str], bool]] = None,
+            device=None) -> EventFrame:
+        return self.run("comm_comp_breakdown", comm_matcher=comm_matcher,
+                        device=device)
+
+    def detect_pattern(self, start_event: Optional[str] = None,
+                       device=None, **kw) -> List[EventFrame]:
+        return self.run("detect_pattern", start_event=start_event,
+                        device=device, **kw)
+
+    def calculate_lateness(self, device=None) -> EventFrame:
+        return self.run("calculate_lateness", device=device)
+
+    def lateness_by_process(self, device=None) -> EventFrame:
+        return self.run("lateness_by_process", device=device)
+
+    def critical_path_analysis(self, device=None) -> List[EventFrame]:
+        return self.run("critical_path_analysis", device=device)
+
     # ------------------------------------------------------------------
     # automated diagnostics (repro_torch.core.detectors)
     # ------------------------------------------------------------------
@@ -287,3 +358,26 @@ class Trace:
 
     def filter_processes(self, procs: Sequence[int]) -> "Trace":
         return self.query().restrict_processes(procs).collect()
+
+    # ------------------------------------------------------------------
+    # visualization (repro_torch.core.viz; matplotlib imported on use)
+    # ------------------------------------------------------------------
+    def plot_timeline(self, **kw):
+        from . import viz
+        return viz.plot_timeline(self, **kw)
+
+    def plot_time_profile(self, **kw):
+        from . import viz
+        return viz.plot_time_profile(self, **kw)
+
+    def plot_comm_matrix(self, **kw):
+        from . import viz
+        return viz.plot_comm_matrix(self, **kw)
+
+    def plot_comm_by_process(self, **kw):
+        from . import viz
+        return viz.plot_comm_by_process(self, **kw)
+
+    def plot_message_histogram(self, **kw):
+        from . import viz
+        return viz.plot_message_histogram(self, **kw)

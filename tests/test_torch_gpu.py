@@ -46,6 +46,9 @@ streamed sets give the eager set's bits; each pathology's detector names
 the ground truth at top 1 on the card, ``diagnose`` matches the CPU
 route and gives the eager digest on every route; ``/setquery`` and
 ``/diagnose`` give the library's digests and repeats launch nothing.
+``multirun_analysis`` on the card is within the gate of the CPU route with
+one ``seg_sum`` launch per run, and the twelve host-op calls of the rest
+of the analysis API launch nothing and give the CPU trace's bits.
 """
 
 import numpy as np
@@ -1097,3 +1100,46 @@ def test_model_kernels_refuse_grad(cuda, case, which):
     outs = out if isinstance(out, tuple) else (out,)
     assert all(o.grad_fn is None for o in outs)
     fn(*(a.detach() for a in args))             # no input requires grad
+
+
+# ---------------------------------------------------------------------------
+# the rest of the analysis API: one kernel (multirun), the rest on the host
+# ---------------------------------------------------------------------------
+
+ANALYSIS_CALLS = [
+    ("idle_time", {}), ("comm_by_process", {}),
+    ("comm_by_process", {"output": "count"}),
+    ("comm_over_time", {"num_bins": 32}), ("comm_comp_breakdown", {}),
+    ("logical_steps", {}), ("calculate_lateness", {}),
+    ("lateness_by_process", {}), ("critical_path_analysis", {}),
+    ("activity_series", {"num_bins": 512}), ("detect_pattern", {}),
+    ("detect_pattern", {"start_event": "iteration"}),
+]
+
+
+def test_multirun_on_card_one_seg_sum_per_run(cuda):
+    from repro_torch.tracegen import tortuga
+    runs = [tortuga(nprocs=n, iters=6, device=cuda) for n in (4, 8, 16, 32)]
+    before = _per_kernel()
+    card = Trace.multirun_analysis(runs)
+    after = _per_kernel()
+    assert {k: after[k] - before[k] for k in after} == {
+        "seg_sum": 4, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}
+    again = Trace.multirun_analysis(runs)         # the profile cache
+    assert _per_kernel() == after
+    cpu = Trace.multirun_analysis(runs, device="cpu")
+    assert list(card.columns) == list(cpu.columns)
+    for c in list(card.columns)[1:]:
+        gate(np.asarray(card[c]), np.asarray(cpu[c]))
+        assert np.array_equal(np.asarray(card[c]), np.asarray(again[c]))
+
+
+def test_analysis_host_ops_launch_nothing_on_card(cuda):
+    ev = big_events(nprocs=8, events_per_proc=8_000, seed=3)
+    card = Trace.from_events(ev, device=cuda)
+    cpu = Trace.from_events(ev.copy(), device="cpu")
+    before = _launches()
+    got = [card.run(op, **kw) for op, kw in ANALYSIS_CALLS]
+    assert _launches() == before
+    for (op, kw), res in zip(ANALYSIS_CALLS, got):
+        assert digest(res) == digest(cpu.run(op, **kw)), op

@@ -47,12 +47,15 @@ NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
                "repro_torch.serving.tracequery", "repro_torch.serving.client",
                "repro_torch.launch.trace_serve", "repro_torch.core.diff",
                "repro_torch.tracegen.builder",
-               "repro_torch.tracegen.pathologies")
+               "repro_torch.tracegen.pathologies",
+               "repro_torch.core.intervals", "repro_torch.core.ops_logical",
+               "repro_torch.core.ops_patterns", "repro_torch.core.viz",
+               "repro_torch.tracegen.apps")
 
 
 def test_new_modules_are_checked():
-    """The parallel, pack, live, service, set and pathology modules are
-    among the files checked above."""
+    """The parallel, pack, live, service, set, pathology and analysis-API
+    modules are among the files checked above."""
     checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
                for p in PORT_FILES if "src" in p.parts}
     assert set(NEW_MODULES) <= checked
@@ -64,6 +67,19 @@ def test_import_leaves_jax_and_repro_unloaded():
             + ", ".join(NEW_MODULES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_import_leaves_matplotlib_unloaded():
+    """The plots import matplotlib when they draw, so importing the port
+    (``core.viz`` among its modules) loads none of it."""
+    code = ("import sys, repro_torch, repro_torch.tracegen, "
+            + ", ".join(NEW_MODULES) + "; "
+            "bad = [m for m in sys.modules if m.split('.')[0] == "
+            "'matplotlib']; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
