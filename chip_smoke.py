@@ -53,12 +53,14 @@ Phases (any failure raises and exits non-zero):
 7. stream  — ``Trace.open(paths, streaming=True, chunk_rows=65_536)``
              over ``big_trace`` jsonl shards (64 ranks x 15,625 events,
              about 1.0M, in a temporary directory) on the card: each op
-             the bits of ``Trace.open(paths)`` on the card and within the
-             gate of the CPU streaming route, counts as in phase 5; three
-             op calls again at 4,999 rows a chunk, which splits calls
-             across chunks, again the eager bits;
+             the bits of ``Trace.open(paths)`` on the card, counts as in
+             phase 5, and one op a kernel (``flat_profile``,
+             ``time_profile``, ``comm_matrix``, ``message_histogram``)
+             within the gate of the CPU streaming route; three op calls
+             again at 4,999 rows a chunk, which splits calls across
+             chunks, again the eager bits;
    pool    — the shared scheduler's spawn pool of ``min(os.cpu_count(),
-             8)`` workers for phases 8-13, warmed up (its start-up time
+             8)`` workers for phases 8-14, warmed up (its start-up time
              logged); every worker reports ``torch.cuda.is_initialized()``
              false;
 8. pack    — main-10M written as 64 ``big_trace(format="pack")`` shards
@@ -85,7 +87,31 @@ Phases (any failure raises and exits non-zero):
              the card; a degradation warning is an error in both phases,
              and each prints pool start-up, write, open, per-op wall and
              events/s beside the card's name and power limit;
-10. set    — set-10M: ``TraceSet([main-10M, scale-10M])``, scale-10M
+10. formats — stream-1M's events (phase 7's eager trace: its seven op
+             calls are phase 7's digests) written as csv, chrome and an
+             otf2j directory archive, and as chrome again for the first 8
+             ranks (one pool worker a file, each write timed, the HLO
+             check below running meanwhile): each
+             opened with the format sniffed, its canonical events the
+             source's and its seven op calls the source's digests; ``flat_profile`` and
+             ``comm_matrix`` streamed serially (csv and otf2j at 1M,
+             chrome on the 8 ranks: its chunked reader decodes the JSON
+             array incrementally) and over the pool (csv ``ByteSpan``,
+             otf2j and chrome ``ProcSpan`` units), the eager digest of the
+             same file; a process-restricted ``flat_profile`` plan over
+             the pool on chrome (ranks 0-3) and otf2j (ranks 0-15), the
+             units the restriction cannot need pruned (logged), the eager
+             selection's bits; launches counted per route, on the paths
+             the wrappers pick; then a synthetic SPMD HLO module (a
+             ``while`` over a ``dot``, an ``all-reduce``, an
+             ``all-gather`` and a ``reduce-scatter``; 200,000 calls a
+             device bind at 8 devices) through ``Trace.from_hlo`` with the
+             H100 table: ``flat_profile``, ``comm_matrix``,
+             ``time_profile`` and ``message_histogram`` on the card within
+             the gate of the CPU path, the modeled step's compute,
+             communication and overlap shares logged; the phase's wall
+             beside the card;
+11. set    — set-10M: ``TraceSet([main-10M, scale-10M])``, scale-10M
              ``big_events(nprocs=32, events_per_proc=312_500, seed=1)``
              (one application at two process counts): the five set ops
              and a mapped ``message_histogram`` on the card, each within
@@ -97,19 +123,19 @@ Phases (any failure raises and exits non-zero):
              ``regression_report`` and ``diff_flat_profile`` prepares
              each member once (``seg_sum`` 2) and gives the eager
              selection's bits;
-11. set-stream — ``TraceSet.open([stream-1M's 64 shards, the first 32],
+12. set-stream — ``TraceSet.open([stream-1M's 64 shards, the first 32],
              streaming=True)``, serially and with ``processes=`` over the
              pool (every member on the scheduler's one pool, no unit on
              the card): ``regression_report``, ``diff_time_profile`` and
              ``scaling_analysis`` give the eager set's bits;
-12. diagnose — the five pathologies on 64 ranks x 1,170 iterations
+13. diagnose — the five pathologies on 64 ranks x 1,170 iterations
              (1,048,320 events): each matching detector names the ground
              truth at top 1 on the card, the clean baseline gives no
              findings; ``diagnose()`` on main-10M within the CPU route's
              findings (host detectors exact, ``stragglers`` within the
              gate), one ``seg_sum`` launch; over stream-1M streamed,
              pooled, from pack and streamed pack the eager digest;
-13. analysis — the rest of the paper's analysis API on main-10M in memory
+14. analysis — the rest of the paper's analysis API on main-10M in memory
              on the card: twelve host-op calls (``idle_time``,
              ``comm_by_process`` by size and by count,
              ``comm_over_time``, ``comm_comp_breakdown``,
@@ -124,7 +150,7 @@ Phases (any failure raises and exits non-zero):
              ``multirun_analysis`` over ``tortuga(nprocs=n, iters=6)`` for
              n = 16, 32, 64, 128 (paper Fig. 12): ``seg_sum`` 4, private
              path, within the gate of the CPU route; over set-10M's
-             members (main-10M and scale-10M): no launch (phase 10 left
+             members (main-10M and scale-10M): no launch (phase 11 left
              both profiles in the comparison's cache), within the gate of
              the CPU route; the
              paper's claims on the app generators at their defaults
@@ -134,11 +160,11 @@ Phases (any failure raises and exits non-zero):
              overlaps more than v0 and v1 and v2 expose less comm, and
              ``gol(imbalance=0.5)``'s maximum lateness is above 0);
              ``idle_time``, ``comm_by_process`` and ``comm_over_time`` over
-             stream-1M streamed (65,536 and 4,999 rows a chunk) and pooled,
+             stream-1M streamed (65,536 rows a chunk) and pooled,
              the eager digest, and over pack-10M streamed, the main-10M
-             digest, no launch; each of phases 10-13 logs its wall beside
+             digest, no launch; each of phases 11-14 logs its wall beside
              the card;
-14. live   — with the plan cache on (phases 3-13 run with it off, so no
+15. live   — with the plan cache on (phases 3-14 run with it off, so no
              stored result answers their checks), a ``TraceServer`` on
              127.0.0.1:0 on the card in a thread of this process;
              main-10M's events as 64 append-mode shards in groups of
@@ -160,23 +186,24 @@ Phases (any failure raises and exits non-zero):
              rank missing, the survivors' seven op calls are a direct live
              open's bits, ``POST /live`` on the fleet answers 206 partial
              naming it, and ``to_traceset().regression_report()`` over
-             the survivors is a set of direct live opens' bits; phase 13's
+             the survivors is a set of direct live opens' bits; phase 14's
              three streamed ops at the final watermark, incrementally
              (folded on from the first watermark) and on a cold handle,
              the main-10M digest with no launch;
-15. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
-             (``streaming=True``): each op call the library call's digest on
-             the same handle configuration (and phase 5's), the misses
+16. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
+             (``streaming=True``): ``flat_profile``, ``comm_matrix`` and
+             ``message_histogram`` each the library call's digest on the
+             same handle configuration (and phase 5's), the misses
              launching as a cold pass, a repeat a cache hit that launches
              nothing, and 4 identical concurrent requests executed once;
              ``open_set`` over the 64 shards and the first 32
              (``/setquery``, ``regression_report``) and ``/diagnose`` over
              the 64: the library's digests, a miss launching as the
              library call, a repeat a cache hit that launches nothing;
-             phase 13's three streamed ops, a miss the library's digest and
+             phase 14's three streamed ops, a miss the library's digest and
              a hit, neither launching; the server then drains, the live
              store is cleared and the scheduler's threads stop;
-16. timing — each trace kernel on the inputs the trace path gave it (its
+17. timing — each trace kernel on the inputs the trace path gave it (its
              first call, and in ``other_calls`` each later call of another
              shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
              ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
@@ -186,7 +213,7 @@ Phases (any failure raises and exits non-zero):
              if its profiler row holds a sort kernel, the ``hist_bin`` row
              the wide path, and fails unless the narrow path is one device
              kernel a call;
-17. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
+18. serve  — the serving path: ``repro_torch.launch.serve`` serves 8
              requests (prompts up to 1024 tokens, 16 new tokens, batch 4,
              cache 2048) on qwen2-moe-a2.7b at full width, all 24 layers,
              bf16 weights drawn from seed 0 on the card; the model
@@ -197,16 +224,21 @@ Phases (any failure raises and exits non-zero):
              none on ``topk_gating``; tokens in the vocabulary, finite
              logits, and the run's own trace through ``flat_profile`` on
              the card; then one prefill and one decode step under
-             ``torch.profiler`` (device busy share, the largest kernels);
-18. f32    — one ``moe_ffn`` call in float32 at the serving model's
+             ``torch.profiler`` (device busy share, the largest kernels),
+             the decode step's ``export_chrome_trace`` read back by the
+             port's chrome reader (``on_error="skip"``, the skipped events
+             counted): ``flat_profile`` on the card names the five kernels
+             with the most device time, and the ``ac2g`` flows are
+             ``MpiSend`` / ``MpiRecv`` rows;
+19. f32    — one ``moe_ffn`` call in float32 at the serving model's
              widths (3,488 tokens, the first wave's prefill): the unfused
              route, so ``topk_gating`` is launched once, on its narrow
              path, and ``router_topk`` not at all (counts reset just
              before);
-19. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
+20. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
              greedy tokens, prefill logits within 1e-3;
-20. timing — each model kernel on the inputs its path gave it, against
+21. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
              the kernel this one replaced on the path); the fused router
@@ -222,9 +254,9 @@ call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
 ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
-launches on the query, stream, pack, parallel, set, diagnose, analysis,
-live and served routes (``route_launches``; a cache hit's are 0, and so
-are the host ops' of phase 13).
+launches on the query, stream, pack, parallel, formats, set, diagnose,
+analysis, live and served routes (``route_launches``; a cache hit's are
+0, and so are the host ops' of phase 14).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -974,6 +1006,9 @@ STREAM_CHUNK_ROWS = 65_536
 #: a chunk size under one shard (about 15,600 rows), so that chunk
 #: boundaries split enter/leave pairs and parent chains
 SEAM_CHUNK_ROWS = 4_999
+#: the stream phase holds the card against the CPU streaming route on one
+#: op a kernel: seg_sum, time_bin, pair_sum, hist_bin
+STREAM_CPU_OPS = [OPS[0], OPS[2], OPS[4], OPS[5]]
 
 
 def _route(ops, run) -> list:
@@ -1053,8 +1088,8 @@ def phase_query(trace) -> dict:
 def phase_stream():
     """``Trace.open(..., streaming=True)`` over jsonl shards on the card:
     each op the bits of ``Trace.open(paths)`` on the card, and within the
-    gate of the CPU streaming route.  Returns the launches and the eager
-    results' digests."""
+    gate of the CPU streaming route.  Returns the launches, the eager
+    results' digests and the eager trace (stream-1M in memory)."""
     import tempfile
 
     from repro_torch import Trace
@@ -1085,15 +1120,17 @@ def phase_stream():
             torch.cuda.synchronize()
             eager_s = time.perf_counter() - t0
             wants.append(digest(want))
-            t0 = time.perf_counter()
-            on_cpu = st.run(op, device="cpu", **kw)
-            cpu_s = time.perf_counter() - t0
             same = digest(res) == digest(want)
-            err = same_result(op, res, on_cpu)
+            cpu = "cpu streaming not run (one op a kernel is)"
+            if (op, kw) in STREAM_CPU_OPS:
+                t0 = time.perf_counter()
+                on_cpu = st.run(op, device="cpu", **kw)
+                cpu_s = time.perf_counter() - t0
+                err = same_result(op, res, on_cpu)
+                cpu = f"cpu streaming {cpu_s:.3f} s, max_abs_err {err:.6g}"
             log(f"[stream] {op:17s} {json.dumps(kw, default=str):34s} "
                 f"streaming {wall:.3f} s | eager {eager_s:.3f} s | bits "
-                f"{'equal' if same else 'DIFFER'} | cpu streaming "
-                f"{cpu_s:.3f} s, max_abs_err {err:.6g}")
+                f"{'equal' if same else 'DIFFER'} | {cpu}")
             if not same:
                 raise AssertionError(f"stream {op}: not the eager bits")
         seams = Trace.open(paths, streaming=True, chunk_rows=SEAM_CHUNK_ROWS,
@@ -1108,7 +1145,7 @@ def phase_stream():
             if not same:
                 raise AssertionError(f"stream {op} at {SEAM_CHUNK_ROWS} "
                                      f"rows a chunk: not the eager bits")
-    return launches, wants
+    return launches, wants, eager
 
 
 # ---------------------------------------------------------------------------
@@ -1180,10 +1217,7 @@ def _route_bits(label, route, ops, run, wants, n_events, expect,
         warnings.filterwarnings("error", message="parallel streaming",
                                 category=RuntimeWarning)
         results = _route(ops, run if pooled is None else pooled_run)
-    launches = check_counts(f"{label} {route}")
-    if launches != expect:
-        raise AssertionError(f"{label} {route}: launches {launches}, the "
-                             f"eager route's are {expect}")
+    launches = expect_counts(f"{label} {route}", expect)
     for (op, kw), (res, wall), want in zip(ops, results, wants):
         same = digest(res) == want
         log(f"[{label}] {route:16s} {op:17s} "
@@ -1395,7 +1429,291 @@ def phase_parallel(wants, pool, workers, paths, d) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 10-12: TraceSet comparison and the detector suite
+# phase 10: the other trace formats
+# ---------------------------------------------------------------------------
+
+#: the two ops of the formats phase's streamed, pooled and restricted
+#: routes, and their launches
+FORMAT_OPS = [OPS[0], OPS[4]]
+FORMAT_LAUNCHES = {"seg_sum": 1, "pair_sum": 1, "time_bin": 0, "hist_bin": 0}
+#: chrome's chunked routes read a file of stream-1M's first 8 ranks (their
+#: messages among themselves): its incremental JSON-array decoder is the
+#: slow reader at 1M
+CHROME_STREAM_RANKS = range(8)
+#: the restricted plans: ranks a ProcSpan unit of each must hold for the
+#: worker to run (2 or more units survive the pruning)
+RESTRICTED = {"chrome": range(4), "otf2j": range(16)}
+#: a synthetic SPMD step: a ``while`` whose body holds a ``dot`` and an
+#: all-reduce, an all-gather and a reduce-scatter over 8 devices; 60,000
+#: trips, so ``max_events_per_proc`` (200,000 calls, 50,000 trips) binds
+HLO_SPMD = """\
+HloModule pipit_spmd_step
+
+%sum (a: f32[], b: f32[]) -> f32[] {
+  %a = f32[] parameter(0)
+  %b = f32[] parameter(1)
+  ROOT %s = f32[] add(%a, %b)
+}
+
+%body (p: (s32[], bf16[2048,4096])) -> (s32[], bf16[2048,4096]) {
+  %p = (s32[], bf16[2048,4096]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %x = bf16[2048,4096] get-tuple-element(%p), index=1
+  %w = bf16[4096,4096] parameter(1)
+  %d = bf16[2048,4096] dot(%x, %w), lhs_contracting_dims={1}, \
+rhs_contracting_dims={0}
+  %ar = bf16[2048,4096] all-reduce(%d), replica_groups={{0,1,2,3,4,5,6,7}}, \
+to_apply=%sum
+  %ag = bf16[16384,4096] all-gather(%ar), \
+replica_groups={{0,1,2,3,4,5,6,7}}, dimensions={0}
+  %rs = bf16[2048,4096] reduce-scatter(%ag), \
+replica_groups={{0,1,2,3,4,5,6,7}}, dimensions={0}, to_apply=%sum
+  %one = s32[] constant(1)
+  %ni = s32[] add(%i, %one)
+  ROOT %t = (s32[], bf16[2048,4096]) tuple(%ni, %rs)
+}
+
+%cond (p: (s32[], bf16[2048,4096])) -> pred[] {
+  %p = (s32[], bf16[2048,4096]) parameter(0)
+  %i = s32[] get-tuple-element(%p), index=0
+  %n = s32[] constant(60000)
+  ROOT %lt = pred[] compare(%i, %n), direction=LT
+}
+
+ENTRY %main_spmd (a: bf16[2048,4096]) -> bf16[2048,4096] {
+  %a = bf16[2048,4096] parameter(0)
+  %z = s32[] constant(0)
+  %t0 = (s32[], bf16[2048,4096]) tuple(%z, %a)
+  %loop = (s32[], bf16[2048,4096]) while(%t0), condition=%cond, body=%body
+  ROOT %r = bf16[2048,4096] get-tuple-element(%loop), index=1
+}
+"""
+HLO = dict(n_procs=8, max_events_per_proc=200_000)
+HLO_OPS = [("flat_profile", {}), ("comm_matrix", {}),
+           ("time_profile", {"num_bins": 32}),
+           ("message_histogram", {"bins": 10})]
+HLO_LAUNCHES = {"seg_sum": 1, "pair_sum": 1, "time_bin": 1, "hist_bin": 1}
+
+
+def _canonical_events(ev) -> tuple:
+    """The uniform event table every format must read back (the canonical
+    form of ``tests/test_conformance.py``): event types other than Enter
+    and Leave as Instant, absent thread and message columns at their
+    defaults, rows in (process, thread, time) order."""
+    from repro_torch.core.constants import (ET, MSG_SIZE, NAME, PARTNER,
+                                            PROC, TAG, THREAD, TS)
+    n = len(ev)
+
+    def strings(c):
+        col = ev.column(c)
+        if hasattr(col, "codes"):
+            return col.categories.astype(str)[col.codes]
+        return np.asarray(col).astype(str)
+
+    def ints(c, fill):
+        return (np.asarray(ev[c], np.int64) if c in ev
+                else np.full(n, fill, np.int64))
+
+    et = strings(ET)
+    et = np.where((et == "Enter") | (et == "Leave"), et, "Instant")
+    size = (np.nan_to_num(np.asarray(ev[MSG_SIZE], np.float64), nan=-1.0)
+            if MSG_SIZE in ev else np.full(n, -1.0))
+    cols = (np.asarray(ev[TS], np.int64), et, strings(NAME), ints(PROC, 0),
+            ints(THREAD, 0), size, ints(PARTNER, -1), ints(TAG, 0))
+    order = np.lexsort((cols[0], cols[4], cols[3]))
+    return tuple(c[order] for c in cols)
+
+
+def _same_events(label, got, want) -> None:
+    if len(got[0]) != len(want[0]) or not all(
+            np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{label}: the canonical events differ from "
+                             f"the source's")
+
+
+def _formats_hlo() -> None:
+    """The synthetic SPMD module modeled at the H100 table's rates: the
+    four ops on the card within the gate of the CPU path."""
+    from repro_torch import Trace
+    from repro_torch.analysis.roofline import HW
+    from repro_torch.core.constants import ENTER, ET
+    t0 = time.perf_counter()
+    t = Trace.from_hlo(HLO_SPMD, **HLO)
+    read_s = time.perf_counter() - t0
+    calls = int(t.events.cat(ET).mask_eq(ENTER).sum())
+    log(f"[formats] hlo: {calls} calls on {t.num_processes} devices "
+        f"({len(t)} rows) modeled at {HW} in {read_s:.2f} s")
+    reset_counts()
+    card = _route(HLO_OPS, lambda op, kw: t.run(op, **kw))
+    expect_counts("formats hlo", HLO_LAUNCHES)
+    for (op, kw), (res, wall) in zip(HLO_OPS, card):
+        t0 = time.perf_counter()
+        on_cpu = t.run(op, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        err = same_result(op, res, on_cpu)
+        log(f"[formats] hlo {op:17s} {json.dumps(kw):20s} card {wall:.3f} "
+            f"s | cpu path {cpu_s:.3f} s, max_abs_err {err:.6g} | {SMI[0]}")
+    bd = t.comm_comp_breakdown()
+    span = float(np.sum(np.asarray(bd["span"], np.float64)))
+    # rounded, so that a sum that is 0 up to f64 rounding prints as 0
+    shares = {c: round(float(np.sum(np.asarray(bd[c], np.float64))) / span,
+                       6) + 0.0
+              for c in ("comp_only", "comm_only", "overlap")}
+    log(f"[formats] hlo modeled step: span {span / t.num_processes / 1e9:.4f}"
+        f" s a device; shares compute only {shares['comp_only']:.4f}, "
+        f"communication only {shares['comm_only']:.4f}, overlap "
+        f"{shares['overlap']:.4f}")
+
+
+def _restriction(fmt):
+    from repro_torch.core import Filter
+    from repro_torch.core.constants import PROC
+    return Filter(PROC, "in", list(RESTRICTED[fmt]))
+
+
+def _selection_digest(trace, fmt) -> str:
+    """The digest of ``flat_profile`` over ``trace``'s eager selection of
+    the ranks of ``fmt``'s restricted plan."""
+    from repro_torch.launch.cardcheck import digest
+    op, kw = FORMAT_OPS[0]
+    sel = trace.query().filter(_restriction(fmt)).collect()
+    return digest(sel.run(op, **kw))
+
+
+def _write_format(args) -> tuple:
+    """Run in a pool worker: write ``events`` in one format, timed:
+    (format, seconds, bytes on disk)."""
+    from repro_torch.readers import write_chrome, write_csv, write_otf2_json
+    fmt, events, path = args
+    write = {"csv": write_csv, "chrome": write_chrome,
+             "chrome-8": write_chrome,
+             "otf2j": lambda e, p: write_otf2_json(e, p,
+                                                   split_locations=True)}
+    t0 = time.perf_counter()
+    write[fmt](events, path)
+    wall = time.perf_counter() - t0
+    size = (sum(os.path.getsize(os.path.join(r, f))
+                for r, _d, fs in os.walk(path) for f in fs)
+            if os.path.isdir(path) else os.path.getsize(path))
+    return fmt, wall, size
+
+
+def phase_formats(src, wants, pool, d) -> dict:
+    """stream-1M (``src``: phase 7's eager trace of its jsonl shards, on
+    the card; ``wants``: its seven op calls' digests) written as csv,
+    chrome and an otf2j directory archive in ``d`` (one pool worker a
+    file, while the parent checks the HLO reader), and read back on every
+    route.  Returns the launches of every route but the HLO trace's,
+    summed."""
+    from repro_torch import Trace
+    from repro_torch.core import executor, registry
+    from repro_torch.core.constants import DERIVED_COLUMNS, PARTNER, PROC
+    from repro_torch.launch.cardcheck import digest
+    workers = pool.processes
+    ev = src.events.drop(*DERIVED_COLUMNS)
+    n_events = len(ev)
+    want_events = _canonical_events(ev)
+    files = {"csv": os.path.join(d, "stream.csv"),
+             "chrome": os.path.join(d, "stream.json"),
+             "otf2j": os.path.join(d, "stream_otf2"),
+             "chrome-8": os.path.join(d, "stream_8ranks.json")}
+    # the first 8 ranks' events, less their messages to and from the
+    # other 56 ranks (``comm_matrix`` refuses a partner outside the trace)
+    n8 = len(CHROME_STREAM_RANKS)
+    first8 = (np.asarray(ev[PROC]) < n8) & (np.asarray(ev[PARTNER]) < n8)
+    t0 = time.perf_counter()
+    pending = pool.get().map_async(_write_format, [
+        (fmt, ev.mask(first8) if fmt == "chrome-8" else ev, path)
+        for fmt, path in files.items()])
+    # the HLO reader needs none of the files: it runs while they are
+    # written
+    _formats_hlo()
+    written = pending.get()
+    for fmt, wall, size in written:
+        log(f"[formats] {fmt:8s} written in {wall:.2f} s, {size / 1e6:.1f} "
+            f"MB | {SMI[0]}")
+    log(f"[formats] {n_events} events written in 4 files by 4 pool "
+        f"workers, and the HLO check, in {time.perf_counter() - t0:.2f} s")
+    del ev
+    launches, want_sel = {}, {}
+    for fmt in ("csv", "chrome", "otf2j"):
+        path = files[fmt]
+        if registry.sniff_format(path) != fmt:
+            raise AssertionError(f"{path}: sniffed as "
+                                 f"{registry.sniff_format(path)}")
+        t0 = time.perf_counter()
+        eager = Trace.open(path, device="cuda")
+        open_s = time.perf_counter() - t0
+        _same_events(f"formats {fmt} eager", _canonical_events(eager.events),
+                     want_events)
+        log(f"[formats] {fmt:8s} eager open {open_s:.2f} s (sniffed), "
+            f"canonical events the source's | {SMI[0]}")
+        _res, launches[f"formats {fmt} eager"] = _route_bits(
+            "formats", f"{fmt} eager", OPS,
+            lambda op, kw: eager.run(op, **kw), wants, n_events,
+            ROUTE_LAUNCHES)
+        if fmt == "otf2j":
+            want_sel["otf2j"] = _selection_digest(eager, "otf2j")
+        del eager
+    # chrome's chunked routes run on the first 8 ranks' file
+    path8 = files["chrome-8"]
+    eager8 = Trace.open(path8, device="cuda")
+    wants8 = [digest(eager8.run(op, **kw)) for op, kw in FORMAT_OPS]
+    want_sel["chrome"] = _selection_digest(eager8, "chrome")
+    n8 = len(eager8)
+    del eager8
+    unit_type = {"csv": registry.ByteSpan, "chrome": registry.ProcSpan,
+                 "otf2j": registry.ProcSpan}
+    for fmt in ("csv", "otf2j", "chrome"):
+        path = path8 if fmt == "chrome" else files[fmt]
+        want = (wants8 if fmt == "chrome"
+                else [wants[OPS.index(o)] for o in FORMAT_OPS])
+        n = n8 if fmt == "chrome" else n_events
+        size = "8 ranks" if fmt == "chrome" else "1M"
+        st = Trace.open(path, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+                        device="cuda")
+        _r, launches[f"formats {fmt} streamed"] = _route_bits(
+            "formats", f"{fmt} {size} streamed", FORMAT_OPS,
+            lambda op, kw: st.run(op, **kw), want, n, FORMAT_LAUNCHES)
+        pst = Trace.open(path, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
+                         device="cuda", processes=workers)
+        pst._pool = pool
+        units = executor.plan_units(pst, (), workers)
+        if len(units) < 2 or not all(isinstance(u, unit_type[fmt])
+                                     for u in units):
+            raise AssertionError(f"formats {fmt}: units {units[:3]}")
+        log(f"[formats] {fmt:8s} {len(units)} "
+            f"{unit_type[fmt].__name__} units")
+        _r, launches[f"formats {fmt} pooled"] = _route_bits(
+            "formats", f"{fmt} {size} x{workers}", FORMAT_OPS,
+            lambda op, kw: pst.run(op, **kw), want, n, FORMAT_LAUNCHES,
+            pooled=pst)
+        if fmt not in RESTRICTED:
+            continue
+        flt = _restriction(fmt)
+        _r, launches[f"formats {fmt} restricted"] = _route_bits(
+            "formats", f"{fmt} {size} ranks {RESTRICTED[fmt].start}-"
+            f"{RESTRICTED[fmt].stop - 1} x{workers}", FORMAT_OPS[:1],
+            lambda op, kw: pst.query().filter(flt).run(op, **kw),
+            [want_sel[fmt]], n, dict(FORMAT_LAUNCHES, pair_sum=0),
+            pooled=pst)
+        log(f"[formats] {fmt:8s} restricted plan: {pst.units_pruned} of "
+            f"{len(units)} units pruned, {len(pst.units_cuda)} run")
+        if pst.units_pruned != len(units) - len(pst.units_cuda) or \
+                pst.units_pruned == 0:
+            raise AssertionError(f"formats {fmt}: pruning {pst.units_pruned}"
+                                 f" of {len(units)}, {len(pst.units_cuda)} "
+                                 f"run")
+    log(f"[formats] launches by route {json.dumps(launches)}")
+    total = dict.fromkeys(ROUTE_LAUNCHES, 0)
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] += v
+    return {"formats": total}
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: TraceSet comparison and the detector suite
 # ---------------------------------------------------------------------------
 
 #: the set phase's second member: the same application at half the ranks,
@@ -1492,7 +1810,7 @@ def phase_set(trace, kept: dict) -> dict:
     of the CPU route, each member's columns the member's own op on the
     card bit for bit, :data:`SET_LAUNCHES`; a ``SetQuery`` plan chaining
     two ops prepares each member once.  Keeps the set's members in
-    ``kept`` for phase 13.  Returns the launches."""
+    ``kept`` for phase 14.  Returns the launches."""
     from repro_torch import Trace, TraceSet
     from repro_torch.core import NAME, Filter, structure
     from repro_torch.launch.cardcheck import digest, set_gate
@@ -1715,10 +2033,10 @@ def phase_diagnose(trace, paths, pool, workers, d) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the rest of the paper's analysis API
+# phase 14: the rest of the paper's analysis API
 # ---------------------------------------------------------------------------
 
-#: the twelve host-op calls of phase 13 on main-10M
+#: the twelve host-op calls of phase 14 on main-10M
 ANALYSIS_CALLS = [
     ("idle_time", {}), ("comm_by_process", {}),
     ("comm_by_process", {"output": "count"}),
@@ -1873,9 +2191,9 @@ def _paper_claims() -> None:
 
 def _analysis_routes(stream_paths, pool, workers, pack_dir,
                      main_digests) -> dict:
-    """The three streamed ops over stream-1M (streamed at two chunk sizes
-    and pooled: the eager digest) and pack-10M streamed (main-10M's
-    digest), no launch.  Returns the launches."""
+    """The three streamed ops over stream-1M (streamed and pooled: the
+    eager digest) and pack-10M streamed (main-10M's digest), no launch.
+    Returns the launches."""
     import warnings
 
     from repro_torch import Trace
@@ -1893,9 +2211,6 @@ def _analysis_routes(stream_paths, pool, workers, pack_dir,
         ("stream-1M", "streamed", wants, lambda: Trace.open(
             stream_paths, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
             device="cuda")),
-        ("stream-1M", f"streamed {SEAM_CHUNK_ROWS}", wants,
-         lambda: Trace.open(stream_paths, streaming=True,
-                            chunk_rows=SEAM_CHUNK_ROWS, device="cuda")),
         ("stream-1M", f"pooled x{workers}", wants, lambda: pst),
         ("pack-10M", "streamed", main_digests, lambda: Trace.open(
             packs, streaming=True, device="cuda")),
@@ -1931,7 +2246,7 @@ def phase_analysis(trace, members, stream_paths, pool, workers,
     """The rest of the paper's analysis API: main-10M's twelve host calls
     and a lazy plan, ``multirun_analysis`` (the phase's kernel, ``seg_sum``)
     over a scaling study and over set-10M's ``members`` (main-10M and
-    scale-10M under their labels, as phase 10's set holds them), the
+    scale-10M under their labels, as phase 11's set holds them), the
     paper's claims on the app generators, and the three streamed ops on
     the stream and pack routes.  Returns (the launches, the streamed ops'
     main-10M digests for the live and served phases)."""
@@ -1943,7 +2258,7 @@ def phase_analysis(trace, members, stream_paths, pool, workers,
         f"one seg_sum a run: {len(STUDY_RANKS)} profiles not cached yet")
     launches["analysis multirun 10M"] = _multirun(
         members, "set-10M", NO_LAUNCHES,
-        "no launch: phase 10's set ops left both members' (time.exc, "
+        "no launch: phase 11's set ops left both members' (time.exc, "
         "device) profiles in the comparison's cache")
     _paper_claims()
     launches.update(_analysis_routes(stream_paths, pool, workers,
@@ -1952,11 +2267,15 @@ def phase_analysis(trace, members, stream_paths, pool, workers,
 
 
 # ---------------------------------------------------------------------------
-# phases 14-15: the live and served routes
+# phases 15-16: the live and served routes
 # ---------------------------------------------------------------------------
 
 #: launches of the seven op calls on every route, cold or incremental
 ROUTE_LAUNCHES = {"seg_sum": 2, "pair_sum": 3, "time_bin": 1, "hist_bin": 1}
+#: the served phase's op calls over pack-10M (a miss and its library call
+#: cost 3.5-5.5 s an op), and their launches
+SERVED_OPS = [OPS[0], OPS[4], OPS[5]]
+SERVED_LAUNCHES = {"seg_sum": 1, "pair_sum": 1, "time_bin": 0, "hist_bin": 1}
 #: rows a chunk group of the live shards holds (commits land whole groups)
 LIVE_GROUP_ROWS = 65_536
 #: the /live session's shard set: the first 8 live-10M shards
@@ -2124,7 +2443,7 @@ def phase_live(main_digests, client, analysis_digests) -> dict:
     cold and eagerly give one digest (after ``finalize`` the eager route
     over every row is phase 5's), with :data:`ROUTE_LAUNCHES` each; a repeat with no growth launches nothing;
     no op falls back to the full pass.  ``POST /live`` over 8 of the
-    shards around the second commit.  Phase 13's three streamed ops run
+    shards around the second commit.  Phase 14's three streamed ops run
     at the first watermark and are checked at the final one: folded on
     incrementally and on a cold handle, the main-10M digest with no
     launch.  Returns the routes' launches."""
@@ -2291,10 +2610,11 @@ def phase_fleet(client) -> None:
 def phase_served(client, pack_dir, main_digests,
                  analysis_digests) -> dict:
     """pack-10M's 64 shards through the service (``streaming=True``): each
-    op call the library call's bits on the same handle configuration (and
-    phase 5's), :data:`ROUTE_LAUNCHES` on the misses, none on a repeat, and
-    ``COALESCE`` identical concurrent requests executed once; phase 13's
-    three streamed ops, a miss the library's digest (phase 13 showed the
+    of :data:`SERVED_OPS` the library call's bits on the same handle
+    configuration (and phase 5's), :data:`SERVED_LAUNCHES` on the misses,
+    none on a repeat, and
+    ``COALESCE`` identical concurrent requests executed once; phase 14's
+    three streamed ops, a miss the library's digest (phase 14 showed the
     library call over these shards gives main-10M's) and a repeat a hit,
     neither launching.  Returns the routes' launches."""
     import threading
@@ -2307,24 +2627,26 @@ def phase_served(client, pack_dir, main_digests,
               for r in range(MAIN["nprocs"])]
     remote = client.open(shards, streaming=True)
     launches = {}
-    served, launches["served miss"] = _counted(
-        "served miss",
-        lambda: _route(OPS, lambda op, kw: remote.query().run(op, **kw)))
+    reset_counts()
+    served = _route(SERVED_OPS,
+                    lambda op, kw: remote.query().run(op, **kw))
+    launches["served miss"] = expect_counts("served miss", SERVED_LAUNCHES)
     lib_h = Trace.open(shards, streaming=True, cache=False, device="cuda")
-    lib = _route(OPS, lambda op, kw: lib_h.run(op, **kw))
+    lib = _route(SERVED_OPS, lambda op, kw: lib_h.run(op, **kw))
     reset_counts()
     hits, metas = [], []
-    for op, kw in OPS:
+    for op, kw in SERVED_OPS:
         t0 = time.perf_counter()
         remote.query().run(op, **kw)
         hits.append(time.perf_counter() - t0)
         metas.append(dict(client.last_meta))
     _no_launches("served hit")
     launches["served hit"] = dict.fromkeys(ROUTE_LAUNCHES, 0)
-    for i, (op, kw) in enumerate(OPS):
+    for i, (op, kw) in enumerate(SERVED_OPS):
         (got, wall), (want, lib_s) = served[i], lib[i]
         same = (protocol.result_digest(got) == protocol.result_digest(want)
-                == metas[i]["digest"] and digest(want) == main_digests[i])
+                == metas[i]["digest"]
+                and digest(want) == main_digests[OPS.index((op, kw))])
         log(f"[tracequery] {op:17s} {json.dumps(kw, default=str):34s} "
             f"served {wall:.3f} s | hit {hits[i]:.4f} s (cached "
             f"{metas[i]['cached']}) | library {lib_s:.3f} s | digest "
@@ -2438,7 +2760,7 @@ def _served_set_and_diagnose(client, shards) -> dict:
 
 def phase_live_and_served(main_digests, pack_dir,
                           analysis_digests) -> dict:
-    """Phases 14-15 with the plan cache on (the earlier phases run with it
+    """Phases 15-16 with the plan cache on (the earlier phases run with it
     off), around one trace-query server; the live store is cleared and
     every service thread stopped after."""
     from repro_torch.core import plancache
@@ -2468,7 +2790,7 @@ def phase_live_and_served(main_digests, pack_dir,
 
 
 # ---------------------------------------------------------------------------
-# phase 16: timing on the main path's inputs
+# phase 17: timing on the main path's inputs
 # ---------------------------------------------------------------------------
 
 def _bound(bytes_moved: float, ops: float):
@@ -2634,7 +2956,7 @@ def _path_prev(mod, name, args, kw, path, check) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 17-20: the serving path
+# phases 18-21: the serving path
 # ---------------------------------------------------------------------------
 
 def phase_serve():
@@ -2726,17 +3048,19 @@ def phase_serve():
     cur = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
     profile_step("prefill", lambda: model.prefill(tokens, cache_len))
     profile_step("decode_step", lambda: model.decode_step(cache, cur, pos,
-                                                          cache_len))
+                                                          cache_len),
+                 export=True)
     inputs = timer.inputs
     del run, trace, model, cache
     torch.cuda.empty_cache()
     return launches, inputs
 
 
-def profile_step(label: str, fn, top: int = 8) -> None:
+def profile_step(label: str, fn, top: int = 8, export: bool = False) -> None:
     """One call of ``fn`` under ``torch.profiler`` after a warm call: the
     device's busy share of the call's wall time (profiler on) and the
-    kernels that took the most device time."""
+    kernels that took the most device time; with ``export``, the
+    profile's chrome export read back (:func:`read_profile_export`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2756,6 +3080,45 @@ def profile_step(label: str, fn, top: int = 8) -> None:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+    if export:
+        top5 = [e.key for e in sorted(
+            kern, key=lambda e: -e.self_device_time_total)[:5]]
+        read_profile_export(label, prof, top5)
+
+
+def read_profile_export(label: str, prof, top5) -> None:
+    """``prof``'s ``export_chrome_trace`` opened by the port's chrome reader
+    on the card (``on_error="skip"``: a ``torch.profiler`` export holds
+    events whose tid is a string): ``flat_profile`` must name each of the
+    ``top5`` kernels, and the ``ac2g`` flows (kernel launch to kernel)
+    read as ``MpiSend`` / ``MpiRecv`` rows."""
+    import tempfile
+
+    from repro_torch import Trace
+    from repro_torch.core.constants import MPI_RECV, MPI_SEND, NAME
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"{label}.json")
+        prof.export_chrome_trace(path)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        t = Trace.open(path, on_error="skip", device="cuda")
+        fp = t.flat_profile()
+        read_s = time.perf_counter() - t0
+    names = set(np.asarray(fp[NAME]).astype(str))
+    col = t.events.column(NAME)
+    rows = (col.categories.astype(str)[col.codes] if hasattr(col, "codes")
+            else np.asarray(col).astype(str))
+    log(f"[profile] {label} export: {size / 1e6:.2f} MB, {len(t)} rows on "
+        f"{t.num_processes} processes, {t.ingest_report().total_skipped()} "
+        f"events skipped (string tids), {int((rows == MPI_SEND).sum())} "
+        f"MpiSend + {int((rows == MPI_RECV).sum())} MpiRecv rows (ac2g "
+        f"flows), read + flat_profile on the card {read_s:.2f} s")
+    missing = [k for k in top5 if k not in names]
+    if missing:
+        raise AssertionError(f"{label} export: flat_profile lacks the "
+                             f"kernels {missing}")
+    log(f"[profile] {label} export: flat_profile names the five kernels "
+        f"with the most device time")
 
 
 def phase_f32_router():
@@ -3013,7 +3376,7 @@ def main() -> int:
     from repro_torch.core import plancache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # phases 3-13 compare routes, count launches and time calls: a stored
+    # phases 3-14 compare routes, count launches and time calls: a stored
     # result would answer them with no launch.  The cache is on only for
     # the live and served phases, which check it
     plancache.configure(enabled=False)
@@ -3024,7 +3387,7 @@ def main() -> int:
     phase_model_kernels()
     phase_reader()
     trace, launches, calls, main_digests = phase_main()
-    stream_launches, stream_wants = phase_stream()
+    stream_launches, stream_wants, stream_trace = phase_stream()
     routes = {"query": phase_query(trace), "stream": stream_launches}
     with tempfile.TemporaryDirectory() as d:
         pool, workers, _start_s = start_pool()
@@ -3035,6 +3398,12 @@ def main() -> int:
             stream_paths = big_trace(os.path.join(d, "stream"), **STREAM)
             routes.update(phase_parallel(stream_wants, pool, workers,
                                          stream_paths, d))
+            t0 = time.perf_counter()
+            routes.update(phase_formats(stream_trace, stream_wants, pool,
+                                        d))
+            del stream_trace
+            log(f"[formats] phase wall {time.perf_counter() - t0:.1f} s "
+                f"| {SMI[0]}")
             kept, analysis = {}, {}
 
             def analysis_phase():

@@ -574,9 +574,9 @@ def _prepare_member(args) -> tuple:
     import torch
 
     from .trace import Trace
-    (events, structured, msg_match, label, steps, needs_structure,
-     needs_messages) = args
-    t = Trace(events, label=label, device="cpu")
+    (events, structured, msg_match, definitions, label, steps,
+     needs_structure, needs_messages) = args
+    t = Trace(events, label=label, device="cpu", definitions=definitions)
     t._structured = structured
     t._msg_match = msg_match
     out = TraceQuery(_TraceSource(t), steps).collect()
@@ -585,7 +585,7 @@ def _prepare_member(args) -> tuple:
     if needs_messages:
         out._ensure_messages()
     return (out.events, out._structured, out._msg_match, out.label,
-            bool(torch.cuda.is_initialized()))
+            out.definitions, bool(torch.cuda.is_initialized()))
 
 
 class SetQuery:
@@ -651,17 +651,18 @@ class SetQuery:
         :func:`~repro_torch.parallel_util.map_maybe_parallel`)."""
         from ..parallel_util import map_maybe_parallel
         from .trace import Trace
-        args = [(t.events, t._structured, t._msg_match, t.label,
-                 tuple(steps), needs_structure, needs_messages)
+        args = [(t.events, t._structured, t._msg_match, t.definitions,
+                 t.label, tuple(steps), needs_structure, needs_messages)
                 for t in traces]
         parts, _pooled = map_maybe_parallel(_prepare_member, args, processes)
         out = []
-        for src, (ev, structured, mm, label, _cuda) in zip(traces, parts):
-            t = Trace(ev, label=label, device=src.device)
+        for src, (ev, structured, mm, label, defs, _cuda) in zip(traces,
+                                                                  parts):
+            t = Trace(ev, label=label, device=src.device, definitions=defs)
             t._structured = structured
             t._msg_match = mm
             out.append(t)
-        self.units_cuda = [p[4] for p in parts]
+        self.units_cuda = [p[5] for p in parts]
         return out
 
     def _prepare(self, needs_structure: bool, needs_messages: bool,
@@ -753,7 +754,8 @@ def _relabel(t, label: str):
         clone = t.with_steps(t._steps)
         clone.label = label
         return clone
-    clone = type(t)(t.events, label=label, device=t.device)
+    clone = type(t)(t.events, label=label, device=t.device,
+                    definitions=t.definitions)
     clone._structured = t._structured
     clone._msg_match = t._msg_match
     clone._cct = t._cct

@@ -7,10 +7,11 @@ pool:
 
 * **unit planning** — the input is partitioned into work units in stream
   order: whole shard paths, byte ranges of line-oriented files
-  (:class:`~repro_torch.core.registry.ByteSpan`) or row ranges of pack
-  files (:class:`~repro_torch.core.registry.RowSpan`).  The reference's
-  process-subset units (``ProcSpan``) come with the readers that plan
-  them, none of which is ported yet;
+  (:class:`~repro_torch.core.registry.ByteSpan`), row ranges of pack
+  files (:class:`~repro_torch.core.registry.RowSpan`) or process subsets
+  (:class:`~repro_torch.core.registry.ProcSpan`, the chrome and otf2j
+  planners', enforced with an explicit mask; units a process-restricted
+  plan cannot need are pruned before any worker reads them);
 * **worker fold** — each unit runs the serial pipeline (pushdown hints →
   fused mask per chunk → the op's aggregator), its
   :class:`~repro_torch.core.streaming.CallStitcher` in *deferred* mode:
@@ -64,7 +65,19 @@ class ParallelDegraded(RuntimeError):
 # ---------------------------------------------------------------------------
 
 def _stat(p: str) -> tuple:
+    """(size, mtime) of a file; of a directory archive (otf2j) the sum of
+    its files' sizes, their latest mtime and their count, so a file
+    rewritten inside it is planned again."""
     try:
+        if os.path.isdir(p):
+            size = mtime = n = 0
+            for root, _dirs, files in os.walk(p):
+                for fn in files:
+                    st = os.stat(os.path.join(root, fn))
+                    size += st.st_size
+                    mtime = max(mtime, st.st_mtime_ns)
+                    n += 1
+            return (size, mtime, n)
         st = os.stat(p)
         return (st.st_size, st.st_mtime_ns)
     except OSError:
@@ -75,7 +88,7 @@ def plan_units(handle, steps: Sequence, n_workers: int) -> List[Any]:
     """Partition the handle's (shard-skipped) input into work units, in
     stream order — path order, spans in offset order — which is what makes
     the seam replay equivalent to the serial chunk sequence.  A unit is a
-    whole path (str), a ByteSpan or a RowSpan.  A handle with a
+    whole path (str), a ByteSpan, a RowSpan or a ProcSpan.  A handle with a
     ``plan_units_for(path, n)`` method (a live handle) plans each path
     itself.
 
@@ -137,6 +150,24 @@ def _unit_frames(unit, fmt: str, chunk_rows: int,
         yield from spec.iter_chunks(unit.path, chunk_rows, hints,
                                     row_range=(unit.lo, unit.hi),
                                     **reader_kwargs)
+        return
+    if isinstance(unit, registry.ProcSpan):
+        spec = registry.resolve_reader(unit.path, fmt)
+        pset = frozenset(unit.procs)
+        if hints is not None and hints.procs is not None:
+            pset = pset & hints.procs
+        sub = registry.PlanHints(
+            procs=pset,
+            proc_bounds=hints.proc_bounds if hints else None,
+            time_window=hints.time_window if hints else None)
+        kw = dict(unit.extra)
+        kw.update(reader_kwargs)
+        parr = np.asarray(sorted(pset), np.int64)
+        for frame in spec.iter_chunks(unit.path, chunk_rows, sub, **kw):
+            # hints are advisory; the unit's process subset is a partition
+            # contract, so it is enforced here
+            m = np.isin(np.asarray(frame[PROC], np.int64), parr)
+            yield frame if m.all() else frame.mask(m)
         return
     spec = registry.resolve_reader(unit, fmt)
     if spec.iter_chunks is not None:
@@ -279,6 +310,17 @@ def _merge_results(agg: StreamAgg, results: Sequence[_UnitResult]) -> Any:
     return agg.result(StreamContext(names, open_calls, proc_max))
 
 
+def _prune_units(units: List[Any], hints: registry.PlanHints) -> List[Any]:
+    """Drop the ProcSpan units whose process set the plan's restriction
+    can never admit: their workers would decode the whole stream only to
+    mask every row away.  Safe because ProcSpan sets partition the rows."""
+    if hints.procs is None and hints.proc_bounds is None:
+        return units
+    return [u for u in units
+            if not isinstance(u, registry.ProcSpan)
+            or any(hints.admits_proc(p) for p in u.procs)]
+
+
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
@@ -302,7 +344,9 @@ def execute_parallel(handle, steps: Sequence, spec: registry.OpSpec,
     n = resolve_processes(handle.processes)
     if use_pool and n <= 1:
         raise ParallelDegraded("processes=1 leaves nothing to fan out")
-    units = plan_units(handle, steps, n_units or n)
+    planned = plan_units(handle, steps, n_units or n)
+    units = _prune_units(planned, _steps_hints(steps))
+    handle.units_pruned = len(planned) - len(units)
     if len(units) <= 1:
         raise ParallelDegraded(
             "the input cannot be partitioned into more than one work unit "

@@ -220,7 +220,7 @@ def apply_selection(trace, keep: np.ndarray):
     structured = trace._structured and MATCH in ev and PARENT in ev
     if not structured:
         return cls(_strip(ev.mask(keep)), label=trace.label,
-                   device=trace.device)
+                   device=trace.device, definitions=trace.definitions)
 
     match = np.asarray(ev.column(MATCH), np.int64)
     parent = np.asarray(ev.column(PARENT), np.int64)
@@ -228,7 +228,7 @@ def apply_selection(trace, keep: np.ndarray):
     is_call = et.mask_eq(ENTER) | et.mask_eq(LEAVE)
     if not _remap_safe(keep, match, parent, is_call):
         return cls(_strip(ev.mask(keep)), label=trace.label,
-                   device=trace.device)
+                   device=trace.device, definitions=trace.definitions)
 
     idx = np.nonzero(keep)[0]
     new_index = np.full(len(keep), -1, np.int64)
@@ -248,7 +248,8 @@ def apply_selection(trace, keep: np.ndarray):
     ts = np.asarray(sub[TS], np.float64)
     sub[MATCH_TS] = np.where(new_match >= 0, ts[np.maximum(new_match, 0)],
                              np.nan)
-    out = cls(sub, label=trace.label, device=trace.device)
+    out = cls(sub, label=trace.label, device=trace.device,
+              definitions=trace.definitions)
     out._structured = True
     out._msg_match = _remap_messages(trace, keep, new_index)
     return out
@@ -495,7 +496,7 @@ class TraceQuery:
             # nothing to select from (e.g. every shard skipped); still hand
             # back a fresh Trace — selection must never alias its source
             return type(cur)(_strip(cur.events), label=cur.label,
-                             device=cur.device)
+                             device=cur.device, definitions=cur.definitions)
         masks: List[np.ndarray] = []
         pair_preserving = True  # every pending mask keeps call pairs intact
         for step in self._steps:

@@ -13,8 +13,8 @@ streaming form (:func:`register_streaming`), and a reader a chunked one
 (``iter_chunks``), which the out-of-core executor
 (:mod:`repro_torch.core.streaming`) drives, a per-shard process hint
 (``shard_procs``: shards a process-restricted plan cannot need are skipped
-before parsing) and a work-unit planner (``plan_units``: :class:`ByteSpan`
-or :class:`RowSpan` units for the parallel executor,
+before parsing) and a work-unit planner (``plan_units``: :class:`ByteSpan`,
+:class:`RowSpan` or :class:`ProcSpan` units for the parallel executor,
 :mod:`repro_torch.core.executor`).  A plan hands chunked readers its
 process and time-window restriction as :class:`PlanHints`.  This module
 imports nothing of the trace or query layers, so every module can import
@@ -35,8 +35,8 @@ __all__ = ["OpSpec", "register_op", "register_streaming", "get_op",
            "list_ops", "terminal_op", "ReaderSpec",
            "register_reader", "register_chunked", "register_units",
            "get_reader", "list_readers", "sniff_format", "resolve_reader",
-           "rank_shard_procs", "PlanHints", "ByteSpan", "RowSpan",
-           "even_edges", "even_groups"]
+           "rank_shard_procs", "PlanHints", "ByteSpan", "ProcSpan",
+           "RowSpan", "even_edges", "even_groups"]
 
 
 @dataclass(frozen=True)
@@ -107,6 +107,19 @@ class RowSpan:
     path: str
     lo: int
     hi: int
+
+
+@dataclass(frozen=True)
+class ProcSpan:
+    """One process-subset work unit of a trace file: the rows of ``procs``
+    only.  The executor enforces the subset with an explicit per-chunk
+    mask (reader hints stay advisory), so spans over disjoint process sets
+    partition the rows exactly.  ``extra`` carries reader-specific keyword
+    items (a pre-passed pid table) as a tuple of pairs."""
+
+    path: str
+    procs: Tuple[int, ...]
+    extra: Tuple = ()
 
 
 @dataclass(frozen=True)
@@ -313,6 +326,10 @@ def sniff_format(path) -> Optional[str]:
     path = os.fspath(path)
     specs = sorted(_READER_REGISTRY.values(), key=lambda s: -s.priority)
     if os.path.isdir(path):
+        # a directory archive (otf2j) is sniffed by its sniffer alone
+        for spec in specs:
+            if spec.sniff and spec.sniff(path, ""):
+                return spec.name
         return None
     low = path.lower()
     head = _read_head(path)

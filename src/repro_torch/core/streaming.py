@@ -973,6 +973,8 @@ class StreamingTrace:
         #: parallel run, in unit order (never True: workers stay on the
         #: host)
         self.units_cuda: List[bool] = []
+        #: process-subset units the last parallel run's restriction pruned
+        self.units_pruned = 0
 
     def wants_parallel(self) -> bool:
         """True when terminal ops should try the parallel executor."""

@@ -51,8 +51,12 @@ class Trace:
     ops that run on ``device``."""
 
     def __init__(self, events: EventFrame, label: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", definitions: Optional[dict] = None):
         self.events = events
+        #: what the reader kept beside the events (chrome's raw pids, an
+        #: OTF2 archive's string / region / location tables, the HLO
+        #: reader's model parameters)
+        self.definitions = definitions or {}
         self.label = label
         self.device = resolve_device(device)
         self._structured = False
@@ -64,11 +68,43 @@ class Trace:
     # constructors
     # ------------------------------------------------------------------
     @classmethod
+    def from_csv(cls, path, device="cuda", **kw) -> "Trace":
+        """Read a CSV trace (:func:`repro_torch.readers.csvreader.
+        read_csv`)."""
+        from ..readers.csvreader import read_csv
+        if isinstance(path, os.PathLike):
+            path = os.fspath(path)
+        return read_csv(path, device=device, **kw)
+
+    @classmethod
     def from_jsonl(cls, path, device="cuda", **kw) -> "Trace":
         """Read a JSON-lines trace (:func:`repro_torch.readers.jsonl.
         read_jsonl`)."""
         from ..readers.jsonl import read_jsonl
         return read_jsonl(os.fspath(path), device=device, **kw)
+
+    @classmethod
+    def from_chrome(cls, path, device="cuda", **kw) -> "Trace":
+        """Read a Chrome Trace Format document, such as a ``torch.profiler``
+        export (:func:`repro_torch.readers.chrome.read_chrome`)."""
+        from ..readers.chrome import read_chrome
+        if isinstance(path, os.PathLike):
+            path = os.fspath(path)
+        return read_chrome(path, device=device, **kw)
+
+    @classmethod
+    def from_otf2_json(cls, path, device="cuda", **kw) -> "Trace":
+        """Read an OTF2-structured archive, one file or a directory
+        (:func:`repro_torch.readers.otf2j.read_otf2_json`)."""
+        from ..readers.otf2j import read_otf2_json
+        return read_otf2_json(os.fspath(path), device=device, **kw)
+
+    @classmethod
+    def from_hlo(cls, hlo_text: str, device="cuda", **kw) -> "Trace":
+        """Model a compiled XLA program's text as a per-device timeline
+        (:func:`repro_torch.readers.hlo.read_hlo`)."""
+        from ..readers.hlo import read_hlo
+        return read_hlo(hlo_text, device=device, **kw)
 
     @classmethod
     def from_events(cls, events: EventFrame, label: Optional[str] = None,
@@ -81,7 +117,9 @@ class Trace:
              live: bool = False, processes: Optional[int] = None,
              executor: str = "auto", cache: bool = True, **kw):
         """Open a trace of any registered format (``format="auto"`` sniffs
-        the content: jsonl text or a pipitpack).  A list of paths is read
+        the content: a CSV header, JSON-lines event keys, a Chrome
+        ``traceEvents`` envelope, an OTF2-structured archive — one file or
+        a directory — HLO text, or a pipitpack).  A list of paths is read
         as per-location shards through the sharded reader
         (:func:`~repro_torch.readers.parallel.read_parallel`;
         ``processes=N`` fans the shard reads over a spawn pool) and merged

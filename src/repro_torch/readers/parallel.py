@@ -37,7 +37,7 @@ __all__ = ["read_parallel", "open_many", "select_shards",
 def _ensure_registered() -> None:
     # importing the reader modules populates the registry: needed in the
     # parent (when only this module was imported) and in spawned workers
-    from . import jsonl, pack  # noqa: F401
+    from . import chrome, csvreader, hlo, jsonl, otf2j, pack  # noqa: F401
 
 
 def _read_one(args) -> EventFrame:

@@ -248,8 +248,9 @@ class HandlePool:
     def _salvage_hint(self, spec: dict) -> str:
         p = spec["paths"][0] if spec["paths"] else "<path>"
         return (f"if the source is a damaged pack, inspect it with "
-                f"repro_torch.readers.pack.verify_pack({p!r}) and recover "
-                f"it with repair_pack, or reopen with on_error=\"salvage\"")
+                f"`python -m repro_torch.launch.pack --verify {p}` and "
+                f"recover with `--repair`, or reopen with "
+                f"on_error=\"salvage\"")
 
     def get(self, spec: dict) -> _Handle:
         """The live handle for ``spec`` (opening or reopening as needed).

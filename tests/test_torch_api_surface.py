@@ -1,10 +1,9 @@
 """Paper Table I on the port: ``tests/test_api_surface.py``'s capability
 matrix asserted on :class:`repro_torch.core.trace.Trace`.
 
-Every row of the matrix holds.  Of the reference's readers the port has
-``from_jsonl`` and ``from_events``; the four others wait for the readers
-slice (ROADMAP §A item 6) and are listed here as still missing — the list
-is checked both ways, so a reader that lands must be moved out of it.
+Every row of the matrix holds, and the port has each of the reference's
+readers.  ``WAITING_FOR_READERS`` (the readers still missing) is empty; it
+is checked both ways, so a reader that went missing would show.
 """
 
 import inspect
@@ -16,9 +15,8 @@ from repro_torch.core.trace import Trace
 
 from test_api_surface import CAPABILITIES, READERS
 
-#: readers that come with ROADMAP §A item 6
-WAITING_FOR_READERS = ["from_csv", "from_chrome", "from_otf2_json",
-                       "from_hlo"]
+#: readers of the reference that the port still lacks
+WAITING_FOR_READERS = []
 
 ROWS = [(cap, n) for cap, names in CAPABILITIES.items() for n in names]
 
@@ -42,6 +40,12 @@ def test_readers_and_metric_entry_points(name):
 def test_readers_still_missing_are_exactly_item_6():
     missing = [n for n in READERS if not hasattr(Trace, n)]
     assert missing == WAITING_FOR_READERS
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_every_reader_defaults_to_the_card(name):
+    params = inspect.signature(getattr(Trace, name)).parameters
+    assert params["device"].default == "cuda", name
 
 
 def test_ops_take_documented_args_and_a_device():

@@ -1143,3 +1143,53 @@ def test_analysis_host_ops_launch_nothing_on_card(cuda):
     assert _launches() == before
     for (op, kw), res in zip(ANALYSIS_CALLS, got):
         assert digest(res) == digest(cpu.run(op, **kw)), op
+
+
+FORMATS = ["csv", "chrome", "otf2j", "otf2j-dir", "hlo"]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_each_format_reads_onto_the_card(cuda, fmt, tmp_path):
+    """One small file of each format opened with the format sniffed: the
+    trace is on the card, every trace kernel launches under the six ops,
+    and each result is within the gate of the same file read on the
+    CPU."""
+    from repro_torch.readers import (write_chrome, write_csv,
+                                     write_otf2_json)
+    from repro_torch.tracegen import gol
+    t = gol(nprocs=4, iters=3, seed=2, device="cpu")
+    path = str(tmp_path / {"csv": "t.csv", "chrome": "t.json",
+                           "otf2j": "t.otf2.json", "otf2j-dir": "arch",
+                           "hlo": "t.hlo"}[fmt])
+    if fmt == "hlo":
+        from test_readers import HLO_MIN
+        with open(path, "w") as f:
+            f.write(HLO_MIN)
+    else:
+        {"csv": write_csv, "chrome": write_chrome,
+         "otf2j": write_otf2_json,
+         "otf2j-dir": lambda e, p: write_otf2_json(
+             e, p, split_locations=True)}[fmt](t, path)
+    card = Trace.open(path)
+    assert card.device.type == "cuda"
+    cpu = Trace.open(path, device="cpu")
+    before = _per_kernel()
+    for op, kw in (("flat_profile", {}), ("flat_profile",
+                                          {"per_process": True}),
+                   ("time_profile", {"num_bins": 8}),
+                   ("comm_matrix", {}), ("message_histogram", {"bins": 8}),
+                   ("stragglers", {"threshold": -1.0})):
+        got, want = card.run(op, **kw), cpu.run(op, **kw)
+        if op == "message_histogram":
+            assert np.array_equal(got[0], want[0])
+            assert np.array_equal(got[1], want[1])
+        elif op == "stragglers":
+            findings_gate(got, want)
+        elif op == "comm_matrix":
+            gate(got, want)
+        else:
+            for c in want.columns:
+                if np.asarray(want[c]).dtype.kind == "f":
+                    gate(np.asarray(got[c]), np.asarray(want[c]))
+    after = _per_kernel()
+    assert all(after[k] > before[k] for k in after), (before, after)

@@ -50,12 +50,17 @@ NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
                "repro_torch.tracegen.pathologies",
                "repro_torch.core.intervals", "repro_torch.core.ops_logical",
                "repro_torch.core.ops_patterns", "repro_torch.core.viz",
-               "repro_torch.tracegen.apps")
+               "repro_torch.tracegen.apps", "repro_torch.readers.csvreader",
+               "repro_torch.readers.chrome", "repro_torch.readers.otf2j",
+               "repro_torch.readers.hlo", "repro_torch.analysis.hlostats",
+               "repro_torch.analysis.roofline", "repro_torch.testing.faults",
+               "repro_torch.launch.pack", "repro_torch.launch.crash_smoke")
 
 
 def test_new_modules_are_checked():
-    """The parallel, pack, live, service, set, pathology and analysis-API
-    modules are among the files checked above."""
+    """The parallel, pack, live, service, set, pathology, analysis-API,
+    reader and robustness-tool modules are among the files checked
+    above."""
     checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
                for p in PORT_FILES if "src" in p.parts}
     assert set(NEW_MODULES) <= checked
@@ -154,3 +159,29 @@ def test_adapters_without_device_raise(no_cuda):
         accel.seg_sum(np.zeros(3, np.int64), np.ones(3), 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         accel.hist_counts(np.zeros(3, np.int64), 2)
+
+
+def test_readers_without_device_raise(no_cuda, tmp_path):
+    """Every reader opens onto the card unless asked for the CPU: without
+    a card, an open that does not name the CPU raises."""
+    from repro_torch.readers import (write_chrome, write_csv,
+                                     write_otf2_json)
+    from repro_torch.tracegen import gol
+    t = gol(nprocs=2, iters=2, device="cpu")
+    paths = [str(tmp_path / "t.csv"), str(tmp_path / "t.json"),
+             str(tmp_path / "t.otf2.json"), str(tmp_path / "arch")]
+    write_csv(t, paths[0])
+    write_chrome(t, paths[1])
+    write_otf2_json(t, paths[2])
+    write_otf2_json(t, paths[3], split_locations=True)
+    for p in paths:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trace.open(p)
+        assert len(Trace.open(p, device="cpu")) == len(t)
+    hlo = ("HloModule m\n\nENTRY %main (a: f32[64,64]) -> f32[64,64] {\n"
+           "  %a = f32[64,64] parameter(0)\n"
+           "  ROOT %d = f32[64,64] dot(%a, %a), lhs_contracting_dims={1}, "
+           "rhs_contracting_dims={0}\n}\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trace.from_hlo(hlo)
+    assert len(Trace.from_hlo(hlo, device="cpu")) > 0
