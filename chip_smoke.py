@@ -18,7 +18,10 @@ Phases (any failure raises and exits non-zero):
              and f32 with causal, window + prefix, non-causal, GQA,
              padded-tail and one-query cases, each bf16 case at D = 64 or
              128 through both kernel variants, the tensor-core one the
-             wrapper picks and the SIMT one; ``hist_bin`` through its
+             wrapper picks and the SIMT one; its backward kernel in bf16
+             and f32 at the training shape, GQA, window + prefix (with an
+             offset) and a padded tail, D = 64 and 128, on the forward
+             kernel's output and row log-sum-exp; ``hist_bin`` through its
              narrow path (up to 32 bins) and its wide one, counts exact, on
              +inf, 3e9, -0.0, NaN and -inf coordinates, N = 1, N not a
              multiple of 4 and coordinates off the 16-byte boundary; top-k
@@ -54,11 +57,11 @@ Phases (any failure raises and exits non-zero):
              over ``big_trace`` jsonl shards (64 ranks x 15,625 events,
              about 1.0M, in a temporary directory) on the card: each op
              the bits of ``Trace.open(paths)`` on the card, counts as in
-             phase 5, and one op a kernel (``flat_profile``,
-             ``time_profile``, ``comm_matrix``, ``message_histogram``)
-             within the gate of the CPU streaming route; three op calls
-             again at 4,999 rows a chunk, which splits calls across
-             chunks, again the eager bits;
+             phase 5, and ``flat_profile``, ``time_profile`` and
+             ``comm_matrix`` (one op a kernel but ``hist_bin``'s exact
+             counts) within the gate of the CPU streaming route;
+             ``flat_profile`` again at 4,999 rows a chunk, which splits
+             calls across chunks, again the eager bits;
    pool    — the shared scheduler's spawn pool of ``min(os.cpu_count(),
              8)`` workers for phases 8-14, warmed up (its start-up time
              logged); every worker reports ``torch.cuda.is_initialized()``
@@ -94,9 +97,10 @@ Phases (any failure raises and exits non-zero):
              check below running meanwhile): each
              opened with the format sniffed, its canonical events the
              source's and its seven op calls the source's digests; ``flat_profile`` and
-             ``comm_matrix`` streamed serially (csv and otf2j at 1M,
-             chrome on the 8 ranks: its chunked reader decodes the JSON
-             array incrementally) and over the pool (csv ``ByteSpan``,
+             ``comm_matrix`` streamed serially (otf2j at 1M, chrome on
+             the 8 ranks: its chunked reader decodes the JSON array
+             incrementally; csv at 1M ``flat_profile`` only, its reader
+             the slowest) and over the pool (csv ``ByteSpan``,
              otf2j and chrome ``ProcSpan`` units), the eager digest of the
              same file; a process-restricted ``flat_profile`` plan over
              the pool on chrome (ranks 0-3) and otf2j (ranks 0-15), the
@@ -114,9 +118,11 @@ Phases (any failure raises and exits non-zero):
 11. set    — set-10M: ``TraceSet([main-10M, scale-10M])``, scale-10M
              ``big_events(nprocs=32, events_per_proc=312_500, seed=1)``
              (one application at two process counts): the five set ops
-             and a mapped ``message_histogram`` on the card, each within
-             the gate of the CPU route (rows keyed by name) and carrying
-             each member's own op bits; launches ``seg_sum`` 2,
+             and a mapped ``message_histogram`` on the card, each but
+             ``diff_load_imbalance`` (``diff_flat_profile`` holds
+             ``seg_sum``) within the gate of the CPU route (rows keyed by
+             name), each carrying each member's own op bits; launches
+             ``seg_sum`` 2,
              ``pair_sum`` 2, ``time_bin`` 2, ``hist_bin`` 2 (the profile
              cache answers two ``flat_profile`` passes); one ``SetQuery``
              plan (``filter(Name not-in [MpiSend])``) chaining
@@ -160,9 +166,10 @@ Phases (any failure raises and exits non-zero):
              overlaps more than v0 and v1 and v2 expose less comm, and
              ``gol(imbalance=0.5)``'s maximum lateness is above 0);
              ``idle_time``, ``comm_by_process`` and ``comm_over_time`` over
-             stream-1M streamed (65,536 rows a chunk) and pooled,
-             the eager digest, and over pack-10M streamed, the main-10M
-             digest, no launch; each of phases 11-14 logs its wall beside
+             stream-1M pooled (``idle_time`` alone streamed serially: the
+             jsonl reader's pass is the cost), the eager digest, and over
+             pack-10M streamed, the main-10M digest, no launch; each of
+             phases 11-14 logs its wall beside
              the card;
 15. live   — with the plan cache on (phases 3-14 run with it off, so no
              stored result answers their checks), a ``TraceServer`` on
@@ -245,7 +252,25 @@ Phases (any failure raises and exits non-zero):
              also at the decode shape and beside the unfused route it
              replaced (``prev_ms``: the f32 product + ``topk_gating``);
              ``topk_gating`` also through its wide path on the same logits
-             (the same bits, ``prev_ms``).
+             (the same bits, ``prev_ms``);
+22. train  — ``repro_torch.launch.train_traced`` on pipit-lm-100m at full
+             width (12 layers, d_model 768, 12 heads of 64, vocab 32,000),
+             bf16 weights from seed 0, batch 16 x 256, 12 steps, a
+             checkpoint every 4 (in a temporary directory, free disk
+             checked first) and a fault at step 6: 1 restart, 12 steps,
+             finite losses whose last 3 average below the first 3; the
+             counts of every kernel reset just before and read just
+             after: the flash forward (tensor-core variant) and its
+             backward kernel each 12 layers x the steps run, ``seg_sum``
+             and ``time_bin`` from the run's own trace analysed on the
+             card (``flat_profile`` names ``train_step``, ``data_wait``,
+             ``checkpoint``, ``restore``), the router kernels none; ms a
+             step, tokens/s and the model FLOPs' share of 989 TFLOP/s
+             logged; one step under ``torch.profiler``; then
+             pipit-lm-100m-smoke in f32 from one seeded weight set trained
+             3 steps on the card and on the CPU, losses within 1e-4; and
+             the backward kernel's row on the path's first backward call
+             (library: SDPA's backward through autograd, timed only).
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
@@ -277,7 +302,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.launch.cardcheck import (  # noqa: E402
-    card_line, cuda_ms, device_ms, exact, gate, same_bits)
+    card_line, cuda_ms, device_ms, exact, flash_bwd_tol, flash_forward_lse,
+    gate, same_bits)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -705,6 +731,7 @@ def phase_model_kernels() -> None:
     if seen != set(fa.VARIANT_LAUNCHES):
         raise AssertionError(f"flash variants checked {seen}, have "
                              f"{set(fa.VARIANT_LAUNCHES)}")
+    check_flash_bwd(rng)
     seen = set()
     for label, (args, kw) in topk:
         picked = tg.path(args[0].shape[1])
@@ -733,6 +760,62 @@ def phase_model_kernels() -> None:
     _topk_nan_row(tg)
     for label, args in router:
         check_router(label, *args)
+
+
+def flash_bwd_err(got, want, label) -> tuple:
+    """(dq, dk, dv) against the plain version's, each within
+    ``flash_bwd_tol`` (2e-5 in f32, 3e-2 in bf16, times that gradient's
+    largest magnitude); raises outside it.  Returns the max abs error and
+    each gradient's (error, limit)."""
+    each = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = float((g.float() - w.float()).abs().max())
+        tol = flash_bwd_tol(g.dtype, w)
+        if not e <= tol:
+            raise AssertionError(f"flash_attention_bwd [{label}] {name}: "
+                                 f"max abs err {e} above {tol}")
+        each[name] = (e, tol)
+    return max(e for e, _t in each.values()), each
+
+
+def check_flash_bwd(rng) -> None:
+    """The backward kernel against its plain version on the card, on the
+    output and row log-sum-exp of the forward kernel the wrapper picks:
+    the training shape and the edge cases in bf16 and f32, D = 64 and
+    128; bit-identical on relaunch."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases += [
+            (f"{tag} train 16x256x12x64 causal",
+             _flash_case(rng, 16, 256, 256, 12, 12, 64, dtype)),
+            (f"{tag} GQA H/KVH=4 D=128",
+             _flash_case(rng, 2, 512, 512, 16, 4, 128, dtype)),
+            (f"{tag} window 64 + prefix 8 D=128",
+             _flash_case(rng, 2, 1024, 1024, 8, 8, 128, dtype, window=64,
+                         prefix_len=8)),
+            (f"{tag} padded tail S=1000 D=64",
+             _flash_case(rng, 2, 1000, 1000, 8, 8, 64, dtype)),
+            (f"{tag} D=64 GQA 4, window 64 + prefix 8, offset",
+             _flash_case(rng, 1, 40, 1300, 8, 2, 64, dtype, q_offset=1260,
+                         window=64, prefix_len=8)),
+        ]
+    for label, ((q, k, v), kw) in cases:
+        o, lse = flash_forward_lse(q, k, v, **kw)
+        do = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
+            np.float32)).cuda().to(q.dtype)
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd [{label}]: relaunch "
+                                 f"differs")
+        err, each = flash_bwd_err(got, want, label)
+        log(f"[kernels] flash_attention_bwd {label:42s} ok  max_abs_err="
+            f"{err:.6g} (tol {each['dq'][1]:.3g} on dq)  "
+            f"bit-identical relaunch")
 
 
 def _topk_nan_row(tg) -> None:
@@ -1007,8 +1090,9 @@ STREAM_CHUNK_ROWS = 65_536
 #: boundaries split enter/leave pairs and parent chains
 SEAM_CHUNK_ROWS = 4_999
 #: the stream phase holds the card against the CPU streaming route on one
-#: op a kernel: seg_sum, time_bin, pair_sum, hist_bin
-STREAM_CPU_OPS = [OPS[0], OPS[2], OPS[4], OPS[5]]
+#: op a kernel: seg_sum, time_bin, pair_sum (hist_bin's counts are exact:
+#: the eager bits check them)
+STREAM_CPU_OPS = [OPS[0], OPS[2], OPS[4]]
 
 
 def _route(ops, run) -> list:
@@ -1121,7 +1205,7 @@ def phase_stream():
             eager_s = time.perf_counter() - t0
             wants.append(digest(want))
             same = digest(res) == digest(want)
-            cpu = "cpu streaming not run (one op a kernel is)"
+            cpu = "cpu streaming not run"
             if (op, kw) in STREAM_CPU_OPS:
                 t0 = time.perf_counter()
                 on_cpu = st.run(op, device="cpu", **kw)
@@ -1135,7 +1219,7 @@ def phase_stream():
                 raise AssertionError(f"stream {op}: not the eager bits")
         seams = Trace.open(paths, streaming=True, chunk_rows=SEAM_CHUNK_ROWS,
                            device="cuda")
-        for op, kw in OPS[:3]:
+        for op, kw in OPS[:1]:
             t0 = time.perf_counter()
             same = digest(seams.run(op, **kw)) == digest(eager.run(op, **kw))
             log(f"[stream] {op:17s} {json.dumps(kw, default=str):34s} "
@@ -1672,9 +1756,11 @@ def phase_formats(src, wants, pool, d) -> dict:
         size = "8 ranks" if fmt == "chrome" else "1M"
         st = Trace.open(path, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
                         device="cuda")
+        k = 1 if fmt == "csv" else len(FORMAT_OPS)
         _r, launches[f"formats {fmt} streamed"] = _route_bits(
-            "formats", f"{fmt} {size} streamed", FORMAT_OPS,
-            lambda op, kw: st.run(op, **kw), want, n, FORMAT_LAUNCHES)
+            "formats", f"{fmt} {size} streamed", FORMAT_OPS[:k],
+            lambda op, kw: st.run(op, **kw), want[:k], n,
+            FORMAT_LAUNCHES if k > 1 else dict(FORMAT_LAUNCHES, pair_sum=0))
         pst = Trace.open(path, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
                          device="cuda", processes=workers)
         pst._pool = pool
@@ -1726,6 +1812,9 @@ SET_OPS = [("diff_flat_profile", {}), ("regression_report", {}),
            ("scaling_analysis", {}), ("diff_time_profile", {}),
            ("diff_load_imbalance", {})]
 MAPPED = ("message_histogram", {"bins": 10})
+#: the set op not held against the CPU route: diff_flat_profile holds
+#: seg_sum there, and its members' own bits are checked all the same
+SET_NO_CPU = "diff_load_imbalance"
 #: launches of the five set ops plus the mapped op over two members: one
 #: per member and kernel (the profile cache answers the other two
 #: ``flat_profile`` passes)
@@ -1842,6 +1931,11 @@ def phase_set(trace, kept: dict) -> dict:
                    for p in own["time_profile"] for c in p.columns
                    if not c.startswith("bin_"))
     for (op, kw), (res, wall) in zip(SET_OPS + [MAPPED], card):
+        if op == SET_NO_CPU:
+            _columns_are_members(op, res, own)
+            log(f"[set] {op:19s} card {wall:.3f} s | cpu route not run | "
+                f"members' own bits equal | {SMI[0]}")
+            continue
         t0 = time.perf_counter()
         on_cpu = ts.run(op, device="cpu", **kw)
         cpu_s = time.perf_counter() - t0
@@ -2208,18 +2302,18 @@ def _analysis_routes(stream_paths, pool, workers, pack_dir,
     packs = [os.path.join(pack_dir, f"rank_{r}.pack")
              for r in range(MAIN["nprocs"])]
     routes = [
-        ("stream-1M", "streamed", wants, lambda: Trace.open(
+        ("stream-1M", "streamed", 1, wants, lambda: Trace.open(
             stream_paths, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
             device="cuda")),
-        ("stream-1M", f"pooled x{workers}", wants, lambda: pst),
-        ("pack-10M", "streamed", main_digests, lambda: Trace.open(
+        ("stream-1M", f"pooled x{workers}", 3, wants, lambda: pst),
+        ("pack-10M", "streamed", 3, main_digests, lambda: Trace.open(
             packs, streaming=True, device="cuda")),
     ]
     launches = {}
-    for data, route, want, handle in routes:
+    for data, route, n_ops, want, handle in routes:
         h = handle()
         reset_counts()
-        for (op, kw), w in zip(ANALYSIS_STREAMED, want):
+        for (op, kw), w in zip(ANALYSIS_STREAMED[:n_ops], want):
             h.units_cuda = []
             t0 = time.perf_counter()
             with warnings.catch_warnings():
@@ -3056,6 +3150,224 @@ def phase_serve():
     return launches, inputs
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the training path, and the analysis of its own trace
+# ---------------------------------------------------------------------------
+
+#: the train phase: pipit-lm-100m at full width in bf16, a fault at step 6
+TRAIN = dict(steps=12, batch=16, seq=256, fault_at=6, ckpt_every=4,
+             dtype="bfloat16")
+#: free disk the train phase's checkpoints need (three of 1.4 GB, and one
+#: being written)
+TRAIN_DISK = 8e9
+
+
+def phase_train() -> list:
+    """``repro_torch.launch.train_traced`` on pipit-lm-100m at full width:
+    one restart, 12 steps, finite and falling losses; the flash forward
+    (tensor-core variant) and backward kernels launched once a layer a
+    step run, ``seg_sum`` and ``time_bin`` by the trace's analysis on the
+    card, whose ``flat_profile`` names the run's spans; one step under
+    ``torch.profiler``; the smoke config trained 3 steps on the card and
+    on the CPU from one weight set.  Returns the backward kernel's row."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.constants import INC
+    from repro_torch.launch.train_traced import train_traced
+    fa = kernels.flash_attention
+    cfg = get_config("pipit-lm-100m")
+    captured = {}
+    orig_bwd = fa.flash_attention_bwd
+
+    def capture(*args, **kw):          # the first backward call's inputs
+        captured.setdefault("call", ([a.detach().clone() for a in args],
+                                     dict(kw)))
+        return orig_bwd(*args, **kw)
+
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        log(f"[train] {free / 1e9:.1f} GB free for checkpoints")
+        if free < TRAIN_DISK:
+            raise RuntimeError(f"train phase: {free / 1e9:.2f} GB free in "
+                               f"{d}, {TRAIN_DISK / 1e9:.0f} GB needed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in kernels.KERNELS:
+            mod.LAUNCHES = 0
+        fa.LAUNCHES_BWD = 0
+        fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
+        fa.flash_attention_bwd = capture
+        try:
+            t0 = time.perf_counter()
+            run = train_traced(**TRAIN, ckpt_dir=d, device="cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            fa.flash_attention_bwd = orig_bwd
+        launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                    for mod in kernels.KERNELS}
+        launches["flash_attention_bwd"] = fa.LAUNCHES_BWD
+        by_variant = dict(fa.VARIANT_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        out = run.summary
+        losses = out["losses"]
+        steps_run = len(losses) + out["restarts"]   # a fault follows a step
+        log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, vocab "
+            f"{cfg.vocab}, {cfg.param_count() / 1e6:.1f} M parameters in "
+            f"{TRAIN['dtype']}; batch {TRAIN['batch']} x {TRAIN['seq']}")
+        log(f"[train] {out['steps']} steps, {out['restarts']} restart, "
+            f"{steps_run} steps run, wall {wall:.2f} s; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}")
+        log(f"[train] launches {json.dumps(launches)}; flash_attention by "
+            f"variant {json.dumps(by_variant)}")
+        if out["restarts"] != 1 or out["steps"] != TRAIN["steps"]:
+            raise AssertionError(f"train: {out['restarts']} restarts, "
+                                 f"{out['steps']} steps")
+        if not np.all(np.isfinite(losses)) or \
+                not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"train: losses {losses} not finite or "
+                                 f"not falling")
+        want = cfg.n_layers * steps_run
+        if (launches["flash_attention"], by_variant["wgmma"],
+                launches["flash_attention_bwd"]) != (want, want, want):
+            raise AssertionError(f"train: flash launches {launches}, "
+                                 f"{by_variant}; expected {want} each")
+        if launches["router_topk"] or launches["topk_gating"] or \
+                launches["seg_sum"] < 1 or launches["time_bin"] < 1:
+            raise AssertionError(f"train: launches {launches}")
+        fp = run.trace.flat_profile(metrics=(INC,))
+        prof = {n: (int(c), float(t)) for n, c, t in
+                zip(fp["Name"], fp["count"], fp[INC])}
+        need = {"train_step", "data_wait", "checkpoint", "restore"}
+        if not need <= set(np.asarray(run.flat_profile["Name"]).astype(str)):
+            raise AssertionError(f"train: flat_profile lacks "
+                                 f"{need - set(prof)}")
+        step_s = out["mean_step_time"]
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        S = TRAIN["seq"]
+        attn = 3 * 4 * cfg.hd * (S * (S + 1) // 2) * TRAIN["batch"] * \
+            cfg.n_heads * cfg.n_layers
+        flops = 6 * cfg.param_count() * tokens + attn
+        log(f"[train] {step_s * 1e3:.2f} ms per step (host clock, steps 2 "
+            f"on), {tokens / step_s:.0f} tokens/s, {flops / 1e12:.3f} "
+            f"TFLOP a step (6 x parameters x tokens + attention) = "
+            f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+            f"{flops / step_s / BF16_OPS_PER_S:.2%} of 989 TFLOP/s bf16; "
+            f"peak device memory {peak / 2**30:.2f} GiB | {SMI[0]}")
+        log("[train] trace spans (count, inclusive s): " + ", ".join(
+            f"{n} ({c}, {t / 1e9:.4f})" for n, (c, t) in sorted(
+                prof.items())))
+        log(f"[train] time_profile: {len(run.time_profile)} bins")
+        trainer = run.trainer
+        batch = _train_batch(cfg, TRAIN, trainer.step)
+        profile_step("train_step", lambda: trainer.train_one(
+            batch, trainer.step))
+        del run, trainer, batch
+    torch.cuda.empty_cache()
+    train_path()
+    return [_bwd_row(captured["call"], launches)]
+
+
+def _train_batch(cfg, train, step):
+    from repro_torch.data import SyntheticLMStream
+    stream = SyntheticLMStream(cfg.vocab, train["batch"], train["seq"],
+                               seed=1)
+    try:
+        return stream.batch_at(step)
+    finally:
+        stream.close()
+
+
+def train_path() -> None:
+    """pipit-lm-100m-smoke in f32 from one seeded weight set, trained 3
+    steps on the card (kernels) and on the CPU (plain versions): losses
+    within 1e-4 (cuBLAS against CPU matmuls, the kernels' summation
+    order)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+    cfg = get_smoke_config("pipit-lm-100m")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as d:
+            tr = Trainer(cfg, TrainLoopConfig(steps=3, warmup_steps=1,
+                                              ckpt_dir=d), device=dev)
+            tr.model.load_state_dict(params)
+            stream = SyntheticLMStream(cfg.vocab, 8, 64, seed=1)
+            before = (fa.LAUNCHES, fa.LAUNCHES_BWD)
+            out[dev] = [tr.train_one(stream.batch_at(i), i)
+                        for i in range(3)]
+            stream.close()
+            ran = (fa.LAUNCHES - before[0], fa.LAUNCHES_BWD - before[1])
+            if ran != ((3 * cfg.n_layers,) * 2 if dev == "cuda"
+                       else (0, 0)):
+                raise AssertionError(f"train path {dev}: launches {ran}")
+    err = max(abs(a - b) for a, b in zip(out["cuda"], out["cpu"]))
+    if not err <= 1e-4:
+        raise AssertionError(f"train path: losses {out} differ by {err}")
+    log(f"[train] {cfg.name} f32, 3 steps: losses card "
+        f"{out['cuda']} | cpu {out['cpu']} | max abs diff {err:.3g} "
+        f"(tol 1e-4)")
+
+
+def _bwd_row(call, launches) -> dict:
+    """The backward kernel on the inputs of the train path's first
+    backward call, against its plain version, SDPA's backward (through
+    autograd: timed only) and its bound."""
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v, o, do, lse), kw = call
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
+        raise AssertionError("flash_attention_bwd: relaunch differs")
+    err, each = flash_bwd_err(got, want, "train path's first call")
+    log("[train] flash_attention_bwd on the path's first call: " + ", ".join(
+        f"{n} max abs err {e:.6g} (limit {t:.6g})"
+        for n, (e, t) in each.items()))
+    qpos = kw.get("q_offset", 0) + torch.arange(Sq, device=q.device)
+    visible = float(fa.mask(qpos, torch.arange(Sk, device=q.device),
+                            kw.get("causal", True), kw.get("window"),
+                            kw.get("prefix_len", 0)).sum())
+    ops = 5 * 2.0 * D * visible * B * H   # S, dP, dV, dQ, dK: 2 flops a MAC
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + \
+        lse.numel() * 4                   # q, o, dO, dq; k, v, dk, dv; lse
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    with torch.enable_grad():
+        out_t = sdpa(qt, kt, vt, is_causal=kw.get("causal", True),
+                     enable_gqa=H != KVH)
+    do_t = do.transpose(1, 2).contiguous()
+    row = _model_row(
+        "flash_attention_bwd",
+        "none: src/repro/kernels/flash_attention.py:101 is forward-only",
+        launches, err, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      **kw),
+        lambda: fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
+        lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                    retain_graph=True),
+        ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3,
+        f"q/k/v/o/dO {list(q.shape)} {str(q.dtype)[6:]}, {visible:.0f} "
+        f"visible pairs per head")
+    row["library"] = "SDPA backward (torch.autograd.grad)"
+    row["max_abs_err_limit"] = {n: t for n, (_e, t) in each.items()}
+    return row
+
+
 def profile_step(label: str, fn, top: int = 8, export: bool = False) -> None:
     """One call of ``fn`` under ``torch.profiler`` after a warm call: the
     device's busy share of the call's wall time (profiler on) and the
@@ -3435,6 +3747,9 @@ def main() -> int:
     phase_path()
     rows += phase_model_timing(serve_launches, serve_inputs, f32_launches,
                                f32_inputs)
+    t0 = time.perf_counter()
+    rows += phase_train()
+    log(f"[train] phase wall {time.perf_counter() - t0:.1f} s | {SMI[0]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(device["smi"])
     print(json.dumps({"kernels": rows}), flush=True)

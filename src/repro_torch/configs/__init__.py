@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the published config and
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-The port serves one architecture so far, qwen2-moe-a2.7b; every other
-name of the reference's registry raises ``NotImplementedError`` naming
-the ROADMAP item that ports its layers, and an unknown name ``KeyError``.
+The port carries two architectures so far: qwen2-moe-a2.7b (served) and
+pipit-lm-100m (trained); every other name of the reference's registry
+raises ``NotImplementedError`` naming the ROADMAP item that ports its
+layers, and an unknown name ``KeyError``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ _ALIASES = {
     "pipit-lm-100m": "pipit_lm_100m",
 }
 #: the architectures whose configs the port carries
-PORTED = ("qwen2_moe_a2_7b",)
+PORTED = ("qwen2_moe_a2_7b", "pipit_lm_100m")
 
 ARCH_NAMES: List[str] = list(_ALIASES)
 

@@ -12,7 +12,8 @@ imports the reference; the caller takes the arrays out::
 Data takes the place of weights in this system: this is how the tests
 feed one trace to both packages.  Model weights go across the same way
 (:func:`params_from_jax`): the reference's ``LM.init`` tree as NumPy
-arrays in, the port's ``LM`` state dict out.
+arrays in, the port's ``LM`` state dict out; and an optimizer state
+(:func:`adamw_state_from_jax`), so both packages resume from one state.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import torch
 
 from .core.frame import Categorical, EventFrame
 from .models.config import ModelConfig
+from .optim import AdamWState
 
-__all__ = ["events_from_columns", "params_from_jax"]
+__all__ = ["events_from_columns", "params_from_jax",
+           "adamw_state_from_jax"]
 
 
 def events_from_columns(columns: Dict[str, np.ndarray],
@@ -75,3 +78,14 @@ def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         for i in range(cfg.n_layers):
             out[f"layers.{i}.{name}"] = _tensor(arr[i])
     return out
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig) -> AdamWState:
+    """The port's :class:`repro_torch.optim.AdamWState` (CPU tensors) for
+    a reference ``AdamWState`` given as NumPy arrays
+    (``jax.tree_util.tree_map(np.asarray, state)``, or any object with
+    ``step``, ``m`` and ``v``): each moment tree goes across as
+    :func:`params_from_jax` carries the parameters, the step as an int."""
+    return AdamWState(step=int(np.asarray(state.step)),
+                      m=params_from_jax(state.m, cfg),
+                      v=params_from_jax(state.v, cfg))

@@ -2,11 +2,8 @@
 // q [B, Sq, H, D], k/v [B, Sk, KVH, D] (bf16 or f32) -> out [B, Sq, H, D] in
 // q's dtype. Query head h reads KV head h / (H / KVH), so nothing is
 // broadcast in memory. Row i sits at position q_offset + i and key c at c;
-// with d = position - c a key is visible when
-//   c < Sk  and  (!causal or d >= 0)
-//   and (no window or d < window or (c < prefix_len and d >= 0)),
-// the mask of src/repro/models/attention.py::_mask (prefix keys stay
-// visible, causally, outside the window).
+// which keys a row sees is the mask of flash_mask.cuh (causal, window,
+// prefix, c < Sk), shared with the backward kernel.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (grid (BH, nq, nk) with the KV axis sequential and the
@@ -75,11 +72,16 @@
 // (round(q * scale)), as attention.py::chunked_attention does; the Pallas
 // kernel scales after the f32 cast. Everything after is f32 with expf and
 // IEEE division; no atomics, and the order of every sum is fixed, so a
-// relaunch gives the same bits.
+// relaunch gives the same bits. Given an lse pointer (the training forward),
+// both also write each row's log-sum-exp m + log(max(l, 1e-30)) in f32 for
+// the backward kernel (csrc/flash_attention_bwd.cu); serving passes null,
+// and flash_wgmma then runs an instantiation without that epilogue.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -105,9 +107,10 @@ from_f<__nv_bfloat16>(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-          int H, int KVH, int causal, int has_window, int window,
-          int prefix_len, int q_offset, float scale) {
+          const T* __restrict__ v, T* __restrict__ out,
+          float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
+          int causal, int has_window, int window, int prefix_len,
+          int q_offset, float scale) {
   constexpr int G4 = D / (4 * TPR);  // float4 groups per thread
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
@@ -141,9 +144,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int c0 = 0; c0 < Sk; c0 += BK) {
     const int c1 = (c0 + BK < Sk ? c0 + BK : Sk) - 1;
-    if (causal && c0 > p_hi) break;                 // every d < 0 from here
-    if (has_window && c1 <= p_lo - window &&
-        !(c0 < prefix_len && c0 <= p_hi))
+    if (past_causal(c0, p_hi, causal)) break;       // every d < 0 from here
+    if (past_window(p_lo, p_hi, c0, c1, has_window, window, prefix_len))
       continue;                                     // all d >= window
     __syncthreads();                                // last tile's reads done
     for (int e = threadIdx.x; e < BK * D; e += THREADS) {
@@ -174,11 +176,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < BK; ++c) {
       s[c] += __shfl_xor_sync(0xffffffffu, s[c], 1);
       s[c] += __shfl_xor_sync(0xffffffffu, s[c], 2);
-      const int col = c0 + c, d = pos - col;
-      bool ok = col < Sk;
-      if (causal) ok = ok && d >= 0;
-      if (has_window)
-        ok = ok && (d < window || (col < prefix_len && d >= 0));
+      const bool ok = visible(pos, c0 + c, Sk, causal, has_window, window,
+                              prefix_len);
       s[c] = ok ? s[c] : NEG;
       mt = fmaxf(mt, s[c]);
     }
@@ -208,6 +207,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!live) return;
   const float den = fmaxf(l, 1e-30f);
+  if (lse != nullptr && j == 0)
+    lse[((int64_t)b * H + h) * Sq + row] = m + logf(den);
 #pragma unroll
   for (int g = 0; g < G4; ++g) {
 #pragma unroll
@@ -220,13 +221,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KVH, int D, int causal,
-                   int has_window, int window, int prefix_len, int q_offset,
-                   float scale, cudaStream_t s) {
+                   float* lse, int B, int Sq, int Sk, int H, int KVH, int D,
+                   int causal, int has_window, int window, int prefix_len,
+                   int q_offset, float scale, cudaStream_t s) {
   dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
 #define PIPIT_FLASH(DIM)                                                     \
   flash_fwd<T, DIM><<<grid, THREADS, 0, s>>>(                                \
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, H, KVH,        \
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Sk, H, KVH,   \
       causal, has_window, window, prefix_len, q_offset, scale)
   switch (D) {
     case 16: PIPIT_FLASH(16); break;
@@ -411,8 +412,8 @@ __device__ __forceinline__ int tile_state(int c0, int Sk, int causal,
                                           int prefix_len, int p_lo,
                                           int p_hi) {
   const int c1 = (c0 + BK < Sk ? c0 + BK : Sk) - 1;
-  if (causal && c0 > p_hi) return STOP;             // every d < 0 from here
-  if (has_window && c1 <= p_lo - window && !(c0 < prefix_len && c0 <= p_hi))
+  if (past_causal(c0, p_hi, causal)) return STOP; // every d < 0 from here
+  if (past_window(p_lo, p_hi, c0, c1, has_window, window, prefix_len))
     return SKIP;                                    // all d >= window
   return LIVE;
 }
@@ -425,14 +426,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-template <int D>
+// LSE: write each row's log-sum-exp to lse (the training forward); the
+// serving instantiation compiles without that epilogue.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
-            __nv_bfloat16* __restrict__ out, int B, int Sq, int Sk, int H,
-            int KVH, int causal, int has_window, int window, int prefix_len,
-            int q_offset, float scale) {
+            __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int B,
+            int Sq, int Sk, int H, int KVH, int causal, int has_window,
+            int window, int prefix_len, int q_offset, float scale) {
   using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -571,13 +574,9 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = c0 + 8 * j + col + (e & 1);
-          const int d = wg_lo + r0 + 8 * (e >> 1) - c;
-          bool ok = c < Sk;
-          if (causal) ok = ok && d >= 0;
-          if (has_window)
-            ok = ok && (d < window || (c < prefix_len && d >= 0));
-          if (!ok) s[4 * j + e] = NEG;
+          if (!visible(wg_lo + r0 + 8 * (e >> 1), c0 + 8 * j + col + (e & 1),
+                       Sk, causal, has_window, window, prefix_len))
+            s[4 * j + e] = NEG;
         }
       }
     }
@@ -646,6 +645,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     den = fmaxf(den, 1e-30f);
     const int row = q0 + 64 * wg + r0 + 8 * h2;
     if (row >= Sq) continue;
+    if constexpr (LSE) {
+      if ((lane & 3) == 0)
+        lse[((int64_t)b * H + h) * Sq + row] = m[h2] + logf(den);
+    }
     __nv_bfloat16* dst = out + (((int64_t)b * Sq + row) * H + h) * D + col;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -695,26 +698,41 @@ bool tensor_map(CUtensorMap* map, const void* x, int batch, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KVH, int causal,
-                   int has_window, int window, int prefix_len, int q_offset,
-                   float scale, cudaStream_t s) {
+template <int D, bool LSE>
+cudaError_t launch_lse(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int B, int Sq, int Sk, int H,
+                       int KVH, int causal, int has_window, int window,
+                       int prefix_len, int q_offset, float scale,
+                       cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H * D, BQ) ||
       !tensor_map(&tk, k, B, Sk, KVH * D, BK) ||
       !tensor_map(&tv, v, B, Sk, KVH * D, BK))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Layout<D>::BYTES);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((Sq + BQ - 1) / BQ) * H * B;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_wgmma<D><<<(unsigned)blocks, THREADS, Layout<D>::BYTES, s>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, B, Sq, Sk, H, KVH, causal, has_window,
-      window, prefix_len, q_offset, scale);
+  flash_wgmma<D, LSE><<<(unsigned)blocks, THREADS, Layout<D>::BYTES, s>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, lse, B, Sq, Sk, H, KVH, causal,
+      has_window, window, prefix_len, q_offset, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int B, int Sq, int Sk, int H, int KVH,
+                   int causal, int has_window, int window, int prefix_len,
+                   int q_offset, float scale, cudaStream_t s) {
+  return lse != nullptr
+             ? launch_lse<D, true>(q, k, v, out, lse, B, Sq, Sk, H, KVH,
+                                   causal, has_window, window, prefix_len,
+                                   q_offset, scale, s)
+             : launch_lse<D, false>(q, k, v, out, lse, B, Sq, Sk, H, KVH,
+                                    causal, has_window, window, prefix_len,
+                                    q_offset, scale, s);
 }
 
 }  // namespace tc
@@ -724,12 +742,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = flash_fwd (SIMT), 1 =
 // flash_wgmma (tensor cores; bf16 at D = 64 or 128 only, 16-byte aligned
 // q, k, v). Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 128} (the
-// wrapper checks all of it).
+// wrapper checks all of it). lse: null, or f32 [B, H, Sq] that receives
+// each row's log-sum-exp m + log(max(l, 1e-30)) (the training forward saves
+// it for csrc/flash_attention_bwd.cu; serving passes null and writes none).
 extern "C" int pipit_flash_attention(int device, const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Sk, int H, int KVH, int D, int dtype,
-                                     int variant, int causal, int has_window,
-                                     int window, int prefix_len, int q_offset,
+                                     const void* v, void* out, void* lse,
+                                     int B, int Sq, int Sk, int H, int KVH,
+                                     int D, int dtype, int variant,
+                                     int causal, int has_window, int window,
+                                     int prefix_len, int q_offset,
                                      float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -737,22 +758,23 @@ extern "C" int pipit_flash_attention(int device, const void* q, const void* k,
   if (variant == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     if (D == 128)
-      err = tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KVH, causal,
-                            has_window, window, prefix_len, q_offset, scale,
-                            s);
+      err = tc::launch<128>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH,
+                            causal, has_window, window, prefix_len, q_offset,
+                            scale, s);
     else if (D == 64)
-      err = tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KVH, causal,
-                           has_window, window, prefix_len, q_offset, scale,
-                           s);
+      err = tc::launch<64>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH,
+                           causal, has_window, window, prefix_len, q_offset,
+                           scale, s);
     else
       err = cudaErrorInvalidValue;
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KVH, D, causal,
-                                has_window, window, prefix_len, q_offset,
-                                scale, s);
+    err = launch<__nv_bfloat16>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH,
+                                D, causal, has_window, window, prefix_len,
+                                q_offset, scale, s);
   } else {
-    err = launch<float>(q, k, v, out, B, Sq, Sk, H, KVH, D, causal,
-                        has_window, window, prefix_len, q_offset, scale, s);
+    err = launch<float>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH, D,
+                        causal, has_window, window, prefix_len, q_offset,
+                        scale, s);
   }
   return (int)err;
 }

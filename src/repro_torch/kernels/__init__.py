@@ -17,8 +17,10 @@ pair_sum         ``repro/kernels/pair_sum.py``               comm_matrix,
                                                              (per_process)
 time_bin         ``repro/kernels/time_bin.py``               time_profile
 hist_bin         ``repro/kernels/hist_bin.py``               message_histogram
-flash_attention  ``repro/kernels/flash_attention.py``        LM prefill
-                                                             attention
+flash_attention  ``repro/kernels/flash_attention.py``        LM prefill and
+                 (forward); its backward kernel              training
+                 (``flash_attention_bwd``) replaces none:    attention
+                 the TPU kernel is forward-only
 topk_gating      ``repro/kernels/topk_gating.py``            MoE routing
                                                              (float32)
 router_topk      ``repro/kernels/topk_gating.py`` fused      MoE routing
@@ -33,7 +35,8 @@ from . import (flash_attention, hist_bin, pair_sum, router_topk, seg_sum,
 #: the kernels of the trace-analysis path, in the order it first reaches them
 TRACE_KERNELS = (seg_sum, pair_sum, time_bin, hist_bin)
 #: the kernels of the LM serving path (bfloat16 weights route through
-#: router_topk; float32 ones through topk_gating)
+#: router_topk; float32 ones through topk_gating); the training path runs
+#: flash_attention's forward and backward kernels
 MODEL_KERNELS = (flash_attention, router_topk, topk_gating)
 #: every kernel module
 KERNELS = TRACE_KERNELS + MODEL_KERNELS

@@ -30,7 +30,8 @@ __all__ = ["library", "build", "check", "refuse_grad", "raw_stream",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("seg_sum.cu", "pair_sum.cu", "time_bin.cu", "hist_bin.cu",
-           "flash_attention.cu", "topk_gating.cu", "router_topk.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "topk_gating.cu",
+           "router_topk.cu")
 #: sorted records per CTA in the walk pass of csrc/runs.cuh (keep in step)
 CHUNK = 1024
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,9 +65,14 @@ SIGNATURES = {
     "pipit_hist_bin": (_I32, _P, _I64, _I32, _P, _P),
     # (device, coords, n, n_bins, scratch, out, stream)
     "pipit_hist_bin_narrow": (_I32, _P, _I64, _I32, _P, _P, _P),
-    # (device, q, k, v, out, B, Sq, Sk, H, KVH, D, dtype, variant, causal,
-    #  has_window, window, prefix_len, q_offset, scale, stream)
-    "pipit_flash_attention": (_I32, _P, _P, _P, _P, *(_I32,) * 13, _F32, _P),
+    # (device, q, k, v, out, lse, B, Sq, Sk, H, KVH, D, dtype, variant,
+    #  causal, has_window, window, prefix_len, q_offset, scale, stream)
+    "pipit_flash_attention": (_I32, *(_P,) * 5, *(_I32,) * 13, _F32, _P),
+    # (device, q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Sk, H, KVH,
+    #  D, dtype, causal, has_window, window, prefix_len, q_offset, scale,
+    #  stream)
+    "pipit_flash_attention_bwd": (_I32, *(_P,) * 10, *(_I32,) * 12, _F32,
+                                  _P),
     # (device, logits, T, E, k, idx, gates, stream)
     "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
     "pipit_topk_gating_narrow": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),

@@ -20,10 +20,17 @@ launches one of the two hand-written kernels in ``csrc/flash_attention.cu``
 On a CPU tensor it runs :func:`flash_attention_plain`, the chunked
 online-softmax scan of ``chunked_attention`` (P in f32), which is
 differentiable.  There is no fallback between the kernels: a CUDA call
-launches its variant or raises.  The kernels have no backward yet, so on
-the card the wrapper raises when autograd would need one
-(``build.refuse_grad``) instead of returning an output with no
-``grad_fn``.
+launches its variant or raises.
+
+Training: when grad mode is on and an input requires grad, a CUDA call
+goes through an ``autograd.Function`` whose forward is the same kernel,
+asked to write each row's log-sum-exp as well, and whose backward is
+:func:`flash_attention_bwd`: the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (no TPU counterpart: the reference's
+Pallas kernel is forward-only and it trains by autodiff through
+``chunked_attention``).  :func:`flash_attention_bwd_plain` is its plain
+version.  Serving, under ``torch.no_grad()``, launches as before and
+writes no log-sum-exp.
 
 Both scale the query in its own dtype before the f32 cast, as
 ``chunked_attention`` — the function the model calls — does; the Pallas
@@ -41,13 +48,17 @@ import torch
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain",
-           "flash_attention_variant", "variant", "mask", "LAUNCHES",
-           "VARIANT_LAUNCHES"]
+           "flash_attention_variant", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "variant", "mask", "LAUNCHES",
+           "VARIANT_LAUNCHES", "LAUNCHES_BWD"]
 
 #: kernel launches since import (one per wrapper call that launches)
 LAUNCHES = 0
 #: the same launches by kernel variant
 VARIANT_LAUNCHES = {"simt": 0, "wgmma": 0}
+#: backward-kernel launches since import (one per backward call on the
+#: card: the three kernels of csrc/flash_attention_bwd.cu)
+LAUNCHES_BWD = 0
 
 _NEG = -1e30
 _CHUNK = 1024             # KV chunk of the plain scan (chunked_attention's)
@@ -87,9 +98,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None, prefix_len: int = 0,
                           q_offset: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Plain version: the online-softmax scan over KV chunks of
-    ``chunked_attention``, in f32 after the query is scaled in its dtype."""
+    ``chunked_attention``, in f32 after the query is scaled in its dtype.
+    With ``return_lse`` also each row's log-sum-exp ``m + log(max(l,
+    1e-30))``, f32 ``[B, H, Sq]``, as the kernels write it for the
+    backward."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -121,8 +136,51 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pv = torch.einsum("bhgqc,bchd->bhgqd", p, vci)
         acc = acc * corr[..., None] + pv
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.movedim(3, 1).reshape(B, Sq, H, D).to(q.dtype)
+    den = torch.clamp_min(l, 1e-30)
+    out = (acc / den[..., None]).movedim(3, 1).reshape(B, Sq, H, D).to(
+        q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den)).reshape(B, H, Sq)
+    return out
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              prefix_len: int = 0, q_offset: int = 0,
+                              scale: Optional[float] = None):
+    """Plain version of the backward kernel: from the forward's output
+    ``o`` and row log-sum-exp ``lse`` ([B, H, Sq] f32) and the output's
+    gradient ``do``, recompute ``P = exp(qq K^T - lse)`` under the mask
+    (``qq = round(q * scale)`` in q's dtype, as the forward scales it), then
+    ``dV = P^T dO``, ``dP = dO V^T``, ``Delta = rowsum(dO * O)``, ``dS =
+    P (dP - Delta)``, ``dQ = scale dS K``, ``dK = dS^T qq``, in f32, summed
+    over the G query heads of each KV head.  Returns (dq, dk, dv) in the
+    inputs' dtype."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = scale or D ** -0.5
+    dev = q.device
+    qq = (q.reshape(B, Sq, KVH, G, D) * scale).to(q.dtype).float()
+    kf, vf = k.float(), v.float()
+    dof = do.reshape(B, Sq, KVH, G, D).float()
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    allow = mask(qpos, torch.arange(Sk, device=dev), causal, window,
+                 prefix_len)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qq, kf)
+    p = torch.where(allow, torch.exp(s - lse.reshape(B, KVH, G, Sq, 1)),
+                    0.0)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    delta = (dof * o.reshape(B, Sq, KVH, G, D).float()).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qq)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -145,7 +203,6 @@ def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
     """:func:`flash_attention` through the named kernel (``"simt"`` or
     ``"wgmma"``) whatever :func:`variant` would pick, to compare the two on
     the same inputs; a CPU tensor still runs the plain version."""
-    global LAUNCHES
     if name not in _VARIANT_IDS:
         raise ValueError(f"flash_attention: unknown variant {name!r}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -172,7 +229,6 @@ def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
                                      q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    build.refuse_grad("flash_attention", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: contiguous q, k, v expected")
     if D not in _HEAD_DIMS:
@@ -188,17 +244,120 @@ def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("flash_attention: the wgmma kernel's TMA "
                              "loads need 16-byte aligned q, k, v")
-    out = torch.empty_like(q)
     if B == 0 or Sq == 0:
-        return out
+        return torch.empty_like(q)
+    cfg = _config(D, causal, window, prefix_len, q_offset, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, name, cfg)
+    return _launch(name, q, k, v, cfg, want_lse=False)[0]
+
+
+def _config(D: int, causal: bool = True, window: Optional[int] = None,
+            prefix_len: int = 0, q_offset: int = 0,
+            scale: Optional[float] = None) -> tuple:
+    """The mask and scale a launch takes, as :func:`_launch` reads them."""
+    return (causal, window, int(prefix_len), int(q_offset),
+            float(scale or D ** -0.5))
+
+
+def _launch(name: str, q, k, v, cfg, want_lse: bool):
+    """One launch of the forward kernel ``name`` on checked CUDA inputs;
+    returns (out, lse or None)."""
+    global LAUNCHES
+    causal, window, prefix_len, q_offset, scale = cfg
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     build.check(build.library().pipit_flash_attention(
         q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, H, KVH, D, _DTYPES[q.dtype],
-        _VARIANT_IDS[name], int(causal), int(window is not None),
-        int(window or 0), int(prefix_len), int(q_offset),
-        float(scale or D ** -0.5), build.stream_of(q)),
-        f"flash_attention ({name})")
+        out.data_ptr(), lse.data_ptr() if want_lse else None, B, Sq, Sk, H,
+        KVH, D, _DTYPES[q.dtype], _VARIANT_IDS[name], int(causal),
+        int(window is not None), int(window or 0), prefix_len, q_offset,
+        scale, build.stream_of(q)), f"flash_attention ({name})")
     with build.COUNT_LOCK:
         LAUNCHES += 1
         VARIANT_LAUNCHES[name] += 1
-    return out
+    return out, lse
+
+
+class _Flash(torch.autograd.Function):
+    """The kernel ``name`` forward (saving its output and row log-sum-exp)
+    and :func:`flash_attention_bwd` backward, for CUDA inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, name, cfg):
+        out, lse = _launch(name, q, k, v, cfg, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = cfg
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, prefix_len, q_offset, scale = ctx.cfg
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, do.contiguous(), lse, causal=causal,
+            window=window, prefix_len=prefix_len, q_offset=q_offset,
+            scale=scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        prefix_len: int = 0, q_offset: int = 0,
+                        scale: Optional[float] = None):
+    """The gradient of :func:`flash_attention`: q, o, do ``[B, Sq, H, D]``,
+    k/v ``[B, Sk, KVH, D]`` (one dtype of float32 or bfloat16) and the
+    forward's row log-sum-exp ``lse`` (f32 ``[B, H, Sq]``) → (dq, dk, dv)
+    in the inputs' dtype; on the card through the backward kernel (one
+    launch of its three kernels), on a CPU tensor its plain version."""
+    global LAUNCHES_BWD
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or k.shape != v.shape or \
+            tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: q/o/do {tuple(q.shape)}, "
+                         f"{tuple(o.shape)}, {tuple(do.shape)}, k/v "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} and lse "
+                         f"{tuple(lse.shape)} do not fit")
+    if any(t.dtype != q.dtype for t in (k, v, o, do)) or \
+            q.dtype not in _DTYPES or lse.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: q, k, v, o, do of one dtype "
+                        "(float32 or bfloat16) and an f32 lse expected")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, o, do, lse, causal=causal, window=window,
+            prefix_len=prefix_len, q_offset=q_offset, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    ts = (q, k, v, o, do, lse)
+    if any(t.device != q.device for t in ts) or \
+            not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention_bwd: contiguous inputs on one "
+                         "device expected")
+    if D not in _HEAD_DIMS or KVH == 0 or H % KVH or Sk == 0:
+        raise ValueError(f"flash_attention_bwd: head dim {D} not in "
+                         f"{_HEAD_DIMS}, or H = {H} not a multiple of "
+                         f"KVH = {KVH}, or no keys")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention_bwd: B = {B} or H = {H} above "
+                         f"65535")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    build.check(build.library().pipit_flash_attention_bwd(
+        q.device.index or 0, *(t.data_ptr() for t in (
+            q, k, v, o, do, lse, dq, dk, dv, delta)), B, Sq, Sk, H, KVH, D,
+        _DTYPES[q.dtype], int(causal), int(window is not None),
+        int(window or 0), int(prefix_len), int(q_offset),
+        float(scale or D ** -0.5), build.stream_of(q)),
+        "flash_attention_bwd")
+    with build.COUNT_LOCK:
+        LAUNCHES_BWD += 1
+    return dq, dk, dv

@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["gate", "exact", "same_bits", "digest", "set_gate",
-           "findings_gate", "cuda_ms", "device_ms", "short_name",
-           "card_line", "ptxas", "run_trees"]
+           "findings_gate", "flash_bwd_tol", "flash_forward_lse", "cuda_ms",
+           "device_ms", "short_name", "card_line", "ptxas", "run_trees"]
 
 #: profiles :func:`device_ms` takes before it gives up on one that records
 #: no device activity (it happened once in a long ``chip_smoke.py`` run)
@@ -183,6 +183,26 @@ def findings_gate(got, want) -> float:
             and list(ea[~strag]) == list(eb[~strag])):
         raise AssertionError("findings: a host detector's row differs")
     return gate(a[strag], b[strag]) if strag.any() else 0.0
+
+
+def flash_bwd_tol(dtype, want) -> float:
+    """The gate of one flash-attention gradient (dq, dk or dv) against its
+    reference ``want`` (a tensor or an array): 2e-5 in float32 and 3e-2 in
+    bfloat16, times the largest magnitude of ``want``, so that the limit
+    keeps its meaning on gradients of any size."""
+    w = _f64(want)
+    mag = float(np.abs(w).max()) if w.size else 0.0
+    return (2e-5 if dtype == torch.float32 else 3e-2) * mag
+
+
+def flash_forward_lse(q, k, v, **kw):
+    """The flash forward kernel the wrapper picks, on CUDA inputs, asked
+    for each row's log-sum-exp as the training forward asks: (out, lse
+    f32 [B, H, Sq]), the inputs of ``flash_attention_bwd`` in a check."""
+    from ..kernels import flash_attention as fa
+    D = q.shape[-1]
+    return fa._launch(fa.variant(q.dtype, D), q, k, v,
+                      fa._config(D, **kw), want_lse=True)
 
 
 def cuda_ms(fn, iters: int, warm: int = 2) -> float:

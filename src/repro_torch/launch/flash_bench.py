@@ -187,6 +187,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     outs = [build.BUILD_DIR / f"flash_bench_out_{i}.pt"
             for i in range(len(args.trees))]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)   # before any tree
     rc = 0
     for tree, out in zip(args.trees, outs):   # this file, that tree's package
         out.unlink(missing_ok=True)

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the decoder-only LM of the serving slice.
+"""Model zoo of the port: the decoder-only LM of the serving and training
+slices.
 
 Mirrors :mod:`repro.models`.  ``build_model`` returns an :class:`LM` with
 its parameters allocated on ``device`` (uninitialised: call ``init`` with

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ParamDef", "init_param", "rms_norm", "rope", "apply_rope",
-           "swiglu_act"]
+           "swiglu_act", "softmax_xent"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +90,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32 (:func:`repro.models.layers.
+    softmax_xent`): logits [B, S, V] (V possibly padded beyond ``vocab``),
+    labels [B, S] int; a label ``>= vocab`` or ``< 0`` is masked out, and
+    the mean is over the labels kept (at least one)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    keep = (labels >= 0) & (labels < vocab)
+    idx = torch.where(keep, labels, 0).long()
+    ll = torch.gather(lf, -1, idx[..., None])[..., 0]
+    nll = torch.where(keep, lse - ll, 0.0)
+    return nll.sum() / torch.clamp_min(keep.sum(), 1)

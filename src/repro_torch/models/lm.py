@@ -7,8 +7,12 @@ parameters and scans them (``lax.scan``), the port keeps one
 list with one ``{"k_cache", "v_cache"}`` dict per layer.  Parameters keep
 the reference's names and ``[in, out]`` layout (``state_dict`` keys
 ``embed``, ``final_ln``, ``unembed`` and ``layers.<i>.<name>``), so
-:func:`repro_torch.convert.params_from_jax` only unstacks.  They carry no
-gradient: training is a later slice.
+:func:`repro_torch.convert.params_from_jax` only unstacks.  They are
+made without ``requires_grad``; the trainer turns it on
+(``model.requires_grad_(True)``) and calls :meth:`LM.loss`, the one entry
+point that runs with grad on.  Serving's :meth:`LM.forward`,
+:meth:`LM.prefill` and :meth:`LM.decode_step` stay under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from torch import nn
 from ..core.accel import resolve_device
 from .blocks import LayerSpec, cache_defs, layer_apply, layer_defs
 from .config import ModelConfig
-from .layers import ParamDef, init_param, rms_norm
+from .layers import ParamDef, init_param, rms_norm, softmax_xent
 
 __all__ = ["LM", "Block", "plan_layers"]
 
@@ -132,13 +136,24 @@ class LM(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return x @ w
 
+    def _full_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens]
+        x, _ = self._run_blocks(x, "train", 0)
+        return self._logits(x)
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor):
         """Full-sequence logits [B, S, V] and the prefix length (0 here):
         the greedy oracle of the tests."""
-        x = self.embed[tokens]
-        x, _ = self._run_blocks(x, "train", 0)
-        return self._logits(x), 0
+        return self._full_logits(tokens), 0
+
+    def loss(self, tokens: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``tokens`` [B, S] against
+        ``labels`` [B, S] (:meth:`repro.models.lm.LM.loss`), with grad on
+        wherever the caller's grad mode has it: the training entry point."""
+        return softmax_xent(self._full_logits(tokens), labels,
+                            self.cfg.vocab)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int):

@@ -1,6 +1,8 @@
-"""Runtime of the port: the host-side tracer (mirrors :mod:`repro.runtime`;
-the trainer waits for the training slice, ROADMAP §A)."""
+"""Runtime of the port (mirrors :mod:`repro.runtime`): the host-side tracer
+and the instrumented, fault-tolerant trainer."""
 
 from .tracer import Tracer
+from .trainer import FaultInjector, SimulatedFault, Trainer, TrainLoopConfig
 
-__all__ = ["Tracer"]
+__all__ = ["Tracer", "Trainer", "TrainLoopConfig", "FaultInjector",
+           "SimulatedFault"]

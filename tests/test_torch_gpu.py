@@ -27,9 +27,13 @@ prefill and decode shapes, its indices and gates equal to
 inputs, counts exact and top-k bits equal between the paths, on edge
 values (+inf, 3e9, -0.0 and NaN coordinates; rows of -inf and of values
 at or below -1e30, which select a chosen column again) and on inputs that
-start off the 16-byte boundary.  The three model-kernel wrappers refuse a
+start off the 16-byte boundary.  The two router wrappers refuse a
 gradient they cannot give: with grad enabled and an input that requires
-grad they raise.  The lazy query and streaming routes give, on the card,
+grad they raise.  Flash attention's backward kernel is held to its plain
+version at the training shape and the edge cases (bit-identical on
+relaunch), the forward's row log-sum-exp to the plain one, a failed
+backward launch raises, and a training step of pipit-lm-100m-smoke on the
+card runs no plain version.  The lazy query and streaming routes give, on the card,
 the same bits as the in-memory route on the same selection for each of
 the six kernel-backed ops (``stragglers`` among them), and
 ``stragglers`` on the card matches the CPU path within the gate.  So do
@@ -60,8 +64,9 @@ from repro_torch.core import NAME, Filter, plancache
 from repro_torch.core.query import scan
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
-from repro_torch.launch.cardcheck import (digest, findings_gate, gate,
-                                         same_bits, set_gate)
+from repro_torch.launch.cardcheck import (digest, findings_gate,
+                                         flash_bwd_tol, flash_forward_lse,
+                                         gate, same_bits, set_gate)
 from repro_torch.tracegen import big_events, big_trace
 
 pytestmark = pytest.mark.gpu
@@ -662,6 +667,121 @@ def test_flash_attention_variants_agree(cuda):
                                                 v[..., :32].contiguous())
 
 
+BWD_CASES = [
+    (16, 256, 256, 12, 12, 64, {}),                           # training
+    (2, 200, 200, 8, 2, 128, {}),                             # GQA 4
+    (1, 160, 160, 4, 2, 32, {"window": 64, "prefix_len": 8}),
+    (1, 1000, 1000, 4, 4, 128, {}),                           # padded tail
+    (2, 33, 33, 4, 4, 16, {}),                                # smoke width
+    (1, 40, 1300, 4, 2, 64, {"q_offset": 1260, "window": 64,
+                             "prefix_len": 8}),
+    (2, 50, 70, 4, 4, 32, {"causal": False}),
+]
+
+
+def _bwd_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D):
+    rng = np.random.default_rng(Sq + Sk + D + H)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
+                                       (B, Sk, KVH, D), (B, Sq, H, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", BWD_CASES)
+def test_flash_attention_bwd_kernel(cuda, dtype, B, Sq, Sk, H, KVH, D, kw):
+    """The backward kernel against its plain version on the same inputs
+    (the plain forward's output and log-sum-exp), bit-identical on
+    relaunch, one launch a call."""
+    q, k, v, do = _bwd_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D)
+    o, lse = flash_attention.flash_attention_plain(q, k, v, return_lse=True,
+                                                   **kw)
+    o = o.contiguous()          # the plain scan's output is a strided view
+    before = flash_attention.LAUNCHES_BWD
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                     **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BWD == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert same_bits(g, a), "relaunch not bit-identical"
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=flash_bwd_tol(dtype, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", BWD_CASES[:4])
+def test_flash_attention_forward_writes_the_lse(cuda, dtype, B, Sq, Sk, H,
+                                                KVH, D, kw):
+    """The training forward (either variant the wrapper picks) writes each
+    row's log-sum-exp: the plain version's within 1e-4 (f32 scores summed
+    in another order, on the tensor cores in bf16); its output is the
+    serving call's bits."""
+    q, k, v, _do = _bwd_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D)
+    out, lse = flash_forward_lse(q, k, v, **kw)
+    _o, want = flash_attention.flash_attention_plain(q, k, v,
+                                                     return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert same_bits(out, flash_attention.flash_attention(q, k, v, **kw))
+
+
+def test_flash_attention_bwd_raises_on_a_failed_launch(cuda, monkeypatch):
+    """A backward whose kernel reports an error raises; nothing falls back
+    to the plain version."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 1, 64, 64, 2, 2, 64)
+    q.requires_grad_(True)
+    out = flash_attention.flash_attention(q, k, v)
+    lib = flash_attention.build.library()
+
+    class Failing:
+        def __getattr__(self, name):
+            if name == "pipit_flash_attention_bwd":
+                return lambda *a: 700
+            return getattr(lib, name)
+
+    monkeypatch.setattr(flash_attention.build, "library", lambda: Failing())
+    monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain",
+                        lambda *a, **k: pytest.fail("plain version ran"))
+    with pytest.raises(RuntimeError, match="flash_attention_bwd: CUDA "
+                                           "error 700"):
+        out.backward(do)
+
+
+def test_train_step_on_the_card_runs_no_plain_version(cuda, monkeypatch,
+                                                      tmp_path):
+    """Two training steps of pipit-lm-100m-smoke on the card: every plain
+    version raises if it is handed a CUDA tensor, the flash forward and
+    backward kernels launch once a layer a step, and the loss is finite."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+
+    def refuse(name, orig):
+        def plain(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"{name} ran on the card")
+            return orig(*args, **kw)
+        return plain
+
+    for mod, name in ((flash_attention, "flash_attention_plain"),
+                      (flash_attention, "flash_attention_bwd_plain"),
+                      (router_topk, "router_topk_plain"),
+                      (topk_gating, "topk_gating_plain")):
+        monkeypatch.setattr(mod, name, refuse(name, getattr(mod, name)))
+    cfg = get_smoke_config("pipit-lm-100m")
+    tr = Trainer(cfg, TrainLoopConfig(steps=2, warmup_steps=1,
+                                      ckpt_dir=str(tmp_path)), device=cuda)
+    stream = SyntheticLMStream(cfg.vocab, 4, 64)
+    fwd, bwd = flash_attention.LAUNCHES, flash_attention.LAUNCHES_BWD
+    out = tr.run(stream)
+    stream.close()
+    assert (flash_attention.LAUNCHES - fwd,
+            flash_attention.LAUNCHES_BWD - bwd) == (2 * cfg.n_layers,
+                                                    2 * cfg.n_layers)
+    assert np.all(np.isfinite(out["losses"])) and out["steps"] == 2
+
+
 @pytest.mark.parametrize("T,E,k", [(4096, 60, 4), (32, 128, 8), (777, 64, 4),
                                    (5, 60, 4), (1000, 300, 2)])
 def test_topk_gating_kernel(cuda, T, E, k):
@@ -1078,16 +1198,46 @@ def _grad_cases(cuda):
     }
 
 
-GRAD_CASES = ["flash_attention", "flash_attention simt", "router_topk fused",
-              "router_topk unfused", "topk_gating narrow", "topk_gating wide"]
+GRAD_CASES = ["router_topk fused", "router_topk unfused",
+              "topk_gating narrow", "topk_gating wide"]
+
+
+@pytest.mark.parametrize("case", ["flash_attention", "flash_attention simt"])
+@pytest.mark.parametrize("which", [0, -1])
+def test_flash_attention_grad_runs_the_backward_kernel(cuda, case, which):
+    """With grad enabled and an input that requires grad, the CUDA flash
+    wrapper (either variant) returns an output with a grad_fn, whose
+    backward launches the backward kernel once and gives its plain
+    version's gradient; under torch.no_grad() the same call has none."""
+    fn, args = _grad_cases(cuda)[case]
+    args = [a.detach() for a in args]
+    args[which].requires_grad_(True)
+    fwd, bwd = flash_attention.LAUNCHES, flash_attention.LAUNCHES_BWD
+    out = fn(*args)
+    assert out.grad_fn is not None
+    do = torch.ones_like(out)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES, flash_attention.LAUNCHES_BWD) == \
+        (fwd + 1, bwd + 1)
+    q, k, v = (a.detach() for a in args)
+    o, lse = flash_attention.flash_attention_plain(q, k, v, return_lse=True)
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, o, do, lse)
+    got = args[which].grad
+    torch.testing.assert_close(got.float(), want[which % 3].float(),
+                               atol=flash_bwd_tol(q.dtype, want[which % 3]),
+                               rtol=0)
+    with torch.no_grad():
+        assert fn(*args).grad_fn is None
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
 @pytest.mark.parametrize("which", [0, -1])
 def test_model_kernels_refuse_grad(cuda, case, which):
-    """With grad enabled and an input that requires grad, each CUDA
-    model-kernel wrapper raises, naming itself, instead of returning
-    outputs with no grad_fn; under torch.no_grad() the same call runs."""
+    """With grad enabled and an input that requires grad, the CUDA
+    router wrappers (``router_topk``, ``topk_gating``: no backward yet)
+    raise, naming themselves, instead of returning outputs with no
+    grad_fn; under torch.no_grad() the same call runs."""
     fn, args = _grad_cases(cuda)[case]
     args = list(args)
     args[which] = args[which].detach().requires_grad_(True)

@@ -54,13 +54,19 @@ NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
                "repro_torch.readers.chrome", "repro_torch.readers.otf2j",
                "repro_torch.readers.hlo", "repro_torch.analysis.hlostats",
                "repro_torch.analysis.roofline", "repro_torch.testing.faults",
-               "repro_torch.launch.pack", "repro_torch.launch.crash_smoke")
+               "repro_torch.launch.pack", "repro_torch.launch.crash_smoke",
+               "repro_torch.configs.pipit_lm_100m",
+               "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+               "repro_torch.data.synthetic",
+               "repro_torch.checkpoint.manager",
+               "repro_torch.runtime.trainer", "repro_torch.launch.train",
+               "repro_torch.launch.train_traced")
 
 
 def test_new_modules_are_checked():
     """The parallel, pack, live, service, set, pathology, analysis-API,
-    reader and robustness-tool modules are among the files checked
-    above."""
+    reader, robustness-tool and training modules are among the files
+    checked above."""
     checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
                for p in PORT_FILES if "src" in p.parts}
     assert set(NEW_MODULES) <= checked
