@@ -21,8 +21,10 @@ Phases (any failure raises and exits non-zero):
              wrapper picks and the SIMT one; its backward kernel in bf16
              and f32 at the training shape, GQA, window + prefix (with an
              offset) and a padded tail, D = 64 and 128, on the forward
-             kernel's output and row log-sum-exp; ``hist_bin`` through its
-             narrow path (up to 32 bins) and its wide one, counts exact, on
+             kernel's output and row log-sum-exp, each bf16 case through
+             both backward variants (tensor-core, picked, and SIMT);
+             ``hist_bin`` through its narrow path (up to 32 bins) and its
+             wide one, counts exact, on
              +inf, 3e9, -0.0, NaN and -inf coordinates, N = 1, N not a
              multiple of 4 and coordinates off the 16-byte boundary; top-k
              through its narrow path (E up to 128) and its wide one, each
@@ -260,9 +262,10 @@ Phases (any failure raises and exits non-zero):
              checked first) and a fault at step 6: 1 restart, 12 steps,
              finite losses whose last 3 average below the first 3; the
              counts of every kernel reset just before and read just
-             after: the flash forward (tensor-core variant) and its
-             backward kernel each 12 layers x the steps run, ``seg_sum``
-             and ``time_bin`` from the run's own trace analysed on the
+             after: the flash forward and its backward kernel each 12
+             layers x the steps run, every launch of both the tensor-core
+             variant, ``seg_sum`` and ``time_bin`` from the run's own
+             trace analysed on the
              card (``flat_profile`` names ``train_step``, ``data_wait``,
              ``checkpoint``, ``restore``), the router kernels none; ms a
              step, tokens/s and the model FLOPs' share of 989 TFLOP/s
@@ -270,13 +273,16 @@ Phases (any failure raises and exits non-zero):
              pipit-lm-100m-smoke in f32 from one seeded weight set trained
              3 steps on the card and on the CPU, losses within 1e-4; and
              the backward kernel's row on the path's first backward call
-             (library: SDPA's backward through autograd, timed only).
+             (library: SDPA's backward through autograd, timed only; the
+             SIMT backward on the same inputs as ``prev_device_ms``).
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
 ``device_ms`` is the summed duration of the device kernels one wrapper
-call launches, read from ``torch.profiler``.  The rows of ``seg_sum``,
-``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating`` name their
+call launches, read from ``torch.profiler``; a model row's
+``library_device_ms`` is the same for its library call.  The rows of
+``seg_sum``, ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating``
+name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
 launches on the query, stream, pack, parallel, formats, set, diagnose,
@@ -782,7 +788,8 @@ def check_flash_bwd(rng) -> None:
     """The backward kernel against its plain version on the card, on the
     output and row log-sum-exp of the forward kernel the wrapper picks:
     the training shape and the edge cases in bf16 and f32, D = 64 and
-    128; bit-identical on relaunch."""
+    128, each bf16 case through both variants (the picked one through
+    the wrapper); bit-identical on relaunch."""
     from repro_torch.kernels import flash_attention as fa
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -805,17 +812,23 @@ def check_flash_bwd(rng) -> None:
         o, lse = flash_forward_lse(q, k, v, **kw)
         do = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(
             np.float32)).cuda().to(q.dtype)
-        got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-        again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
         want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
-        torch.cuda.synchronize()
-        if not all(same_bits(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"flash_attention_bwd [{label}]: relaunch "
-                                 f"differs")
-        err, each = flash_bwd_err(got, want, label)
-        log(f"[kernels] flash_attention_bwd {label:42s} ok  max_abs_err="
-            f"{err:.6g} (tol {each['dq'][1]:.3g} on dq)  "
-            f"bit-identical relaunch")
+        picked = fa.variant_bwd(q.dtype, q.shape[-1])
+        for name in dict.fromkeys((picked, "simt")):
+            run = (fa.flash_attention_bwd if name == picked else
+                   lambda *a, _n=name, **k: fa.flash_attention_bwd_variant(
+                       _n, *a, **k))
+            got = run(q, k, v, o, do, lse, **kw)
+            again = run(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash_attention_bwd [{label}, "
+                                     f"{name}]: relaunch differs")
+            err, each = flash_bwd_err(got, want, f"{label}, {name}")
+            log(f"[kernels] flash_attention_bwd {label:42s} {name:5s}"
+                f"{' (picked)' if name == picked else '         '} ok  "
+                f"max_abs_err={err:.6g} (tol {each['dq'][1]:.3g} on dq)  "
+                f"bit-identical relaunch")
 
 
 def _topk_nan_row(tg) -> None:
@@ -3199,6 +3212,8 @@ def phase_train() -> list:
             mod.LAUNCHES = 0
         fa.LAUNCHES_BWD = 0
         fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
+        fa.VARIANT_LAUNCHES_BWD.update(
+            dict.fromkeys(fa.VARIANT_LAUNCHES_BWD, 0))
         fa.flash_attention_bwd = capture
         try:
             t0 = time.perf_counter()
@@ -3210,6 +3225,7 @@ def phase_train() -> list:
                     for mod in kernels.KERNELS}
         launches["flash_attention_bwd"] = fa.LAUNCHES_BWD
         by_variant = dict(fa.VARIANT_LAUNCHES)
+        by_variant_bwd = dict(fa.VARIANT_LAUNCHES_BWD)
         peak = torch.cuda.max_memory_allocated()
         out = run.summary
         losses = out["losses"]
@@ -3222,7 +3238,8 @@ def phase_train() -> list:
             f"{steps_run} steps run, wall {wall:.2f} s; losses "
             f"{', '.join(f'{x:.4f}' for x in losses)}")
         log(f"[train] launches {json.dumps(launches)}; flash_attention by "
-            f"variant {json.dumps(by_variant)}")
+            f"variant {json.dumps(by_variant)}, its backward by variant "
+            f"{json.dumps(by_variant_bwd)}")
         if out["restarts"] != 1 or out["steps"] != TRAIN["steps"]:
             raise AssertionError(f"train: {out['restarts']} restarts, "
                                  f"{out['steps']} steps")
@@ -3232,9 +3249,11 @@ def phase_train() -> list:
                                  f"not falling")
         want = cfg.n_layers * steps_run
         if (launches["flash_attention"], by_variant["wgmma"],
-                launches["flash_attention_bwd"]) != (want, want, want):
+                launches["flash_attention_bwd"],
+                by_variant_bwd["wgmma"]) != (want, want, want, want):
             raise AssertionError(f"train: flash launches {launches}, "
-                                 f"{by_variant}; expected {want} each")
+                                 f"{by_variant}, backward {by_variant_bwd}; "
+                                 f"expected {want} each, all wgmma")
         if launches["router_topk"] or launches["topk_gating"] or \
                 launches["seg_sum"] < 1 or launches["time_bin"] < 1:
             raise AssertionError(f"train: launches {launches}")
@@ -3365,6 +3384,17 @@ def _bwd_row(call, launches) -> dict:
         f"visible pairs per head")
     row["library"] = "SDPA backward (torch.autograd.grad)"
     row["max_abs_err_limit"] = {n: t for n, (_e, t) in each.items()}
+    # the SIMT backward, which served this path before, on the same inputs
+    simt = lambda: fa.flash_attention_bwd_variant(  # noqa: E731
+        "simt", q, k, v, o, do, lse, **kw)
+    prev_err, _each = flash_bwd_err(simt(), want, "train path, simt")
+    row.update(variant=fa.variant_bwd(q.dtype, D), prev_variant="simt",
+               prev_ms=cuda_ms(simt, iters=20),
+               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
+    log(f"[train] flash_attention_bwd variant {row['variant']}; the SIMT "
+        f"backward on the same inputs {row['prev_ms']:.4f} ms (device "
+        f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g}); "
+        f"SDPA's backward device {row['library_device_ms']:.4f} ms")
     return row
 
 
@@ -3663,18 +3693,21 @@ def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
     names = sorted(by_kernel)
     plain_ms = cuda_ms(plain, iters=5, warm=1)
     library_ms = cuda_ms(library, iters=20)
+    library_dev_ms = device_ms(library)[0]
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
     log(f"[timing] {name:15s} {shape:60s} kernel {ms:.4f} ms (device "
         f"{dev_ms:.4f} ms) | plain {plain_ms:.4f} ms | library "
-        f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) | "
-        f"launches {launches[name]} | device kernels {names}")
+        f"{library_ms:.4f} ms (device {library_dev_ms:.4f} ms) | bound "
+        f"{bound_ms:.4f} ms ({bound_by}) | launches {launches[name]} | "
+        f"device kernels {names}")
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms, "shape": shape,
             "device_kernels": names, "checked": True}
 
 

@@ -69,9 +69,9 @@ SIGNATURES = {
     #  causal, has_window, window, prefix_len, q_offset, scale, stream)
     "pipit_flash_attention": (_I32, *(_P,) * 5, *(_I32,) * 13, _F32, _P),
     # (device, q, k, v, o, dout, lse, dq, dk, dv, delta, B, Sq, Sk, H, KVH,
-    #  D, dtype, causal, has_window, window, prefix_len, q_offset, scale,
-    #  stream)
-    "pipit_flash_attention_bwd": (_I32, *(_P,) * 10, *(_I32,) * 12, _F32,
+    #  D, dtype, variant, causal, has_window, window, prefix_len, q_offset,
+    #  scale, stream)
+    "pipit_flash_attention_bwd": (_I32, *(_P,) * 10, *(_I32,) * 13, _F32,
                                   _P),
     # (device, logits, T, E, k, idx, gates, stream)
     "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),

@@ -25,12 +25,22 @@ launches its variant or raises.
 Training: when grad mode is on and an input requires grad, a CUDA call
 goes through an ``autograd.Function`` whose forward is the same kernel,
 asked to write each row's log-sum-exp as well, and whose backward is
-:func:`flash_attention_bwd`: the hand-written kernel of
+:func:`flash_attention_bwd`: the hand-written kernels of
 ``csrc/flash_attention_bwd.cu`` (no TPU counterpart: the reference's
 Pallas kernel is forward-only and it trains by autodiff through
-``chunked_attention``).  :func:`flash_attention_bwd_plain` is its plain
-version.  Serving, under ``torch.no_grad()``, launches as before and
-writes no log-sum-exp.
+``chunked_attention``), chosen by :func:`variant_bwd` with the forward's
+rule:
+
+- ``"wgmma"`` (bfloat16 at D = 64 or 128, the training shape):
+  ``bwd_dkdv_wgmma`` and ``bwd_dq_wgmma``, every product on the tensor
+  cores; P and dS are rounded to bfloat16 before the three gradient
+  products.  Held to the bf16 gate, 3e-2 x each gradient's largest
+  magnitude (``launch.cardcheck.flash_bwd_tol``).
+- ``"simt"`` (float32, and bfloat16 at D = 16 or 32): ``bwd_dkdv`` and
+  ``bwd_dq``, f32 FMAs, held to 2e-5 x that magnitude in float32.
+
+:func:`flash_attention_bwd_plain` is their plain version.  Serving, under
+``torch.no_grad()``, launches as before and writes no log-sum-exp.
 
 Both scale the query in its own dtype before the f32 cast, as
 ``chunked_attention`` — the function the model calls — does; the Pallas
@@ -49,16 +59,19 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_variant", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "variant", "mask", "LAUNCHES",
-           "VARIANT_LAUNCHES", "LAUNCHES_BWD"]
+           "flash_attention_bwd_plain", "flash_attention_bwd_variant",
+           "variant", "variant_bwd", "mask", "LAUNCHES", "VARIANT_LAUNCHES",
+           "LAUNCHES_BWD", "VARIANT_LAUNCHES_BWD"]
 
 #: kernel launches since import (one per wrapper call that launches)
 LAUNCHES = 0
 #: the same launches by kernel variant
 VARIANT_LAUNCHES = {"simt": 0, "wgmma": 0}
 #: backward-kernel launches since import (one per backward call on the
-#: card: the three kernels of csrc/flash_attention_bwd.cu)
+#: card: the three kernels of a variant of csrc/flash_attention_bwd.cu)
 LAUNCHES_BWD = 0
+#: the same launches by backward variant
+VARIANT_LAUNCHES_BWD = {"simt": 0, "wgmma": 0}
 
 _NEG = -1e30
 _CHUNK = 1024             # KV chunk of the plain scan (chunked_attention's)
@@ -76,6 +89,13 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def variant_bwd(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel a CUDA call with this dtype and head dim
+    launches, by :func:`variant`'s rule: ``"wgmma"`` (tensor cores) for
+    bfloat16 at D = 64 or 128, else ``"simt"``."""
+    return variant(dtype, head_dim)
 
 
 def mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -313,9 +333,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of :func:`flash_attention`: q, o, do ``[B, Sq, H, D]``,
     k/v ``[B, Sk, KVH, D]`` (one dtype of float32 or bfloat16) and the
     forward's row log-sum-exp ``lse`` (f32 ``[B, H, Sq]``) → (dq, dk, dv)
-    in the inputs' dtype; on the card through the backward kernel (one
-    launch of its three kernels), on a CPU tensor its plain version."""
+    in the inputs' dtype; on the card through the backward kernel
+    :func:`variant_bwd` picks (one launch of its three kernels), on a CPU
+    tensor its plain version."""
+    return flash_attention_bwd_variant(
+        variant_bwd(q.dtype, q.shape[-1]), q, k, v, o, do, lse,
+        causal=causal, window=window, prefix_len=prefix_len,
+        q_offset=q_offset, scale=scale)
+
+
+def flash_attention_bwd_variant(name: str, q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                do: torch.Tensor, lse: torch.Tensor, *,
+                                causal: bool = True,
+                                window: Optional[int] = None,
+                                prefix_len: int = 0, q_offset: int = 0,
+                                scale: Optional[float] = None):
+    """:func:`flash_attention_bwd` through the named kernel (``"simt"`` or
+    ``"wgmma"``) whatever :func:`variant_bwd` would pick, to compare the
+    two on the same inputs; a CPU tensor still runs the plain version.
+    ``"wgmma"`` takes bfloat16 at D = 64 or 128 only, and on the card
+    16-byte aligned q, k, v and o (its TMA loads); an unaligned ``do``,
+    which autograd hands over, is copied once instead."""
     global LAUNCHES_BWD
+    if name not in _VARIANT_IDS:
+        raise ValueError(f"flash_attention_bwd: unknown variant {name!r}")
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or k.shape != v.shape or \
@@ -328,6 +370,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.dtype not in _DTYPES or lse.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: q, k, v, o, do of one dtype "
                         "(float32 or bfloat16) and an f32 lse expected")
+    if name == "wgmma" and (q.dtype != torch.bfloat16 or
+                            D not in _WGMMA_HEAD_DIMS):
+        raise ValueError(f"flash_attention_bwd: the wgmma kernel takes "
+                         f"bfloat16 at D in {_WGMMA_HEAD_DIMS}, got "
+                         f"{q.dtype} at D = {D}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, o, do, lse, causal=causal, window=window,
@@ -347,6 +394,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535 or H > 65535:
         raise ValueError(f"flash_attention_bwd: B = {B} or H = {H} above "
                          f"65535")
+    if name == "wgmma":
+        if any(t.data_ptr() % 16 for t in (q, k, v, o)):
+            raise ValueError("flash_attention_bwd: the wgmma kernel's TMA "
+                             "loads need 16-byte aligned q, k, v, o")
+        if do.data_ptr() % 16:
+            do = do.clone()              # a fresh, aligned allocation
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -354,10 +407,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(build.library().pipit_flash_attention_bwd(
         q.device.index or 0, *(t.data_ptr() for t in (
             q, k, v, o, do, lse, dq, dk, dv, delta)), B, Sq, Sk, H, KVH, D,
-        _DTYPES[q.dtype], int(causal), int(window is not None),
-        int(window or 0), int(prefix_len), int(q_offset),
-        float(scale or D ** -0.5), build.stream_of(q)),
+        _DTYPES[q.dtype], _VARIANT_IDS[name], int(causal),
+        int(window is not None), int(window or 0), int(prefix_len),
+        int(q_offset), float(scale or D ** -0.5), build.stream_of(q)),
         "flash_attention_bwd")
     with build.COUNT_LOCK:
         LAUNCHES_BWD += 1
+        VARIANT_LAUNCHES_BWD[name] += 1
     return dq, dk, dv

@@ -13,6 +13,14 @@ order), 3e-2 x that magnitude in bfloat16 (gradients rounded to bf16 on
 both sides, about 3 significant digits): ``cardcheck.flash_bwd_tol``, the
 gate the card's tests and ``chip_smoke.py`` hold the kernel to.  The kernel itself runs
 only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+The tensor-core backward (``"wgmma"``, bfloat16 at D = 64 or 128) rounds
+P and dS to bfloat16 before its three gradient products.  An emulation of
+that rounding in plain PyTorch (with the tensor-core forward's own
+rounding of P before P·V for O) is held here to the same bf16 gate of
+``jax.value_and_grad`` on every case, so the design's numerics are known
+to fit the gate before any card runs it.  :func:`variant_bwd`'s table and
+:func:`flash_attention_bwd_variant`'s checks are tested here too.
 """
 
 import functools
@@ -36,6 +44,7 @@ CASES = {
     "window+prefix": (1, 48, 48, 4, 2, 16, {"window": 8, "prefix_len": 3}),
     "padded-tail": (1, 9, 1100, 2, 1, 16, {"q_offset": 1091}),
     "q_offset": (1, 7, 20, 2, 2, 16, {"q_offset": 13}),
+    "causal-d64-gqa2": (2, 64, 64, 4, 2, 64, {}),
 }
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -66,7 +75,7 @@ def _jax_grads(case, tag):
         o = jax_chunked(q, k, v, **kw)
         return jnp.sum(o.astype(jnp.float32) * do.astype(jnp.float32))
 
-    grads = jax.grad(f, (0, 1, 2))(q, k, v)
+    _loss, grads = jax.value_and_grad(f, (0, 1, 2))(q, k, v)
     return [np.asarray(g, np.float32) for g in grads]
 
 
@@ -185,3 +194,90 @@ def test_flash_no_longer_refuses_grad_but_the_router_kernels_do():
         assert f'build.refuse_grad("{name}"' in inspect.getsource(mod)
     assert build.SIGNATURES["pipit_flash_attention_bwd"]
     assert "flash_attention_bwd.cu" in build.SOURCES
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 16, "simt"),
+])
+def test_variant_bwd_table(dtype, D, want):
+    """The backward picks by the forward's rule, from dtype and D alone."""
+    assert fa.variant_bwd(dtype, D) == want == fa.variant(dtype, D)
+
+
+def test_bwd_variant_checks_and_cpu_plain_version():
+    """``flash_attention_bwd_variant`` refuses an unknown name and, for
+    ``"wgmma"``, any dtype but bfloat16 or a D outside 64 / 128, on every
+    device; on a CPU tensor either name runs the plain version and
+    launches nothing."""
+    arrs, kw = _inputs("causal-d64-gqa2", seed=6)
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    with pytest.raises(ValueError, match="unknown variant"):
+        fa.flash_attention_bwd_variant("tiled", q, k, v, o, do, lse)
+    with pytest.raises(ValueError, match="wgmma kernel takes bfloat16"):
+        fa.flash_attention_bwd_variant("wgmma", *(x.float() for x in (
+            q, k, v, o, do)), lse)
+    with pytest.raises(ValueError, match="wgmma kernel takes bfloat16"):
+        fa.flash_attention_bwd_variant("wgmma", *(x[..., :32].contiguous()
+                                                  for x in (q, k, v, o, do)),
+                                       lse)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    before = (fa.LAUNCHES_BWD, dict(fa.VARIANT_LAUNCHES_BWD))
+    for name in ("wgmma", "simt"):
+        got = fa.flash_attention_bwd_variant(name, q, k, v, o, do, lse, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (fa.LAUNCHES_BWD, fa.VARIANT_LAUNCHES_BWD) == before
+
+
+def _wgmma_numerics(q, k, v, do, *, causal=True, window=None, prefix_len=0,
+                    q_offset=0):
+    """The tensor-core kernels' arithmetic in plain PyTorch: the forward
+    (P rounded to bf16 before P V, l summed from the f32 P; the row
+    log-sum-exp from f32) and the backward (P^T and dS^T rounded to bf16
+    before dV = P^T dO, dK = dS^T qq and dQ = scale dS K; dS formed from the
+    f32 P), every sum in f32.  Returns (dq, dk, dv) in bf16."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = D ** -0.5
+    qq = (q.reshape(B, Sq, KVH, G, D) * scale).to(q.dtype).float()
+    kf, vf = k.float(), v.float()
+    dof = do.reshape(B, Sq, KVH, G, D).float()
+    allow = fa.mask(q_offset + torch.arange(Sq), torch.arange(Sk), causal,
+                    window, prefix_len)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qq, kf)
+    s = torch.where(allow, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(allow, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    bf = lambda x: x.to(torch.bfloat16).float()          # noqa: E731
+    o = bf(torch.einsum("bhgqk,bkhd->bhgqd", bf(p), vf) / l)
+    lse = m + torch.log(l)
+    p = torch.where(allow, torch.exp(s - lse), 0.0)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", bf(p), dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    delta = (dof * o.permute(0, 3, 1, 2, 4)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", bf(ds), kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", bf(ds), qq)
+    return (dq.reshape(B, Sq, H, D).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_p_and_ds_rounding_within_gate_of_jax(case):
+    """The precision change of the tensor-core backward (P and dS in bf16
+    before the gradient products), with the forward's (P in bf16 before
+    P V), keeps the gradient within the bf16 gate of the reference
+    model's ``jax.value_and_grad``; and it is a change: the plain version
+    (P and dS in f32) gives other bits."""
+    arrs, kw = _inputs(case)
+    q, k, v, do = (_to_torch(a, torch.bfloat16) for a in arrs)
+    got = _wgmma_numerics(q, k, v, do, **kw)
+    _check(got, _jax_grads(case, "bf16"), "bf16")
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    assert not all(torch.equal(g, w) for g, w in zip(got, plain))

@@ -31,9 +31,13 @@ start off the 16-byte boundary.  The two router wrappers refuse a
 gradient they cannot give: with grad enabled and an input that requires
 grad they raise.  Flash attention's backward kernel is held to its plain
 version at the training shape and the edge cases (bit-identical on
-relaunch), the forward's row log-sum-exp to the plain one, a failed
-backward launch raises, and a training step of pipit-lm-100m-smoke on the
-card runs no plain version.  The lazy query and streaming routes give, on the card,
+relaunch), each bfloat16 case at D = 64 or 128 through both of its
+variants (``"wgmma"``, the tensor cores, and ``"simt"``), the forward's
+row log-sum-exp to the plain one; a failed backward launch of either
+variant and an unaligned q, k, v or o under ``"wgmma"`` raise (an
+unaligned dO is copied once, to the same bits); a training step of
+pipit-lm-100m-smoke on the card runs no plain version, and in bfloat16
+at head dim 64 launches only the ``"wgmma"`` backward.  The lazy query and streaming routes give, on the card,
 the same bits as the in-memory route on the same selection for each of
 the six kernel-backed ops (``stragglers`` among them), and
 ``stragglers`` on the card matches the CPU path within the gate.  So do
@@ -54,6 +58,8 @@ route and gives the eager digest on every route; ``/setquery`` and
 one ``seg_sum`` launch per run, and the twelve host-op calls of the rest
 of the analysis API launch nothing and give the CPU trace's bits.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -686,28 +692,54 @@ def _bwd_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D):
                                        (B, Sk, KVH, D), (B, Sq, H, D))]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", BWD_CASES)
-def test_flash_attention_bwd_kernel(cuda, dtype, B, Sq, Sk, H, KVH, D, kw):
-    """The backward kernel against its plain version on the same inputs
-    (the plain forward's output and log-sum-exp), bit-identical on
-    relaunch, one launch a call."""
+def _bwd_variant_cases():
+    """(dtype, case, variant): every case through the kernel the wrapper
+    picks, and each bfloat16 case at D = 64 or 128 through the SIMT
+    kernel as well."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in BWD_CASES:
+            picked = flash_attention.variant_bwd(dtype, case[5])
+            for name in dict.fromkeys((picked, "simt")):
+                out.append(pytest.param(
+                    dtype, *case, name,
+                    id=f"{str(dtype)[6:]}-{'x'.join(map(str, case[:6]))}"
+                       f"-{case[6]}-{name}"))
+    return out
+
+
+@pytest.mark.parametrize("dtype,B,Sq,Sk,H,KVH,D,kw,name",
+                         _bwd_variant_cases())
+def test_flash_attention_bwd_kernel(cuda, dtype, B, Sq, Sk, H, KVH, D, kw,
+                                    name):
+    """The backward kernel ``name`` against its plain version on the same
+    inputs (the plain forward's output and log-sum-exp), bit-identical on
+    relaunch, one launch a call; the variant the wrapper picks gives the
+    wrapper's bits."""
     q, k, v, do = _bwd_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D)
     o, lse = flash_attention.flash_attention_plain(q, k, v, return_lse=True,
                                                    **kw)
     o = o.contiguous()          # the plain scan's output is a strided view
-    before = flash_attention.LAUNCHES_BWD
-    got = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-    again = flash_attention.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    before = (flash_attention.LAUNCHES_BWD,
+              flash_attention.VARIANT_LAUNCHES_BWD[name])
+    run = functools.partial(flash_attention.flash_attention_bwd_variant,
+                            name, q, k, v, o, do, lse, **kw)
+    got, again = run(), run()
     want = flash_attention.flash_attention_bwd_plain(q, k, v, o, do, lse,
                                                      **kw)
     torch.cuda.synchronize()
-    assert flash_attention.LAUNCHES_BWD == before + 2
+    assert (flash_attention.LAUNCHES_BWD,
+            flash_attention.VARIANT_LAUNCHES_BWD[name]) == (
+        before[0] + 2, before[1] + 2)
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert same_bits(g, a), "relaunch not bit-identical"
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=flash_bwd_tol(dtype, w))
+    if name == flash_attention.variant_bwd(dtype, D):
+        picked = flash_attention.flash_attention_bwd(q, k, v, o, do, lse,
+                                                     **kw)
+        assert all(same_bits(g, p) for g, p in zip(got, picked))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -740,12 +772,49 @@ def test_flash_attention_bwd_raises_on_a_failed_launch(cuda, monkeypatch):
                 return lambda *a: 700
             return getattr(lib, name)
 
+    o, lse = flash_forward_lse(q.detach(), k, v)
     monkeypatch.setattr(flash_attention.build, "library", lambda: Failing())
     monkeypatch.setattr(flash_attention, "flash_attention_bwd_plain",
                         lambda *a, **k: pytest.fail("plain version ran"))
+    assert flash_attention.variant_bwd(q.dtype, 64) == "wgmma"
     with pytest.raises(RuntimeError, match="flash_attention_bwd: CUDA "
                                            "error 700"):
         out.backward(do)
+    for name in ("wgmma", "simt"):
+        with pytest.raises(RuntimeError, match="flash_attention_bwd: CUDA "
+                                               "error 700"):
+            flash_attention.flash_attention_bwd_variant(
+                name, q.detach(), k, v, o, do, lse)
+    # an unaligned q, k, v or o: the wgmma kernel's TMA loads refuse it
+    args = [q.detach(), k, v, o]
+    for i in range(4):
+        bad = list(args)
+        bad[i] = _unaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention.flash_attention_bwd_variant("wgmma", *bad, do,
+                                                        lse)
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` that starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    return y
+
+
+def test_flash_attention_bwd_copies_an_unaligned_do(cuda):
+    """The wgmma backward copies an unaligned dO (autograd hands one over)
+    once, and gives the aligned call's bits."""
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 200, 200, 8, 2, 128)
+    o, lse = flash_forward_lse(q, k, v)
+    want = flash_attention.flash_attention_bwd_variant("wgmma", q, k, v, o,
+                                                       do, lse)
+    got = flash_attention.flash_attention_bwd_variant(
+        "wgmma", q, k, v, o, _unaligned(do), lse)
+    assert all(same_bits(g, w) for g, w in zip(got, want))
 
 
 def test_train_step_on_the_card_runs_no_plain_version(cuda, monkeypatch,
@@ -779,6 +848,32 @@ def test_train_step_on_the_card_runs_no_plain_version(cuda, monkeypatch,
     assert (flash_attention.LAUNCHES - fwd,
             flash_attention.LAUNCHES_BWD - bwd) == (2 * cfg.n_layers,
                                                     2 * cfg.n_layers)
+    assert np.all(np.isfinite(out["losses"])) and out["steps"] == 2
+
+
+def test_bf16_train_step_launches_only_the_wgmma_backward(cuda, tmp_path):
+    """Two bfloat16 steps of pipit-lm-100m-smoke at head dim 64 (its 16 is
+    below the tensor-core kernels' 64): every backward launch is the
+    ``"wgmma"`` variant, as is every forward one, and the loss is
+    finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+    cfg = dataclasses.replace(get_smoke_config("pipit-lm-100m"), head_dim=64)
+    tr = Trainer(cfg, TrainLoopConfig(steps=2, warmup_steps=1,
+                                      ckpt_dir=str(tmp_path),
+                                      dtype=torch.bfloat16), device=cuda)
+    stream = SyntheticLMStream(cfg.vocab, 4, 64)
+    fwd = dict(flash_attention.VARIANT_LAUNCHES)
+    bwd = dict(flash_attention.VARIANT_LAUNCHES_BWD)
+    out = tr.run(stream)
+    stream.close()
+    ran = {n: flash_attention.VARIANT_LAUNCHES_BWD[n] - bwd[n] for n in bwd}
+    assert ran == {"simt": 0, "wgmma": 2 * cfg.n_layers}
+    assert {n: flash_attention.VARIANT_LAUNCHES[n] - fwd[n] for n in fwd} \
+        == {"simt": 0, "wgmma": 2 * cfg.n_layers}
     assert np.all(np.isfinite(out["losses"])) and out["steps"] == 2
 
 
