@@ -2,6 +2,25 @@
 
     python3 chip_smoke.py
 
+It runs in three processes on the one card.  After phases 1-2 this
+process starts ``chip_smoke.py --lm-half DIR``, the LM half's run: phase
+3's model-kernel cases, then phases 18-20, 22 and 23, side by side with
+the trace half (phase 3's trace-kernel cases and phases 4-16, host-bound)
+here; it saves the inputs of the LM timing rows to ``DIR`` and exits.
+``chip_smoke.py --lm-timing DIR`` starts with it and waits.  When both
+the trace half and the LM run are done, phase 17 times the trace kernels
+here; then this process waits while the timing process runs every row
+that times an LM kernel (phase 21, the train step's profile and the
+backward kernel's row), so no timing shares the card; its profiler
+sessions are its first (in a process that had profiled before a long
+wait, sessions recorded only part of the kernels).  The children's lines
+come through behind the tags ``[lm]`` and ``[lm timing]``.  A failure
+in any process fails the run (the trace half checks the children
+between its phases); the last line is printed only after all passed.
+Each half logs its peak device memory (their sum must fit the card) and
+the run logs each half's wall and how much of the LM half's work the
+trace half hid.
+
 Phases (any failure raises and exits non-zero):
 
 1. device  — name, count and ``nvidia-smi`` name / power limit;
@@ -16,7 +35,10 @@ Phases (any failure raises and exits non-zero):
              two sides, large grids, NaN and infinite coordinates for
              ``time_bin``; flash attention in bf16
              and f32 with causal, window + prefix, non-causal, GQA,
-             padded-tail and one-query cases, each bf16 case at D = 64 or
+             padded-tail and one-query cases, gemma3-27b's local layers
+             (H 32 over KVH 16, D = 128, window 1,024) and hymba-1.5b's
+             (H 25 over KVH 5, D = 64, window 1,024 + 128 prefix keys,
+             rows whose window edge falls past the prefix), each bf16 case at D = 64 or
              128 through both kernel variants, the tensor-core one the
              wrapper picks and the SIMT one; its backward kernel in bf16
              and f32 at the training shape, GQA, window + prefix (with an
@@ -246,7 +268,8 @@ Phases (any failure raises and exits non-zero):
              before);
 20. path   — qwen2-moe-smoke in f32 with one seeded weight set served on
              the card (kernels) and on the CPU (plain versions): the same
-             greedy tokens, prefill logits within 1e-3;
+             greedy tokens, prefill logits within 1e-3 (phase 23 does the
+             same for each of its families);
 21. timing — each model kernel on the inputs its path gave it, against
              its plain version, with one library call and its bound;
              flash attention also through its SIMT variant (``prev_ms``,
@@ -269,12 +292,34 @@ Phases (any failure raises and exits non-zero):
              card (``flat_profile`` names ``train_step``, ``data_wait``,
              ``checkpoint``, ``restore``), the router kernels none; ms a
              step, tokens/s and the model FLOPs' share of 989 TFLOP/s
-             logged; one step under ``torch.profiler``; then
+             logged; then
              pipit-lm-100m-smoke in f32 from one seeded weight set trained
              3 steps on the card and on the CPU, losses within 1e-4; and
-             the backward kernel's row on the path's first backward call
+             (in the timing process) one step of a trainer drawn from
+             seed 0 under ``torch.profiler`` and the backward kernel's row
+             on the path's first backward call
              (library: SDPA's backward through autograd, timed only; the
-             SIMT backward on the same inputs as ``prev_device_ms``).
+             SIMT backward on the same inputs as ``prev_device_ms``);
+23. family — gemma3-27b (62 layers: 10 x (5 local at window 1,024 + 1
+             global) + 2 local), hymba-1.5b (32 layers of attention at
+             window 1,024 with 128 meta tokens beside the SSD) and
+             mamba2-130m (24 SSD layers) served at full width through
+             ``launch.serve``, bf16 weights from seed 0: gemma3 4
+             requests (prompts up to 2,048, one wave padded past the
+             window, cache 4,096), hymba and mamba2 8 (prompts up to
+             1,024, 2 waves, cache 2,048), 16 new tokens, batch 4; counts
+             reset just before and read just after each (flash one launch
+             a layer with attention a wave, all ``"wgmma"``, none for
+             mamba2; no router kernel); the waves' padded lengths and
+             decode positions logged (hymba's below 1,151: its meta
+             positions in the ring); the first request's last decode step
+             against ``LM.forward`` on its padded prompt and fed tokens
+             within 5 % of the forward's largest |logit|, each greedy
+             token the forward's argmax up to a tie within that; each
+             family's smoke config served on the card and on the CPU as
+             in phase 20; parameters, peak memory, prefill s a wave and
+             decode ms a step logged, and (with the timing) a decode
+             step's device busy share.
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
@@ -300,6 +345,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -325,8 +371,16 @@ SERVE = dict(arch=ARCH, requests=8, batch=4, prompt_len=1024,
 SMI = ["card not read yet"]
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(*parts) -> None:
-    print(*parts, flush=True)
+    """One line to standard output, whole: the LM half's forwarded lines
+    come from another thread."""
+    text = " ".join(map(str, parts)) + "\n"
+    with _LOG_LOCK:
+        sys.stdout.write(text)
+        sys.stdout.flush()
 
 
 # ---------------------------------------------------------------------------
@@ -683,6 +737,16 @@ def phase_model_kernels() -> None:
             (f"{tag} D=64 GQA 4, window 64 + prefix 8", tol,
              _flash_case(rng, 1, 40, 1300, 8, 2, 64, dtype, q_offset=1260,
                          window=64, prefix_len=8)),
+            # gemma3-27b's local layers: H 32 over KVH 16, window 1,024
+            (f"{tag} gemma3 local 2x2048 H32/KV16 D=128 window 1024", tol,
+             _flash_case(rng, 2, 2048, 2048, 32, 16, 128, dtype,
+                         window=1024)),
+            # hymba-1.5b: H 25 over KVH 5 (G = 5), window 1,024 + 128 meta
+            # keys; rows past 1,151 put the window's edge inside a key tile
+            # beyond the prefix
+            (f"{tag} hymba 2x1300 H25/KV5 D=64 window 1024 + prefix 128",
+             tol, _flash_case(rng, 2, 1300, 1300, 25, 5, 64, dtype,
+                              window=1024, prefix_len=128)),
         ]
     topk = [
         ("serve T=4096 E=60 k=4", _topk_case(rng, 4096, 60, 4)),
@@ -730,7 +794,7 @@ def phase_model_kernels() -> None:
             err = within(tol)(got.float().cpu().numpy(),
                               want.float().cpu().numpy())
             seen.add(name)
-            log(f"[kernels] flash_attention {label:40s} {name:5s}"
+            log(f"[kernels] flash_attention {label:52s} {name:5s}"
                 f"{' (picked)' if name == picked else '         '} ok  "
                 f"max_abs_err={err:.6g} (tol {tol:g})  bit-identical "
                 f"relaunch")
@@ -3076,7 +3140,7 @@ def phase_serve():
         checks.append(torch.isfinite(logits).all())
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     fa, rt = kernels.flash_attention, kernels.router_topk
     for mod in kernels.MODEL_KERNELS:
         mod.LAUNCHES = 0
@@ -3145,22 +3209,51 @@ def phase_serve():
         f"{k} {v:.4f} s" for k, v in sorted(kernel_s.items())))
     log("[serve] trace spans (count, inclusive s): " + ", ".join(
         f"{n} ({c}, {t / 1e9:.4f})" for n, (c, t) in sorted(prof.items())))
-    wave = [r.prompt for r in run.done[:SERVE["batch"]]]
-    tokens = np.zeros((len(wave), max(map(len, wave))), np.int64)
-    for i, p in enumerate(wave):
-        tokens[i, tokens.shape[1] - len(p):] = p     # the engine's left-pad
-    tokens = torch.from_numpy(tokens).to(run.engine.device)
-    model, cache_len = run.engine.model, SERVE["cache_len"]
-    cache, logits, pos = model.prefill(tokens, cache_len)
-    cur = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
-    profile_step("prefill", lambda: model.prefill(tokens, cache_len))
-    profile_step("decode_step", lambda: model.decode_step(cache, cur, pos,
-                                                          cache_len),
-                 export=True)
+    profile_serving(run.engine.model, SERVE,
+                    first_wave(run.done, SERVE["batch"]), export=True)
     inputs = timer.inputs
-    del run, trace, model, cache
+    del run, trace
     torch.cuda.empty_cache()
     return launches, inputs
+
+
+def first_wave(done, batch: int) -> np.ndarray:
+    """The first wave's prompts, left-padded with token 0 to one length as
+    the engine pads them: [batch, S] int64."""
+    wave = [r.prompt for r in done[:batch]]
+    tokens = np.zeros((len(wave), max(map(len, wave))), np.int64)
+    for i, p in enumerate(wave):
+        tokens[i, tokens.shape[1] - len(p):] = p
+    return tokens
+
+
+def profile_serving(model, spec: dict, wave: np.ndarray,
+                    prefill: bool = True, export: bool = False) -> None:
+    """The served ``model`` (of ``spec``, a :func:`repro_torch.launch.serve.
+    serve` configuration) on the first ``wave`` prefilled, then one prefill
+    (with ``prefill``) and one decode step under ``torch.profiler``
+    (:func:`profile_step`; the decode step's export read back with
+    ``export``); then the decode step's ms, host clock over 5 synchronized
+    steps."""
+    cfg, cache_len = model.cfg, spec["cache_len"]
+    tokens = torch.from_numpy(wave).cuda()
+    cache, logits, pos = model.prefill(tokens, cache_len)
+    cur = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
+    if prefill:
+        profile_step(f"{cfg.name} prefill",
+                     lambda: model.prefill(tokens, cache_len))
+    step = lambda: model.decode_step(cache, cur, pos, cache_len)  # noqa
+    profile_step(f"{cfg.name} decode_step", step, export=export)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"[profile] {cfg.name} decode_step {ms:.3f} ms a step (host clock, "
+        f"5 steps, wave [{wave.shape[0]}, {wave.shape[1]}], position {pos})")
+    del cache, logits
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3175,14 +3268,15 @@ TRAIN = dict(steps=12, batch=16, seq=256, fault_at=6, ckpt_every=4,
 TRAIN_DISK = 8e9
 
 
-def phase_train() -> list:
+def phase_train() -> dict:
     """``repro_torch.launch.train_traced`` on pipit-lm-100m at full width:
     one restart, 12 steps, finite and falling losses; the flash forward
     (tensor-core variant) and backward kernels launched once a layer a
     step run, ``seg_sum`` and ``time_bin`` by the trace's analysis on the
-    card, whose ``flat_profile`` names the run's spans; one step under
-    ``torch.profiler``; the smoke config trained 3 steps on the card and
-    on the CPU from one weight set.  Returns the backward kernel's row."""
+    card, whose ``flat_profile`` names the run's spans; the smoke config
+    trained 3 steps on the card and on the CPU from one weight set.
+    Returns what :func:`train_timing` needs: the trainer, a batch, the
+    launches and the first backward call's inputs."""
     import shutil
     import tempfile
 
@@ -3207,7 +3301,7 @@ def phase_train() -> list:
             raise RuntimeError(f"train phase: {free / 1e9:.2f} GB free in "
                                f"{d}, {TRAIN_DISK / 1e9:.0f} GB needed")
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for mod in kernels.KERNELS:
             mod.LAUNCHES = 0
         fa.LAUNCHES_BWD = 0
@@ -3280,14 +3374,36 @@ def phase_train() -> list:
             f"{n} ({c}, {t / 1e9:.4f})" for n, (c, t) in sorted(
                 prof.items())))
         log(f"[train] time_profile: {len(run.time_profile)} bins")
-        trainer = run.trainer
-        batch = _train_batch(cfg, TRAIN, trainer.step)
-        profile_step("train_step", lambda: trainer.train_one(
-            batch, trainer.step))
-        del run, trainer, batch
+        kept = {"launches": launches, "call": captured["call"]}
+        del run
     torch.cuda.empty_cache()
     train_path()
-    return [_bwd_row(captured["call"], launches)]
+    return kept
+
+
+def train_stepper():
+    """A trainer at the train phase's width, batch and dtype, drawn from
+    its seed (a step's kernels do not depend on the weights' values), its
+    first step run; returns a call that runs its last step again."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train_traced import DTYPES
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+    cfg = get_config("pipit-lm-100m")
+    step = TRAIN["steps"] - 1
+    trainer = Trainer(cfg, TrainLoopConfig(
+        steps=TRAIN["steps"], peak_lr=3e-3, warmup_steps=1, ckpt_every=0,
+        dtype=DTYPES[TRAIN["dtype"]]), device="cuda")
+    batch = _train_batch(cfg, TRAIN, step)
+    trainer.train_one(batch, step)
+    return lambda: trainer.train_one(batch, step)
+
+
+def train_timing(kept: dict, stepper) -> list:
+    """One train step (``stepper``, :func:`train_stepper`) under
+    ``torch.profiler``, and the backward kernel's row on the path's first
+    backward call."""
+    profile_step("train_step", stepper)
+    return [_bwd_row(kept["call"], kept["launches"])]
 
 
 def _train_batch(cfg, train, step):
@@ -3511,18 +3627,23 @@ def phase_f32_router():
     return launches, inputs
 
 
-def phase_path() -> None:
-    """The smoke config served on the card and on the CPU through the same
-    engine code and weights: the same greedy tokens, prefill logits within
-    1e-3 (f32; cuBLAS vs CPU matmuls and the kernels' summation order)."""
+def phase_path(arch: str = ARCH) -> None:
+    """The smoke config of ``arch`` served on the card and on the CPU
+    through the same engine code and weights: the same greedy tokens,
+    prefill logits within 1e-3 (f32; cuBLAS vs CPU matmuls and the
+    kernels' summation order).  On the card each kernel of the family's
+    path launches (flash attention unless the model is attention-free,
+    ``topk_gating`` for MoE routing in f32), on the CPU none."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention, topk_gating
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0)).state_dict()
+    path = [m for m, on in ((flash_attention, cfg.family != "ssm"),
+                            (topk_gating, bool(cfg.n_experts))) if on]
     out = {}
     for dev in ("cuda", "cpu"):
         logits = []
@@ -3533,26 +3654,268 @@ def phase_path() -> None:
                            else None)
         flash_attention.LAUNCHES = topk_gating.LAUNCHES = 0
         done = eng.serve_queue(make_requests(cfg.vocab, 8, 32, 16))
-        after = (flash_attention.LAUNCHES, topk_gating.LAUNCHES)
-        if (dev == "cuda") != all(a > 0 for a in after):
-            raise AssertionError(f"{dev}: kernel launches {after}")
+        after = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
+                 for m in (flash_attention, topk_gating)}
+        want_on = (dev == "cuda")
+        if not all((m.LAUNCHES > 0) == want_on for m in path) or any(
+                m.LAUNCHES for m in (flash_attention, topk_gating)
+                if m not in path):
+            raise AssertionError(f"{cfg.name} on {dev}: kernel launches "
+                                 f"{after}")
         out[dev] = ([r.out_tokens for r in done], torch.cat(logits))
     (tok_card, lg_card), (tok_cpu, lg_cpu) = out["cuda"], out["cpu"]
     if tok_card != tok_cpu:
-        raise AssertionError("greedy tokens differ between card and CPU")
+        raise AssertionError(f"{cfg.name}: greedy tokens differ between "
+                             f"card and CPU")
     err = float((lg_card - lg_cpu).abs().max())
     if not err <= 1e-3:
-        raise AssertionError(f"prefill logits differ by {err}")
+        raise AssertionError(f"{cfg.name}: prefill logits differ by {err}")
     log(f"[path] {cfg.name} f32: {sum(map(len, tok_card))} greedy tokens "
         f"identical on the card and the CPU; prefill logits max abs err "
         f"{err:.3g} (tol 1e-3)")
 
 
-def phase_model_timing(launches, inputs, f32_launches, f32_inputs) -> list:
+# ---------------------------------------------------------------------------
+# phase 23: gemma3-27b, hymba-1.5b and mamba2-130m served at full width
+# ---------------------------------------------------------------------------
+
+#: each family's serving run through ``launch.serve``: bf16 weights drawn on
+#: the card from seed 0, full depth and width.  gemma3's one wave pads past
+#: its 1,024-key window (the local layers' rings roll); hymba's waves stay
+#: under 1,151 positions, where its 128 meta positions sit in the ring
+FAMILIES = (
+    dict(arch="gemma3-27b", requests=4, batch=4, prompt_len=2048,
+         new_tokens=16, cache_len=4096, dtype="bfloat16"),
+    dict(arch="hymba-1.5b", requests=8, batch=4, prompt_len=1024,
+         new_tokens=16, cache_len=2048, dtype="bfloat16"),
+    dict(arch="mamba2-130m", requests=8, batch=4, prompt_len=1024,
+         new_tokens=16, cache_len=2048, dtype="bfloat16"),
+)
+#: the bf16 decode against ``LM.forward`` over the same tokens: within this
+#: many times the bf16 forward's own error against an f32 forward of the
+#: same weights (the bf16 noise floor of the model at that position).  The
+#: decode and the forward round at different places (ring or plain decode
+#: attention in f32 against the flash kernel's bf16 P; one-token matmuls
+#: against the sequence's), so each alone is about as far from the f32
+#: forward as the other, and their difference up to twice that
+FAMILY_NOISE_FACTOR = 3.0
+#: the same decode in f32 at full width (hymba-1.5b and mamba2-130m fit
+#: the card in f32; gemma3-27b's 108 GB do not): within this share of the
+#: forward's largest |logit|, where bf16 noise no longer hides a fault
+FAMILY_F32_TOL = 2e-3
+#: the families also served in f32 (one wave) for that check
+FAMILIES_F32 = ("hymba-1.5b", "mamba2-130m")
+
+
+@torch.no_grad()
+def forward_f32(model, tokens: torch.Tensor, last: int) -> torch.Tensor:
+    """The model's forward over ``tokens`` [1, T] in f32 with its weights
+    cast to f32 one layer at a time (a 27 B-parameter model does not fit
+    the card twice): logits of the last ``last`` positions [last, vocab],
+    the unembedding in vocabulary blocks.  The f32 flash kernel serves
+    its attention."""
+    from repro_torch.models.blocks import layer_apply
+    from repro_torch.models.layers import rms_norm
+    cfg = model.cfg
+    x, _prefix = model._embed_tokens(tokens)
+    x = x.float()
+    for blk in model.layers:
+        p = {k: v.float() for k, v in blk._parameters.items()}
+        x, _ = layer_apply(p, x, cfg, blk.spec, mode="train")
+        del p
+    x = rms_norm(x[0, -last:], model.final_ln.float(), cfg.norm_eps)
+    w = model.embed if cfg.tie_embeddings else model.unembed.T
+    return torch.cat([x @ w[i:i + 32768, :].float().T
+                      for i in range(0, cfg.vocab, 32768)], dim=1)[
+                          :, :cfg.vocab]
+
+
+def _serve_family(spec: dict) -> tuple:
+    """One serving run of ``spec`` through ``launch.serve`` on the card,
+    counts reset just before and read just after; returns (run, the first
+    wave's decode logits of its first request, launches, by variant,
+    peak, wall s)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launch
+    fa = kernels.flash_attention
+    decodes, finite = [], []
+
+    def hook(phase, logits):
+        finite.append(torch.isfinite(logits).all())
+        if phase == "decode":
+            decodes.append(logits[0].clone())     # the wave's first request
+
+    torch.cuda.synchronize()
+    reset_peak()
+    for mod in kernels.MODEL_KERNELS:
+        mod.LAUNCHES = 0
+    fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
+    t0 = time.perf_counter()
+    run = launch.serve(**spec, device="cuda", logits_hook=hook)
+    wall = time.perf_counter() - t0
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+                for mod in kernels.MODEL_KERNELS}
+    cfg = run.engine.cfg
+    new = spec["new_tokens"]
+    if len(run.done) != spec["requests"] or any(
+            len(r.out_tokens) != new for r in run.done) or any(
+            not 0 <= t < cfg.vocab for r in run.done for t in r.out_tokens):
+        raise AssertionError(f"{cfg.name}: tokens missing or outside the "
+                             f"vocabulary")
+    if not finite or not all(bool(f) for f in finite):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return (run, decodes[:new - 1], launches, dict(fa.VARIANT_LAUNCHES),
+            torch.cuda.max_memory_allocated(), wall)
+
+
+def _decode_against_forward(tag, run, decodes, batch, new, ref: bool):
+    """The first request's greedy tokens and last decode step against
+    ``LM.forward`` over its padded prompt and the tokens fed.  Returns
+    (err, the chosen tokens' largest shortfall below the forward's best,
+    tokens equal to the forward's argmax, max |logit|, the bf16 forward's
+    error against :func:`forward_f32` or None)."""
+    model, cfg = run.engine.model, run.engine.cfg
+    wave = first_wave(run.done, batch)
+    req = run.done[0]
+    seq = torch.from_numpy(np.concatenate(
+        [wave[0], np.asarray(req.out_tokens[:-1])])[None]).cuda()
+    logits, prefix = model.forward(seq)
+    fw = logits[0, prefix + wave.shape[1] - 1:, :cfg.vocab].float()
+    del logits
+    last = decodes[-1][:cfg.vocab].float()
+    err = float((last - fw[-1]).abs().max())
+    idx = torch.tensor(req.out_tokens, device=fw.device)
+    behind = float((fw.max(dim=-1).values -
+                    fw[torch.arange(new, device=fw.device), idx]).max())
+    agree = int((fw.argmax(dim=-1) == idx).sum())
+    floor = None
+    if ref:
+        exact_fw = forward_f32(model, seq, 1)[0]
+        floor = float((fw[-1] - exact_fw).abs().max())
+        log(f"{tag} against the f32 forward of the same weights: the bf16 "
+            f"forward {floor:.4g}, the bf16 decode "
+            f"{float((last - exact_fw).abs().max()):.4g} (max abs)")
+    return err, behind, agree, float(fw[-1].abs().max()), floor
+
+
+def phase_families() -> dict:
+    """Each of :data:`FAMILIES` through ``launch.serve`` on the card in
+    bf16: counts reset just before and read just after (flash attention
+    one launch a layer with attention a wave, every launch on the
+    tensor-core variant, none for mamba2; no router kernel); every
+    request its tokens, in the vocabulary, finite logits; the trace's
+    spans; the waves' padded lengths and decode positions; the first
+    request's last decode step against ``LM.forward`` on its padded
+    prompt and the tokens fed, within :data:`FAMILY_NOISE_FACTOR` times
+    the bf16 forward's own error against :func:`forward_f32`, and each
+    greedy token the forward's argmax up to a tie within that; a decode
+    step profiled.  Then :data:`FAMILIES_F32` served again in f32 (one
+    wave), the decode against the f32 forward within
+    :data:`FAMILY_F32_TOL` of its largest |logit|; then the smoke config
+    on the card and on the CPU (:func:`phase_path`).  Returns, per
+    family, its launches."""
+    from repro_torch.core.constants import INC
+    out = {}
+    for spec in FAMILIES:
+        arch = spec["arch"]
+        run, decodes, launches, by_variant, peak, wall = _serve_family(spec)
+        cfg, model = run.engine.cfg, run.engine.model
+        tag = f"[family] {cfg.name}:"
+        attn_layers = sum(s.mixer != "ssm" for s in model.specs)
+        batch, new = spec["batch"], spec["new_tokens"]
+        waves = [run.done[i:i + batch]
+                 for i in range(0, len(run.done), batch)]
+        pads = [max(len(r.prompt) for r in w) for w in waves]
+        starts = [p + cfg.meta_tokens for p in pads]   # first decode pos
+        log(f"{tag} {cfg.n_layers} layers ({attn_layers} with attention), "
+            f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
+            f"parameters in {spec['dtype']}, window {cfg.window}, meta "
+            f"tokens {cfg.meta_tokens}; served {len(run.done)} requests "
+            f"in {len(waves)} waves in {wall:.2f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"{tag} waves padded to {pads} prompt tokens; decode positions "
+            + ", ".join(f"{s}-{s + new - 2}" for s in starts))
+        log(f"{tag} launches {json.dumps(launches)}; flash_attention by "
+            f"variant {json.dumps(by_variant)}")
+        want = attn_layers * len(waves)          # one launch a layer a wave
+        if launches["flash_attention"] != want or \
+                by_variant["wgmma"] != want or \
+                launches["router_topk"] or launches["topk_gating"]:
+            raise AssertionError(f"{tag} launches {launches}, by variant "
+                                 f"{by_variant}; expected {want} flash "
+                                 f"launches, all wgmma, no router")
+        if cfg.window and cfg.global_every and not max(pads) > cfg.window:
+            raise AssertionError(f"{tag} no wave pads past the window "
+                                 f"{cfg.window}: the rings never roll")
+        if cfg.meta_tokens and not min(starts) < \
+                cfg.window + cfg.meta_tokens - 1:
+            raise AssertionError(f"{tag} no decode position below "
+                                 f"{cfg.window + cfg.meta_tokens - 1}: "
+                                 f"the meta positions leave the ring first")
+        trace = run.tracer.to_trace(device="cuda")
+        fp = trace.flat_profile(metrics=(INC,))
+        prof = {n: (int(c), float(t)) for n, c, t in
+                zip(fp["Name"], fp["count"], fp[INC])}
+        if prof.get("prefill", (0,))[0] != len(waves) or prof.get(
+                "decode_step", (0,))[0] != len(waves) * (new - 1):
+            raise AssertionError(f"{tag} span counts {prof}")
+        step_ms = prof["decode_step"][1] / 1e6 / (len(waves) * (new - 1))
+        log(f"{tag} prefill {prof['prefill'][1] / 1e9 / len(waves):.4f} s "
+            f"a wave; decode {step_ms:.3f} ms a step; "
+            f"{run.summary['tok_per_s']} tok/s (beside the trace half)")
+        err, behind, agree, scale, floor = _decode_against_forward(
+            tag, run, decodes, batch, new, ref=True)
+        tol = FAMILY_NOISE_FACTOR * floor
+        log(f"{tag} request 0 (padded to {pads[0]}): last decode step "
+            f"against LM.forward max abs err {err:.4g} (tol {tol:.4g} = "
+            f"{FAMILY_NOISE_FACTOR:g} x the bf16 forward's own error; max "
+            f"|logit| {scale:.4g}); greedy tokens the forward's argmax "
+            f"{agree}/{new}, the chosen token at most {behind:.4g} below "
+            f"the forward's best")
+        if not (err <= tol and behind <= tol):
+            raise AssertionError(f"{tag} bf16 decode against the forward: "
+                                 f"err {err}, chosen token {behind} below "
+                                 f"the best, tolerance {tol}")
+        profile_serving(model, spec, first_wave(run.done, batch),
+                        prefill=False)
+        del run, model, trace, decodes
+        torch.cuda.empty_cache()
+        if arch in FAMILIES_F32:
+            f32 = dict(spec, dtype="float32", requests=batch)
+            run, decodes, launches32, *_ = _serve_family(f32)
+            err, behind, agree, scale, _f = _decode_against_forward(
+                tag, run, decodes, batch, new, ref=False)
+            tol = FAMILY_F32_TOL * scale
+            log(f"{tag} f32, one wave: last decode step against LM.forward "
+                f"max abs err {err:.4g} (tol {tol:.4g} = {FAMILY_F32_TOL:g} "
+                f"x max |logit| {scale:.4g}); greedy tokens the forward's "
+                f"argmax {agree}/{new}, the chosen token at most "
+                f"{behind:.4g} below the forward's best; flash launches "
+                f"{launches32['flash_attention']} (SIMT, f32)")
+            if not (err <= tol and behind <= tol):
+                raise AssertionError(f"{tag} f32 decode against the "
+                                     f"forward: err {err}, chosen token "
+                                     f"{behind} below, tolerance {tol}")
+            del run, decodes
+            torch.cuda.empty_cache()
+        out[arch] = {"launches": launches}
+        phase_path(arch)
+    return out
+
+
+def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
+                       families) -> list:
+    """Each model kernel's row on the inputs of its first call on the
+    serving path.  The flash row's ``launches`` count the serving runs of
+    qwen2-moe-a2.7b, gemma3-27b and hymba-1.5b (``path_launches`` each)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import router_topk as rt
     from repro_torch.kernels import topk_gating as tg
     rows = []
+    by_path = {f"serve {ARCH}": launches["flash_attention"]}
+    by_path.update({f"serve {arch}": fam["launches"]["flash_attention"]
+                    for arch, fam in families.items()})
+    flash_launches = dict(launches, flash_attention=sum(by_path.values()))
     # flash attention on the first prefill's q, k, v
     (q, k, v), kw = inputs["flash_attention"]
     B, Sq, H, D = q.shape
@@ -3578,7 +3941,7 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs) -> list:
     picked = fa.variant(q.dtype, D)
     row = _model_row(
         "flash_attention", "src/repro/kernels/flash_attention.py:101",
-        launches, err, lambda: fa.flash_attention(q, k, v, **kw),
+        flash_launches, err, lambda: fa.flash_attention(q, k, v, **kw),
         lambda: fa.flash_attention_plain(q, k, v, **kw),
         lambda: sdpa(qt, kt, vt, is_causal=True), t_ops, t_bytes,
         f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype)[6:]}, "
@@ -3589,7 +3952,8 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs) -> list:
                            want.float().cpu().numpy())
     row.update(variant=picked, prev_variant="simt",
                prev_ms=cuda_ms(simt, iters=20),
-               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
+               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err,
+               path_launches=by_path)
     log(f"[timing] flash_attention variant {picked}; the SIMT kernel on "
         f"the same inputs {row['prev_ms']:.4f} ms (device "
         f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g})")
@@ -3711,11 +4075,180 @@ def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
             "device_kernels": names, "checked": True}
 
 
+# ---------------------------------------------------------------------------
+# the two halves: the trace half here, the LM half in two child processes
+# ---------------------------------------------------------------------------
+
+#: a child's protocol lines on its standard output; every other line is its
+#: log, which the parent prints behind the child's tag
+READY, ROWS, PEAK = "@@ready", "@@rows ", "@@peak "
+#: CPU threads of the LM half's torch ops (its CPU work is the smoke
+#: configs'; the trace half's host work and its pool get the rest)
+LM_THREADS = 2
+#: the file in the parent's hand-off directory that carries the inputs of
+#: the LM timing rows from the LM half's run to its timing process
+HANDOFF = "lm_timing_inputs.pt"
+#: each phase's peak device memory (bytes) before the phase reset it
+PEAKS = [0]
+
+
+def reset_peak() -> None:
+    PEAKS.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def half_peak() -> int:
+    """This process's peak device memory so far, across resets."""
+    return max(PEAKS + [torch.cuda.max_memory_allocated()])
+
+
+def _child_setup() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(LM_THREADS)
+    from repro_torch.core import plancache
+    from repro_torch.kernels import build
+    plancache.configure(enabled=False)
+    SMI[0] = card_line()
+    build.library()                 # the parent's build, loaded
+
+
+def lm_half(handoff: str) -> int:
+    """The LM half's run (``chip_smoke.py --lm-half DIR``, started by
+    :func:`main` beside the trace half): phase 3's model kernels, serving
+    (18, with its profiled prefill and decode step), the f32 router (19),
+    the path (20), training (22) and the families (23, each with a
+    profiled decode step); then the inputs of the LM timing rows saved
+    to ``DIR`` for :func:`lm_timing`, and its peak memory."""
+    _child_setup()
+    t0 = time.perf_counter()
+    phase_model_kernels()
+    serve_launches, serve_inputs = phase_serve()
+    f32_launches, f32_inputs = phase_f32_router()
+    phase_path()
+    t1 = time.perf_counter()
+    train = phase_train()
+    log(f"[train] phase wall {time.perf_counter() - t1:.1f} s | {SMI[0]}")
+    t1 = time.perf_counter()
+    families = phase_families()
+    log(f"[family] phase wall {time.perf_counter() - t1:.1f} s | {SMI[0]}")
+    torch.save({"serve": (serve_launches, serve_inputs),
+                "f32": (f32_launches, f32_inputs), "families": families,
+                "train": train}, os.path.join(handoff, HANDOFF))
+    log(f"[halves] LM half's run {time.perf_counter() - t0:.1f} s")
+    print(PEAK + str(half_peak()), flush=True)
+    return 0
+
+
+def lm_timing(handoff: str) -> int:
+    """The LM half's timing (``chip_smoke.py --lm-timing DIR``): started
+    with the run, it loads the kernels, builds the train step it will
+    profile and waits; on ``go`` (the LM run
+    over and the parent's phase 17 done, so nothing else works on the
+    card) the rows that time the LM path's kernels on the inputs the run
+    saved: phase 21's, the train step's profile and the backward kernel's
+    row (SDPA's backward beside it).  A process of its own, whose
+    profiler sessions are its first: in the LM run's process, sessions
+    after its long wait recorded only part of the kernels."""
+    _child_setup()
+    stepper = train_stepper()      # built and run once while it waits
+    print(READY, flush=True)
+    if sys.stdin.readline().strip() != "go":
+        raise RuntimeError("the LM timing process was not told to go on")
+    t0 = time.perf_counter()
+    kept = torch.load(os.path.join(handoff, HANDOFF), map_location="cuda",
+                      weights_only=False)
+    rows = phase_model_timing(*kept["serve"], *kept["f32"],
+                              kept["families"])
+    t1 = time.perf_counter()
+    rows += train_timing(kept["train"], stepper)
+    log(f"[halves] LM timing {time.perf_counter() - t0:.1f} s (phase 21 "
+        f"{t1 - t0:.1f} s, the train step's profile and backward row "
+        f"{time.perf_counter() - t1:.1f} s)")
+    print(PEAK + str(half_peak()), flush=True)
+    print(ROWS + json.dumps(rows), flush=True)
+    return 0
+
+
+class Child:
+    """``chip_smoke.py <flag> <dir>`` in a child process on the same card,
+    its output read by a thread: log lines printed behind ``tag``,
+    protocol lines kept.  The trace half calls :meth:`check` between its
+    phases, so a child that failed fails the run there."""
+
+    def __init__(self, flag: str, handoff: str, tag: str):
+        import subprocess
+        self.tag = tag
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, handoff],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, bufsize=1, cwd=ROOT)
+        self.ready = threading.Event()
+        self.rows = self.peak = self.t_ready = self.t_go = self.t_exit = None
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            if line == READY:
+                self.t_ready = time.perf_counter()
+                self.ready.set()
+            elif line.startswith(ROWS):
+                self.rows = json.loads(line[len(ROWS):])
+            elif line.startswith(PEAK):
+                self.peak = int(line[len(PEAK):])
+            else:
+                log(f"[{self.tag}] {line}")
+        self.proc.wait()
+        self.t_exit = time.perf_counter()
+        self.ready.set()
+
+    def failure(self) -> str:
+        return (f"the {self.tag} process exited with "
+                f"{self.proc.returncode} (its traceback is above, behind "
+                f"[{self.tag}])")
+
+    def check(self) -> None:
+        """Raise if the child has exited non-zero."""
+        if self.proc.poll() not in (None, 0):
+            self.thread.join(timeout=10)    # its last lines printed first
+            raise RuntimeError(self.failure())
+
+    def go(self) -> None:
+        """Wait until the child is ready, then tell it to go on."""
+        self.ready.wait()
+        if self.t_ready is None:
+            self.thread.join(timeout=10)
+            raise RuntimeError(self.failure())
+        self.t_go = time.perf_counter()
+        self.proc.stdin.write("go\n")
+        self.proc.stdin.flush()
+
+    def finish(self) -> None:
+        """Wait for the child's exit; raise unless it succeeded."""
+        self.thread.join()
+        if self.proc.returncode != 0 or self.peak is None:
+            raise RuntimeError(self.failure())
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.thread.join(timeout=10)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--lm-half":
+        return lm_half(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--lm-timing":
+        return lm_timing(sys.argv[2])
+    import shutil
     import tempfile
 
     from repro_torch.core import plancache
@@ -3728,21 +4261,81 @@ def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
     phase_build()
+    handoff = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    lm = Child("--lm-half", handoff, "lm")
+    timing = Child("--lm-timing", handoff, "lm timing")
+    try:
+        t_trace = time.perf_counter()
+        launches, calls, routes = trace_half(
+            lambda: (lm.check(), timing.check()))
+        t_trace_end = time.perf_counter()
+        lm.finish()
+        t0 = time.perf_counter()
+        rows = phase_timing(launches, calls, routes)
+        log(f"[timing] phase wall {time.perf_counter() - t0:.1f} s | "
+            f"{SMI[0]}")
+        trace_peak = half_peak()
+        timing.go()
+        timing.finish()
+        rows += timing.rows
+    finally:
+        lm.stop()
+        timing.stop()
+        shutil.rmtree(handoff, ignore_errors=True)
+    # the LM half's work: the run, the timing process's start (imports,
+    # the card, the train step it will profile), and its timing
+    run, start = lm.t_exit - lm.t0, timing.t_ready - timing.t0
+    alone = timing.t_exit - timing.t_go
+    hidden = sum(max(0.0, min(b, t_trace_end) - max(a, t_trace))
+                 for a, b in ((lm.t0, lm.t_exit),
+                              (timing.t0, timing.t_ready)))
+    work = run + start + alone
+    log(f"[halves] trace half (phases 3-16) {t_trace_end - t_trace:.1f} s; "
+        f"LM half {work:.1f} s of work: its run {run:.1f} s and its timing "
+        f"process's start {start:.1f} s beside the trace half, its timing "
+        f"{alone:.1f} s alone after phase 17; {hidden:.1f} s of it hidden "
+        f"by the trace half = {hidden / work:.1%}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    lm_peak = lm.peak + timing.peak
+    log(f"[halves] peak device memory: trace half {trace_peak / 2**30:.2f} "
+        f"GiB, LM half {lm_peak / 2**30:.2f} GiB (run "
+        f"{lm.peak / 2**30:.2f}, timing {timing.peak / 2**30:.2f}), sum "
+        f"{(trace_peak + lm_peak) / 2**30:.2f} of {total / 2**30:.2f} GiB")
+    if trace_peak + lm_peak >= total:
+        raise AssertionError("the halves' peaks exceed the card's memory")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(device["smi"])
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["kind"],
+        "count": device["count"]}}), flush=True)
+    return 0
+
+
+def trace_half(check):
+    """Phases 3-16 on the trace path, ``check()`` between them; returns the
+    main path's launches and kernel calls and every route's launches, for
+    phase 17."""
+    import tempfile
     phase_kernels()
-    phase_model_kernels()
     phase_reader()
+    check()
     trace, launches, calls, main_digests = phase_main()
+    check()
     stream_launches, stream_wants, stream_trace = phase_stream()
     routes = {"query": phase_query(trace), "stream": stream_launches}
+    check()
     with tempfile.TemporaryDirectory() as d:
         pool, workers, _start_s = start_pool()
         try:
             routes.update(phase_pack(main_digests, launches, pool, workers,
                                      d))
+            check()
             from repro_torch.tracegen import big_trace
             stream_paths = big_trace(os.path.join(d, "stream"), **STREAM)
             routes.update(phase_parallel(stream_wants, pool, workers,
                                          stream_paths, d))
+            check()
             t0 = time.perf_counter()
             routes.update(phase_formats(stream_trace, stream_wants, pool,
                                         d))
@@ -3768,28 +4361,14 @@ def main() -> int:
                 routes.update(phase())
                 log(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s "
                     f"| {SMI[0]}")
+                check()
         finally:
             pool.close()
         del trace
         routes.update(phase_live_and_served(main_digests,
                                             os.path.join(d, "pack"),
                                             analysis["digests"]))
-    rows = phase_timing(launches, calls, routes)
-    serve_launches, serve_inputs = phase_serve()
-    f32_launches, f32_inputs = phase_f32_router()
-    phase_path()
-    rows += phase_model_timing(serve_launches, serve_inputs, f32_launches,
-                               f32_inputs)
-    t0 = time.perf_counter()
-    rows += phase_train()
-    log(f"[train] phase wall {time.perf_counter() - t0:.1f} s | {SMI[0]}")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(device["smi"])
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": device["kind"],
-        "count": device["count"]}}), flush=True)
-    return 0
+    return launches, calls, routes
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 
 ``get_config(name)`` returns the published config and
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-The port carries two architectures so far: qwen2-moe-a2.7b (served) and
-pipit-lm-100m (trained); every other name of the reference's registry
-raises ``NotImplementedError`` naming the ROADMAP item that ports its
-layers, and an unknown name ``KeyError``.
+The port carries five architectures so far: qwen2-moe-a2.7b, gemma3-27b,
+hymba-1.5b and mamba2-130m (served) and pipit-lm-100m (trained); every
+other name of the reference's registry raises ``NotImplementedError``
+naming the ROADMAP item that ports its layers, and an unknown name
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ _ALIASES = {
     "pipit-lm-100m": "pipit_lm_100m",
 }
 #: the architectures whose configs the port carries
-PORTED = ("qwen2_moe_a2_7b", "pipit_lm_100m")
+PORTED = ("qwen2_moe_a2_7b", "pipit_lm_100m", "gemma3_27b", "hymba_1_5b",
+          "mamba2_130m")
 
 ARCH_NAMES: List[str] = list(_ALIASES)
 

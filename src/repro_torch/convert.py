@@ -55,28 +55,55 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _layer_plan(cfg: ModelConfig):
+    """(period, n_periods, tail length) of the reference's stacking: a
+    gemma3-style config stacks ``[n_periods, period, ...]`` blocks and a
+    tail, every other config ``[n_layers, ...]``."""
+    if cfg.global_every:
+        n_periods = cfg.n_layers // cfg.global_every
+        return (cfg.global_every, n_periods,
+                cfg.n_layers - n_periods * cfg.global_every)
+    return 1, cfg.n_layers, 0
+
+
 def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's ``LM`` state dict for a reference ``LM.init`` parameter
     tree given as NumPy arrays (``jax.tree_util.tree_map(np.asarray,
-    params)``).  Top-level leaves keep their names; each ``blocks`` leaf
-    ``[n_layers, ...]`` is unstacked into ``layers.<i>.<name>``.  Every
+    params)``).  Top-level leaves (``embed``, ``final_ln``, ``unembed``,
+    ``meta``) keep their names; each ``blocks`` leaf is unstacked into
+    ``layers.<i>.<name>``: ``[n_layers, ...]``, or with a gemma3-style
+    period ``[n_periods, period, ...]`` to layer ``n * period + i``; each
+    ``tail`` leaf ``[n_tail, ...]`` goes to the last layers.  Every
     matrix keeps the reference's ``[in, out]`` layout, as the port's
-    layers use it.  Trees with a gemma3-style period or a ``tail`` / meta
-    stack raise: those layers are not ported yet."""
-    extra = set(tree) - {"embed", "final_ln", "unembed", "blocks"}
+    layers use it."""
+    top = ("embed", "final_ln", "unembed", "meta")
+    extra = set(tree) - set(top) - {"blocks", "tail"}
     if extra:
         raise NotImplementedError(
             f"parameters {sorted(extra)} belong to layers not yet ported to "
             f"repro_torch (ROADMAP.md §A)")
-    out = {k: _tensor(tree[k]) for k in ("embed", "final_ln", "unembed")
-           if k in tree}
+    period, n_periods, n_tail = _layer_plan(cfg)
+    out = {k: _tensor(tree[k]) for k in top if k in tree}
+    lead = (n_periods,) if period == 1 else (n_periods, period)
     for name, arr in tree["blocks"].items():
         arr = np.asarray(arr)
-        if arr.ndim < 2 or arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"blocks/{name}: leading axis {arr.shape} is "
-                             f"not n_layers = {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = _tensor(arr[i])
+        if arr.shape[:len(lead)] != lead or arr.ndim <= len(lead):
+            raise ValueError(f"blocks/{name}: leading axes {arr.shape} are "
+                             f"not {lead}")
+        flat = arr.reshape((n_periods * period,) + arr.shape[len(lead):])
+        for i in range(n_periods * period):
+            out[f"layers.{i}.{name}"] = _tensor(flat[i])
+    tail = tree.get("tail", {})
+    if bool(tail) != bool(n_tail):
+        raise ValueError(f"tail of {len(tail)} leaves, {n_tail} tail "
+                         f"layers expected")
+    for name, arr in tail.items():
+        arr = np.asarray(arr)
+        if arr.shape[0] != n_tail:
+            raise ValueError(f"tail/{name}: leading axis {arr.shape} is "
+                             f"not {n_tail}")
+        for t in range(n_tail):
+            out[f"layers.{n_periods * period + t}.{name}"] = _tensor(arr[t])
     return out
 
 

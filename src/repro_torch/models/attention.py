@@ -1,15 +1,18 @@
-"""Attention cores: chunked (flash) prefill attention and single-token
-decode attention.
+"""Attention cores: chunked (flash) prefill attention, banded
+sliding-window attention and single-token decode attention.
 
-Mirrors :mod:`repro.models.attention`.  :func:`chunked_attention` is the
-function the model calls for prefill and training attention: on a CUDA
-tensor it runs the hand-written kernel
-:mod:`repro_torch.kernels.flash_attention`, on a CPU tensor that kernel's
-plain version (the same online-softmax scan over KV chunks as the
-reference).  :func:`decode_attention` stays plain PyTorch, as the
-reference computes it outside any Pallas kernel.  The banded
-``local_attention`` of sliding-window layers waits for the slice that
-ports those layers (ROADMAP §A).
+Mirrors :mod:`repro.models.attention`.  :func:`chunked_attention` (full,
+or windowed with a visible prefix: Hymba's meta tokens) and
+:func:`local_attention` (a causal sliding window: gemma3's local layers)
+are the functions the model calls for prefill and training attention: on
+a CUDA tensor both run the hand-written kernel
+:mod:`repro_torch.kernels.flash_attention`, whose tile walk skips every
+key tile wholly outside the window (``past_window`` in
+``csrc/flash_mask.cuh``), on a CPU tensor that kernel's plain version (the
+same online-softmax scan over KV chunks as the reference's
+``chunked_attention``; the reference's banded scan gives the same
+function).  :func:`decode_attention` stays plain PyTorch, as the reference
+computes it outside any Pallas kernel.
 
 GQA layout: q ``[B,S,H,D]``, k/v ``[B,S,KVH,D]`` with ``H = KVH*G``.
 """
@@ -22,7 +25,8 @@ import torch
 
 from ..kernels import flash_attention as _flash
 
-__all__ = ["reference_attention", "chunked_attention", "decode_attention"]
+__all__ = ["reference_attention", "chunked_attention", "local_attention",
+           "decode_attention"]
 
 _NEG = -1e30
 _mask = _flash.mask
@@ -54,6 +58,18 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         window=window, prefix_len=prefix_len, q_offset=q_offset,
         scale=scale)
+
+
+def local_attention(q, k, v, *, window: int,
+                    scale: Optional[float] = None):
+    """Causal sliding-window self-attention: the query at position p sees
+    the keys in ``(p - window, p]`` (sequences start at position 0),
+    through the ``flash_attention`` kernel's wrapper."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"local_attention is self-attention: Sq = "
+                         f"{q.shape[1]}, Sk = {k.shape[1]}")
+    return chunked_attention(q, k, v, causal=True, window=window,
+                             scale=scale)
 
 
 def decode_attention(q, k, v, *, kv_len: int, window=None, scale=None):

@@ -1,21 +1,27 @@
 """Per-layer building blocks.
 
-Mirrors :mod:`repro.models.blocks` for the layers of the serving slice: a
-*layer spec* (``LayerSpec``) describes one transformer layer;
-``layer_defs`` emits the ParamDefs of one layer, ``cache_defs`` its KV
+Mirrors :mod:`repro.models.blocks`: a *layer spec* (``LayerSpec``)
+describes one layer (which mixer it uses: attention, the Mamba-2 SSD, or
+both in parallel; its attention window; a dense or MoE FFN);
+``layer_defs`` emits the ParamDefs of one layer, ``cache_defs`` its serve
 cache, and ``layer_apply`` runs it in ``train`` / ``prefill`` / ``decode``
-mode.  The slice covers the ``attn`` mixer with full causal (or
-bidirectional) attention and a dense or MoE FFN, with shared experts and
-their sigmoid gate.  Specs outside it — SSM and hybrid mixers,
-cross-attention, sliding windows (``local_attention``, ring decode) and
-meta tokens — raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+mode.  Covered: the ``attn``, ``ssm`` and ``hybrid`` mixers (``x + 0.5 *
+(attention + SSD)``, Hymba), full or sliding-window causal attention with
+always-visible meta tokens, ring-buffer decode, and a dense or MoE FFN
+with shared experts and their sigmoid gate.  Cross-attention (the
+encoder-decoder) and ``act != "swiglu"`` raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 
 Decode writes the new token's K/V into the cache in place (slot
 ``pos % Sc``), where the reference returns an updated copy.  The
 reference's ``attn_broadcast_kv`` (repeat K/V to the query-head count, a
 sharding aid) is dropped: the flash kernel reads a query head's KV head in
 place, and the result is the same.
+
+One fault of the reference is repaired: its ``_merge_meta`` attends to
+the meta tokens twice while their prefill positions are still in the
+ring (``pos < min(window, cache_len) + meta_tokens - 1``); the port masks
+ring slots whose position is below ``meta_tokens`` (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import attention as attn_lib
+from . import ssm as ssm_lib
 from .config import ModelConfig
 from .layers import ParamDef, apply_rope, rms_norm, rope, swiglu_act
 from .moe import moe_ffn
@@ -33,8 +41,7 @@ from .moe import moe_ffn
 __all__ = ["LayerSpec", "layer_defs", "layer_apply", "cache_defs",
            "check_spec"]
 
-_LATER = ("ROADMAP.md §A: local / window attention, meta tokens and ring "
-          "decode (gemma3, hymba); ssm.py; encdec.py")
+_LATER = "ROADMAP.md §A: encdec.py (cross-attention, act='gelu')"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,20 +56,14 @@ class LayerSpec:
 
 def check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
     """Raise for a layer the port does not run yet."""
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"{spec.mixer!r} mixer not yet ported to repro_torch ({_LATER})")
+    if spec.mixer not in ("attn", "ssm", "hybrid"):
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if spec.cross:
         raise NotImplementedError(
             f"cross-attention not yet ported to repro_torch ({_LATER})")
-    if spec.window is not None or cfg.meta_tokens:
+    if spec.mixer != "ssm" and not spec.moe and cfg.act != "swiglu":
         raise NotImplementedError(
-            f"sliding-window attention and meta tokens not yet ported to "
-            f"repro_torch ({_LATER})")
-    if not spec.moe and cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"act={cfg.act!r} not yet ported to repro_torch (the slices "
-            f"after the serving slice, ROADMAP.md §A)")
+            f"act={cfg.act!r} not yet ported to repro_torch ({_LATER})")
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +84,26 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
         out["bk"] = ParamDef((KVH * hd,), ("kv",), "zeros")
         out["bv"] = ParamDef((KVH * hd,), ("kv",), "zeros")
     return out
+
+
+def _ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    nh = d_in // cfg.ssm_headdim
+    N = cfg.ssm_state
+    conv_ch = d_in + 2 * N
+    return {
+        "sln": ParamDef((d,), ("embed",), "zeros"),
+        "w_zx": ParamDef((d, 2 * d_in), ("embed", "ssm_in")),
+        "w_bc": ParamDef((d, 2 * N), ("embed", None)),
+        "w_dt": ParamDef((d, nh), ("embed", None)),
+        "conv_w": ParamDef((cfg.conv_width, conv_ch), (None, "ssm_in")),
+        "conv_b": ParamDef((conv_ch,), ("ssm_in",), "zeros"),
+        "A_log": ParamDef((nh,), (None,), "zeros"),
+        "Dskip": ParamDef((nh,), (None,), "ones"),
+        "dt_bias": ParamDef((nh,), (None,), "zeros"),
+        "w_so": ParamDef((d_in, d), ("ssm_in", "embed")),
+    }
 
 
 def _ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -113,20 +134,47 @@ def _moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamDef]:
     check_spec(cfg, spec)
-    out = _attn_defs(cfg)
-    out.update(_moe_defs(cfg) if spec.moe else _ffn_defs(cfg))
+    out: Dict[str, ParamDef] = {}
+    if spec.mixer in ("attn", "hybrid"):
+        out.update(_attn_defs(cfg))
+    if spec.mixer in ("ssm", "hybrid"):
+        out.update(_ssm_defs(cfg))
+    if spec.mixer != "ssm":                       # pure-SSM blocks have no FFN
+        out.update(_moe_defs(cfg) if spec.moe else _ffn_defs(cfg))
     return out
 
 
 def cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int,
                cache_len: int) -> Dict[str, ParamDef]:
-    """KV cache ParamDefs for one layer at serve time: ``cache_len``
-    slots."""
+    """Serve-cache ParamDefs for one layer (the reference's with
+    ``ring=True``, the only form its model uses).  A sliding-window layer
+    gets a ring of ``min(window, cache_len)`` slots, a full layer
+    ``cache_len``; with meta tokens, their K/V apart (``k_meta``,
+    ``v_meta``); an SSM layer its state ``ssm_h`` (kept in f32) and the
+    last ``conv_width - 1`` conv inputs (``conv_state``)."""
     check_spec(cfg, spec)
+    out: Dict[str, ParamDef] = {}
     KVH, hd = cfg.n_kv_heads, cfg.hd
-    axes = ("batch", "kv_seq", "kv", None)
-    return {"k_cache": ParamDef((batch, cache_len, KVH, hd), axes, "zeros"),
-            "v_cache": ParamDef((batch, cache_len, KVH, hd), axes, "zeros")}
+    if spec.mixer in ("attn", "hybrid"):
+        S = min(spec.window, cache_len) if spec.window else cache_len
+        axes = ("batch", "kv_seq", "kv", None)
+        out["k_cache"] = ParamDef((batch, S, KVH, hd), axes, "zeros")
+        out["v_cache"] = ParamDef((batch, S, KVH, hd), axes, "zeros")
+        if cfg.meta_tokens:
+            axes = ("batch", None, "kv", None)
+            out["k_meta"] = ParamDef((batch, cfg.meta_tokens, KVH, hd),
+                                     axes, "zeros")
+            out["v_meta"] = ParamDef((batch, cfg.meta_tokens, KVH, hd),
+                                     axes, "zeros")
+    if spec.mixer in ("ssm", "hybrid"):
+        d_in = cfg.ssm_expand * cfg.d_model
+        nh = d_in // cfg.ssm_headdim
+        out["ssm_h"] = ParamDef((batch, nh, cfg.ssm_headdim, cfg.ssm_state),
+                                ("batch", None, None, None), "zeros")
+        out["conv_state"] = ParamDef(
+            (batch, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
+            ("batch", None, "ssm_in"), "zeros")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -135,9 +183,12 @@ def cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str,
                 pos: int, cache: Optional[dict], cache_len: int = 0):
-    """Returns (out, new_cache_entries)."""
+    """Returns (out, new_cache_entries).  ``cache_len`` is the serve-time
+    cache budget; a sliding-window layer keeps ``min(window, cache_len)``
+    ring slots."""
     B, S, d = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    M = cfg.meta_tokens
     xn = rms_norm(x, p["ln"], cfg.norm_eps)
     q = xn @ p["wq"]
     if "bq" in p:
@@ -161,17 +212,36 @@ def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str,
 
     if mode == "decode":
         kc, vc = cache["k_cache"], cache["v_cache"]
-        slot = pos % kc.shape[1]
+        Sc = kc.shape[1]
+        slot = pos % Sc
         kc[:, slot:slot + 1] = k.to(kc.dtype)
         vc[:, slot:slot + 1] = v.to(vc.dtype)
         new_cache["k_cache"] = kc
         new_cache["v_cache"] = vc
-        out = attn_lib.decode_attention(q, kc, vc, kv_len=pos)
+        if M and "k_meta" in cache:
+            new_cache["k_meta"] = cache["k_meta"]
+            new_cache["v_meta"] = cache["v_meta"]
+            out = _merge_meta(q, cache["k_meta"], cache["v_meta"], kc, vc,
+                              pos, Sc)
+        elif spec.window and Sc <= spec.window:       # ring buffer: bounded
+            out = _ring_decode(q, kc, vc, min(pos + 1, Sc))
+        else:
+            out = attn_lib.decode_attention(q, kc, vc, kv_len=pos,
+                                            window=spec.window)
     else:
         if mode == "prefill":
-            new_cache["k_cache"] = _ring_layout(k, S, cache_len)
-            new_cache["v_cache"] = _ring_layout(v, S, cache_len)
-        out = attn_lib.chunked_attention(q, k, v, causal=spec.causal)
+            Sc = min(spec.window, cache_len) if spec.window else cache_len
+            new_cache["k_cache"] = _ring_layout(k, S, Sc)
+            new_cache["v_cache"] = _ring_layout(v, S, Sc)
+            if M:
+                new_cache["k_meta"] = k[:, :M].clone()
+                new_cache["v_meta"] = v[:, :M].clone()
+        if spec.window and not M:
+            out = attn_lib.local_attention(q, k, v, window=spec.window)
+        else:
+            out = attn_lib.chunked_attention(q, k, v, causal=spec.causal,
+                                             window=spec.window,
+                                             prefix_len=M)
     y = out.reshape(B, S, H * hd) @ p["wo"]
     return y, new_cache
 
@@ -184,6 +254,91 @@ def _ring_layout(k: torch.Tensor, S: int, Sc: int) -> torch.Tensor:
     pad = torch.zeros((k.shape[0], Sc - S) + tuple(k.shape[2:]),
                       dtype=k.dtype, device=k.device)
     return torch.cat([k, pad], dim=1)
+
+
+def _slot_positions(pos: int, Sc: int, device) -> torch.Tensor:
+    """The position each of a ring's Sc slots holds after the token at
+    ``pos`` was written (``p % Sc == slot``, the latest such ``p <= pos``);
+    negative for a slot not written yet."""
+    s = torch.arange(Sc, device=device)
+    return pos - torch.remainder(pos - s, Sc)
+
+
+def _ring_attend(q, k, v, valid) -> torch.Tensor:
+    """One query token [B,1,H,D] over keys [B,T,KVH,D] where ``valid`` [T]
+    holds, in f32 after the query is scaled in its dtype."""
+    B, _, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    qq = (q.reshape(B, KVH, G, D) * (D ** -0.5)).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qq, k.float())
+    s = torch.where(valid, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", w, v.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _ring_decode(q, kc, vc, kv_len: int) -> torch.Tensor:
+    """Attention over a ring buffer whose first ``kv_len`` slots are
+    valid."""
+    return _ring_attend(q, kc, vc,
+                        torch.arange(kc.shape[1], device=q.device) < kv_len)
+
+
+def _merge_meta(q, k_meta, v_meta, kc, vc, pos: int, Sc: int):
+    """Decode attention over [meta ∪ ring], exactly as the full forward's
+    mask (meta tokens always visible, the rest within the window): the
+    meta K/V, then every ring slot holding a position at or above
+    ``meta_tokens``.  The reference keeps every written slot, so while a
+    meta position is still in the ring it is attended twice."""
+    M = k_meta.shape[1]
+    ring = _slot_positions(pos, Sc, q.device) >= M
+    valid = torch.cat([torch.ones(M, dtype=torch.bool, device=q.device),
+                       ring])
+    return _ring_attend(q, torch.cat([k_meta, kc], dim=1),
+                        torch.cat([v_meta, vc], dim=1), valid)
+
+
+def _ssm_apply(p, x, cfg: ModelConfig, mode: str, cache: Optional[dict]):
+    """The Mamba-2 mixer: in-projection, causal conv over (x, B, C), the
+    SSD (chunked for a sequence, one recurrent step in decode), the D skip,
+    the SiLU gate and the out-projection.  Returns (out, new_cache)."""
+    B, S, d = x.shape
+    d_in = cfg.ssm_expand * d
+    P = cfg.ssm_headdim
+    nh = d_in // P
+    N = cfg.ssm_state
+    xn = rms_norm(x, p["sln"], cfg.norm_eps)
+    zx = xn @ p["w_zx"]
+    z, xin = zx[..., :d_in], zx[..., d_in:]
+    bc = xn @ p["w_bc"]
+    dt = F.softplus((xn @ p["w_dt"]).float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    xbc = torch.cat([xin, bc], dim=-1)
+    new_cache = {}
+    if mode == "decode":
+        conv_state, yt = ssm_lib.conv1d_step(cache["conv_state"], xbc[:, 0],
+                                             p["conv_w"], p["conv_b"])
+        new_cache["conv_state"] = conv_state
+        xs, Bm, Cm = yt[..., :d_in], yt[..., d_in:d_in + N], yt[..., d_in + N:]
+        h, y = ssm_lib.ssd_step(cache["ssm_h"], xs.reshape(B, nh, P),
+                                dt[:, 0], A, Bm, Cm)
+        new_cache["ssm_h"] = h
+        y = y.reshape(B, 1, d_in)
+    else:
+        yconv = ssm_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"])
+        xs = yconv[..., :d_in].reshape(B, S, nh, P)
+        Bm = yconv[..., d_in:d_in + N]
+        Cm = yconv[..., d_in + N:]
+        y, h = ssm_lib.ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+        if mode == "prefill":
+            new_cache["ssm_h"] = h
+            new_cache["conv_state"] = xbc[:, -(cfg.conv_width - 1):].clone()
+        y = y.reshape(B, S, d_in)
+    y = y + (xs.reshape(B, -1, nh, P)
+             * p["Dskip"].to(x.dtype)[None, None, :, None]).reshape(y.shape)
+    y = y * F.silu(z)
+    return y @ p["w_so"], new_cache
 
 
 def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str = "train"):
@@ -212,8 +367,23 @@ def layer_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 cache_len: int = 0):
     """One full layer.  Returns (x_out, new_cache_dict)."""
     check_spec(cfg, spec)
-    y, new_cache = _attn_apply(p, x, cfg, spec, mode, pos, cache,
-                               cache_len=cache_len)
-    x = x + y
-    x = x + _ffn_apply(p, x, cfg, spec, mode=mode)
+    new_cache: Dict[str, torch.Tensor] = {}
+    if spec.mixer == "attn":
+        y, nc = _attn_apply(p, x, cfg, spec, mode, pos, cache,
+                            cache_len=cache_len)
+        new_cache.update(nc)
+        x = x + y
+    elif spec.mixer == "ssm":
+        y, nc = _ssm_apply(p, x, cfg, mode, cache)
+        new_cache.update(nc)
+        x = x + y
+    else:                                             # hybrid: in parallel
+        ya, nca = _attn_apply(p, x, cfg, spec, mode, pos, cache,
+                              cache_len=cache_len)
+        ys, ncs = _ssm_apply(p, x, cfg, mode, cache)
+        new_cache.update(nca)
+        new_cache.update(ncs)
+        x = x + 0.5 * (ya + ys)
+    if spec.mixer != "ssm":
+        x = x + _ffn_apply(p, x, cfg, spec, mode=mode)
     return x, new_cache

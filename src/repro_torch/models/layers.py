@@ -38,19 +38,31 @@ class ParamDef:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+#: a normal parameter with more elements than this is drawn in row blocks
+#: of at most ``_BLOCK`` elements (gemma3's 1.4 B-element embedding), so
+#: that its float32 draw needs no second copy of it on the card
+_HUGE = 1 << 30
+_BLOCK = 1 << 27
+
+
 def init_param(d: ParamDef, generator: torch.Generator,
-               dtype=torch.float32, device="cuda") -> torch.Tensor:
-    """One parameter, drawn on ``device`` from ``generator`` (which must
-    live on the same device type)."""
+               out: torch.Tensor) -> torch.Tensor:
+    """Draw one parameter into ``out`` (of ``d``'s shape) from
+    ``generator``, which lives on ``out``'s device type."""
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype, device=device)
+        return out.zero_()
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype, device=device)
+        return out.fill_(1)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     std = d.scale / max(fan_in, 1) ** 0.5
-    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    n = out.numel()
+    rows = d.shape[0] if n <= _HUGE else max(1, _BLOCK // (n // d.shape[0]))
+    for i in range(0, d.shape[0], rows):
+        blk = out[i:i + rows]
+        x = torch.randn(blk.shape, generator=generator, dtype=torch.float32,
+                        device=out.device)
+        blk.copy_(x.mul_(std))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
 """Decoder-only LM as an ``nn.Module``.
 
-Mirrors :class:`repro.models.lm.LM` for the families of the serving slice
-(dense and MoE attention layers).  Where the reference stacks the layers'
-parameters and scans them (``lax.scan``), the port keeps one
-:class:`Block` per layer in a ``ModuleList`` and loops; the cache is a
-list with one ``{"k_cache", "v_cache"}`` dict per layer.  Parameters keep
-the reference's names and ``[in, out]`` layout (``state_dict`` keys
-``embed``, ``final_ln``, ``unembed`` and ``layers.<i>.<name>``), so
-:func:`repro_torch.convert.params_from_jax` only unstacks.  They are
+Mirrors :class:`repro.models.lm.LM` for the dense, MoE, SSM and hybrid
+families: attention layers (full, or gemma3's 5 local : 1 global
+interleave), Mamba-2 layers, Hymba's parallel attention + SSM layers
+and its learnable meta-token prefix.  Where the reference stacks the
+layers' parameters in periods and scans them (``lax.scan``), the port
+keeps one :class:`Block` per layer in a ``ModuleList`` and loops
+(:func:`plan_layers` flattens the period and the tail to one spec a
+layer); the cache is a list with one dict per layer, whose entries and
+shapes follow the layer (a ring or a full KV cache, meta K/V, an SSM
+state).  Parameters keep the reference's names and ``[in, out]`` layout
+(``state_dict`` keys ``embed``, ``final_ln``, ``unembed``, ``meta`` and
+``layers.<i>.<name>``), so :func:`repro_torch.convert.params_from_jax`
+only unstacks.  They are
 made without ``requires_grad``; the trainer turns it on
 (``model.requires_grad_(True)``) and calls :meth:`LM.loss`, the one entry
 point that runs with grad on.  Serving's :meth:`LM.forward`,
@@ -31,17 +36,31 @@ __all__ = ["LM", "Block", "plan_layers"]
 
 
 def plan_layers(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
-    """One spec per layer.  The gemma3-style local/global interleave and
-    the SSM / hybrid families raise until their slice is ported."""
-    if cfg.family in ("ssm", "hybrid", "encdec") or cfg.global_every:
+    """One spec per layer: the reference's (pattern within a period,
+    n_periods, tail) flattened, layer ``n * period + i`` taking the
+    pattern's ``i``-th spec and the tail the last layers.  gemma3-style
+    configs (``global_every``) interleave ``global_every - 1`` local
+    window layers (rope theta 1e4) with one global layer."""
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family {cfg.family!r} (global_every={cfg.global_every}) not "
-            f"yet ported to repro_torch (ROADMAP.md §A: local / window "
-            f"attention, ssm.py, encdec.py)")
-    if cfg.family == "moe":
+            "the encoder-decoder family is not yet ported to repro_torch "
+            "(ROADMAP.md §A: encdec.py)")
+    if cfg.family == "ssm":
+        base = LayerSpec(mixer="ssm")
+    elif cfg.family == "hybrid":
+        base = LayerSpec(mixer="hybrid", window=cfg.window, moe=False)
+    elif cfg.family == "moe":
         base = LayerSpec(mixer="attn", moe=True)
     else:                      # dense | vlm
         base = LayerSpec(mixer="attn", window=cfg.window)
+    if cfg.global_every:       # gemma3-style local:global interleave
+        local = LayerSpec(mixer="attn", window=cfg.window, rope_theta=1e4)
+        glob = LayerSpec(mixer="attn", window=None,
+                         rope_theta=cfg.rope_theta)
+        pattern = (local,) * (cfg.global_every - 1) + (glob,)
+        n_periods = cfg.n_layers // len(pattern)
+        tail = (local,) * (cfg.n_layers - n_periods * len(pattern))
+        return pattern * n_periods + tail
     return (base,) * cfg.n_layers
 
 
@@ -76,10 +95,10 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        if cfg.meta_tokens or cfg.img_tokens:
+        if cfg.img_tokens:
             raise NotImplementedError(
-                "meta tokens and image embeddings not yet ported to "
-                "repro_torch (ROADMAP.md §A)")
+                "image embeddings not yet ported to repro_torch "
+                "(ROADMAP.md §A: phi-3-vision)")
         self.cfg = cfg
         self.specs = plan_layers(cfg)
         self.top_defs = self._top_defs()
@@ -96,6 +115,9 @@ class LM(nn.Module):
                 "final_ln": ParamDef((d,), ("embed",), "zeros")}
         if not cfg.tie_embeddings:
             defs["unembed"] = ParamDef((d, V), ("embed", "vocab"))
+        if cfg.meta_tokens:
+            defs["meta"] = ParamDef((cfg.meta_tokens, d), (None, "embed"),
+                                    scale=float(d ** 0.5))
         return defs
 
     # -- parameters ---------------------------------------------------------
@@ -106,17 +128,18 @@ class LM(nn.Module):
         owners = [(self, self.top_defs)] + [(b, b.defs) for b in self.layers]
         for mod, defs in owners:
             for name, d in defs.items():
-                prm = mod._parameters[name]
-                prm.copy_(init_param(d, generator, dtype=prm.dtype,
-                                     device=prm.device))
+                init_param(d, generator, mod._parameters[name].data)
         return self
 
     # -- cache --------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int,
                    dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
-        """A zeroed KV cache, one dict per layer."""
+        """A zeroed serve cache, one dict per layer.  SSD states are f32
+        (they accumulate); KV and conv caches take ``dtype``."""
         dev = self.embed.device
-        return [{k: torch.zeros(d.shape, dtype=dtype, device=dev)
+        return [{k: torch.zeros(d.shape, device=dev,
+                                dtype=torch.float32 if k == "ssm_h"
+                                else dtype)
                  for k, d in cache_defs(self.cfg, s, batch, cache_len).items()}
                 for s in self.specs]
 
@@ -136,29 +159,40 @@ class LM(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return x @ w
 
-    def _full_logits(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """Token embeddings behind the meta-token prefix (Hymba), and the
+        prefix length."""
         x = self.embed[tokens]
+        if not self.cfg.meta_tokens:
+            return x, 0
+        meta = self.meta[None].expand((tokens.shape[0],) + self.meta.shape)
+        return torch.cat([meta, x], dim=1), self.cfg.meta_tokens
+
+    def _full_logits(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        x, prefix = self._embed_tokens(tokens)
         x, _ = self._run_blocks(x, "train", 0)
-        return self._logits(x)
+        return self._logits(x), prefix
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor):
-        """Full-sequence logits [B, S, V] and the prefix length (0 here):
-        the greedy oracle of the tests."""
-        return self._full_logits(tokens), 0
+        """Full-sequence logits [B, prefix + S, V] and the prefix length
+        (the meta tokens'): the greedy oracle of the tests."""
+        return self._full_logits(tokens)
 
     def loss(self, tokens: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
         """Mean next-token cross-entropy of ``tokens`` [B, S] against
-        ``labels`` [B, S] (:meth:`repro.models.lm.LM.loss`), with grad on
-        wherever the caller's grad mode has it: the training entry point."""
-        return softmax_xent(self._full_logits(tokens), labels,
-                            self.cfg.vocab)
+        ``labels`` [B, S] (:meth:`repro.models.lm.LM.loss`; the prefix
+        positions dropped), with grad on wherever the caller's grad mode
+        has it: the training entry point."""
+        logits, prefix = self._full_logits(tokens)
+        return softmax_xent(logits[:, prefix:], labels, self.cfg.vocab)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int):
-        """Returns (cache, last-token logits [B, V], next_pos)."""
-        x = self.embed[tokens]
+        """Returns (cache, last-token logits [B, V], next_pos); next_pos
+        counts the meta prefix."""
+        x, _prefix = self._embed_tokens(tokens)
         S_total = x.shape[1]
         x, cache = self._run_blocks(x, "prefill", 0, cache_len=cache_len)
         logits = self._logits(x[:, -1:])
@@ -167,8 +201,9 @@ class LM(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache, token: torch.Tensor, pos: int,
                     cache_len: int):
-        """token [B, 1] int; pos: tokens so far.  Returns (logits [B, V],
-        new_cache) — the cache is updated in place."""
+        """token [B, 1] int; pos: tokens so far, the prefix included.
+        Returns (logits [B, V], new_cache) — KV caches are updated in
+        place, SSM states replaced."""
         x = self.embed[token]
         x, new_cache = self._run_blocks(x, "decode", pos, cache=cache,
                                         cache_len=cache_len)

@@ -3,7 +3,11 @@
 Mirrors :mod:`repro.serving.engine`.  ``ServeEngine`` keeps B decode
 slots.  Each admission wave is left-padded with token 0 to one prompt
 length — the pad tokens are attended to, unmasked, as in the reference —
-prefilled in one call, then decoded together.  Greedy sampling by default
+prefilled in one call, then decoded together.  The model keeps one cache
+dict a layer, of whatever shape the layer needs (a ring of ``window``
+slots or a full KV cache, meta K/V, an SSM state), and the decode
+position counts the model's meta-token prefix, as the reference's
+``S_total`` does.  Greedy sampling by default
 (the first maximum, as ``jnp.argmax``); with a temperature, categorical
 sampling from an explicit ``torch.Generator``, whose draws differ from
 ``jax.random``'s.  Every phase emits Pipit events (``init``, ``wave``,

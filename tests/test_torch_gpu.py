@@ -56,7 +56,11 @@ route and gives the eager digest on every route; ``/setquery`` and
 ``/diagnose`` give the library's digests and repeats launch nothing.
 ``multirun_analysis`` on the card is within the gate of the CPU route with
 one ``seg_sum`` launch per run, and the twelve host-op calls of the rest
-of the analysis API launch nothing and give the CPU trace's bits.
+of the analysis API launch nothing and give the CPU trace's bits.  The
+tensor-core flash kernel also runs gemma3-27b's local shape (H 32 over
+KVH 16, D = 128, window 1,024) and hymba-1.5b's (H 25 over KVH 5, D =
+64, window 1,024 + 128 prefix keys); gemma3, hymba and mamba2 at smoke
+size serve the CPU's greedy tokens on the card.
 """
 
 import functools
@@ -635,6 +639,9 @@ def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
     (2, 512, 700, 8, 8, 128, {"causal": False}),              # non-causal
     (4, 1, 2000, 16, 16, 128, {"q_offset": 1999}),            # Sq = 1
     (4, 872, 872, 16, 16, 128, {}),                           # serving
+    (1, 2048, 2048, 32, 16, 128, {"window": 1024}),           # gemma3
+    (1, 1300, 1300, 25, 5, 64, {"window": 1024,               # hymba
+                                "prefix_len": 128}),
 ])
 def test_flash_attention_tensor_core_kernel(cuda, B, Sq, Sk, H, KVH, D, kw):
     rng = np.random.default_rng(Sq * Sk + D)
@@ -1438,3 +1445,35 @@ def test_each_format_reads_onto_the_card(cuda, fmt, tmp_path):
                     gate(np.asarray(got[c]), np.asarray(want[c]))
     after = _per_kernel()
     assert all(after[k] > before[k] for k in after), (before, after)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "hymba-1.5b",
+                                  "mamba2-130m"])
+def test_family_smoke_serves_the_cpu_tokens_on_the_card(cuda, arch):
+    """Slice 15's families at smoke size in f32, one weight set served on
+    the card and on the CPU through the same engine: the same greedy
+    tokens, prefill logits within 1e-3; flash launched on the card for
+    the two attention families only."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_smoke_config(arch)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        logits = []
+        eng = ServeEngine(cfg, batch=4, cache_len=128, params=params,
+                          device=dev)
+        eng.logits_hook = (lambda ph, lg, _l=logits:
+                           _l.append(lg.float().cpu()) if ph == "prefill"
+                           else None)
+        before = flash_attention.LAUNCHES
+        done = eng.serve_queue(make_requests(cfg.vocab, 8, 32, 8))
+        launched = flash_attention.LAUNCHES - before
+        assert (launched > 0) == (dev == "cuda" and cfg.family != "ssm")
+        out[dev] = ([r.out_tokens for r in done], torch.cat(logits))
+    assert out["cuda"][0] == out["cpu"][0]
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-3,
+                               rtol=0)

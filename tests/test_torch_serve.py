@@ -231,7 +231,7 @@ def test_init_draws_from_the_generator(port):
     assert not a.state_dict()["layers.0.ln"].any()
 
 
-@pytest.mark.parametrize("name", ["gemma3-27b", "mamba2-130m",
+@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "qwen3-moe-235b-a22b",
                                   "whisper-medium", "qwen1.5-0.5b"])
 def test_unported_architectures_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,10 +240,13 @@ def test_unported_architectures_raise(name):
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("name", ["gemma3-27b", "mamba2-130m",
-                                  "hymba-1.5b", "whisper-medium"])
-def test_unported_families_raise_in_the_model(name):
-    cfg = jax_smoke_config(name)
+@pytest.mark.parametrize("name,changes", [
+    ("phi-3-vision-4.2b", {}),                    # image tokens
+    ("whisper-medium", {}),                       # the encoder-decoder
+    ("whisper-medium", {"family": "dense"}),      # act="gelu"
+    ("qwen1.5-0.5b", {"img_tokens": 4})])         # image tokens, dense
+def test_unported_families_raise_in_the_model(name, changes):
+    cfg = dataclasses.replace(jax_smoke_config(name), **changes)
     port_cfg = type(get_smoke_config(ARCH))(**dataclasses.asdict(cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_cfg, device="cpu")
