@@ -4,16 +4,19 @@
 
 It runs in three processes on the one card.  After phases 1-2 this
 process starts ``chip_smoke.py --lm-half DIR``, the LM half's run: phase
-3's model-kernel cases, then phases 18-20, 22 and 23, side by side with
+3's model-kernel cases, then phases 18-20 and 22-24, side by side with
 the trace half (phase 3's trace-kernel cases and phases 4-16, host-bound)
 here; it saves the inputs of the LM timing rows to ``DIR`` and exits.
 ``chip_smoke.py --lm-timing DIR`` starts with it and waits.  When both
-the trace half and the LM run are done, phase 17 times the trace kernels
-here; then this process waits while the timing process runs every row
-that times an LM kernel (phase 21, the train step's profile and the
-backward kernel's row), so no timing shares the card; its profiler
-sessions are its first (in a process that had profiled before a long
-wait, sessions recorded only part of the kernels).  The children's lines
+the trace half and the LM run are done, this process saves the trace
+kernels' main-path inputs to ``DIR`` and waits while the timing process
+runs every timing row: phase 17's (the trace kernels) and those that time
+an LM kernel (phase 21, the train step's profile and the backward
+kernel's row), so no timing shares the card.  Every profiler session of
+the run is in that process, which did nothing else: in a process that
+had profiled before a long wait, sessions recorded only part of the
+kernels, and this process's phase 17 once saw no device time three
+profiles in a row after the trace half's work.  The children's lines
 come through behind the tags ``[lm]`` and ``[lm timing]``.  A failure
 in any process fails the run (the trace half checks the children
 between its phases); the last line is printed only after all passed.
@@ -38,13 +41,23 @@ Phases (any failure raises and exits non-zero):
              padded-tail and one-query cases, gemma3-27b's local layers
              (H 32 over KVH 16, D = 128, window 1,024) and hymba-1.5b's
              (H 25 over KVH 5, D = 64, window 1,024 + 128 prefix keys,
-             rows whose window edge falls past the prefix), each bf16 case at D = 64 or
-             128 through both kernel variants, the tensor-core one the
-             wrapper picks and the SIMT one; its backward kernel in bf16
+             rows whose window edge falls past the prefix),
+             whisper-medium's encoder ([4, 1,500, 16, 64] non-causal: a
+             padded tail and no other mask) and cross-attention (4 x 448
+             and 4 x 1 query rows over 1,500 frames, Sq != Sk) and
+             phi-3-vision's prefill ([4, 1,168, 32, 96] causal: D = 96,
+             the SIMT kernel in both dtypes), these four in bf16 on
+             peaked draws (q x 4, v uniform on [-3.5, 3.5]: outputs of
+             order one, each gate at most a tenth of its case's mean
+             |output|), each bf16
+             case at D = 64 or 128 through both kernel variants, the
+             tensor-core one the wrapper picks and the SIMT one; its
+             backward kernel in bf16
              and f32 at the training shape, GQA, window + prefix (with an
-             offset) and a padded tail, D = 64 and 128, on the forward
-             kernel's output and row log-sum-exp, each bf16 case through
-             both backward variants (tensor-core, picked, and SIMT);
+             offset), a padded tail and phi-3-vision's prefill shape, D =
+             64, 96 and 128, on the forward kernel's output and row
+             log-sum-exp, each bf16 case at D = 64 or 128 through both
+             backward variants (tensor-core, picked, and SIMT);
              ``hist_bin`` through its narrow path (up to 32 bins) and its
              wide one, counts exact, on
              +inf, 3e9, -0.0, NaN and -inf coordinates, N = 1, N not a
@@ -234,7 +247,8 @@ Phases (any failure raises and exits non-zero):
              phase 14's three streamed ops, a miss the library's digest and
              a hit, neither launching; the server then drains, the live
              store is cleared and the scheduler's threads stop;
-17. timing — each trace kernel on the inputs the trace path gave it (its
+17. timing — (in the timing process) each trace kernel on the inputs
+             the trace path gave it (its
              first call, and in ``other_calls`` each later call of another
              shape: ``stragglers``' ``seg_sum`` at K = 1 over 64 ranks,
              ``comm_matrix``'s ``pair_sum`` at 64 x 64): its
@@ -319,13 +333,37 @@ Phases (any failure raises and exits non-zero):
              family's smoke config served on the card and on the CPU as
              in phase 20; parameters, peak memory, prefill s a wave and
              decode ms a step logged, and (with the timing) a decode
-             step's device busy share.
+             step's device busy share;
+24. encdec — whisper-medium (24 encoder layers over 1,500 frames + 24
+             decoder layers with cross-attention, d_model 1,024, 16 x 64
+             heads, GELU; 8 requests, prompts up to its 448-token decoder
+             context, cache 512, frames a seeded [4, 1,500, 1,024] bf16
+             draw), phi-3-vision-4.2b (32 layers, 32 x 96 heads; 144
+             image rows, a seeded [4, 144, 3,072] draw, before prompts up
+             to 1,024, cache 2,048), codeqwen1.5-7b (32 layers, 32 x 128
+             MHA) and qwen1.5-0.5b (24 layers, tied embeddings, vocab
+             151,936; both prompts up to 1,024, cache 2,048) served at
+             full width through ``launch.serve`` with ``extras``, bf16
+             weights from seed 0, 16 new tokens, batch 4, 2 waves; counts
+             reset just before and read just after each: flash 864
+             (whisper: 2 waves x (24 encoder + 24 self + 24 cross in
+             prefill + 24 cross x 15 decode steps)), 64, 64 and 48, all
+             ``"wgmma"`` but phi-3-vision's ``"simt"`` (D = 96), no
+             router kernel; the first request's last decode step against
+             ``forward`` with its frames or image rows as in phase 23;
+             one prefill wave and one decode step profiled (busy share,
+             the flash kernels' share); each smoke config served in f32
+             on the card and on the CPU with seeded extras as in phase 20.
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
 ``device_ms`` is the summed duration of the device kernels one wrapper
 call launches, read from ``torch.profiler``; a model row's
-``library_device_ms`` is the same for its library call.  The rows of
+``library_device_ms`` is the same for its library call.  Flash attention
+has two rows: the tensor-core kernel on qwen2-moe-a2.7b's first prefill
+(``flash_attention``, its launches summed over every serving run that
+takes it) and the SIMT kernel at head dim 96 on phi-3-vision-4.2b's
+(``flash_attention_simt_d96``).  The rows of
 ``seg_sum``, ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating``
 name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
@@ -354,8 +392,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.launch.cardcheck import (  # noqa: E402
-    card_line, cuda_ms, device_ms, exact, flash_bwd_tol, flash_forward_lse,
-    gate, same_bits)
+    card_line, cuda_ms, device_ms, exact, flash_bwd_tol, flash_draw,
+    flash_forward_lse, flash_gate_share, gate, same_bits)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -611,10 +649,11 @@ def check_paths(name, label, args) -> None:
             f"max_abs_err={err:.6g}  bit-identical relaunch")
 
 
-def _flash_case(rng, B, Sq, Sk, H, KVH, D, dtype, **kw):
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .cuda().to(dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
-                                           (B, Sk, KVH, D)))
+def _flash_case(rng, B, Sq, Sk, H, KVH, D, dtype, peaked=False, **kw):
+    """q, k, v on the card from :func:`flash_draw` (``peaked``: outputs of
+    order one) and the kernel's keywords."""
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in flash_draw(
+        rng, (B, Sq, H, D), (B, Sk, KVH, D), peaked))
     return (q, k, v), kw
 
 
@@ -705,14 +744,16 @@ def phase_model_kernels() -> None:
     """Flash attention within 2e-5 (f32) / 3e-2 (bf16) of its plain
     version, top-k indices exact and gates within 1e-6 (the tolerances of
     tests/test_kernels.py), the fused router as :func:`check_router`
-    holds it; every case bit-identical on relaunch.  Each bf16 flash case
+    holds it; every case bit-identical on relaunch.  The peaked flash
+    cases (bf16) also hold their gate to at most a tenth of the plain
+    output's mean magnitude (:func:`flash_gate_share`).  Each bf16 flash case
     at D = 64 or 128 runs through both variants: the tensor-core one (what
     the wrapper picks) and the SIMT one.  Each top-k case runs through the
     path the wrapper picks and the wide one, whose bits must be equal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_gating as tg
     rng = np.random.default_rng(1)
-    flash = []
+    flash, peaked = [], []
     for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         flash += [
@@ -748,6 +789,27 @@ def phase_model_kernels() -> None:
              tol, _flash_case(rng, 2, 1300, 1300, 25, 5, 64, dtype,
                               window=1024, prefix_len=128)),
         ]
+        # whisper-medium's encoder over 1,500 frames (a padded tail, no
+        # other mask), its cross-attention from the decoder's prompt and
+        # from one decode row at D = 64, and phi-3-vision's prefill (144
+        # image + 1,024 prompt rows) at D = 96.  In bf16 on peaked draws
+        # (outputs of order one, so the gate is a small share of them;
+        # checked by flash_gate_share); f32's gate is already a small
+        # share of the standard draws' outputs
+        bf16 = dtype == torch.bfloat16
+        (peaked if bf16 else flash).extend([
+            (f"{tag} whisper encoder 4x1500x16x64 non-causal", tol,
+             _flash_case(rng, 4, 1500, 1500, 16, 16, 64, dtype, bf16,
+                         causal=False)),
+            (f"{tag} whisper cross 4x448 over 1500 frames", tol,
+             _flash_case(rng, 4, 448, 1500, 16, 16, 64, dtype, bf16,
+                         causal=False)),
+            (f"{tag} whisper cross decode 4x1 over 1500 frames", tol,
+             _flash_case(rng, 4, 1, 1500, 16, 16, 64, dtype, bf16,
+                         causal=False)),
+            (f"{tag} phi-3 4x1168x32x96 causal", tol,
+             _flash_case(rng, 4, 1168, 1168, 32, 32, 96, dtype, bf16)),
+        ])
     topk = [
         ("serve T=4096 E=60 k=4", _topk_case(rng, 4096, 60, 4)),
         ("E=128 k=8", _topk_case(rng, 2048, 128, 8)),
@@ -778,9 +840,12 @@ def phase_model_kernels() -> None:
          _router_case(rng, 250, 2064, 61, 3)),
     ]
     seen = set()
-    for label, tol, (args, kw) in flash:
+    for label, tol, (args, kw), is_peaked in (
+            [c + (False,) for c in flash] + [c + (True,) for c in peaked]):
         picked = fa.variant(args[0].dtype, args[0].shape[-1])
         want = fa.flash_attention_plain(*args, **kw)
+        share = (f", {flash_gate_share(tol, want):.3g} of mean |out|"
+                 if is_peaked else "")
         for name in dict.fromkeys((picked, "simt")):
             run = (fa.flash_attention if name == picked else
                    lambda *a, _n=name, **k: fa.flash_attention_variant(
@@ -796,8 +861,8 @@ def phase_model_kernels() -> None:
             seen.add(name)
             log(f"[kernels] flash_attention {label:52s} {name:5s}"
                 f"{' (picked)' if name == picked else '         '} ok  "
-                f"max_abs_err={err:.6g} (tol {tol:g})  bit-identical "
-                f"relaunch")
+                f"max_abs_err={err:.6g} (tol {tol:g}{share})  "
+                f"bit-identical relaunch")
     if seen != set(fa.VARIANT_LAUNCHES):
         raise AssertionError(f"flash variants checked {seen}, have "
                              f"{set(fa.VARIANT_LAUNCHES)}")
@@ -851,9 +916,9 @@ def flash_bwd_err(got, want, label) -> tuple:
 def check_flash_bwd(rng) -> None:
     """The backward kernel against its plain version on the card, on the
     output and row log-sum-exp of the forward kernel the wrapper picks:
-    the training shape and the edge cases in bf16 and f32, D = 64 and
-    128, each bf16 case through both variants (the picked one through
-    the wrapper); bit-identical on relaunch."""
+    the training shape and the edge cases in bf16 and f32, D = 64, 96
+    and 128, each bf16 case at D = 64 or 128 through both variants (the
+    picked one through the wrapper); bit-identical on relaunch."""
     from repro_torch.kernels import flash_attention as fa
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -871,6 +936,8 @@ def check_flash_bwd(rng) -> None:
             (f"{tag} D=64 GQA 4, window 64 + prefix 8, offset",
              _flash_case(rng, 1, 40, 1300, 8, 2, 64, dtype, q_offset=1260,
                          window=64, prefix_len=8)),
+            (f"{tag} phi-3 4x1168x32x96 causal",
+             _flash_case(rng, 4, 1168, 1168, 32, 32, 96, dtype)),
         ]
     for label, ((q, k, v), kw) in cases:
         o, lse = flash_forward_lse(q, k, v, **kw)
@@ -3228,22 +3295,27 @@ def first_wave(done, batch: int) -> np.ndarray:
 
 
 def profile_serving(model, spec: dict, wave: np.ndarray,
-                    prefill: bool = True, export: bool = False) -> None:
+                    prefill: bool = True, export: bool = False,
+                    extras=None) -> dict:
     """The served ``model`` (of ``spec``, a :func:`repro_torch.launch.serve.
-    serve` configuration) on the first ``wave`` prefilled, then one prefill
-    (with ``prefill``) and one decode step under ``torch.profiler``
-    (:func:`profile_step`; the decode step's export read back with
-    ``export``); then the decode step's ms, host clock over 5 synchronized
-    steps."""
+    serve` configuration) on the first ``wave`` prefilled (with
+    ``extras``), then one prefill (with ``prefill``) and one decode step
+    under ``torch.profiler`` (:func:`profile_step`; the decode step's
+    export read back with ``export``); then the decode step's ms, host
+    clock over 5 synchronized steps.  Returns the profiles by phase."""
     cfg, cache_len = model.cfg, spec["cache_len"]
     tokens = torch.from_numpy(wave).cuda()
-    cache, logits, pos = model.prefill(tokens, cache_len)
+    extras = extras or {}
+    cache, logits, pos = model.prefill(tokens, cache_len, **extras)
     cur = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
+    out = {}
     if prefill:
-        profile_step(f"{cfg.name} prefill",
-                     lambda: model.prefill(tokens, cache_len))
+        out["prefill"] = profile_step(
+            f"{cfg.name} prefill",
+            lambda: model.prefill(tokens, cache_len, **extras))
     step = lambda: model.decode_step(cache, cur, pos, cache_len)  # noqa
-    profile_step(f"{cfg.name} decode_step", step, export=export)
+    out["decode"] = profile_step(f"{cfg.name} decode_step", step,
+                                 export=export)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -3254,6 +3326,7 @@ def profile_serving(model, spec: dict, wave: np.ndarray,
         f"5 steps, wave [{wave.shape[0]}, {wave.shape[1]}], position {pos})")
     del cache, logits
     torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3514,11 +3587,12 @@ def _bwd_row(call, launches) -> dict:
     return row
 
 
-def profile_step(label: str, fn, top: int = 8, export: bool = False) -> None:
+def profile_step(label: str, fn, top: int = 8, export: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler`` after a warm call: the
     device's busy share of the call's wall time (profiler on) and the
     kernels that took the most device time; with ``export``, the
-    profile's chrome export read back (:func:`read_profile_export`)."""
+    profile's chrome export read back (:func:`read_profile_export`).
+    Returns the wall and busy seconds and each kernel's device seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -3542,6 +3616,8 @@ def profile_step(label: str, fn, top: int = 8, export: bool = False) -> None:
         top5 = [e.key for e in sorted(
             kern, key=lambda e: -e.self_device_time_total)[:5]]
         read_profile_export(label, prof, top5)
+    return {"wall_s": wall, "busy_s": busy,
+            "kernels": {e.key: e.self_device_time_total / 1e6 for e in kern}}
 
 
 def read_profile_export(label: str, prof, top5) -> None:
@@ -3642,6 +3718,7 @@ def phase_path(arch: str = ARCH) -> None:
     cfg = get_smoke_config(arch)
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0)).state_dict()
+    extras = model_extras(cfg, 4, "cpu", torch.float32)
     path = [m for m, on in ((flash_attention, cfg.family != "ssm"),
                             (topk_gating, bool(cfg.n_experts))) if on]
     out = {}
@@ -3653,7 +3730,8 @@ def phase_path(arch: str = ARCH) -> None:
                            _l.append(lg.float().cpu()) if ph == "prefill"
                            else None)
         flash_attention.LAUNCHES = topk_gating.LAUNCHES = 0
-        done = eng.serve_queue(make_requests(cfg.vocab, 8, 32, 16))
+        done = eng.serve_queue(make_requests(cfg.vocab, 8, 32, 16),
+                               **{k: v.to(dev) for k, v in extras.items()})
         after = {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES
                  for m in (flash_attention, topk_gating)}
         want_on = (dev == "cuda")
@@ -3707,22 +3785,41 @@ FAMILY_F32_TOL = 2e-3
 FAMILIES_F32 = ("hymba-1.5b", "mamba2-130m")
 
 
-@torch.no_grad()
-def forward_f32(model, tokens: torch.Tensor, last: int) -> torch.Tensor:
-    """The model's forward over ``tokens`` [1, T] in f32 with its weights
-    cast to f32 one layer at a time (a 27 B-parameter model does not fit
-    the card twice): logits of the last ``last`` positions [last, vocab],
-    the unembedding in vocabulary blocks.  The f32 flash kernel serves
-    its attention."""
+def _layers_f32(x, layers, cfg, enc_out=None):
+    """``x`` through ``layers`` in f32, each layer's weights cast to f32
+    only while it runs."""
     from repro_torch.models.blocks import layer_apply
+    for blk in layers:
+        p = {k: v.float() for k, v in blk._parameters.items()}
+        x, _ = layer_apply(p, x, cfg, blk.spec, mode="train",
+                           enc_out=enc_out)
+        del p
+    return x
+
+
+@torch.no_grad()
+def forward_f32(model, tokens: torch.Tensor, last: int,
+                extras=None) -> torch.Tensor:
+    """The model's forward over ``tokens`` [1, T] (with its ``extras``:
+    frames or image embeddings of batch 1) in f32 with its weights cast
+    to f32 one layer at a time (a 27 B-parameter model does not fit the
+    card twice): logits of the last ``last`` positions [last, vocab], the
+    unembedding in vocabulary blocks.  The f32 flash kernel serves its
+    attention."""
+    from repro_torch.models.encdec import sinusoidal_positions
     from repro_torch.models.layers import rms_norm
     cfg = model.cfg
-    x, _prefix = model._embed_tokens(tokens)
-    x = x.float()
-    for blk in model.layers:
-        p = {k: v.float() for k, v in blk._parameters.items()}
-        x, _ = layer_apply(p, x, cfg, blk.spec, mode="train")
-        del p
+    extras = extras or {}
+    enc_out = None
+    if "frames" in extras:                     # the encoder, as encode()
+        frames = extras["frames"].float()
+        e = frames @ model.frontend.float()
+        e = e + torch.from_numpy(sinusoidal_positions(
+            frames.shape[1], cfg.d_model)).to(e.device)[None]
+        e = _layers_f32(e, model.enc_layers, cfg)
+        enc_out = rms_norm(e, model.enc_ln.float(), cfg.norm_eps)
+    x, _prefix = model._embed_tokens(tokens, extras.get("img_embeds"))
+    x = _layers_f32(x.float(), model.layers, cfg, enc_out)
     x = rms_norm(x[0, -last:], model.final_ln.float(), cfg.norm_eps)
     w = model.embed if cfg.tie_embeddings else model.unembed.T
     return torch.cat([x @ w[i:i + 32768, :].float().T
@@ -3730,11 +3827,12 @@ def forward_f32(model, tokens: torch.Tensor, last: int) -> torch.Tensor:
                           :, :cfg.vocab]
 
 
-def _serve_family(spec: dict) -> tuple:
-    """One serving run of ``spec`` through ``launch.serve`` on the card,
-    counts reset just before and read just after; returns (run, the first
-    wave's decode logits of its first request, launches, by variant,
-    peak, wall s)."""
+def _serve_family(spec: dict, extras=None, timer_mods=()) -> tuple:
+    """One serving run of ``spec`` through ``launch.serve`` on the card
+    (``extras`` to every wave's prefill), counts reset just before and
+    read just after; returns (run, the first wave's decode logits of its
+    first request, launches, by variant, peak, wall s, the first call's
+    inputs of each module of ``timer_mods``)."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launch
     fa = kernels.flash_attention
@@ -3751,7 +3849,9 @@ def _serve_family(spec: dict) -> tuple:
         mod.LAUNCHES = 0
     fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
     t0 = time.perf_counter()
-    run = launch.serve(**spec, device="cuda", logits_hook=hook)
+    with DeviceTimer(timer_mods) as timer:
+        run = launch.serve(**spec, device="cuda", logits_hook=hook,
+                           extras=extras)
     wall = time.perf_counter() - t0
     launches = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
                 for mod in kernels.MODEL_KERNELS}
@@ -3765,12 +3865,14 @@ def _serve_family(spec: dict) -> tuple:
     if not finite or not all(bool(f) for f in finite):
         raise AssertionError(f"{cfg.name}: non-finite logits")
     return (run, decodes[:new - 1], launches, dict(fa.VARIANT_LAUNCHES),
-            torch.cuda.max_memory_allocated(), wall)
+            torch.cuda.max_memory_allocated(), wall, timer.inputs)
 
 
-def _decode_against_forward(tag, run, decodes, batch, new, ref: bool):
+def _decode_against_forward(tag, run, decodes, batch, new, ref: bool,
+                            extras=None):
     """The first request's greedy tokens and last decode step against
-    ``LM.forward`` over its padded prompt and the tokens fed.  Returns
+    ``LM.forward`` over its padded prompt and the tokens fed (and its row
+    of the wave's ``extras``).  Returns
     (err, the chosen tokens' largest shortfall below the forward's best,
     tokens equal to the forward's argmax, max |logit|, the bf16 forward's
     error against :func:`forward_f32` or None)."""
@@ -3779,7 +3881,8 @@ def _decode_against_forward(tag, run, decodes, batch, new, ref: bool):
     req = run.done[0]
     seq = torch.from_numpy(np.concatenate(
         [wave[0], np.asarray(req.out_tokens[:-1])])[None]).cuda()
-    logits, prefix = model.forward(seq)
+    first = {k: v[:1] for k, v in (extras or {}).items()}
+    logits, prefix = model.forward(seq, **first)
     fw = logits[0, prefix + wave.shape[1] - 1:, :cfg.vocab].float()
     del logits
     last = decodes[-1][:cfg.vocab].float()
@@ -3790,7 +3893,7 @@ def _decode_against_forward(tag, run, decodes, batch, new, ref: bool):
     agree = int((fw.argmax(dim=-1) == idx).sum())
     floor = None
     if ref:
-        exact_fw = forward_f32(model, seq, 1)[0]
+        exact_fw = forward_f32(model, seq, 1, first)[0]
         floor = float((fw[-1] - exact_fw).abs().max())
         log(f"{tag} against the f32 forward of the same weights: the bf16 "
             f"forward {floor:.4g}, the bf16 decode "
@@ -3818,7 +3921,8 @@ def phase_families() -> dict:
     out = {}
     for spec in FAMILIES:
         arch = spec["arch"]
-        run, decodes, launches, by_variant, peak, wall = _serve_family(spec)
+        run, decodes, launches, by_variant, peak, wall, _ = _serve_family(
+            spec)
         cfg, model = run.engine.cfg, run.engine.model
         tag = f"[family] {cfg.name}:"
         attn_layers = sum(s.mixer != "ssm" for s in model.specs)
@@ -3903,11 +4007,158 @@ def phase_families() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: whisper-medium, phi-3-vision-4.2b, codeqwen1.5-7b, qwen1.5-0.5b
+# ---------------------------------------------------------------------------
+
+#: each model's serving run through ``launch.serve``: bf16 weights drawn on
+#: the card from seed 0, full depth and width; whisper's prompts up to its
+#: published decoder context of 448 tokens, the others' up to 1,024
+ENCDEC = (
+    dict(arch="whisper-medium", requests=8, batch=4, prompt_len=448,
+         new_tokens=16, cache_len=512, dtype="bfloat16"),
+    dict(arch="phi-3-vision-4.2b", requests=8, batch=4, prompt_len=1024,
+         new_tokens=16, cache_len=2048, dtype="bfloat16"),
+    dict(arch="codeqwen1.5-7b", requests=8, batch=4, prompt_len=1024,
+         new_tokens=16, cache_len=2048, dtype="bfloat16"),
+    dict(arch="qwen1.5-0.5b", requests=8, batch=4, prompt_len=1024,
+         new_tokens=16, cache_len=2048, dtype="bfloat16"),
+)
+
+
+def model_extras(cfg, batch: int, device, dtype, seed: int = 0) -> dict:
+    """The model's extra inputs as seeded standard-normal draws on
+    ``device``: ``frames`` [batch, enc_frames, d_model] for the
+    encoder-decoder, ``img_embeds`` [batch, img_tokens, d_model] for a
+    model with image tokens; {} for the rest."""
+    if cfg.family == "encdec":
+        name, rows = "frames", cfg.enc_frames
+    elif cfg.img_tokens:
+        name, rows = "img_embeds", cfg.img_tokens
+    else:
+        return {}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {name: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                              device=device).to(dtype)}
+
+
+def flash_launches(cfg, waves: int, new: int) -> int:
+    """Flash launches of a serving run: one a layer with attention a wave;
+    the encoder-decoder adds its encoder's layers and its cross-attention,
+    once a decoder layer in prefill and in each of the ``new - 1`` decode
+    steps."""
+    if cfg.family == "encdec":
+        return waves * (cfg.enc_layers + cfg.n_layers * (1 + new))
+    return waves * cfg.n_layers
+
+
+def phase_encdec() -> dict:
+    """Each of :data:`ENCDEC` through ``launch.serve`` on the card in bf16
+    with its extras (:func:`model_extras`, batch 4, the same for both
+    waves): counts reset just before and read just after (flash
+    :func:`flash_launches`, all on the variant the head dim picks:
+    ``"simt"`` for phi-3-vision's 96, else ``"wgmma"``; no router kernel);
+    every request its tokens, in the vocabulary, finite logits; the
+    trace's spans; the first request's last decode step against
+    ``forward`` on its padded prompt, the tokens fed and its row of the
+    extras, within :data:`FAMILY_NOISE_FACTOR` times the bf16 forward's
+    own error against :func:`forward_f32`, each greedy token the
+    forward's argmax up to a tie within that; one prefill wave and one
+    decode step profiled (busy share, flash's share of the prefill); the
+    smoke config on the card and on the CPU (:func:`phase_path`).
+    Returns, per model, its launches and variant, and the SIMT model's
+    first flash call's inputs for the timing row."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.constants import INC
+    fa = kernels.flash_attention
+    out = {}
+    for spec in ENCDEC:
+        arch = spec["arch"]
+        cfg = get_config(arch)
+        batch, new = spec["batch"], spec["new_tokens"]
+        extras = model_extras(cfg, batch, "cuda", torch.bfloat16)
+        run, decodes, launches, by_variant, peak, wall, inputs = \
+            _serve_family(spec, extras, timer_mods=(fa,))
+        model = run.engine.model
+        tag = f"[encdec] {cfg.name}:"
+        waves = [run.done[i:i + batch]
+                 for i in range(0, len(run.done), batch)]
+        pads = [max(len(r.prompt) for r in w) for w in waves]
+        starts = [p + cfg.img_tokens for p in pads]    # first decode pos
+        n_params = sum(t.numel() for t in model.state_dict().values())
+        log(f"{tag} {cfg.n_layers} layers (+ {cfg.enc_layers} encoder "
+            f"layers over {cfg.enc_frames} frames)" if cfg.enc_layers else
+            f"{tag} {cfg.n_layers} layers", f"d_model {cfg.d_model}, "
+            f"{cfg.n_heads} x {cfg.hd} heads over {cfg.n_kv_heads}, act "
+            f"{cfg.act}, image tokens {cfg.img_tokens}, "
+            f"{n_params / 1e9:.3f} B parameters in {spec['dtype']} (config "
+            f"count {cfg.param_count() / 1e9:.3f} B); extras "
+            f"{ {k: list(v.shape) for k, v in extras.items()} }; served "
+            f"{len(run.done)} requests in {len(waves)} waves in {wall:.2f} "
+            f"s, peak device memory {peak / 2**30:.2f} GiB")
+        log(f"{tag} waves padded to {pads} prompt tokens; decode positions "
+            + ", ".join(f"{s}-{s + new - 2}" for s in starts))
+        log(f"{tag} launches {json.dumps(launches)}; flash_attention by "
+            f"variant {json.dumps(by_variant)}")
+        want = flash_launches(cfg, len(waves), new)
+        variant = fa.variant(torch.bfloat16, cfg.hd)
+        if launches["flash_attention"] != want or \
+                by_variant[variant] != want or \
+                launches["router_topk"] or launches["topk_gating"]:
+            raise AssertionError(f"{tag} launches {launches}, by variant "
+                                 f"{by_variant}; expected {want} flash "
+                                 f"launches, all {variant}, no router")
+        trace = run.tracer.to_trace(device="cuda")
+        fp = trace.flat_profile(metrics=(INC,))
+        prof = {n: (int(c), float(t)) for n, c, t in
+                zip(fp["Name"], fp["count"], fp[INC])}
+        if prof.get("prefill", (0,))[0] != len(waves) or prof.get(
+                "decode_step", (0,))[0] != len(waves) * (new - 1):
+            raise AssertionError(f"{tag} span counts {prof}")
+        step_ms = prof["decode_step"][1] / 1e6 / (len(waves) * (new - 1))
+        log(f"{tag} prefill {prof['prefill'][1] / 1e9 / len(waves):.4f} s "
+            f"a wave; decode {step_ms:.3f} ms a step; "
+            f"{run.summary['tok_per_s']} tok/s (beside the trace half)")
+        err, behind, agree, scale, floor = _decode_against_forward(
+            tag, run, decodes, batch, new, ref=True, extras=extras)
+        tol = FAMILY_NOISE_FACTOR * floor
+        log(f"{tag} request 0 (padded to {pads[0]}): last decode step "
+            f"against forward max abs err {err:.4g} (tol {tol:.4g} = "
+            f"{FAMILY_NOISE_FACTOR:g} x the bf16 forward's own error; max "
+            f"|logit| {scale:.4g}); greedy tokens the forward's argmax "
+            f"{agree}/{new}, the chosen token at most {behind:.4g} below "
+            f"the forward's best")
+        if not (err <= tol and behind <= tol):
+            raise AssertionError(f"{tag} bf16 decode against the forward: "
+                                 f"err {err}, chosen token {behind} below "
+                                 f"the best, tolerance {tol}")
+        profiles = profile_serving(model, spec, first_wave(run.done, batch),
+                                   extras=extras)
+        for phase, p in profiles.items():
+            flash = sum(t for k, t in p["kernels"].items() if "flash_" in k)
+            busy, wall_s = p["busy_s"], p["wall_s"]
+            log(f"{tag} profiled {phase}: flash kernels {flash * 1e3:.3f} "
+                f"ms = {flash / busy:.1%} of the device's busy "
+                f"{busy * 1e3:.3f} ms, busy {busy / wall_s:.1%} of the "
+                f"wall {wall_s * 1e3:.2f} ms")
+        out[arch] = {"launches": launches, "variant": variant}
+        if variant == "simt":
+            out[arch]["flash_inputs"] = inputs["flash_attention"]
+        del run, model, trace, decodes, extras, inputs
+        torch.cuda.empty_cache()
+        phase_path(arch)
+    return out
+
+
 def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
-                       families) -> list:
+                       families, encdec) -> list:
     """Each model kernel's row on the inputs of its first call on the
-    serving path.  The flash row's ``launches`` count the serving runs of
-    qwen2-moe-a2.7b, gemma3-27b and hymba-1.5b (``path_launches`` each)."""
+    serving path.  The tensor-core flash row's ``launches`` count the
+    serving runs whose flash launches are all ``"wgmma"``: qwen2-moe-a2.7b,
+    gemma3-27b, hymba-1.5b, whisper-medium, codeqwen1.5-7b and
+    qwen1.5-0.5b (``path_launches`` each); the D = 96 row phi-3-vision's,
+    all ``"simt"``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import router_topk as rt
     from repro_torch.kernels import topk_gating as tg
@@ -3915,49 +4166,30 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
     by_path = {f"serve {ARCH}": launches["flash_attention"]}
     by_path.update({f"serve {arch}": fam["launches"]["flash_attention"]
                     for arch, fam in families.items()})
-    flash_launches = dict(launches, flash_attention=sum(by_path.values()))
+    by_path.update({f"serve {arch}": m["launches"]["flash_attention"]
+                    for arch, m in encdec.items() if m["variant"] == "wgmma"})
     # flash attention on the first prefill's q, k, v
-    (q, k, v), kw = inputs["flash_attention"]
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(
-        q, k, v, **kw)
-    want = fa.flash_attention_plain(q, k, v, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError("flash_attention: relaunch differs")
-    tol = 3e-2 if q.dtype == torch.bfloat16 else 2e-5
-    err = within(tol)(got.float().cpu().numpy(), want.float().cpu().numpy())
-    qpos = kw.get("q_offset", 0) + torch.arange(Sq, device=q.device)
-    visible = float(fa.mask(qpos, torch.arange(Sk, device=q.device),
-                            kw.get("causal", True), kw.get("window"),
-                            kw.get("prefix_len", 0)).sum())
-    ops = 4.0 * D * visible * B * H        # QK^T and PV, 2 flops a MAC
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    picked = fa.variant(q.dtype, D)
-    row = _model_row(
-        "flash_attention", "src/repro/kernels/flash_attention.py:101",
-        flash_launches, err, lambda: fa.flash_attention(q, k, v, **kw),
-        lambda: fa.flash_attention_plain(q, k, v, **kw),
-        lambda: sdpa(qt, kt, vt, is_causal=True), t_ops, t_bytes,
-        f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype)[6:]}, "
-        f"{visible:.0f} visible pairs per head")
+    row = _flash_row("flash_attention", inputs["flash_attention"], by_path)
     # the SIMT kernel, which served this path before, on the same inputs
+    (q, k, v), kw = inputs["flash_attention"]
+    tol = 3e-2 if q.dtype == torch.bfloat16 else 2e-5
+    want = fa.flash_attention_plain(q, k, v, **kw)
     simt = lambda: fa.flash_attention_variant("simt", q, k, v, **kw)  # noqa
     prev_err = within(tol)(simt().float().cpu().numpy(),
                            want.float().cpu().numpy())
-    row.update(variant=picked, prev_variant="simt",
-               prev_ms=cuda_ms(simt, iters=20),
-               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err,
-               path_launches=by_path)
-    log(f"[timing] flash_attention variant {picked}; the SIMT kernel on "
-        f"the same inputs {row['prev_ms']:.4f} ms (device "
+    row.update(prev_variant="simt", prev_ms=cuda_ms(simt, iters=20),
+               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
+    log(f"[timing] flash_attention variant {row['variant']}; the SIMT kernel "
+        f"on the same inputs {row['prev_ms']:.4f} ms (device "
         f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g})")
     rows.append(row)
+    del want
+    # the SIMT kernel at head dim 96, on phi-3-vision's first prefill
+    for arch, m in encdec.items():
+        if m["variant"] == "simt":
+            rows.append(_flash_row(
+                "flash_attention_simt_d96", m["flash_inputs"],
+                {f"serve {arch}": m["launches"]["flash_attention"]}))
     rows.append(_router_row(rt, tg, launches, *inputs["router_topk"][0]))
     # top-k gating on the f32 router's logits
     (logits, k_), _kw = f32_inputs["topk_gating"]
@@ -3996,6 +4228,48 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
         f"ms), the same bits")
     rows.append(row)
     return rows
+
+
+def _flash_row(name, call, by_path) -> dict:
+    """A flash forward row on one call's ``(q, k, v), kw`` of the serving
+    path (a causal prefill): the kernel the wrapper picks against its plain
+    version, bit-identical on relaunch; SDPA as the library call; the bound
+    from the visible pairs' QK^T and PV at the dtype's peak and the bytes
+    of q, k, v and the output; ``launches`` summed over ``by_path``."""
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v), kw = call
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    got, again = fa.flash_attention(q, k, v, **kw), fa.flash_attention(
+        q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: relaunch differs")
+    tol = 3e-2 if q.dtype == torch.bfloat16 else 2e-5
+    err = within(tol)(got.float().cpu().numpy(), want.float().cpu().numpy())
+    del got, again, want
+    qpos = kw.get("q_offset", 0) + torch.arange(Sq, device=q.device)
+    visible = float(fa.mask(qpos, torch.arange(Sk, device=q.device),
+                            kw.get("causal", True), kw.get("window"),
+                            kw.get("prefix_len", 0)).sum())
+    ops = 4.0 * D * visible * B * H        # QK^T and PV, 2 flops a MAC
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row = _model_row(
+        name, "src/repro/kernels/flash_attention.py:101",
+        {name: sum(by_path.values())}, err,
+        lambda: fa.flash_attention(q, k, v, **kw),
+        lambda: fa.flash_attention_plain(q, k, v, **kw),
+        lambda: sdpa(qt, kt, vt, is_causal=True), ops / peak * 1e3,
+        nbytes / HBM_BYTES_PER_S * 1e3,
+        f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype)[6:]}, "
+        f"{visible:.0f} visible pairs per head")
+    row.update(source="src/repro_torch/csrc/flash_attention.cu",
+               variant=fa.variant(q.dtype, D), path_launches=by_path)
+    return row
 
 
 def _router_row(rt, tg, launches, x, w, k) -> dict:
@@ -4082,12 +4356,16 @@ def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
 #: a child's protocol lines on its standard output; every other line is its
 #: log, which the parent prints behind the child's tag
 READY, ROWS, PEAK = "@@ready", "@@rows ", "@@peak "
+TRACE_S = "@@trace_s "
 #: CPU threads of the LM half's torch ops (its CPU work is the smoke
 #: configs'; the trace half's host work and its pool get the rest)
 LM_THREADS = 2
 #: the file in the parent's hand-off directory that carries the inputs of
 #: the LM timing rows from the LM half's run to its timing process
 HANDOFF = "lm_timing_inputs.pt"
+#: the file that carries the trace kernels' main-path inputs (phase 17's)
+#: from this process to the timing process
+TRACE_HANDOFF = "trace_timing_inputs.pt"
 #: each phase's peak device memory (bytes) before the phase reset it
 PEAKS = [0]
 
@@ -4117,9 +4395,10 @@ def lm_half(handoff: str) -> int:
     """The LM half's run (``chip_smoke.py --lm-half DIR``, started by
     :func:`main` beside the trace half): phase 3's model kernels, serving
     (18, with its profiled prefill and decode step), the f32 router (19),
-    the path (20), training (22) and the families (23, each with a
-    profiled decode step); then the inputs of the LM timing rows saved
-    to ``DIR`` for :func:`lm_timing`, and its peak memory."""
+    the path (20), training (22), the families (23, each with a
+    profiled decode step) and the encoder-decoder, VLM and dense models
+    (24); then the inputs of the LM timing rows saved to ``DIR`` for
+    :func:`lm_timing`, and its peak memory."""
     _child_setup()
     t0 = time.perf_counter()
     phase_model_kernels()
@@ -4132,39 +4411,51 @@ def lm_half(handoff: str) -> int:
     t1 = time.perf_counter()
     families = phase_families()
     log(f"[family] phase wall {time.perf_counter() - t1:.1f} s | {SMI[0]}")
+    t1 = time.perf_counter()
+    encdec = phase_encdec()
+    log(f"[encdec] phase wall {time.perf_counter() - t1:.1f} s | {SMI[0]}")
     torch.save({"serve": (serve_launches, serve_inputs),
                 "f32": (f32_launches, f32_inputs), "families": families,
-                "train": train}, os.path.join(handoff, HANDOFF))
+                "encdec": encdec, "train": train},
+               os.path.join(handoff, HANDOFF))
     log(f"[halves] LM half's run {time.perf_counter() - t0:.1f} s")
     print(PEAK + str(half_peak()), flush=True)
     return 0
 
 
 def lm_timing(handoff: str) -> int:
-    """The LM half's timing (``chip_smoke.py --lm-timing DIR``): started
+    """The timing process (``chip_smoke.py --lm-timing DIR``): started
     with the run, it loads the kernels, builds the train step it will
-    profile and waits; on ``go`` (the LM run
-    over and the parent's phase 17 done, so nothing else works on the
-    card) the rows that time the LM path's kernels on the inputs the run
-    saved: phase 21's, the train step's profile and the backward kernel's
-    row (SDPA's backward beside it).  A process of its own, whose
-    profiler sessions are its first: in the LM run's process, sessions
-    after its long wait recorded only part of the kernels."""
+    profile and waits; on ``go`` (the LM run and the trace half over, so
+    nothing else works on the card) every timing row on the inputs the
+    other processes saved: phase 17's (the trace kernels), phase 21's,
+    the train step's profile and the backward kernel's row (SDPA's
+    backward beside it).  A process of its own that does nothing else,
+    whose profiler sessions are its first: in processes that had worked
+    or profiled before, sessions recorded part of the kernels or none."""
     _child_setup()
     stepper = train_stepper()      # built and run once while it waits
     print(READY, flush=True)
     if sys.stdin.readline().strip() != "go":
         raise RuntimeError("the LM timing process was not told to go on")
     t0 = time.perf_counter()
+    trace = torch.load(os.path.join(handoff, TRACE_HANDOFF),
+                       map_location="cuda", weights_only=False)
+    rows = phase_timing(*trace)
+    del trace
+    t_trace = time.perf_counter() - t0
+    log(f"[timing] phase wall {t_trace:.1f} s | {SMI[0]}")
+    print(TRACE_S + repr(t_trace), flush=True)
+    t1 = time.perf_counter()
     kept = torch.load(os.path.join(handoff, HANDOFF), map_location="cuda",
                       weights_only=False)
-    rows = phase_model_timing(*kept["serve"], *kept["f32"],
-                              kept["families"])
-    t1 = time.perf_counter()
+    rows += phase_model_timing(*kept["serve"], *kept["f32"],
+                               kept["families"], kept["encdec"])
+    t2 = time.perf_counter()
     rows += train_timing(kept["train"], stepper)
-    log(f"[halves] LM timing {time.perf_counter() - t0:.1f} s (phase 21 "
-        f"{t1 - t0:.1f} s, the train step's profile and backward row "
-        f"{time.perf_counter() - t1:.1f} s)")
+    log(f"[halves] LM timing {time.perf_counter() - t1:.1f} s (phase 21 "
+        f"{t2 - t1:.1f} s, the train step's profile and backward row "
+        f"{time.perf_counter() - t2:.1f} s)")
     print(PEAK + str(half_peak()), flush=True)
     print(ROWS + json.dumps(rows), flush=True)
     return 0
@@ -4186,6 +4477,7 @@ class Child:
             stderr=subprocess.STDOUT, text=True, bufsize=1, cwd=ROOT)
         self.ready = threading.Event()
         self.rows = self.peak = self.t_ready = self.t_go = self.t_exit = None
+        self.trace_s = 0.0
         self.thread = threading.Thread(target=self._read, daemon=True)
         self.thread.start()
 
@@ -4199,6 +4491,8 @@ class Child:
                 self.rows = json.loads(line[len(ROWS):])
             elif line.startswith(PEAK):
                 self.peak = int(line[len(PEAK):])
+            elif line.startswith(TRACE_S):
+                self.trace_s = float(line[len(TRACE_S):])
             else:
                 log(f"[{self.tag}] {line}")
         self.proc.wait()
@@ -4270,22 +4564,22 @@ def main() -> int:
             lambda: (lm.check(), timing.check()))
         t_trace_end = time.perf_counter()
         lm.finish()
-        t0 = time.perf_counter()
-        rows = phase_timing(launches, calls, routes)
-        log(f"[timing] phase wall {time.perf_counter() - t0:.1f} s | "
-            f"{SMI[0]}")
+        torch.save((launches, calls, routes),
+                   os.path.join(handoff, TRACE_HANDOFF))
+        del calls
         trace_peak = half_peak()
         timing.go()
         timing.finish()
-        rows += timing.rows
+        rows = timing.rows
     finally:
         lm.stop()
         timing.stop()
         shutil.rmtree(handoff, ignore_errors=True)
     # the LM half's work: the run, the timing process's start (imports,
-    # the card, the train step it will profile), and its timing
+    # the card, the train step it will profile), and its timing (after
+    # that process's phase 17, which is the trace half's)
     run, start = lm.t_exit - lm.t0, timing.t_ready - timing.t0
-    alone = timing.t_exit - timing.t_go
+    alone = timing.t_exit - timing.t_go - timing.trace_s
     hidden = sum(max(0.0, min(b, t_trace_end) - max(a, t_trace))
                  for a, b in ((lm.t0, lm.t_exit),
                               (timing.t0, timing.t_ready)))
@@ -4293,7 +4587,8 @@ def main() -> int:
     log(f"[halves] trace half (phases 3-16) {t_trace_end - t_trace:.1f} s; "
         f"LM half {work:.1f} s of work: its run {run:.1f} s and its timing "
         f"process's start {start:.1f} s beside the trace half, its timing "
-        f"{alone:.1f} s alone after phase 17; {hidden:.1f} s of it hidden "
+        f"{alone:.1f} s alone after phase 17 ({timing.trace_s:.1f} s); "
+        f"{hidden:.1f} s of it hidden "
         f"by the trace half = {hidden / work:.1%}")
     total = torch.cuda.get_device_properties(0).total_memory
     lm_peak = lm.peak + timing.peak

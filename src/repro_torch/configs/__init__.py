@@ -2,11 +2,13 @@
 
 ``get_config(name)`` returns the published config and
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-The port carries five architectures so far: qwen2-moe-a2.7b, gemma3-27b,
-hymba-1.5b and mamba2-130m (served) and pipit-lm-100m (trained); every
-other name of the reference's registry raises ``NotImplementedError``
-naming the ROADMAP item that ports its layers, and an unknown name
-``KeyError``.
+The port carries nine architectures so far: qwen2-moe-a2.7b, gemma3-27b,
+hymba-1.5b, mamba2-130m, whisper-medium, phi-3-vision-4.2b,
+codeqwen1.5-7b and qwen1.5-0.5b (served) and pipit-lm-100m (trained);
+the other names of the reference's registry (qwen1.5-110b and
+qwen3-moe-235b-a22b, which no single card holds) raise
+``NotImplementedError`` naming the ROADMAP item that ports them, and an
+unknown name ``KeyError``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ _ALIASES = {
 }
 #: the architectures whose configs the port carries
 PORTED = ("qwen2_moe_a2_7b", "pipit_lm_100m", "gemma3_27b", "hymba_1_5b",
-          "mamba2_130m")
+          "mamba2_130m", "whisper_medium", "phi_3_vision_4_2b",
+          "codeqwen1_5_7b", "qwen1_5_0_5b")
 
 ARCH_NAMES: List[str] = list(_ALIASES)
 

@@ -70,20 +70,28 @@ def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The port's ``LM`` state dict for a reference ``LM.init`` parameter
     tree given as NumPy arrays (``jax.tree_util.tree_map(np.asarray,
     params)``).  Top-level leaves (``embed``, ``final_ln``, ``unembed``,
-    ``meta``) keep their names; each ``blocks`` leaf is unstacked into
+    ``meta``; the encoder-decoder's ``frontend`` and ``enc_ln``) keep
+    their names; each ``blocks`` leaf is unstacked into
     ``layers.<i>.<name>``: ``[n_layers, ...]``, or with a gemma3-style
     period ``[n_periods, period, ...]`` to layer ``n * period + i``; each
-    ``tail`` leaf ``[n_tail, ...]`` goes to the last layers.  Every
-    matrix keeps the reference's ``[in, out]`` layout, as the port's
+    ``tail`` leaf ``[n_tail, ...]`` goes to the last layers, and each
+    ``enc_blocks`` leaf ``[enc_layers, ...]`` to ``enc_layers.<i>.<name>``.
+    Every matrix keeps the reference's ``[in, out]`` layout, as the port's
     layers use it."""
-    top = ("embed", "final_ln", "unembed", "meta")
-    extra = set(tree) - set(top) - {"blocks", "tail"}
+    top = ("embed", "final_ln", "unembed", "meta", "frontend", "enc_ln")
+    extra = set(tree) - set(top) - {"blocks", "tail", "enc_blocks"}
     if extra:
-        raise NotImplementedError(
-            f"parameters {sorted(extra)} belong to layers not yet ported to "
-            f"repro_torch (ROADMAP.md §A)")
+        raise ValueError(f"parameters {sorted(extra)} belong to no layer "
+                         f"of the port's models")
     period, n_periods, n_tail = _layer_plan(cfg)
     out = {k: _tensor(tree[k]) for k in top if k in tree}
+    for name, arr in tree.get("enc_blocks", {}).items():
+        arr = np.asarray(arr)
+        if arr.shape[0] != cfg.enc_layers:
+            raise ValueError(f"enc_blocks/{name}: leading axis {arr.shape} "
+                             f"is not {cfg.enc_layers}")
+        for i in range(cfg.enc_layers):
+            out[f"enc_layers.{i}.{name}"] = _tensor(arr[i])
     lead = (n_periods,) if period == 1 else (n_periods, period)
     for name, arr in tree["blocks"].items():
         arr = np.asarray(arr)

@@ -53,8 +53,8 @@
 // SIMT kernel and the reference, which keep P in f32 (within the bf16
 // gate of 3e-2).
 //
-// flash_fwd ("simt": f32, and bf16 at D = 16 or 32) is f32 FMAs off the
-// tensor cores: one CTA per (64 query rows, head, batch). Four threads
+// flash_fwd ("simt": f32, and bf16 at D = 16, 32 or 96) is f32 FMAs off
+// the tensor cores: one CTA per (64 query rows, head, batch). Four threads
 // share a query row; thread j of a row owns the dims 16*i + 4*j + {0..3},
 // so its slice of the scaled query row and of the f32 accumulator stays in
 // registers and each of its shared-memory reads is one 16-byte load that
@@ -63,7 +63,9 @@
 // are summed across the four threads with two xor-shuffles (the same bits
 // on all four), so every thread holds the row's 32 scores and runs the
 // softmax update itself. f32 is held to 2e-5, which no tensor-core rounding
-// meets.
+// meets. D = 96 (phi-3-vision's head dim) is six such 16-dim groups: the
+// tensor-core kernel's 64-column TMA boxes and 128-byte swizzle do not
+// tile it, so bf16 at D = 96 runs here too.
 //
 // Both run  m' = max(m, max s), p = exp(s - m'), l = l e^(m - m') + sum p,
 // acc = acc e^(m - m') + p V,  out = acc / max(l, 1e-30),  with masked
@@ -237,6 +239,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 16: PIPIT_FLASH(16); break;
     case 32: PIPIT_FLASH(32); break;
     case 64: PIPIT_FLASH(64); break;
+    case 96: PIPIT_FLASH(96); break;
     case 128: PIPIT_FLASH(128); break;
     default: return cudaErrorInvalidValue;
   }
@@ -556,7 +559,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = flash_fwd (SIMT), 1 =
 // flash_wgmma (tensor cores; bf16 at D = 64 or 128 only, 16-byte aligned
-// q, k, v). Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 128} (the
+// q, k, v). Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 96, 128} (the
 // wrapper checks all of it). lse: null, or f32 [B, H, Sq] that receives
 // each row's log-sum-exp m + log(max(l, 1e-30)) (the training forward saves
 // it for csrc/flash_attention_bwd.cu; serving passes null and writes none).

@@ -96,7 +96,7 @@
 // where it differs from the SIMT kernel and the plain version (within the
 // bf16 gate, 3e-2 x each gradient's largest magnitude).
 //
-// "simt" (f32, and bf16 at D = 16 or 32): f32 FMAs, P and dS in f32:
+// "simt" (f32, and bf16 at D = 16, 32 or 96): f32 FMAs, P and dS in f32:
 //   bwd_dkdv   one CTA per (64 keys, KV head, batch), four threads a key:
 //              a thread keeps its quarter of k_c and v_c and of the dk / dv
 //              sums in registers and walks the G query heads, then the
@@ -424,6 +424,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     case 16: PIPIT_FLASH_BWD(16);
     case 32: PIPIT_FLASH_BWD(32);
     case 64: PIPIT_FLASH_BWD(64);
+    case 96: PIPIT_FLASH_BWD(96);
     case 128: PIPIT_FLASH_BWD(128);
     default: return cudaErrorInvalidValue;
   }
@@ -979,7 +980,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = the SIMT kernels, 1 = the
 // tensor-core kernels (bf16 at D = 64 or 128 only, 16-byte aligned q, k, v,
 // dout). delta: f32 scratch of B * H * Sq. Sq, Sk >= 1; H % KVH == 0; D in
-// {16, 32, 64, 128}; every tensor contiguous (the wrapper checks all of it).
+// {16, 32, 64, 96, 128}; every tensor contiguous (the wrapper checks all of
+// it).
 extern "C" int pipit_flash_attention_bwd(
     int device, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,

@@ -14,8 +14,8 @@ launches one of the two hand-written kernels in ``csrc/flash_attention.cu``
   TMA-fed, 128-byte-swizzled shared-memory tiles).  It rounds the softmax
   weights P to bfloat16 before P·V, as every tensor-core flash kernel does;
   the row sums stay f32.  Held to the bf16 gate, 3e-2.
-- ``"simt"`` (float32, and bfloat16 at D = 16 or 32): ``flash_fwd``, f32
-  FMAs with P in f32, held to 2e-5 in float32.
+- ``"simt"`` (float32, and bfloat16 at D = 16, 32 or 96): ``flash_fwd``,
+  f32 FMAs with P in f32, held to 2e-5 in float32.
 
 On a CPU tensor it runs :func:`flash_attention_plain`, the chunked
 online-softmax scan of ``chunked_attention`` (P in f32), which is
@@ -36,8 +36,8 @@ rule:
   cores; P and dS are rounded to bfloat16 before the three gradient
   products.  Held to the bf16 gate, 3e-2 x each gradient's largest
   magnitude (``launch.cardcheck.flash_bwd_tol``).
-- ``"simt"`` (float32, and bfloat16 at D = 16 or 32): ``bwd_dkdv`` and
-  ``bwd_dq``, f32 FMAs, held to 2e-5 x that magnitude in float32.
+- ``"simt"`` (float32, and bfloat16 at D = 16, 32 or 96): ``bwd_dkdv``
+  and ``bwd_dq``, f32 FMAs, held to 2e-5 x that magnitude in float32.
 
 :func:`flash_attention_bwd_plain` is their plain version.  Serving, under
 ``torch.no_grad()``, launches as before and writes no log-sum-exp.
@@ -76,7 +76,7 @@ VARIANT_LAUNCHES_BWD = {"simt": 0, "wgmma": 0}
 _NEG = -1e30
 _CHUNK = 1024             # KV chunk of the plain scan (chunked_attention's)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 96, 128)
 _WGMMA_HEAD_DIMS = (64, 128)
 _VARIANT_IDS = {"simt": 0, "wgmma": 1}
 
@@ -85,7 +85,8 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call with this dtype and head dim launches:
     ``"wgmma"`` (tensor cores) for bfloat16 at D = 64 or 128, else
     ``"simt"`` (f32 FMAs: float32 needs P in f32 to meet 2e-5, and the
-    tensor-core tiles are 64 dims wide)."""
+    tensor-core tiles are 64 dims wide, so D = 96, phi-3-vision's, is a
+    SIMT instantiation)."""
     if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

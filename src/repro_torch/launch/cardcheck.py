@@ -18,12 +18,26 @@ import numpy as np
 import torch
 
 __all__ = ["gate", "exact", "same_bits", "digest", "set_gate",
-           "findings_gate", "flash_bwd_tol", "flash_forward_lse", "cuda_ms",
-           "device_ms", "short_name", "card_line", "ptxas", "run_trees"]
+           "findings_gate", "flash_bwd_tol", "flash_draw", "flash_gate_share",
+           "flash_forward_lse", "cuda_ms", "device_ms", "short_name",
+           "card_line", "ptxas", "run_trees"]
 
-#: profiles :func:`device_ms` takes before it gives up on one that records
-#: no device activity (it happened once in a long ``chip_smoke.py`` run)
-PROFILES = 3
+#: profiles :func:`device_ms` takes, one after another, before it gives up
+#: on one that records no device activity: in long ``chip_smoke.py`` runs
+#: a profile has recorded none once and the next one all, and once three
+#: in a row did
+PROFILES = 6
+#: q's scale in a peaked flash-attention case: scores ``D^-0.5 q.k`` of
+#: standard deviation 4, so each row's softmax weighs a few keys and its
+#: output is of order one
+PEAKED_Q = 4.0
+#: v's bound in a peaked case, drawn uniform on ``[-PEAKED_V, PEAKED_V]``:
+#: every output, a convex combination of rows of v, stays inside (-4, 4),
+#: where one bfloat16 step (at most 1/64) is half the 3e-2 gate
+PEAKED_V = 3.5
+#: the largest share of a peaked case's mean output magnitude its gate may
+#: be, so that the gate is well under what it compares
+PEAKED_GATE_SHARE = 0.1
 
 
 def _f64(x) -> np.ndarray:
@@ -195,6 +209,31 @@ def flash_bwd_tol(dtype, want) -> float:
     return (2e-5 if dtype == torch.float32 else 3e-2) * mag
 
 
+def flash_draw(rng, q_shape, kv_shape, peaked: bool = False):
+    """q, k and v of a flash-attention case as float32 arrays from ``rng``:
+    each standard normal, or with ``peaked`` q times :data:`PEAKED_Q` and
+    v uniform on ``[-PEAKED_V, PEAKED_V]``, so the outputs are of order
+    one and an absolute gate of 3e-2 is a small share of them."""
+    q = rng.standard_normal(q_shape).astype(np.float32)
+    k = rng.standard_normal(kv_shape).astype(np.float32)
+    if not peaked:
+        return q, k, rng.standard_normal(kv_shape).astype(np.float32)
+    return (q * np.float32(PEAKED_Q), k,
+            rng.uniform(-PEAKED_V, PEAKED_V, kv_shape).astype(np.float32))
+
+
+def flash_gate_share(tol: float, want) -> float:
+    """``tol`` as a share of the mean magnitude of the plain output
+    ``want``: raises above :data:`PEAKED_GATE_SHARE`, where the gate would
+    pass a kernel that lost part of each row's keys."""
+    mean = float(np.abs(_f64(want)).mean())
+    share = tol / mean if mean > 0 else float("inf")
+    if not share <= PEAKED_GATE_SHARE:
+        raise AssertionError(f"the gate {tol} is {share:.3g} of the "
+                             f"output's mean magnitude {mean:.4g}")
+    return share
+
+
 def flash_forward_lse(q, k, v, **kw):
     """The flash forward kernel the wrapper picks, on CUDA inputs, asked
     for each row's log-sum-exp as the training forward asks: (out, lse
@@ -227,7 +266,8 @@ def device_ms(fn, iters: int = 20) -> Tuple[float, Dict[str, float]]:
     kernels it launches, from ``torch.profiler``, averaged over ``iters``
     calls after a warm one; (total ms, {kernel name: ms}).  A profile that
     records no device activity at all is logged and taken again, up to
-    :data:`PROFILES` times; then it raises."""
+    :data:`PROFILES` times; then it raises.  A profile that lost only part
+    of its kernels' records is not detected."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()

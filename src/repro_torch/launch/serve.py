@@ -9,7 +9,11 @@ Mirrors :mod:`repro.launch.serve`, on the card unless ``--device cpu``::
 The weights are random, drawn from seed 0.  Prompt lengths and tokens
 come from ``np.random.default_rng(0)`` in the reference's order.  The
 body is :func:`serve`, which returns the summary with the engine, the
-finished requests and the tracer.
+finished requests and the tracer.  The command line is the reference's;
+the encoder-decoder and the VLM need their extra inputs, which
+:func:`serve` takes as ``extras`` (``{"frames": [batch, enc_frames,
+d_model]}`` or ``{"img_embeds": [batch, img_tokens, d_model]}``, on the
+engine's device) and hands to every wave's prefill.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -56,8 +60,8 @@ def serve(arch: str = "qwen2-moe-a2.7b", smoke: bool = False,
           requests: int = 8, batch: int = 4, prompt_len: int = 32,
           new_tokens: int = 16, cache_len: int = 128,
           dtype: str = "float32", device="cuda",
-          logits_hook: Optional[Callable[[str, torch.Tensor], None]] = None
-          ) -> ServeRun:
+          logits_hook: Optional[Callable[[str, torch.Tensor], None]] = None,
+          extras: Optional[Dict[str, torch.Tensor]] = None) -> ServeRun:
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     tracer = Tracer()
     eng = ServeEngine(cfg, batch=batch, cache_len=cache_len, tracer=tracer,
@@ -65,7 +69,7 @@ def serve(arch: str = "qwen2-moe-a2.7b", smoke: bool = False,
     eng.logits_hook = logits_hook
     reqs = make_requests(cfg.vocab, requests, prompt_len, new_tokens)
     t0 = time.perf_counter()
-    done = eng.serve_queue(reqs)
+    done = eng.serve_queue(reqs, **(extras or {}))
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in done)
     summary = {"arch": cfg.name, "requests": len(done),

@@ -7,10 +7,18 @@ both in parallel; its attention window; a dense or MoE FFN);
 cache, and ``layer_apply`` runs it in ``train`` / ``prefill`` / ``decode``
 mode.  Covered: the ``attn``, ``ssm`` and ``hybrid`` mixers (``x + 0.5 *
 (attention + SSD)``, Hymba), full or sliding-window causal attention with
-always-visible meta tokens, ring-buffer decode, and a dense or MoE FFN
-with shared experts and their sigmoid gate.  Cross-attention (the
-encoder-decoder) and ``act != "swiglu"`` raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+always-visible meta tokens, bidirectional attention (the encoder's),
+ring-buffer decode, the encoder-decoder's cross-attention, and a dense
+(SwiGLU or GELU) or MoE FFN with shared experts and their sigmoid gate.
+
+Cross-attention (``spec.cross``) follows the reference to its quirks: its
+parameters carry an ``x_`` prefix; K and V are the encoder output times
+``x_wk`` / ``x_wv`` without ``x_bk`` / ``x_bv`` (those two exist under
+``qkv_bias`` but are never read, so their gradient is zero), and only
+``x_bq`` is added; it is non-causal and takes no rope; prefill caches
+its K / V (``x_k_cache``, ``x_v_cache``: ``[B, enc_frames, KVH, hd]``)
+and every decode step reads them unchanged, through the flash kernel
+like prefill (one query row against the encoder's frames).
 
 Decode writes the new token's K/V into the cache in place (slot
 ``pos % Sc``), where the reference returns an updated copy.  The
@@ -35,13 +43,11 @@ import torch.nn.functional as F
 from . import attention as attn_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
-from .layers import ParamDef, apply_rope, rms_norm, rope, swiglu_act
+from .layers import ParamDef, apply_rope, gelu, rms_norm, rope, swiglu_act
 from .moe import moe_ffn
 
 __all__ = ["LayerSpec", "layer_defs", "layer_apply", "cache_defs",
            "check_spec"]
-
-_LATER = "ROADMAP.md §A: encdec.py (cross-attention, act='gelu')"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,34 +61,28 @@ class LayerSpec:
 
 
 def check_spec(cfg: ModelConfig, spec: LayerSpec) -> None:
-    """Raise for a layer the port does not run yet."""
+    """Raise for a layer no model runs: an unknown mixer."""
     if spec.mixer not in ("attn", "ssm", "hybrid"):
         raise ValueError(f"unknown mixer {spec.mixer!r}")
-    if spec.cross:
-        raise NotImplementedError(
-            f"cross-attention not yet ported to repro_torch ({_LATER})")
-    if spec.mixer != "ssm" and not spec.moe and cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"act={cfg.act!r} not yet ported to repro_torch ({_LATER})")
 
 
 # ---------------------------------------------------------------------------
 # parameter definitions
 # ---------------------------------------------------------------------------
 
-def _attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+def _attn_defs(cfg: ModelConfig, prefix: str = "") -> Dict[str, ParamDef]:
     d, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out = {
-        "ln": ParamDef((d,), ("embed",), "zeros"),
-        "wq": ParamDef((d, H * hd), ("embed", "heads")),
-        "wk": ParamDef((d, KVH * hd), ("embed", "kv")),
-        "wv": ParamDef((d, KVH * hd), ("embed", "kv")),
-        "wo": ParamDef((H * hd, d), ("heads", "embed")),
+        prefix + "ln": ParamDef((d,), ("embed",), "zeros"),
+        prefix + "wq": ParamDef((d, H * hd), ("embed", "heads")),
+        prefix + "wk": ParamDef((d, KVH * hd), ("embed", "kv")),
+        prefix + "wv": ParamDef((d, KVH * hd), ("embed", "kv")),
+        prefix + "wo": ParamDef((H * hd, d), ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        out["bq"] = ParamDef((H * hd,), ("heads",), "zeros")
-        out["bk"] = ParamDef((KVH * hd,), ("kv",), "zeros")
-        out["bv"] = ParamDef((KVH * hd,), ("kv",), "zeros")
+        out[prefix + "bq"] = ParamDef((H * hd,), ("heads",), "zeros")
+        out[prefix + "bk"] = ParamDef((KVH * hd,), ("kv",), "zeros")
+        out[prefix + "bv"] = ParamDef((KVH * hd,), ("kv",), "zeros")
     return out
 
 
@@ -107,11 +107,14 @@ def _ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _ffn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """SwiGLU: ``w_gate``, ``w_up``, ``w_down``; GELU: no ``w_gate``."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"fln": ParamDef((d,), ("embed",), "zeros"),
-            "w_gate": ParamDef((d, f), ("embed", "mlp")),
-            "w_up": ParamDef((d, f), ("embed", "mlp")),
-            "w_down": ParamDef((f, d), ("mlp", "embed"))}
+    out = {"fln": ParamDef((d,), ("embed",), "zeros")}
+    if cfg.act == "swiglu":
+        out["w_gate"] = ParamDef((d, f), ("embed", "mlp"))
+    out["w_up"] = ParamDef((d, f), ("embed", "mlp"))
+    out["w_down"] = ParamDef((f, d), ("mlp", "embed"))
+    return out
 
 
 def _moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -139,6 +142,8 @@ def layer_defs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamDef]:
         out.update(_attn_defs(cfg))
     if spec.mixer in ("ssm", "hybrid"):
         out.update(_ssm_defs(cfg))
+    if spec.cross:
+        out.update(_attn_defs(cfg, prefix="x_"))
     if spec.mixer != "ssm":                       # pure-SSM blocks have no FFN
         out.update(_moe_defs(cfg) if spec.moe else _ffn_defs(cfg))
     return out
@@ -151,7 +156,9 @@ def cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int,
     gets a ring of ``min(window, cache_len)`` slots, a full layer
     ``cache_len``; with meta tokens, their K/V apart (``k_meta``,
     ``v_meta``); an SSM layer its state ``ssm_h`` (kept in f32) and the
-    last ``conv_width - 1`` conv inputs (``conv_state``)."""
+    last ``conv_width - 1`` conv inputs (``conv_state``); a decoder layer
+    of the encoder-decoder its cross-attention's K / V over the encoder's
+    frames (``x_k_cache``, ``x_v_cache``)."""
     check_spec(cfg, spec)
     out: Dict[str, ParamDef] = {}
     KVH, hd = cfg.n_kv_heads, cfg.hd
@@ -174,6 +181,12 @@ def cache_defs(cfg: ModelConfig, spec: LayerSpec, batch: int,
         out["conv_state"] = ParamDef(
             (batch, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
             ("batch", None, "ssm_in"), "zeros")
+    if spec.cross:
+        axes = ("batch", None, "kv", None)
+        out["x_k_cache"] = ParamDef((batch, cfg.enc_frames, KVH, hd), axes,
+                                    "zeros")
+        out["x_v_cache"] = ParamDef((batch, cfg.enc_frames, KVH, hd), axes,
+                                    "zeros")
     return out
 
 
@@ -341,6 +354,33 @@ def _ssm_apply(p, x, cfg: ModelConfig, mode: str, cache: Optional[dict]):
     return y @ p["w_so"], new_cache
 
 
+def _cross_apply(p, x, cfg: ModelConfig, mode: str, cache: Optional[dict],
+                 enc_out: Optional[torch.Tensor]):
+    """Cross-attention of a decoder layer over the encoder's output:
+    (out, new_cache_entries).  In ``train`` and ``prefill`` K / V are
+    ``enc_out`` times ``x_wk`` / ``x_wv`` (no ``x_bk`` / ``x_bv``, as the
+    reference), and prefill caches them; ``decode`` reads the cached ones
+    unchanged.  Non-causal, no rope."""
+    B, S, _ = x.shape
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xn = rms_norm(x, p["x_ln"], cfg.norm_eps)
+    q = xn @ p["x_wq"]
+    if "x_bq" in p:
+        q = q + p["x_bq"]
+    q = q.reshape(B, S, H, hd)
+    if mode == "decode":
+        k, v = cache["x_k_cache"], cache["x_v_cache"]
+    elif enc_out is None:
+        raise ValueError(f"a cross-attention layer in {mode!r} mode needs "
+                         f"the encoder's output (enc_out)")
+    else:
+        k = (enc_out @ p["x_wk"]).reshape(B, -1, KVH, hd)
+        v = (enc_out @ p["x_wv"]).reshape(B, -1, KVH, hd)
+    new_cache = {"x_k_cache": k, "x_v_cache": v} if mode != "train" else {}
+    out = attn_lib.chunked_attention(q, k, v, causal=False)
+    return out.reshape(B, S, H * hd) @ p["x_wo"], new_cache
+
+
 def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str = "train"):
     xn = rms_norm(x, p["fln"], cfg.norm_eps)
     if spec.moe:
@@ -357,15 +397,20 @@ def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str = "train"):
             sig = torch.sigmoid((flat @ p["ws_sig"]).float())
             y = y + (shared.float() * sig).to(y.dtype)
         return y.reshape(B, S, d)
-    h = swiglu_act(xn @ p["w_gate"], xn @ p["w_up"])
+    if cfg.act == "swiglu":
+        h = swiglu_act(xn @ p["w_gate"], xn @ p["w_up"])
+    else:
+        h = gelu(xn @ p["w_up"])
     return h @ p["w_down"]
 
 
 def layer_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig, spec: LayerSpec, mode: str = "train",
                 pos: int = 0, cache: Optional[dict] = None,
-                cache_len: int = 0):
-    """One full layer.  Returns (x_out, new_cache_dict)."""
+                enc_out: Optional[torch.Tensor] = None, cache_len: int = 0):
+    """One full layer.  Returns (x_out, new_cache_dict).  ``enc_out``: the
+    encoder's output, which a cross-attention layer attends to outside
+    decode."""
     check_spec(cfg, spec)
     new_cache: Dict[str, torch.Tensor] = {}
     if spec.mixer == "attn":
@@ -384,6 +429,10 @@ def layer_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
         new_cache.update(nca)
         new_cache.update(ncs)
         x = x + 0.5 * (ya + ys)
+    if spec.cross:
+        y, nc = _cross_apply(p, x, cfg, mode, cache, enc_out)
+        new_cache.update(nc)
+        x = x + y
     if spec.mixer != "ssm":
         x = x + _ffn_apply(p, x, cfg, spec, mode=mode)
     return x, new_cache

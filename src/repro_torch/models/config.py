@@ -4,7 +4,7 @@ A copy of :mod:`repro.models.config` (``ModelConfig``, ``pad_vocab``) for
 the port, which imports nothing of the JAX package.  The fields of every
 family are kept, so a config reads the same in both packages; the port's
 model code interprets the ones its slices cover and refuses the rest.
-The dry-run shapes (``ShapeConfig``, ``SHAPES``) are not copied.
+The dry-run's cell shapes (``ShapeConfig``, ``SHAPES``) are copied too.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["ModelConfig", "pad_vocab"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "pad_vocab"]
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:
@@ -134,3 +134,19 @@ class ModelConfig:
         routed_all = self.n_layers * self.n_experts * 3 * d * self.moe_d_ff
         routed_act = self.n_layers * self.topk * 3 * d * self.moe_d_ff
         return self.param_count() - routed_all + routed_act
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}

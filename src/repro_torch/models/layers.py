@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ParamDef", "init_param", "rms_norm", "rope", "apply_rope",
-           "swiglu_act", "softmax_xent"]
+           "gelu", "swiglu_act", "softmax_xent"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +98,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[..., None, :].to(x.dtype) if cos.dim() == 3 else cos
     s = sin[..., None, :].to(x.dtype) if sin.dim() == 3 else sin
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, as ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x, approximate="tanh")
 
 
 def swiglu_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

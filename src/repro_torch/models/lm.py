@@ -1,13 +1,18 @@
 """Decoder-only LM as an ``nn.Module``.
 
-Mirrors :class:`repro.models.lm.LM` for the dense, MoE, SSM and hybrid
-families: attention layers (full, or gemma3's 5 local : 1 global
+Mirrors :class:`repro.models.lm.LM` for the dense, MoE, SSM, hybrid and
+VLM families: attention layers (full, or gemma3's 5 local : 1 global
 interleave), Mamba-2 layers, Hymba's parallel attention + SSM layers
-and its learnable meta-token prefix.  Where the reference stacks the
-layers' parameters in periods and scans them (``lax.scan``), the port
-keeps one :class:`Block` per layer in a ``ModuleList`` and loops
-(:func:`plan_layers` flattens the period and the tail to one spec a
-layer); the cache is a list with one dict per layer, whose entries and
+and its learnable meta-token prefix, and phi-3-vision's image
+embeddings (``img_embeds`` ``[B, img_tokens, d_model]``, prepended
+before any meta tokens: the positions count them, and the loss drops
+them; the attention stays causal over them, as the reference's, whose
+``prefix_len`` is the meta tokens' alone).  The encoder-decoder builds
+on it (:class:`repro_torch.models.encdec.EncDecLM`).  Where the
+reference stacks the layers' parameters in periods and scans them
+(``lax.scan``), the port keeps one :class:`Block` per layer in a
+``ModuleList`` and loops (:func:`plan_layers` flattens the period and
+the tail to one spec a layer); the cache is a list with one dict per layer, whose entries and
 shapes follow the layer (a ring or a full KV cache, meta K/V, an SSM
 state).  Parameters keep the reference's names and ``[in, out]`` layout
 (``state_dict`` keys ``embed``, ``final_ln``, ``unembed``, ``meta`` and
@@ -40,11 +45,11 @@ def plan_layers(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
     n_periods, tail) flattened, layer ``n * period + i`` taking the
     pattern's ``i``-th spec and the tail the last layers.  gemma3-style
     configs (``global_every``) interleave ``global_every - 1`` local
-    window layers (rope theta 1e4) with one global layer."""
+    window layers (rope theta 1e4) with one global layer; the
+    encoder-decoder's decoder layers add cross-attention (its encoder's
+    layers are :class:`repro_torch.models.encdec.EncDecLM`'s)."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family is not yet ported to repro_torch "
-            "(ROADMAP.md §A: encdec.py)")
+        return (LayerSpec(mixer="attn", cross=True),) * cfg.n_layers
     if cfg.family == "ssm":
         base = LayerSpec(mixer="ssm")
     elif cfg.family == "hybrid":
@@ -80,9 +85,10 @@ class Block(nn.Module):
             self.register_parameter(name, prm)
 
     def forward(self, x, mode: str = "train", pos: int = 0,
-                cache: Optional[dict] = None, cache_len: int = 0):
+                cache: Optional[dict] = None, enc_out=None,
+                cache_len: int = 0):
         return layer_apply(self._parameters, x, self.cfg, self.spec,
-                           mode=mode, pos=pos, cache=cache,
+                           mode=mode, pos=pos, cache=cache, enc_out=enc_out,
                            cache_len=cache_len)
 
 
@@ -95,10 +101,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        if cfg.img_tokens:
-            raise NotImplementedError(
-                "image embeddings not yet ported to repro_torch "
-                "(ROADMAP.md §A: phi-3-vision)")
         self.cfg = cfg
         self.specs = plan_layers(cfg)
         self.top_defs = self._top_defs()
@@ -125,7 +127,8 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator) -> "LM":
         """Draw every parameter from ``generator`` at its ParamDef's rule,
         in declaration order (top-level, then layer by layer)."""
-        owners = [(self, self.top_defs)] + [(b, b.defs) for b in self.layers]
+        owners = [(self, self.top_defs)] + [
+            (b, b.defs) for b in self.modules() if isinstance(b, Block)]
         for mod, defs in owners:
             for name, d in defs.items():
                 init_param(d, generator, mod._parameters[name].data)
@@ -145,12 +148,12 @@ class LM(nn.Module):
 
     # -- forward ------------------------------------------------------------
     def _run_blocks(self, x, mode: str, pos: int, cache=None,
-                    cache_len: int = 0):
+                    cache_len: int = 0, enc_out=None):
         new_cache = []
         for i, blk in enumerate(self.layers):
             x, nc = blk(x, mode=mode, pos=pos,
                         cache=cache[i] if cache is not None else None,
-                        cache_len=cache_len)
+                        enc_out=enc_out, cache_len=cache_len)
             new_cache.append(nc)
         return x, (new_cache if mode in ("prefill", "decode") else None)
 
@@ -159,40 +162,50 @@ class LM(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return x @ w
 
-    def _embed_tokens(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, int]:
-        """Token embeddings behind the meta-token prefix (Hymba), and the
-        prefix length."""
+    def _embed_tokens(self, tokens: torch.Tensor,
+                      img_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, int]:
+        """Token embeddings behind the image embeddings (phi-3-vision, cast
+        to the embeddings' dtype) and the meta-token prefix (Hymba), in
+        that order, and the length of both prefixes."""
         x = self.embed[tokens]
-        if not self.cfg.meta_tokens:
+        pre = []
+        if img_embeds is not None:
+            pre.append(img_embeds.to(x.dtype))
+        if self.cfg.meta_tokens:
+            pre.append(self.meta[None].expand((tokens.shape[0],)
+                                              + self.meta.shape))
+        if not pre:
             return x, 0
-        meta = self.meta[None].expand((tokens.shape[0],) + self.meta.shape)
-        return torch.cat([meta, x], dim=1), self.cfg.meta_tokens
+        return torch.cat(pre + [x], dim=1), sum(t.shape[1] for t in pre)
 
-    def _full_logits(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, int]:
-        x, prefix = self._embed_tokens(tokens)
+    def _full_logits(self, tokens: torch.Tensor, img_embeds=None
+                     ) -> Tuple[torch.Tensor, int]:
+        x, prefix = self._embed_tokens(tokens, img_embeds)
         x, _ = self._run_blocks(x, "train", 0)
         return self._logits(x), prefix
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor):
+    def forward(self, tokens: torch.Tensor, img_embeds=None):
         """Full-sequence logits [B, prefix + S, V] and the prefix length
-        (the meta tokens'): the greedy oracle of the tests."""
-        return self._full_logits(tokens)
+        (the image embeddings' and the meta tokens'): the greedy oracle of
+        the tests."""
+        return self._full_logits(tokens, img_embeds)
 
-    def loss(self, tokens: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             img_embeds=None) -> torch.Tensor:
         """Mean next-token cross-entropy of ``tokens`` [B, S] against
         ``labels`` [B, S] (:meth:`repro.models.lm.LM.loss`; the prefix
         positions dropped), with grad on wherever the caller's grad mode
         has it: the training entry point."""
-        logits, prefix = self._full_logits(tokens)
+        logits, prefix = self._full_logits(tokens, img_embeds)
         return softmax_xent(logits[:, prefix:], labels, self.cfg.vocab)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: int):
+    def prefill(self, tokens: torch.Tensor, cache_len: int, img_embeds=None):
         """Returns (cache, last-token logits [B, V], next_pos); next_pos
-        counts the meta prefix."""
-        x, _prefix = self._embed_tokens(tokens)
+        counts the image and meta prefixes."""
+        x, _prefix = self._embed_tokens(tokens, img_embeds)
         S_total = x.shape[1]
         x, cache = self._run_blocks(x, "prefill", 0, cache_len=cache_len)
         logits = self._logits(x[:, -1:])

@@ -7,7 +7,11 @@ prefilled in one call, then decoded together.  The model keeps one cache
 dict a layer, of whatever shape the layer needs (a ring of ``window``
 slots or a full KV cache, meta K/V, an SSM state), and the decode
 position counts the model's meta-token prefix, as the reference's
-``S_total`` does.  Greedy sampling by default
+``S_total`` does.  ``generate`` and ``serve_queue`` take the model's
+extra inputs as keywords (``frames=`` for the encoder-decoder,
+``img_embeds=`` for the VLM) and hand them to every wave's prefill, as
+the reference does: one tensor for all waves, so its batch is the
+wave's.  Greedy sampling by default
 (the first maximum, as ``jnp.argmax``); with a temperature, categorical
 sampling from an explicit ``torch.Generator``, whose draws differ from
 ``jax.random``'s.  Every phase emits Pipit events (``init``, ``wave``,
@@ -73,9 +77,9 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _prefill(self, tokens: torch.Tensor):
+    def _prefill(self, tokens: torch.Tensor, **extras):
         with self.tracer.span("prefill"):
-            out = self.model.prefill(tokens, self.cache_len)
+            out = self.model.prefill(tokens, self.cache_len, **extras)
             self._sync()
         return out
 
@@ -97,9 +101,9 @@ class ServeEngine:
         if self.logits_hook is not None:
             self.logits_hook(phase, logits)
 
-    def generate(self, requests: List[Request]) -> List[Request]:
+    def generate(self, requests: List[Request], **extras) -> List[Request]:
         """Serve a wave of ≤batch requests (left-padded to one prompt
-        length)."""
+        length); ``extras`` go to the model's prefill."""
         if len(requests) > self.batch:
             raise ValueError(f"a wave holds at most {self.batch} requests, "
                              f"got {len(requests)}")
@@ -110,7 +114,7 @@ class ServeEngine:
         for i, r in enumerate(reqs):
             prompts[i, S - len(r.prompt):] = r.prompt  # left-pad
         cache, logits, pos = self._prefill(
-            torch.from_numpy(prompts).to(self.device))
+            torch.from_numpy(prompts).to(self.device), **extras)
         self._hook("prefill", logits)
         tok = self._sample(logits)
         for r, t in zip(reqs, tok):
@@ -132,13 +136,14 @@ class ServeEngine:
                 p = p + 1
         return reqs
 
-    def serve_queue(self, queue: List[Request]) -> List[Request]:
-        """Slot-based batching: admit up to `batch` requests per wave."""
+    def serve_queue(self, queue: List[Request], **extras) -> List[Request]:
+        """Slot-based batching: admit up to `batch` requests per wave;
+        ``extras`` go to every wave's prefill."""
         done: List[Request] = []
         i = 0
         while i < len(queue):
             wave = queue[i:i + self.batch]
             with self.tracer.span("wave"):
-                done.extend(self.generate(wave))
+                done.extend(self.generate(wave, **extras))
             i += self.batch
         return done

@@ -150,6 +150,7 @@ def test_flash_wrapper_rejects_bad_inputs(bad, err):
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.float32, 96, "simt"),
 ])
 def test_flash_variant_rule(dtype, D, want):
     assert flash.variant(dtype, D) == want
@@ -233,3 +234,27 @@ def test_flash_bench_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("needs a machine without CUDA")
     assert flash_bench.main([]) == 2
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,kw", [
+    (2, 1, 1500, 4, 64, {"causal": False}),       # whisper cross decode
+    (1, 448, 1500, 2, 64, {"causal": False}),     # whisper cross
+    (1, 1500, 1500, 2, 64, {"causal": False}),    # whisper encoder
+    (1, 1168, 1168, 2, 96, {}),                   # phi-3-vision prefill
+])
+def test_peaked_draw_gate_sees_a_lost_key_tail(B, Sq, Sk, H, D, kw):
+    """On a peaked draw (``cardcheck.flash_draw``) the bf16 gate is at
+    most a tenth of the outputs' mean magnitude, and a kernel that lost
+    the keys past the last full 128-key tile would fail it by far: the
+    plain version without them moves an output by more than ten times
+    the gate."""
+    from repro_torch.launch.cardcheck import flash_draw, flash_gate_share
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in flash_draw(
+        rng, (B, Sq, H, D), (B, Sk, H, D), peaked=True))
+    want = flash.flash_attention_plain(q, k, v, **kw).float()
+    assert flash_gate_share(TOL["bfloat16"], want) <= 0.1
+    keep = Sk - Sk % 128
+    lost = flash.flash_attention_plain(q, k[:, :keep], v[:, :keep],
+                                       **kw).float()
+    assert float((lost - want).abs().max()) > 10 * TOL["bfloat16"]

@@ -60,7 +60,14 @@ of the analysis API launch nothing and give the CPU trace's bits.  The
 tensor-core flash kernel also runs gemma3-27b's local shape (H 32 over
 KVH 16, D = 128, window 1,024) and hymba-1.5b's (H 25 over KVH 5, D =
 64, window 1,024 + 128 prefix keys); gemma3, hymba and mamba2 at smoke
-size serve the CPU's greedy tokens on the card.
+size serve the CPU's greedy tokens on the card.  Flash attention at head
+dim 96 (phi-3-vision's, the SIMT kernel in both dtypes, forward and
+backward) and at whisper-medium's shapes (the encoder over 1,500 frames
+non-causal, cross-attention from 448 and from 1 query row over them)
+meets the same gates, and whisper and phi-3-vision at smoke size, given
+their frames or image embeddings, serve the CPU's greedy tokens on the
+card with one flash launch a layer with attention a wave (whisper's
+cross-attention also every decode step).
 """
 
 import functools
@@ -75,7 +82,8 @@ from repro_torch.core.query import scan
 from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
                                  router_topk, seg_sum, time_bin, topk_gating)
 from repro_torch.launch.cardcheck import (digest, findings_gate,
-                                         flash_bwd_tol, flash_forward_lse,
+                                         flash_bwd_tol, flash_draw,
+                                         flash_forward_lse, flash_gate_share,
                                          gate, same_bits, set_gate)
 from repro_torch.tracegen import big_events, big_trace
 
@@ -609,12 +617,23 @@ def test_read_only_arrays_reach_the_card_without_a_warning(cuda,
     (1, 40, 1300, 4, 2, 64, {"q_offset": 1260, "window": 64,
                              "prefix_len": 8}),
     (2, 50, 70, 4, 4, 32, {"causal": False, "window": 20}),
+    # in bf16 on peaked draws (cardcheck.flash_draw): outputs of order
+    # one, the gate at most a tenth of their mean magnitude
+    (1, 300, 300, 4, 4, 96, {"peaked": True}),                # phi-3: D 96
+    (1, 200, 200, 4, 2, 96, {"window": 64, "prefix_len": 8,
+                             "peaked": True}),
+    (2, 1, 1500, 4, 4, 96, {"causal": False, "peaked": True}),
+    (1, 1500, 1500, 2, 2, 64, {"causal": False,               # whisper enc
+                               "peaked": True}),
+    (2, 448, 1500, 2, 2, 64, {"causal": False, "peaked": True}),    # cross
+    (4, 1, 1500, 4, 4, 64, {"causal": False, "peaked": True}),  # decode
 ])
 def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
+    kw = dict(kw)
+    peaked = kw.pop("peaked", False) and dtype == torch.bfloat16
     rng = np.random.default_rng(Sq + Sk + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, KVH, D),
-                                          (B, Sk, KVH, D)))
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in flash_draw(
+        rng, (B, Sq, H, D), (B, Sk, KVH, D), peaked))
     before = flash_attention.LAUNCHES
     got = flash_attention.flash_attention(q, k, v, **kw)
     again = flash_attention.flash_attention(q, k, v, **kw)
@@ -622,6 +641,8 @@ def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
     assert flash_attention.LAUNCHES == before + 2
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.equal(got, again), "relaunch not bit-identical"
+    if peaked:
+        flash_gate_share(tol, want)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
@@ -642,12 +663,19 @@ def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
     (1, 2048, 2048, 32, 16, 128, {"window": 1024}),           # gemma3
     (1, 1300, 1300, 25, 5, 64, {"window": 1024,               # hymba
                                 "prefix_len": 128}),
+    # peaked draws, as above
+    (4, 1500, 1500, 16, 16, 64, {"causal": False,             # whisper enc
+                                 "peaked": True}),
+    (4, 448, 1500, 16, 16, 64, {"causal": False, "peaked": True}),  # cross
+    (4, 1, 1500, 16, 16, 64, {"causal": False, "peaked": True}),  # decode
 ])
 def test_flash_attention_tensor_core_kernel(cuda, B, Sq, Sk, H, KVH, D, kw):
+    kw = dict(kw)
+    peaked = kw.pop("peaked", False)
     rng = np.random.default_rng(Sq * Sk + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(cuda, torch.bfloat16)
-               for s in ((B, Sq, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in flash_draw(rng, (B, Sq, H, D), (B, Sk, KVH, D),
+                                   peaked))
     assert flash_attention.variant(q.dtype, D) == "wgmma"
     before = flash_attention.VARIANT_LAUNCHES["wgmma"]
     got = flash_attention.flash_attention(q, k, v, **kw)
@@ -656,6 +684,8 @@ def test_flash_attention_tensor_core_kernel(cuda, B, Sq, Sk, H, KVH, D, kw):
     assert flash_attention.VARIANT_LAUNCHES["wgmma"] == before + 2
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert torch.equal(got, again), "relaunch not bit-identical"
+    if peaked:
+        flash_gate_share(3e-2, want)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
 
 
@@ -689,6 +719,8 @@ BWD_CASES = [
     (1, 40, 1300, 4, 2, 64, {"q_offset": 1260, "window": 64,
                              "prefix_len": 8}),
     (2, 50, 70, 4, 4, 32, {"causal": False}),
+    (1, 300, 300, 4, 4, 96, {}),                              # phi-3: D 96
+    (2, 70, 150, 4, 2, 96, {"causal": False}),
 ]
 
 
@@ -882,6 +914,44 @@ def test_bf16_train_step_launches_only_the_wgmma_backward(cuda, tmp_path):
     assert {n: flash_attention.VARIANT_LAUNCHES[n] - fwd[n] for n in fwd} \
         == {"simt": 0, "wgmma": 2 * cfg.n_layers}
     assert np.all(np.isfinite(out["losses"])) and out["steps"] == 2
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "phi-3-vision-4.2b"])
+def test_encdec_and_vlm_smoke_serve_on_the_card(cuda, arch):
+    """The smoke config in f32 from one seeded weight set, served on the
+    card with its frames or image embeddings and on the CPU: the same
+    greedy tokens, and on the card one flash launch a layer with
+    attention a wave (whisper: its encoder's, its decoder's self- and
+    cross-attention in prefill, and cross-attention every decode
+    step)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    cfg = get_smoke_config(arch)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    extras = ({"frames": torch.randn(2, cfg.enc_frames, cfg.d_model,
+                                     generator=gen)}
+              if cfg.family == "encdec" else
+              {"img_embeds": torch.randn(2, cfg.img_tokens, cfg.d_model,
+                                         generator=gen)})
+    new, waves = 5, 2
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = ServeEngine(cfg, batch=2, cache_len=64, params=params,
+                          device=dev)
+        before = flash_attention.LAUNCHES
+        done = eng.serve_queue(make_requests(cfg.vocab, 4, 16, new),
+                               **{k: v.to(dev) for k, v in extras.items()})
+        out[str(dev)] = ([r.out_tokens for r in done],
+                         flash_attention.LAUNCHES - before)
+    per_wave = (cfg.enc_layers + 2 * cfg.n_layers
+                + cfg.n_layers * (new - 1) if cfg.family == "encdec"
+                else cfg.n_layers)
+    assert out["cpu"] == (out[str(cuda)][0], 0)
+    assert out[str(cuda)][1] == waves * per_wave
 
 
 @pytest.mark.parametrize("T,E,k", [(4096, 60, 4), (32, 128, 8), (777, 64, 4),

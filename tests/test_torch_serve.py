@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import build_model as jax_build_model
 from repro.runtime import Tracer as JaxTracer
@@ -231,13 +232,23 @@ def test_init_draws_from_the_generator(port):
     assert not a.state_dict()["layers.0.ln"].any()
 
 
-@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "qwen3-moe-235b-a22b",
-                                  "whisper-medium", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "qwen1.5-110b"])
 def test_unported_architectures_raise(name):
+    """The two configs no single card holds wait for the distributed
+    slice (ROADMAP §A.11)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(name)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "phi-3-vision-4.2b",
+                                  "codeqwen1.5-7b", "qwen1.5-0.5b"])
+def test_newly_ported_architectures_resolve(name):
+    assert dataclasses.asdict(get_config(name)) == \
+        dataclasses.asdict(jax_config(name))
+    assert dataclasses.asdict(get_smoke_config(name)) == \
+        dataclasses.asdict(jax_smoke_config(name))
 
 
 @pytest.mark.parametrize("name,changes", [
@@ -246,10 +257,26 @@ def test_unported_architectures_raise(name):
     ("whisper-medium", {"family": "dense"}),      # act="gelu"
     ("qwen1.5-0.5b", {"img_tokens": 4})])         # image tokens, dense
 def test_unported_families_raise_in_the_model(name, changes):
+    """The families that raised here before their slice now build and run
+    a forward on the CPU (the name is kept from when they raised): the
+    logits' shape and the prefix of image tokens."""
     cfg = dataclasses.replace(jax_smoke_config(name), **changes)
     port_cfg = type(get_smoke_config(ARCH))(**dataclasses.asdict(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_cfg, device="cpu")
+    model = build_model(port_cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = torch.randn(2, cfg.enc_frames, cfg.d_model,
+                                       generator=gen)
+    if cfg.img_tokens:
+        extras["img_embeds"] = torch.randn(2, cfg.img_tokens, cfg.d_model,
+                                           generator=gen)
+    logits, prefix = model.forward(torch.zeros(2, 7, dtype=torch.long),
+                                   **extras)
+    assert prefix == cfg.img_tokens
+    assert logits.shape == (2, 7 + prefix, cfg.padded_vocab)
+    assert torch.isfinite(logits).all()
 
 
 def test_tracer_sink_raises(tmp_path):
