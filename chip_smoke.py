@@ -4,7 +4,7 @@
 
 It runs in three processes on the one card.  After phases 1-2 this
 process starts ``chip_smoke.py --lm-half DIR``, the LM half's run: phase
-3's model-kernel cases, then phases 18-20 and 22-24, side by side with
+3's model-kernel cases, then phases 18-20 and 22-25, side by side with
 the trace half (phase 3's trace-kernel cases and phases 4-16, host-bound)
 here; it saves the inputs of the LM timing rows to ``DIR`` and exits.
 ``chip_smoke.py --lm-timing DIR`` starts with it and waits.  When both
@@ -46,7 +46,8 @@ Phases (any failure raises and exits non-zero):
              padded tail and no other mask) and cross-attention (4 x 448
              and 4 x 1 query rows over 1,500 frames, Sq != Sk) and
              phi-3-vision's prefill ([4, 1,168, 32, 96] causal: D = 96,
-             the SIMT kernel in both dtypes), these four in bf16 on
+             the SIMT kernel in both dtypes), these four and the two
+             GQA groupings of phase 25 in bf16 on
              peaked draws (q x 4, v uniform on [-3.5, 3.5]: outputs of
              order one, each gate at most a tenth of its case's mean
              |output|), each bf16
@@ -353,7 +354,30 @@ Phases (any failure raises and exits non-zero):
              ``forward`` with its frames or image rows as in phase 23;
              one prefill wave and one decode step profiled (busy share,
              the flash kernels' share); each smoke config served in f32
-             on the card and on the CPU with seeded extras as in phase 20.
+             on the card and on the CPU with seeded extras as in phase 20;
+25. giants — qwen1.5-110b (dense, 64 x 128 heads over 8 KV heads, d_ff
+             49,152, vocab 152,064) and qwen3-moe-235b-a22b (64 x 128
+             heads over 4 KV heads, 128 experts top-8 of width 1,536,
+             served dropless: capacity factor 16) at
+             full width with their depth cut to 8 layers (80 layers are
+             222 GB in bf16, 94 are 470 GB; the cut is logged), served
+             through ``launch.serve`` as in phase 24 (8 requests, prompts
+             up to 1,024, 16 new tokens, batch 4, cache 2,048): flash one
+             launch a layer a wave, all ``"wgmma"``; qwen3-moe's router
+             256 ``router_topk`` launches, every call ``"fused"`` (E =
+             128, k = 8: the kernel's limits); the gates of phase 24;
+             qwen3-moe's first wave prefilled again at its published
+             capacity factor 1.25, where the dispatch drops tokens
+             (slots, ms beside the dropless wave's, finite logits, a
+             profile); then qwen1.5-110b's loaded model through
+             ``launch.steps.build_cell``'s prefill and decode cells on a
+             (data 1, model 1) NCCL mesh (world size 1, parameters placed
+             as DTensors without a copy): the first wave's greedy tokens
+             and flash launches equal the unsharded run's; phase 3 adds
+             flash at both groupings (H 64 over KVH 4 and 8, D = 128,
+             both dtypes, bf16 on peaked draws) and the router at E =
+             128, k = 8, d = 4,096 (a prefill wave with tied rows, and a
+             decode step).
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
@@ -363,7 +387,11 @@ call launches, read from ``torch.profiler``; a model row's
 has two rows: the tensor-core kernel on qwen2-moe-a2.7b's first prefill
 (``flash_attention``, its launches summed over every serving run that
 takes it) and the SIMT kernel at head dim 96 on phi-3-vision-4.2b's
-(``flash_attention_simt_d96``).  The rows of
+(``flash_attention_simt_d96``); two more rows time it at phase 25's
+groupings on each model's first prefill (``flash_attention_gqa16``,
+qwen3-moe's H 64 over KVH 4, and ``flash_attention_gqa8``,
+qwen1.5-110b's H 64 over KVH 8), and ``router_topk_e128`` the fused
+router on qwen3-moe's first call.  The rows of
 ``seg_sum``, ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating``
 name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
@@ -380,6 +408,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -789,15 +818,20 @@ def phase_model_kernels() -> None:
              tol, _flash_case(rng, 2, 1300, 1300, 25, 5, 64, dtype,
                               window=1024, prefix_len=128)),
         ]
-        # whisper-medium's encoder over 1,500 frames (a padded tail, no
-        # other mask), its cross-attention from the decoder's prompt and
-        # from one decode row at D = 64, and phi-3-vision's prefill (144
-        # image + 1,024 prompt rows) at D = 96.  In bf16 on peaked draws
-        # (outputs of order one, so the gate is a small share of them;
-        # checked by flash_gate_share); f32's gate is already a small
-        # share of the standard draws' outputs
+        # qwen3-moe-235b-a22b (a GQA group of 16) and qwen1.5-110b (8) over
+        # 1,024 causal keys, whisper-medium's encoder over 1,500 frames (a
+        # padded tail, no other mask), its cross-attention from the
+        # decoder's prompt and from one decode row at D = 64, and
+        # phi-3-vision's prefill (144 image + 1,024 prompt rows) at D = 96.
+        # In bf16 on peaked draws (outputs of order one, so the gate is a
+        # small share of them; checked by flash_gate_share); f32's gate is
+        # already a small share of the standard draws' outputs
         bf16 = dtype == torch.bfloat16
         (peaked if bf16 else flash).extend([
+            (f"{tag} qwen3-moe 2x1024 H64/KV4 D=128 causal", tol,
+             _flash_case(rng, 2, 1024, 1024, 64, 4, 128, dtype, bf16)),
+            (f"{tag} qwen1.5-110b 2x1024 H64/KV8 D=128 causal", tol,
+             _flash_case(rng, 2, 1024, 1024, 64, 8, 128, dtype, bf16)),
             (f"{tag} whisper encoder 4x1500x16x64 non-causal", tol,
              _flash_case(rng, 4, 1500, 1500, 16, 16, 64, dtype, bf16,
                          causal=False)),
@@ -838,6 +872,11 @@ def phase_model_kernels() -> None:
                                               zero_rows=True)),
         ("depth split T=250 d=2064 E=61 k=3",
          _router_case(rng, 250, 2064, 61, 3)),
+        # qwen3-moe-235b-a22b: the kernel's limits, E = 128 and k = 8
+        ("qwen3 T=4096 d=4096 E=128 k=8 ties",
+         _router_case(rng, 4096, 4096, 128, 8, zero_rows=True)),
+        ("qwen3 decode T=4 d=4096 E=128 k=8",
+         _router_case(rng, 4, 4096, 128, 8)),
     ]
     seen = set()
     for label, tol, (args, kw), is_peaked in (
@@ -3703,19 +3742,20 @@ def phase_f32_router():
     return launches, inputs
 
 
-def phase_path(arch: str = ARCH) -> None:
-    """The smoke config of ``arch`` served on the card and on the CPU
-    through the same engine code and weights: the same greedy tokens,
-    prefill logits within 1e-3 (f32; cuBLAS vs CPU matmuls and the
-    kernels' summation order).  On the card each kernel of the family's
-    path launches (flash attention unless the model is attention-free,
-    ``topk_gating`` for MoE routing in f32), on the CPU none."""
+def phase_path(arch: str = ARCH, overrides=None) -> None:
+    """The smoke config of ``arch`` (with ``overrides``) served on the
+    card and on the CPU through the same engine code and weights: the
+    same greedy tokens, prefill logits within 1e-3 (f32; cuBLAS vs CPU
+    matmuls and the kernels' summation order).  On the card each kernel
+    of the family's path launches (flash attention unless the model is
+    attention-free, ``topk_gating`` for MoE routing in f32), on the CPU
+    none."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention, topk_gating
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), **(overrides or {}))
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0)).state_dict()
     extras = model_extras(cfg, 4, "cpu", torch.float32)
@@ -4151,14 +4191,284 @@ def phase_encdec() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: qwen1.5-110b and qwen3-moe-235b-a22b at full width, depth cut;
+# qwen1.5-110b's prefill and decode cells on a (1, 1) NCCL mesh
+# ---------------------------------------------------------------------------
+
+#: the two configs no single card holds, served at full width in bf16 from
+#: seed 0 with their depth cut to 8 layers: qwen1.5-110b's 80 layers are
+#: 222.4 GB, its 8 are 13.363 B parameters (26.7 GB); qwen3-moe-235b-a22b's
+#: 94 are 470.2 GB, its 8 are 21.148 B (42.3 GB; 128 experts top-8).
+#: qwen3-moe is served dropless (capacity factor E / k = 16: an expert's
+#: capacity is its group's token count), as the published model routes
+#: every token: at the configs' default 1.25 the random router overflows
+#: experts, the wave's prefill and a sequence's forward drop different
+#: tokens, and decode (always dropless) cannot be held to the forward.
+#: Dropless, every expert multiplies all of a wave's tokens, 16 times the
+#: assignments: prefill_at_capacity times the first wave at 1.25 as well
+GIANTS = (
+    dict(arch="qwen1.5-110b", overrides={"n_layers": 8}, requests=8,
+         batch=4, prompt_len=1024, new_tokens=16, cache_len=2048,
+         dtype="bfloat16"),
+    dict(arch="qwen3-moe-235b-a22b",
+         overrides={"n_layers": 8, "capacity_factor": 16.0}, requests=8,
+         batch=4, prompt_len=1024, new_tokens=16, cache_len=2048,
+         dtype="bfloat16"),
+)
+#: the model served again through build_cell's cells on a (1, 1) mesh
+SHARDED_ARCH = "qwen1.5-110b"
+
+
+def phase_giants() -> dict:
+    """Each of :data:`GIANTS` through ``launch.serve`` on the card in bf16,
+    its cut logged with its reason: counts reset just before and read
+    just after (flash one launch a layer a wave, all ``"wgmma"``;
+    qwen3-moe's router one ``router_topk`` launch a layer a prefill and
+    a decode step, every call on the ``"fused"`` route, no
+    ``topk_gating``; none for the dense model); every request its tokens,
+    in the vocabulary, finite logits; the trace's spans; the first
+    request's last decode step against ``forward`` within
+    :data:`FAMILY_NOISE_FACTOR` times the bf16 forward's own error
+    against :func:`forward_f32`, each greedy token the forward's argmax up
+    to a tie within that; one prefill wave and one decode step profiled
+    (busy share); qwen3-moe's first wave at its published capacity factor
+    (:func:`prefill_at_capacity`).  Then :data:`SHARDED_ARCH`'s loaded
+    model through :func:`phase_sharded`, and the smoke config on the card
+    and on the CPU (:func:`phase_path`; qwen1.5-110b-smoke with its 8-wide
+    heads doubled to the flash kernel's smallest, 16).  Returns, per
+    model, its launches, routes and the first flash (and router) call's
+    inputs for the timing rows, qwen3-moe's prefill ms by capacity factor,
+    and the sharded run's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.constants import INC
+    fa, rt = kernels.flash_attention, kernels.router_topk
+    out = {}
+    for spec in GIANTS:
+        arch = spec["arch"]
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, **spec["overrides"])
+        batch, new = spec["batch"], spec["new_tokens"]
+        tag = f"[giant] {cfg.name}:"
+        experts = (f", {cfg.n_experts} experts top-{cfg.topk} of width "
+                   f"{cfg.moe_d_ff}, capacity factor {cfg.capacity_factor:g} "
+                   f"(dropless)" if cfg.n_experts else "")
+        log(f"{tag} cut: {full.n_layers} -> {cfg.n_layers} layers at full "
+            f"width (d_model {cfg.d_model}, {cfg.n_heads} x {cfg.hd} heads "
+            f"over {cfg.n_kv_heads} KV heads, vocab {cfg.vocab}{experts}): "
+            f"{full.n_layers} layers are {full.param_count() * 2 / 1e9:.1f} "
+            f"GB in bf16, more than the card's 80 GB; "
+            f"{cfg.param_count() / 1e9:.3f} B parameters "
+            f"({cfg.param_count() * 2 / 1e9:.1f} GB) kept")
+        rt.VARIANT_CALLS.update(dict.fromkeys(rt.VARIANT_CALLS, 0))
+        run, decodes, launches, by_variant, peak, wall, inputs = \
+            _serve_family(spec, timer_mods=(fa, rt))
+        routes = dict(rt.VARIANT_CALLS)
+        model = run.engine.model
+        waves = [run.done[i:i + batch]
+                 for i in range(0, len(run.done), batch)]
+        pads = [max(len(r.prompt) for r in w) for w in waves]
+        n_params = sum(t.numel() for t in model.state_dict().values())
+        log(f"{tag} {n_params / 1e9:.3f} B parameters in {spec['dtype']}; "
+            f"served {len(run.done)} requests in {len(waves)} waves "
+            f"(padded to {pads}) in {wall:.2f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"{tag} launches {json.dumps(launches)}; flash_attention by "
+            f"variant {json.dumps(by_variant)}; router_topk by route "
+            f"{json.dumps(routes)}")
+        want = len(waves) * cfg.n_layers
+        router = len(waves) * cfg.n_layers * new if cfg.n_experts else 0
+        if launches["flash_attention"] != want or \
+                by_variant["wgmma"] != want or \
+                launches["router_topk"] != router or \
+                routes != {"fused": router, "unfused": 0} or \
+                launches["topk_gating"]:
+            raise AssertionError(f"{tag} launches {launches}, by variant "
+                                 f"{by_variant}, routes {routes}; expected "
+                                 f"{want} flash launches, all wgmma, "
+                                 f"{router} fused router launches")
+        trace = run.tracer.to_trace(device="cuda")
+        fp = trace.flat_profile(metrics=(INC,))
+        prof = {n: (int(c), float(t)) for n, c, t in
+                zip(fp["Name"], fp["count"], fp[INC])}
+        if prof.get("prefill", (0,))[0] != len(waves) or prof.get(
+                "decode_step", (0,))[0] != len(waves) * (new - 1):
+            raise AssertionError(f"{tag} span counts {prof}")
+        step_ms = prof["decode_step"][1] / 1e6 / (len(waves) * (new - 1))
+        log(f"{tag} prefill {prof['prefill'][1] / 1e9 / len(waves):.4f} s "
+            f"a wave; decode {step_ms:.3f} ms a step; "
+            f"{run.summary['tok_per_s']} tok/s (beside the trace half)")
+        err, behind, agree, scale, floor = _decode_against_forward(
+            tag, run, decodes, batch, new, ref=True)
+        tol = FAMILY_NOISE_FACTOR * floor
+        log(f"{tag} request 0 (padded to {pads[0]}): last decode step "
+            f"against forward max abs err {err:.4g} (tol {tol:.4g} = "
+            f"{FAMILY_NOISE_FACTOR:g} x the bf16 forward's own error; max "
+            f"|logit| {scale:.4g}); greedy tokens the forward's argmax "
+            f"{agree}/{new}, the chosen token at most {behind:.4g} below "
+            f"the forward's best")
+        if not (err <= tol and behind <= tol):
+            raise AssertionError(f"{tag} bf16 decode against the forward: "
+                                 f"err {err}, chosen token {behind} below "
+                                 f"the best, tolerance {tol}")
+        profiles = profile_serving(model, spec, first_wave(run.done, batch))
+        for phase, p in profiles.items():
+            busy, wall_s = p["busy_s"], p["wall_s"]
+            log(f"{tag} profiled {phase}: busy {busy * 1e3:.3f} ms = "
+                f"{busy / wall_s:.1%} of the wall {wall_s * 1e3:.2f} ms")
+        out[arch] = {"launches": launches, "routes": routes,
+                     "flash_inputs": inputs["flash_attention"]}
+        if cfg.n_experts:
+            out[arch]["router_inputs"] = inputs["router_topk"]
+            out[arch]["capacity"] = prefill_at_capacity(
+                model, spec, first_wave(run.done, batch),
+                full.capacity_factor, tag)
+        if arch == SHARDED_ARCH:
+            out["sharded"] = phase_sharded(run, spec)
+        del run, model, trace, decodes, inputs
+        torch.cuda.empty_cache()
+        smoke = get_smoke_config(arch)
+        if smoke.hd < 16:
+            # qwen1.5-110b-smoke's heads are 8 wide, below the flash
+            # kernel's smallest head dim (16): its width doubled there
+            log(f"{tag} smoke config served with head_dim 16 (its own "
+                f"{smoke.hd} is below the flash kernel's smallest)")
+        phase_path(arch, {"head_dim": 16} if smoke.hd < 16 else None)
+    return out
+
+
+def prefill_at_capacity(model, spec: dict, wave: np.ndarray, factor: float,
+                        tag: str) -> dict:
+    """The served MoE ``model`` on one prefill ``wave`` at its served
+    (dropless) capacity factor and at ``factor``, the published config's,
+    where the dispatch drops the assignments that overflow an expert: for
+    each, the slots an expert gets, the prefill's ms (CUDA events, mean of
+    3 after a warm call), finite logits and one fused ``router_topk``
+    launch a layer; the published factor's prefill profiled (busy share,
+    top kernels).  No decode is held to a forward here: at ``factor`` a
+    wave's prefill and a sequence's forward drop different assignments.
+    The model's config is restored after.  Returns the ms by factor."""
+    from repro_torch.kernels import router_topk as rt
+    from repro_torch.models.lm import Block
+    from repro_torch.models.moe import capacity
+    served = model.cfg
+    holders = [model] + [m for m in model.modules() if isinstance(m, Block)]
+    tokens = torch.from_numpy(wave).cuda()
+    T = tokens.numel()
+    step = lambda: model.prefill(tokens, spec["cache_len"])  # noqa: E731
+    out = {}
+    try:
+        for f in (served.capacity_factor, factor):
+            cfg = dataclasses.replace(served, capacity_factor=f)
+            for m in holders:
+                m.cfg = cfg
+            C = capacity(T // cfg.moe_groups, cfg.topk, cfg.n_experts, f,
+                         False)
+            before = dict(rt.VARIANT_CALLS)
+            _cache, logits, _pos = step()
+            fused = rt.VARIANT_CALLS["fused"] - before["fused"]
+            if not bool(torch.isfinite(logits).all()) or \
+                    fused != cfg.n_layers or \
+                    rt.VARIANT_CALLS["unfused"] != before["unfused"]:
+                raise AssertionError(f"{tag} prefill at capacity factor "
+                                     f"{f:g}: finite logits, {fused} fused "
+                                     f"router calls of {cfg.n_layers}")
+            del _cache, logits
+            ms = cuda_ms(step, iters=3, warm=1)
+            out[f] = ms
+            log(f"{tag} prefill of wave [{wave.shape[0]}, {wave.shape[1]}] "
+                f"at capacity factor {f:g}: {C} slots an expert, "
+                f"{C * cfg.n_experts / (T * cfg.topk):.3g} x the wave's "
+                f"{T * cfg.topk} assignments; {ms:.3f} ms (CUDA events, "
+                f"mean of 3); logits finite, {fused} fused router launches")
+            if f == factor:
+                profile_step(f"{cfg.name} prefill at capacity factor {f:g}",
+                             step)
+            torch.cuda.empty_cache()
+    finally:
+        for m in holders:
+            m.cfg = served
+    return out
+
+
+def phase_sharded(run, spec: dict) -> dict:
+    """The served model of ``run`` (its parameters placed as DTensors
+    without a copy) through ``launch.steps.build_cell``'s prefill and
+    decode cells on a (data 1, model 1) NCCL mesh, world size 1, on the
+    first wave's requests (``launch.steps.CellEngine``, the engine's own
+    loop over the cells): its greedy tokens equal the engine's, and its
+    flash launches the unsharded wave's (one a layer, all ``"wgmma"``).
+    Leaves the model sharded."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import CellEngine, build_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving import Request
+    model, cfg = run.engine.model, run.engine.cfg
+    batch, new, S = spec["batch"], spec["new_tokens"], spec["cache_len"]
+    tag = f"[sharded] {cfg.name}:"
+    wave = run.done[:batch]
+    want = [r.out_tokens for r in wave]
+    shape = first_wave(run.done, batch).shape
+    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(d, "store"),
+                                                 1))
+    try:
+        mesh = make_local_mesh()
+        t0 = time.perf_counter()
+        pre = build_cell(cfg, ShapeConfig("serve", S, batch, "prefill"),
+                         mesh, model=model)
+        dec = build_cell(cfg, ShapeConfig("serve", S, batch, "decode"),
+                         mesh, model=model)
+        t_place = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        fa.LAUNCHES = 0
+        fa.VARIANT_LAUNCHES.update(dict.fromkeys(fa.VARIANT_LAUNCHES, 0))
+        t0 = time.perf_counter()
+        got = [r.out_tokens for r in CellEngine(pre, dec, batch).generate(
+            [Request(r.rid, r.prompt, max_new_tokens=r.max_new_tokens)
+             for r in wave])]
+        wall = time.perf_counter() - t0
+        launches, by_variant = fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES)
+        rules = {k: v for k, v in pre.rules.rules}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"{tag} mesh (data 1, model 1) over NCCL, world size 1; parameters "
+        f"placed in {t_place:.2f} s (no copy: peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+        f"rules heads {rules['heads']!r}, kv {rules['kv']!r}, embed "
+        f"{rules['embed']!r}; one wave [{shape[0]}, "
+        f"{shape[1]}] prefilled and decoded {new - 1} steps in "
+        f"{wall:.2f} s; flash launches {launches} (by variant "
+        f"{json.dumps(by_variant)}) against the unsharded wave's "
+        f"{cfg.n_layers}; greedy tokens equal the engine's: {got == want}")
+    if got != want:
+        raise AssertionError(f"{tag} greedy tokens {got} differ from the "
+                             f"unsharded run's {want}")
+    if launches != cfg.n_layers or by_variant["wgmma"] != cfg.n_layers:
+        raise AssertionError(f"{tag} flash launches {launches} "
+                             f"({by_variant}), the unsharded wave's "
+                             f"{cfg.n_layers}")
+    return {"launches": launches, "tokens_equal": True, "wall_s": wall}
+
+
 def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
-                       families, encdec) -> list:
+                       families, encdec, giants) -> list:
     """Each model kernel's row on the inputs of its first call on the
     serving path.  The tensor-core flash row's ``launches`` count the
     serving runs whose flash launches are all ``"wgmma"``: qwen2-moe-a2.7b,
     gemma3-27b, hymba-1.5b, whisper-medium, codeqwen1.5-7b and
     qwen1.5-0.5b (``path_launches`` each); the D = 96 row phi-3-vision's,
-    all ``"simt"``."""
+    all ``"simt"``; the two GQA rows qwen3-moe-235b-a22b's and
+    qwen1.5-110b's (phase 25), and the second router row
+    qwen3-moe's."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import router_topk as rt
     from repro_torch.kernels import topk_gating as tg
@@ -4190,7 +4500,16 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
             rows.append(_flash_row(
                 "flash_attention_simt_d96", m["flash_inputs"],
                 {f"serve {arch}": m["launches"]["flash_attention"]}))
+    # phase 25's groupings, each on its model's first prefill
+    for arch, name in (("qwen3-moe-235b-a22b", "flash_attention_gqa16"),
+                       ("qwen1.5-110b", "flash_attention_gqa8")):
+        g = giants[arch]
+        rows.append(_flash_row(name, g["flash_inputs"], {
+            f"serve {arch}": g["launches"]["flash_attention"]}))
     rows.append(_router_row(rt, tg, launches, *inputs["router_topk"][0]))
+    g = giants["qwen3-moe-235b-a22b"]
+    rows.append(_router_row(rt, tg, {"router_topk_e128": g["launches"][
+        "router_topk"]}, *g["router_inputs"][0], name="router_topk_e128"))
     # top-k gating on the f32 router's logits
     (logits, k_), _kw = f32_inputs["topk_gating"]
     T, E = logits.shape
@@ -4233,7 +4552,8 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
 def _flash_row(name, call, by_path) -> dict:
     """A flash forward row on one call's ``(q, k, v), kw`` of the serving
     path (a causal prefill): the kernel the wrapper picks against its plain
-    version, bit-identical on relaunch; SDPA as the library call; the bound
+    version, bit-identical on relaunch; SDPA as the library call (GQA
+    through its ``enable_gqa``); the bound
     from the visible pairs' QK^T and PV at the dtype's peak and the bytes
     of q, k, v and the output; ``launches`` summed over ``by_path``."""
     from repro_torch.kernels import flash_attention as fa
@@ -4258,12 +4578,14 @@ def _flash_row(name, call, by_path) -> dict:
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = H != k.shape[2]
     row = _model_row(
         name, "src/repro/kernels/flash_attention.py:101",
         {name: sum(by_path.values())}, err,
         lambda: fa.flash_attention(q, k, v, **kw),
         lambda: fa.flash_attention_plain(q, k, v, **kw),
-        lambda: sdpa(qt, kt, vt, is_causal=True), ops / peak * 1e3,
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa),
+        ops / peak * 1e3,
         nbytes / HBM_BYTES_PER_S * 1e3,
         f"q {list(q.shape)} k/v {list(k.shape)} {str(q.dtype)[6:]}, "
         f"{visible:.0f} visible pairs per head")
@@ -4272,13 +4594,13 @@ def _flash_row(name, call, by_path) -> dict:
     return row
 
 
-def _router_row(rt, tg, launches, x, w, k) -> dict:
-    """The fused router on the serving path's first router call (the
-    first wave's prefill) and on its first 4 rows (a decode step's shape),
+def _router_row(rt, tg, launches, x, w, k, name="router_topk") -> dict:
+    """The fused router on a serving path's first router call (the first
+    wave's prefill) and on its first 4 rows (a decode step's shape),
     beside the unfused route it replaced there (the f32 product, then the
     topk_gating kernel) and the library chain (f32 product, torch.topk,
-    softmax)."""
-    err = check_router("serving path's first call", x, w, k)
+    softmax); the row is ``name``, its launches ``launches[name]``."""
+    err = check_router(f"{name} path's first call", x, w, k)
 
     def unfused(x=x):
         return tg.topk_gating(x.float() @ w.float(), k)
@@ -4295,11 +4617,12 @@ def _router_row(rt, tg, launches, x, w, k) -> dict:
 
     T, (d, E) = x.shape[0], w.shape
     row = _model_row(
-        "router_topk", "src/repro/kernels/topk_gating.py:50", launches,
+        name, "src/repro/kernels/topk_gating.py:50", launches,
         err, lambda: rt.router_topk(x, w, k),
         lambda: rt.router_topk_plain(x, w, k), library, *bound(T),
         f"x [{T}, {d}] w [{d}, {E}] bf16, k={k}")
-    row.update(prev_route="f32 product + topk_gating",
+    row.update(source="src/repro_torch/csrc/router_topk.cu",
+               prev_route="f32 product + topk_gating",
                prev_ms=cuda_ms(unfused, iters=20),
                prev_device_ms=device_ms(unfused)[0])
     xd = x[:4]
@@ -4313,7 +4636,7 @@ def _router_row(rt, tg, launches, x, w, k) -> dict:
            "decode_library_ms": cuda_ms(lambda: library(xd), iters=50),
            "decode_bound_ms": max(t_ops, t_bytes)}
     row.update(dec)
-    log(f"[timing] router_topk the unfused route on the same inputs "
+    log(f"[timing] {name} the unfused route on the same inputs "
         f"{row['prev_ms']:.4f} ms (device {row['prev_device_ms']:.4f} ms); "
         f"decode shape: fused {dec['decode_ms']:.4f} ms (device "
         f"{dec['decode_device_ms']:.4f} ms), unfused "
@@ -4397,7 +4720,9 @@ def lm_half(handoff: str) -> int:
     (18, with its profiled prefill and decode step), the f32 router (19),
     the path (20), training (22), the families (23, each with a
     profiled decode step) and the encoder-decoder, VLM and dense models
-    (24); then the inputs of the LM timing rows saved to ``DIR`` for
+    (24), the two configs no card holds, cut in depth, and the sharded
+    cells on a (1, 1) mesh (25); then the inputs of the LM timing rows
+    saved to ``DIR`` for
     :func:`lm_timing`, and its peak memory."""
     _child_setup()
     t0 = time.perf_counter()
@@ -4414,9 +4739,14 @@ def lm_half(handoff: str) -> int:
     t1 = time.perf_counter()
     encdec = phase_encdec()
     log(f"[encdec] phase wall {time.perf_counter() - t1:.1f} s | {SMI[0]}")
+    t1 = time.perf_counter()
+    giants = phase_giants()
+    log(f"[giant] phase wall {time.perf_counter() - t1:.1f} s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB | {SMI[0]}")
     torch.save({"serve": (serve_launches, serve_inputs),
                 "f32": (f32_launches, f32_inputs), "families": families,
-                "encdec": encdec, "train": train},
+                "encdec": encdec, "giants": giants, "train": train},
                os.path.join(handoff, HANDOFF))
     log(f"[halves] LM half's run {time.perf_counter() - t0:.1f} s")
     print(PEAK + str(half_peak()), flush=True)
@@ -4450,9 +4780,13 @@ def lm_timing(handoff: str) -> int:
     kept = torch.load(os.path.join(handoff, HANDOFF), map_location="cuda",
                       weights_only=False)
     rows += phase_model_timing(*kept["serve"], *kept["f32"],
-                               kept["families"], kept["encdec"])
+                               kept["families"], kept["encdec"],
+                               kept["giants"])
+    train = kept.pop("train")
+    del kept                        # the model rows' inputs, on the card
+    torch.cuda.empty_cache()
     t2 = time.perf_counter()
-    rows += train_timing(kept["train"], stepper)
+    rows += train_timing(train, stepper)
     log(f"[halves] LM timing {time.perf_counter() - t1:.1f} s (phase 21 "
         f"{t2 - t1:.1f} s, the train step's profile and backward row "
         f"{time.perf_counter() - t2:.1f} s)")

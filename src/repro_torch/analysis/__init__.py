@@ -1,8 +1,10 @@
-"""repro_torch.analysis — the parts of :mod:`repro.analysis` the HLO
-reader needs: byte accounting of HLO shapes (:mod:`.hlostats`) and the
-card's hardware table (:mod:`.roofline`)."""
+"""repro_torch.analysis — mirrors :mod:`repro.analysis`: byte and
+collective accounting of HLO text (:mod:`.hlostats`), the dot inventory
+(:mod:`.dots`) and the three-term roofline on the card's hardware table
+(:mod:`.roofline`)."""
 
-from .hlostats import DTYPE_BYTES, shape_bytes
-from .roofline import HW, HW_H100
+from .hlostats import DTYPE_BYTES, collective_stats, shape_bytes
+from .roofline import HW, HW_H100, roofline_terms
 
-__all__ = ["DTYPE_BYTES", "shape_bytes", "HW", "HW_H100"]
+__all__ = ["collective_stats", "shape_bytes", "DTYPE_BYTES",
+           "roofline_terms", "HW", "HW_H100"]

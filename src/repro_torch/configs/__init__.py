@@ -1,24 +1,19 @@
 """Architecture registry of the port (mirrors :mod:`repro.configs`).
 
 ``get_config(name)`` returns the published config and
-``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-The port carries nine architectures so far: qwen2-moe-a2.7b, gemma3-27b,
-hymba-1.5b, mamba2-130m, whisper-medium, phi-3-vision-4.2b,
-codeqwen1.5-7b and qwen1.5-0.5b (served) and pipit-lm-100m (trained);
-the other names of the reference's registry (qwen1.5-110b and
-qwen3-moe-235b-a22b, which no single card holds) raise
-``NotImplementedError`` naming the ROADMAP item that ports them, and an
-unknown name ``KeyError``.
+``get_smoke_config(name)`` a reduced same-family config for CPU tests;
+the port carries all eleven architectures of the reference's registry,
+in its order, and an unknown name raises ``KeyError``.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from ..models.config import ModelConfig
 
-__all__ = ["ARCH_NAMES", "PORTED", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_NAMES", "get_config", "get_smoke_config", "all_configs"]
 
 #: every architecture of the reference's registry → its module name
 _ALIASES = {
@@ -34,11 +29,6 @@ _ALIASES = {
     "mamba2-130m": "mamba2_130m",
     "pipit-lm-100m": "pipit_lm_100m",
 }
-#: the architectures whose configs the port carries
-PORTED = ("qwen2_moe_a2_7b", "pipit_lm_100m", "gemma3_27b", "hymba_1_5b",
-          "mamba2_130m", "whisper_medium", "phi_3_vision_4_2b",
-          "codeqwen1_5_7b", "qwen1_5_0_5b")
-
 ARCH_NAMES: List[str] = list(_ALIASES)
 
 
@@ -46,11 +36,6 @@ def _module(name: str):
     key = _ALIASES.get(name, name)
     if key not in _ALIASES.values():
         raise KeyError(f"unknown architecture {name!r}; have {ARCH_NAMES}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not yet ported to repro_torch (see "
-            f"ROADMAP.md §A, the LM-stack items after the serving slice); "
-            f"ported: {list(PORTED)}")
     return importlib.import_module(f".{key}", __package__)
 
 
@@ -60,3 +45,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}

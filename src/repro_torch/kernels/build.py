@@ -185,6 +185,22 @@ def refuse_grad(what: str, *tensors) -> None:
             f"torch.no_grad(), or with inputs that do not require grad")
 
 
+def refuse_wrapped(what: str, *tensors) -> None:
+    """Raise for a DTensor or a fake tensor: the kernels read raw device
+    pointers, so a wrapper takes plain local tensors only.  Under a mesh
+    the model hands each wrapper its local shards; the dry run, which
+    has no device, calls the plain versions itself."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what}: a DTensor reached the kernel's "
+                            f"wrapper; pass its local shard (to_local())")
+        if is_fake(t):
+            raise TypeError(f"{what}: a fake tensor reached the kernel's "
+                            f"wrapper; call the plain version")
+
+
 def raw_stream(device_index: int) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on the CUDA
     device ``device_index`` (the lookup PyTorch's own generated kernels

@@ -226,6 +226,7 @@ def flash_attention_variant(name: str, q: torch.Tensor, k: torch.Tensor,
     the same inputs; a CPU tensor still runs the plain version."""
     if name not in _VARIANT_IDS:
         raise ValueError(f"flash_attention: unknown variant {name!r}")
+    build.refuse_wrapped("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: q [B, Sq, H, D] and k/v "
                          f"[B, Sk, KVH, D] expected, got {tuple(q.shape)}, "
@@ -359,6 +360,7 @@ def flash_attention_bwd_variant(name: str, q: torch.Tensor, k: torch.Tensor,
     global LAUNCHES_BWD
     if name not in _VARIANT_IDS:
         raise ValueError(f"flash_attention_bwd: unknown variant {name!r}")
+    build.refuse_wrapped("flash_attention_bwd", q, k, v, o, do, lse)
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or k.shape != v.shape or \

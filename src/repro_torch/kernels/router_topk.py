@@ -76,6 +76,7 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
     """x [T, d], w [d, E] (float32 or bfloat16) → (logits [T, E] float32,
     idx [T, k] int32, gates [T, k] float32)."""
     global LAUNCHES
+    build.refuse_wrapped("router_topk", x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"router_topk: x [T, d] and w [d, E] expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")

@@ -81,6 +81,7 @@ def topk_gating_path(name: str, logits: torch.Tensor,
     global LAUNCHES
     if name not in PATH_LAUNCHES:
         raise ValueError(f"topk_gating: unknown path {name!r}")
+    build.refuse_wrapped("topk_gating", logits)
     if logits.dim() != 2:
         raise ValueError(f"topk_gating: logits [T, E] expected, got "
                          f"{tuple(logits.shape)}")

@@ -13,7 +13,9 @@ finished requests and the tracer.  The command line is the reference's;
 the encoder-decoder and the VLM need their extra inputs, which
 :func:`serve` takes as ``extras`` (``{"frames": [batch, enc_frames,
 d_model]}`` or ``{"img_embeds": [batch, img_tokens, d_model]}``, on the
-engine's device) and hands to every wave's prefill.
+engine's device) and hands to every wave's prefill.  ``overrides`` (the
+CLI's ``--layers``) replaces config fields: the card serves
+qwen1.5-110b and qwen3-moe-235b-a22b at full width with their depth cut.
 """
 
 from __future__ import annotations
@@ -61,8 +63,11 @@ def serve(arch: str = "qwen2-moe-a2.7b", smoke: bool = False,
           new_tokens: int = 16, cache_len: int = 128,
           dtype: str = "float32", device="cuda",
           logits_hook: Optional[Callable[[str, torch.Tensor], None]] = None,
-          extras: Optional[Dict[str, torch.Tensor]] = None) -> ServeRun:
+          extras: Optional[Dict[str, torch.Tensor]] = None,
+          overrides: Optional[dict] = None) -> ServeRun:
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     tracer = Tracer()
     eng = ServeEngine(cfg, batch=batch, cache_len=cache_len, tracer=tracer,
                       dtype=DTYPES[dtype], device=device)
@@ -90,11 +95,14 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
     args = ap.parse_args(argv)
     run = serve(args.arch, smoke=args.smoke, requests=args.requests,
                 batch=args.batch, prompt_len=args.prompt_len,
                 new_tokens=args.new_tokens, cache_len=args.cache_len,
-                dtype=args.dtype, device=args.device)
+                dtype=args.dtype, device=args.device,
+                overrides={"n_layers": args.layers} if args.layers else None)
     print(json.dumps(run.summary, indent=1))
     if args.trace:
         run.tracer.save_jsonl(args.trace)

@@ -22,9 +22,16 @@ like prefill (one query row against the encoder's frames).
 
 Decode writes the new token's K/V into the cache in place (slot
 ``pos % Sc``), where the reference returns an updated copy.  The
-reference's ``attn_broadcast_kv`` (repeat K/V to the query-head count, a
-sharding aid) is dropped: the flash kernel reads a query head's KV head in
-place, and the result is the same.
+reference's ``attn_broadcast_kv`` (repeat K/V to the query-head count
+outside decode, a sharding aid that :func:`repro_torch.launch.steps.
+build_cell` sets where neither KVH nor the group G divides the model axis
+but H does) is kept: the result is the same, since the flash kernel
+reads query head h's KV head ``h // G`` in place; the port broadcasts
+after the prefill cache is written, so the cache keeps KVH heads, as
+decode reads it.  The reference's
+activation constraints (``constrain``) stand at the same points; they do
+nothing outside :func:`repro_torch.distributed.sharding.
+activation_sharding`.
 
 One fault of the reference is repaired: its ``_merge_meta`` attends to
 the meta tokens twice while their prefill positions are still in the
@@ -40,6 +47,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import constrain, is_dtensor
 from . import attention as attn_lib
 from . import ssm as ssm_lib
 from .config import ModelConfig
@@ -206,7 +214,7 @@ def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str,
     q = xn @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, H, hd)
+    q = _heads(q, H, "act_heads")
     new_cache = {}
     theta = spec.rope_theta or cfg.rope_theta
 
@@ -215,8 +223,10 @@ def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str,
     if "bk" in p:
         k = k + p["bk"]
         v = v + p["bv"]
-    k = k.reshape(B, S, KVH, hd)
-    v = v.reshape(B, S, KVH, hd)
+    k = constrain(_heads(k, KVH, "act_kv"), "act_batch", "act_seq",
+                  "act_kv", None)
+    v = constrain(_heads(v, KVH, "act_kv"), "act_batch", "act_seq",
+                  "act_kv", None)
     if spec.causal:                                   # rope on causal layers
         positions = pos + torch.arange(S, device=x.device)
         cos, sin = rope(positions[None], hd, theta)
@@ -249,14 +259,49 @@ def _attn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str,
             if M:
                 new_cache["k_meta"] = k[:, :M].clone()
                 new_cache["v_meta"] = v[:, :M].clone()
+        if cfg.attn_broadcast_kv and KVH < H:
+            # after the cache is written: it keeps KVH heads for decode
+            k, v = _broadcast_kv(k, H // KVH), _broadcast_kv(v, H // KVH)
         if spec.window and not M:
             out = attn_lib.local_attention(q, k, v, window=spec.window)
         else:
             out = attn_lib.chunked_attention(q, k, v, causal=spec.causal,
                                              window=spec.window,
                                              prefix_len=M)
-    y = out.reshape(B, S, H * hd) @ p["wo"]
+    y = constrain(_merge_heads(out, "act_heads") @ p["wo"], "act_batch",
+                  "act_seq", "act_embed")
     return y, new_cache
+
+
+def _broadcast_kv(k: torch.Tensor, G: int) -> torch.Tensor:
+    """K or V repeated to the query-head count.  Under a mesh the repeat
+    runs on replicated heads both ways (its backward sums each group of
+    G, which a shard of the H heads cannot split); the attention then
+    shards the H heads."""
+    k = constrain(k, "act_batch", None, None, None)
+    return constrain(torch.repeat_interleave(k, G, dim=2), "act_batch",
+                     None, None, None)
+
+
+def _heads(t: torch.Tensor, n: int, axis: str) -> torch.Tensor:
+    """[..., n * hd] → [..., n, hd].  Under a mesh the merged dim first
+    takes the layout ``axis`` gives n heads, so that the split keeps a
+    shard only where n divides (a projection's output may come sharded
+    by a factor n does not have)."""
+    lead = tuple(t.shape[:-1])
+    axes = ("act_batch",) + (None,) * (len(lead) - 1) + (axis,)
+    t = constrain(t, *axes, shape=lead + (n,))
+    return t.reshape(lead + (n, t.shape[-1] // n))
+
+
+def _merge_heads(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """[..., n, hd] → [..., n * hd], the inverse of :func:`_heads`: under a
+    mesh the merged dim keeps the layout ``axis`` gives n heads both ways,
+    so the gradient's split back into heads never finds it sharded by a
+    factor n does not have."""
+    lead, n, hd = tuple(t.shape[:-2]), t.shape[-2], t.shape[-1]
+    axes = ("act_batch",) + (None,) * (len(lead) - 1) + (axis,)
+    return constrain(t.reshape(lead + (n * hd,)), *axes, shape=lead + (n,))
 
 
 def _ring_layout(k: torch.Tensor, S: int, Sc: int) -> torch.Tensor:
@@ -280,6 +325,9 @@ def _slot_positions(pos: int, Sc: int, device) -> torch.Tensor:
 def _ring_attend(q, k, v, valid) -> torch.Tensor:
     """One query token [B,1,H,D] over keys [B,T,KVH,D] where ``valid`` [T]
     holds, in f32 after the query is scaled in its dtype."""
+    if is_dtensor(q):
+        return attn_lib.local_heads(
+            lambda a, b, c: _ring_attend(a, b, c, valid), q, k, v)
     B, _, H, D = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -322,10 +370,15 @@ def _ssm_apply(p, x, cfg: ModelConfig, mode: str, cache: Optional[dict]):
     nh = d_in // P
     N = cfg.ssm_state
     xn = rms_norm(x, p["sln"], cfg.norm_eps)
-    zx = xn @ p["w_zx"]
+    # whole along the features under a mesh, both ways: the slices below
+    # cut across any shard of them
+    zx = constrain(xn @ p["w_zx"], "act_batch", "act_seq", None)
     z, xin = zx[..., :d_in], zx[..., d_in:]
-    bc = xn @ p["w_bc"]
+    bc = constrain(xn @ p["w_bc"], "act_batch", "act_seq", None)
     dt = F.softplus((xn @ p["w_dt"]).float() + p["dt_bias"].float())
+    # per head, sharded only where the heads divide (a product's output
+    # may come sharded by a factor nh does not have)
+    dt = constrain(dt, "act_batch", None, "act_ssm_heads")
     A = -torch.exp(p["A_log"].float())
     xbc = torch.cat([xin, bc], dim=-1)
     new_cache = {}
@@ -334,22 +387,23 @@ def _ssm_apply(p, x, cfg: ModelConfig, mode: str, cache: Optional[dict]):
                                              p["conv_w"], p["conv_b"])
         new_cache["conv_state"] = conv_state
         xs, Bm, Cm = yt[..., :d_in], yt[..., d_in:d_in + N], yt[..., d_in + N:]
-        h, y = ssm_lib.ssd_step(cache["ssm_h"], xs.reshape(B, nh, P),
-                                dt[:, 0], A, Bm, Cm)
+        xs = _heads(xs, nh, "act_ssm_heads")
+        h, y = ssm_lib.ssd_step(cache["ssm_h"], xs, dt[:, 0], A, Bm, Cm)
         new_cache["ssm_h"] = h
-        y = y.reshape(B, 1, d_in)
+        y = _merge_heads(y, "act_ssm_heads")[:, None]
     else:
         yconv = ssm_lib.causal_conv1d(xbc, p["conv_w"], p["conv_b"])
-        xs = yconv[..., :d_in].reshape(B, S, nh, P)
+        xs = _heads(yconv[..., :d_in], nh, "act_ssm_heads")
         Bm = yconv[..., d_in:d_in + N]
         Cm = yconv[..., d_in + N:]
         y, h = ssm_lib.ssd_chunked(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
         if mode == "prefill":
             new_cache["ssm_h"] = h
             new_cache["conv_state"] = xbc[:, -(cfg.conv_width - 1):].clone()
-        y = y.reshape(B, S, d_in)
-    y = y + (xs.reshape(B, -1, nh, P)
-             * p["Dskip"].to(x.dtype)[None, None, :, None]).reshape(y.shape)
+        y = _merge_heads(y, "act_ssm_heads")
+    y = y + _merge_heads(xs.reshape(B, -1, nh, P)
+                         * p["Dskip"].to(x.dtype)[None, None, :, None],
+                         "act_ssm_heads")
     y = y * F.silu(z)
     return y @ p["w_so"], new_cache
 
@@ -367,25 +421,27 @@ def _cross_apply(p, x, cfg: ModelConfig, mode: str, cache: Optional[dict],
     q = xn @ p["x_wq"]
     if "x_bq" in p:
         q = q + p["x_bq"]
-    q = q.reshape(B, S, H, hd)
+    q = _heads(q, H, "act_heads")
     if mode == "decode":
         k, v = cache["x_k_cache"], cache["x_v_cache"]
     elif enc_out is None:
         raise ValueError(f"a cross-attention layer in {mode!r} mode needs "
                          f"the encoder's output (enc_out)")
     else:
-        k = (enc_out @ p["x_wk"]).reshape(B, -1, KVH, hd)
-        v = (enc_out @ p["x_wv"]).reshape(B, -1, KVH, hd)
+        k = _heads(enc_out @ p["x_wk"], KVH, "act_kv")
+        v = _heads(enc_out @ p["x_wv"], KVH, "act_kv")
     new_cache = {"x_k_cache": k, "x_v_cache": v} if mode != "train" else {}
     out = attn_lib.chunked_attention(q, k, v, causal=False)
-    return out.reshape(B, S, H * hd) @ p["x_wo"], new_cache
+    return _merge_heads(out, "act_heads") @ p["x_wo"], new_cache
 
 
 def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str = "train"):
     xn = rms_norm(x, p["fln"], cfg.norm_eps)
     if spec.moe:
         B, S, d = xn.shape
-        flat = xn.reshape(B * S, d)
+        # tokens on the data axes both ways: the gradient's reshape back
+        # to [B, S, d] must not find them split over other axes too
+        flat = constrain(xn.reshape(B * S, d), "act_batch", "act_embed")
         y = moe_ffn(flat, p["router"], p["we_gate"], p["we_up"],
                     p["we_down"], topk=cfg.topk,
                     capacity_factor=cfg.capacity_factor,
@@ -396,12 +452,16 @@ def _ffn_apply(p, x, cfg: ModelConfig, spec: LayerSpec, mode: str = "train"):
                                 flat @ p["ws_up"]) @ p["ws_down"]
             sig = torch.sigmoid((flat @ p["ws_sig"]).float())
             y = y + (shared.float() * sig).to(y.dtype)
-        return y.reshape(B, S, d)
+        return constrain(y, "act_batch", "act_embed").reshape(B, S, d)
+    def ff(w):               # each product in the hidden's layout, both ways
+        return constrain(xn @ w, "act_batch", "act_seq", "act_ff")
+
     if cfg.act == "swiglu":
-        h = swiglu_act(xn @ p["w_gate"], xn @ p["w_up"])
+        h = swiglu_act(ff(p["w_gate"]), ff(p["w_up"]))
     else:
-        h = gelu(xn @ p["w_up"])
-    return h @ p["w_down"]
+        h = gelu(ff(p["w_up"]))
+    h = constrain(h, "act_batch", "act_seq", "act_ff")
+    return constrain(h @ p["w_down"], "act_batch", "act_seq", "act_embed")
 
 
 def layer_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,

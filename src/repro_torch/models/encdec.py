@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.sharding import constrain
 from .blocks import LayerSpec
 from .config import ModelConfig
 from .layers import ParamDef, rms_norm, softmax_xent
@@ -63,9 +64,13 @@ class EncDecLM(LM):
         x = frames.to(self.frontend.dtype) @ self.frontend
         pos = torch.from_numpy(sinusoidal_positions(frames.shape[1],
                                                     self.cfg.d_model))
-        x = x + pos.to(device=x.device, dtype=x.dtype)[None]
+        x = constrain(x + pos.to(device=x.device, dtype=x.dtype)[None],
+                      "act_batch", "act_seq", "act_embed")
         for blk in self.enc_layers:
             x, _ = blk(x, mode="train")
+            # as the decoder's embeddings and layers: under a mesh the
+            # frames' layout, and their gradient's, stays the batch's
+            x = constrain(x, "act_batch", "act_seq", "act_embed")
         return rms_norm(x, self.enc_ln, self.cfg.norm_eps)
 
     @staticmethod

@@ -11,8 +11,8 @@ tests carry the JAX weights across instead
 layer's parameters unstacked, so ``fan_in`` is that of the layer's own
 matrix, as it is for every stacked matrix in the reference.
 
-The logical axes only name dimensions here: the port has no sharding
-rules yet.
+The logical axes name dimensions for the sharding rules
+(:mod:`repro_torch.distributed.sharding`).
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.sharding import is_dtensor
 
 __all__ = ["ParamDef", "init_param", "rms_norm", "rope", "apply_rope",
            "gelu", "swiglu_act", "softmax_xent"]
@@ -119,6 +121,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     lse = torch.logsumexp(lf, dim=-1)
     keep = (labels >= 0) & (labels < vocab)
     idx = torch.where(keep, labels, 0).long()
-    ll = torch.gather(lf, -1, idx[..., None])[..., 0]
+    if is_dtensor(lf):
+        # vocab-sharded logits: pick the label's logit by a masked sum, a
+        # reduction each vocab shard does locally
+        ids = torch.arange(lf.shape[-1], device=lf.device)
+        ll = torch.where(ids == idx[..., None], lf, 0.0).sum(-1)
+    else:
+        ll = torch.gather(lf, -1, idx[..., None])[..., 0]
     nll = torch.where(keep, lse - ll, 0.0)
     return nll.sum() / torch.clamp_min(keep.sum(), 1)

@@ -22,7 +22,11 @@ made without ``requires_grad``; the trainer turns it on
 (``model.requires_grad_(True)``) and calls :meth:`LM.loss`, the one entry
 point that runs with grad on.  Serving's :meth:`LM.forward`,
 :meth:`LM.prefill` and :meth:`LM.decode_step` stay under
-``torch.no_grad()``.
+``torch.no_grad()``.  The reference's three activation constraints
+(the embeddings, each layer's output, the logits) stand at the same
+points; outside :func:`repro_torch.distributed.sharding.
+activation_sharding` they do nothing.  :meth:`LM.param_defs` gives the
+sharding rules each parameter's logical axes.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from torch import nn
 
 from ..core.accel import resolve_device
+from ..distributed.sharding import constrain
 from .blocks import LayerSpec, cache_defs, layer_apply, layer_defs
 from .config import ModelConfig
 from .layers import ParamDef, init_param, rms_norm, softmax_xent
@@ -123,15 +128,43 @@ class LM(nn.Module):
         return defs
 
     # -- parameters ---------------------------------------------------------
+    def param_defs(self) -> Dict[str, ParamDef]:
+        """{``state_dict`` name: ParamDef} of every parameter: the
+        reference's tree without its stacked ``layers`` axis."""
+        defs = dict(self.top_defs)
+        for name, mod in self.named_modules():
+            if isinstance(mod, Block):
+                defs.update({f"{name}.{k}": d for k, d in mod.defs.items()})
+        return defs
+
+    def cache_defs(self, batch: int, cache_len: int
+                   ) -> List[Dict[str, ParamDef]]:
+        """The serve cache's ParamDefs, one dict per layer, as
+        :meth:`init_cache` lays it out."""
+        return [cache_defs(self.cfg, s, batch, cache_len)
+                for s in self.specs]
+
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
         """Draw every parameter from ``generator`` at its ParamDef's rule,
-        in declaration order (top-level, then layer by layer)."""
+        in declaration order (top-level, then layer by layer).  A DTensor
+        parameter (placed on a mesh) draws the whole tensor, as every rank
+        does alike, and keeps its own shard."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
         owners = [(self, self.top_defs)] + [
             (b, b.defs) for b in self.modules() if isinstance(b, Block)]
         for mod, defs in owners:
             for name, d in defs.items():
-                init_param(d, generator, mod._parameters[name].data)
+                p = mod._parameters[name].data
+                if not isinstance(p, DTensor):
+                    init_param(d, generator, p)
+                    continue
+                local = p.to_local()
+                full = init_param(d, generator, torch.empty(
+                    d.shape, dtype=p.dtype, device=local.device))
+                local.copy_(distribute_tensor(
+                    full, p.device_mesh, p.placements,
+                    src_data_rank=None).to_local())
         return self
 
     # -- cache --------------------------------------------------------------
@@ -154,13 +187,14 @@ class LM(nn.Module):
             x, nc = blk(x, mode=mode, pos=pos,
                         cache=cache[i] if cache is not None else None,
                         enc_out=enc_out, cache_len=cache_len)
+            x = constrain(x, "act_batch", "act_seq", "act_embed")
             new_cache.append(nc)
         return x, (new_cache if mode in ("prefill", "decode") else None)
 
     def _logits(self, x):
         x = rms_norm(x, self.final_ln, self.cfg.norm_eps)
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        return x @ w
+        return constrain(x @ w, "act_batch", "act_seq", "act_vocab")
 
     def _embed_tokens(self, tokens: torch.Tensor,
                       img_embeds: Optional[torch.Tensor] = None
@@ -175,9 +209,10 @@ class LM(nn.Module):
         if self.cfg.meta_tokens:
             pre.append(self.meta[None].expand((tokens.shape[0],)
                                               + self.meta.shape))
-        if not pre:
-            return x, 0
-        return torch.cat(pre + [x], dim=1), sum(t.shape[1] for t in pre)
+        if pre:
+            x = torch.cat(pre + [x], dim=1)
+        return (constrain(x, "act_batch", "act_seq", "act_embed"),
+                sum(t.shape[1] for t in pre))
 
     def _full_logits(self, tokens: torch.Tensor, img_embeds=None
                      ) -> Tuple[torch.Tensor, int]:

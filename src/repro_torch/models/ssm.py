@@ -14,7 +14,9 @@ reference's ``lax.scan`` (inside a chunk the quadratic form runs as
 batched matmuls, between chunks the state is carried).  The reference
 computes this outside any Pallas kernel, so there is no kernel to port;
 a hand-written SSD kernel would be a design change made against a
-measured cost (ROADMAP §B).
+measured cost (ROADMAP §B).  The reference's seven activation
+constraints stand at the same points (no-ops outside
+:func:`repro_torch.distributed.sharding.activation_sharding`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.sharding import constrain
 
 __all__ = ["ssd_chunked", "ssd_reference", "ssd_step", "causal_conv1d",
            "conv1d_step"]
@@ -64,9 +68,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256,
         dtf = F.pad(dtf, (0, 0, 0, pad))
         bf = F.pad(bf, (0, 0, 0, pad))
         cf = F.pad(cf, (0, 0, 0, pad))
+    xf = constrain(xf, "act_batch", None, "act_ssm_heads", None)
+    dtf = constrain(dtf, "act_batch", None, "act_ssm_heads")
+    bf = constrain(bf, "act_batch", None, None)
+    cf = constrain(cf, "act_batch", None, None)
     Af = A.to(f32)
     h = (torch.zeros((B, H, P, N), dtype=f32, device=x.device)
          if h0 is None else h0.to(f32))
+    h = constrain(h, "act_batch", "act_ssm_heads", None, None)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
     ys = []
@@ -87,7 +96,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256,
         w = dtq * torch.exp(tot - cum)                           # [B,Q,H]
         h_in = torch.einsum("btn,bthp,bth->bhpn", bq, xq, w)
         h = h * torch.exp(tot[:, 0])[:, :, None, None] + h_in
-        ys.append(y)
+        h = constrain(h, "act_batch", "act_ssm_heads", None, None)
+        ys.append(constrain(y, "act_batch", None, "act_ssm_heads", None))
     y = torch.cat(ys, dim=1)
     return y[:, :S].to(x.dtype), h
 

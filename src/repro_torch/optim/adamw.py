@@ -31,13 +31,14 @@ class AdamWState:
 
 
 def adamw_init(params: Dict[str, torch.Tensor]) -> AdamWState:
-    """Zero moments in f32 on each parameter's device, step 0."""
-    return AdamWState(
-        step=0,
-        m={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()},
-        v={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()})
+    """Zero moments in f32 on each parameter's device, step 0 (laid out
+    as the parameter: a DTensor's moments are DTensors of its
+    placements)."""
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
+    return AdamWState(step=0, m={k: zeros(p) for k, p in params.items()},
+                      v={k: zeros(p) for k, p in params.items()})
 
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:

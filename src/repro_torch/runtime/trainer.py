@@ -20,8 +20,10 @@ Mirrors :mod:`repro.runtime.trainer` on one device:
 The reference jits one train step and donates its buffers; the port runs
 eagerly and updates the parameters and the optimizer state in place.  On
 the card every attention call goes through the flash kernel and its
-backward kernel (:mod:`repro_torch.kernels.flash_attention`).  Sharding
-across devices (the reference's mesh) is not ported (ROADMAP §A).
+backward kernel (:mod:`repro_torch.kernels.flash_attention`).  As in
+the reference, ``mesh=`` and ``shardings=`` are accepted and kept, not
+used; the sharded train step over a ``DeviceMesh`` is
+:func:`repro_torch.launch.steps.build_cell`'s.
 """
 
 from __future__ import annotations
@@ -88,9 +90,14 @@ class Trainer:
                  tracer: Optional[Tracer] = None,
                  straggler_callback: Optional[
                      Callable[[int, float], None]] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None,
+                 shardings: Optional[Dict[str, Any]] = None):
         self.cfg = model_cfg
         self.loop = loop
+        # kept as the reference's Trainer keeps them, and unused: the
+        # sharded train step is launch.steps.build_cell's
+        self.mesh = mesh
+        self.shardings = shardings
         self.device = resolve_device(device)
         self.tracer = tracer or Tracer()
         self.straggler_callback = straggler_callback

@@ -49,28 +49,31 @@ class ServeEngine:
     :func:`repro_torch.convert.params_from_jax`), or None to draw the
     weights from ``torch.Generator(device).manual_seed(seed)``.
     ``logits_hook(phase, logits)``, when set, sees every prefill and
-    decode step's logits (``phase`` is ``"prefill"`` or ``"decode"``)."""
+    decode step's logits (``phase`` is ``"prefill"`` or ``"decode"``).
+    ``model``: a built model to serve instead of a new one, its weights
+    kept unless ``params`` is given."""
 
     def __init__(self, cfg: ModelConfig, batch: int, cache_len: int,
                  params=None, tracer: Optional[Tracer] = None,
                  dtype=torch.float32, temperature: float = 0.0,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", model=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg, dtype=dtype, device=self.device)
+        self.model = (model if model is not None else
+                      build_model(cfg, dtype=dtype, device=self.device))
         self.batch = batch
         self.cache_len = cache_len
         self.tracer = tracer or Tracer()
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.logits_hook: Optional[Callable[[str, torch.Tensor], None]] = None
-        if params is None:
+        if params is not None:
+            self.model.load_state_dict(params)
+        elif model is None:
             with self.tracer.span("init"):
                 self.model.init(torch.Generator(
                     device=self.device).manual_seed(seed))
                 self._sync()
-        else:
-            self.model.load_state_dict(params)
 
     # ------------------------------------------------------------------
     def _sync(self) -> None:

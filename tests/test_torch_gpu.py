@@ -67,7 +67,12 @@ non-causal, cross-attention from 448 and from 1 query row over them)
 meets the same gates, and whisper and phi-3-vision at smoke size, given
 their frames or image embeddings, serve the CPU's greedy tokens on the
 card with one flash launch a layer with attention a wave (whisper's
-cross-attention also every decode step).
+cross-attention also every decode step).  The flash kernels run at
+qwen3-moe-235b-a22b's and qwen1.5-110b's groupings (H 64 over KVH 4 and
+8, D = 128) in both dtypes and the fused router at its limits (E = 128,
+k = 8, d = 4,096, tied rows); on a (1, 1) NCCL mesh the smoke configs'
+sharded prefill and decode cells serve the engine's greedy tokens with
+its flash launches, and the model-kernel wrappers refuse a DTensor.
 """
 
 import functools
@@ -625,6 +630,10 @@ def test_read_only_arrays_reach_the_card_without_a_warning(cuda,
     (2, 1, 1500, 4, 4, 96, {"causal": False, "peaked": True}),
     (1, 1500, 1500, 2, 2, 64, {"causal": False,               # whisper enc
                                "peaked": True}),
+    # qwen3-moe-235b-a22b's H 64 over KVH 4 (a group of 16) and
+    # qwen1.5-110b's H 64 over KVH 8, causal at D = 128
+    (2, 1024, 1024, 64, 4, 128, {"peaked": True}),
+    (2, 1024, 1024, 64, 8, 128, {"peaked": True}),
     (2, 448, 1500, 2, 2, 64, {"causal": False, "peaked": True}),    # cross
     (4, 1, 1500, 4, 4, 64, {"causal": False, "peaked": True}),  # decode
 ])
@@ -1158,6 +1167,8 @@ def test_time_bin_above_threshold_sorted(cuda):
     (257, 2048, 60, 4),             # a cluster of 8 CTAs, and past it
     (777, 256, 128, 8), (4, 1024, 128, 8), (33, 80, 8, 2), (1000, 64, 33, 1),
     (17, 2064, 61, 3),
+    (4096, 4096, 128, 8),           # qwen3-moe-235b-a22b prefill, one wave:
+    (4, 4096, 128, 8),              # the kernel's limits; its decode step
 ])
 def test_router_topk_kernel(cuda, T, d, E, k):
     rng = np.random.default_rng(T + d + E)
@@ -1547,3 +1558,86 @@ def test_family_smoke_serves_the_cpu_tokens_on_the_card(cuda, arch):
     assert out["cuda"][0] == out["cpu"][0]
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-3,
                                rtol=0)
+
+
+SHARDED_1X1 = """
+import dataclasses, json, os, sys, tempfile
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+store = os.path.join(tempfile.mkdtemp(), "store")
+dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                        world_size=1)
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import router_topk as rt
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.serve import make_requests
+from repro_torch.launch.steps import CellEngine, build_cell, place
+from repro_torch.models import build_model
+from repro_torch.models.config import ShapeConfig
+from repro_torch.serving import ServeEngine
+from torch.distributed.tensor import Replicate
+mesh = make_local_mesh()
+refused = []
+x = place(torch.randn(8, 64, device="cuda").bfloat16(), mesh,
+          [Replicate(), Replicate()])
+w = place(torch.randn(64, 16, device="cuda").bfloat16(), mesh,
+          [Replicate(), Replicate()])
+for call in (lambda: rt.router_topk(x, w, 2),
+             lambda: fa.flash_attention(*(place(
+                 torch.randn(1, 8, 2, 64, device="cuda"), mesh,
+                 [Replicate(), Replicate()]) for _ in range(3)))):
+    try:
+        call()
+    except TypeError as e:
+        refused.append("DTensor" in str(e))
+cfg = get_smoke_config(sys.argv[1])
+if cfg.hd < 16:         # qwen1.5-110b-smoke: 8-wide heads, below the kernel's
+    cfg = dataclasses.replace(cfg, head_dim=16)
+params = build_model(cfg, device="cpu").init(
+    torch.Generator().manual_seed(0)).state_dict()
+reqs = make_requests(cfg.vocab, 4, 24, 6)
+eng = ServeEngine(cfg, batch=4, cache_len=64, params=params, device="cuda")
+before = fa.LAUNCHES
+want = [r.out_tokens for r in eng.generate(reqs)]
+plain = fa.LAUNCHES - before
+model = build_model(cfg, device="cuda")
+model.load_state_dict(params)
+pre = build_cell(cfg, ShapeConfig("p", 64, 4, "prefill"), mesh,
+                 model=model)
+dec = build_cell(cfg, ShapeConfig("d", 64, 4, "decode"), mesh, model=model)
+assert isinstance(model.embed, DTensor)
+before = fa.LAUNCHES
+got = [r.out_tokens for r in CellEngine(pre, dec, batch=4).generate(
+    make_requests(cfg.vocab, 4, 24, 6))]
+print("RESULT " + json.dumps({"refused": refused, "want": want, "got": got,
+                              "plain": plain,
+                              "sharded": fa.LAUNCHES - before}))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-110b", "qwen3-moe-235b-a22b"])
+def test_sharded_1x1_serve_equals_the_unsharded_serve(cuda, arch):
+    """On a (1, 1) NCCL mesh (world size 1, in a subprocess) the smoke
+    config's prefill and decode cells (``launch.steps.CellEngine``) give the
+    engine's greedy tokens with the same flash launches; the model-kernel
+    wrappers refuse a DTensor.  qwen1.5-110b-smoke's heads (8 wide) are
+    widened to 16, the flash kernel's smallest head dim."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    r = subprocess.run([sys.executable, "-c", SHARDED_1X1, arch],
+                       capture_output=True, text=True, cwd=root, env=env,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    out = json.loads([x for x in r.stdout.splitlines()
+                      if x.startswith("RESULT ")][-1][len("RESULT "):])
+    assert out["refused"] == [True, True]
+    assert out["got"] == out["want"]
+    assert out["sharded"] == out["plain"] > 0

@@ -60,13 +60,20 @@ NEW_MODULES = ("repro_torch.parallel_util", "repro_torch.core.executor",
                "repro_torch.data.synthetic",
                "repro_torch.checkpoint.manager",
                "repro_torch.runtime.trainer", "repro_torch.launch.train",
-               "repro_torch.launch.train_traced")
+               "repro_torch.launch.train_traced",
+               "repro_torch.configs.qwen1_5_110b",
+               "repro_torch.configs.qwen3_moe_235b_a22b",
+               "repro_torch.distributed.sharding",
+               "repro_torch.distributed.compression",
+               "repro_torch.launch.mesh", "repro_torch.launch.steps",
+               "repro_torch.launch.dryrun", "repro_torch.analysis.dots")
 
 
 def test_new_modules_are_checked():
     """The parallel, pack, live, service, set, pathology, analysis-API,
-    reader, robustness-tool and training modules are among the files
-    checked above."""
+    reader, robustness-tool, training and distributed (sharding,
+    compression, mesh, cells, dry run, HLO dots) modules are among the
+    files checked above."""
     checked = {str(p.relative_to(ROOT / "src"))[:-3].replace(os.sep, ".")
                for p in PORT_FILES if "src" in p.parts}
     assert set(NEW_MODULES) <= checked

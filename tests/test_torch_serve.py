@@ -234,10 +234,13 @@ def test_init_draws_from_the_generator(port):
 
 @pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "qwen1.5-110b"])
 def test_unported_architectures_raise(name):
-    """The two configs no single card holds wait for the distributed
-    slice (ROADMAP §A.11)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(name)
+    """The two configs no single card holds came with the distributed
+    slice: they resolve to the reference's configs now, and only an
+    unknown name raises."""
+    assert dataclasses.asdict(get_config(name)) == \
+        dataclasses.asdict(jax_config(name))
+    assert dataclasses.asdict(get_smoke_config(name)) == \
+        dataclasses.asdict(jax_smoke_config(name))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
