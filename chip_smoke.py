@@ -4,7 +4,7 @@
 
 It runs in three processes on the one card.  After phases 1-2 this
 process starts ``chip_smoke.py --lm-half DIR``, the LM half's run: phase
-3's model-kernel cases, then phases 18-20 and 22-25, side by side with
+3's model-kernel cases, then phases 18-20 and 22-26, side by side with
 the trace half (phase 3's trace-kernel cases and phases 4-16, host-bound)
 here; it saves the inputs of the LM timing rows to ``DIR`` and exits.
 ``chip_smoke.py --lm-timing DIR`` starts with it and waits.  When both
@@ -12,7 +12,8 @@ the trace half and the LM run are done, this process saves the trace
 kernels' main-path inputs to ``DIR`` and waits while the timing process
 runs every timing row: phase 17's (the trace kernels) and those that time
 an LM kernel (phase 21, the train step's profile and the backward
-kernel's row), so no timing shares the card.  Every profiler session of
+kernel's row, phase 26's profiled MoE step and the router backward's
+rows), so no timing shares the card.  Every profiler session of
 the run is in that process, which did nothing else: in a process that
 had profiled before a long wait, sessions recorded only part of the
 kernels, and this process's phase 17 once saw no device time three
@@ -377,7 +378,38 @@ Phases (any failure raises and exits non-zero):
              flash at both groupings (H 64 over KVH 4 and 8, D = 128,
              both dtypes, bf16 on peaked draws) and the router at E =
              128, k = 8, d = 4,096 (a prefill wave with tied rows, and a
-             decode step).
+             decode step);
+26. trainfam — every served config trained through ``runtime.Trainer``
+             on the card at full width, its depth cut where 16 bytes a
+             parameter would not fit (the cut logged): qwen2-moe-a2.7b 4
+             of 24 layers, 4 x 512, 10 steps; qwen3-moe-235b-a22b 1 of
+             94 and qwen1.5-110b 1 of 80, 2 x 1,024; gemma3-27b 6 of 62
+             (one period), 1 x 2,048; hymba-1.5b, mamba2-130m,
+             whisper-medium (2 x 448 with seeded ``frames``) and
+             qwen1.5-0.5b whole; phi-3-vision-4.2b 16 of 32 (seeded
+             ``img_embeds``) and codeqwen1.5-7b 8 of 32, 2 x 1,024; 3
+             steps each; bf16 weights from seed 0, batches from
+             ``SyntheticLMStream(seed=1)``; counts reset just before and
+             read just after: flash forward and backward one launch a
+             layer with attention a step (whisper 72: encoder, self and
+             cross), all ``"wgmma"`` but phi-3-vision's ``"simt"``; the
+             router one ``router_topk`` (``"fused"``) and one
+             ``topk_gating_bwd`` launch a MoE layer a step, no
+             ``topk_gating`` forward; finite losses, qwen2-moe's last 3
+             below its first 3; ms a step, tokens/s and peak memory
+             logged; then qwen2-moe through ``launch.steps.build_cell``'s
+             train cell on a (1, 1) NCCL mesh from the Trainer's
+             first-step weights and batch: loss within 1e-3 relative of
+             the Trainer's, the router forward and backward once a layer;
+             then each config's smoke config in f32 from one seeded
+             weight set, 3 steps on the card and on the CPU, losses
+             within 1e-4 (the f32 router: ``topk_gating`` and its
+             backward kernel).  Phase 3 holds the router backward's
+             kernel to its plain version at (E, k) = (60, 4), (128, 8)
+             and (256, 8), T = 1, 2,048 and 3,488, with and without an
+             incoming logits gradient (tied rows, rows with fewer finite
+             logits than k): the nonzero pattern exact, each value within
+             1e-6 of its row's largest |g dg|, bit-identical on relaunch.
 
 Every row's ``ms`` is CUDA events around back-to-back wrapper calls (host
 overhead included where the kernel is shorter than the call);
@@ -391,7 +423,12 @@ takes it) and the SIMT kernel at head dim 96 on phi-3-vision-4.2b's
 groupings on each model's first prefill (``flash_attention_gqa16``,
 qwen3-moe's H 64 over KVH 4, and ``flash_attention_gqa8``,
 qwen1.5-110b's H 64 over KVH 8), and ``router_topk_e128`` the fused
-router on qwen3-moe's first call.  The rows of
+router on qwen3-moe's first call.  The router backward's rows,
+``topk_gating_bwd`` and ``topk_gating_bwd_e128``, time it on the first
+backward call of phase 26's qwen2-moe and qwen3-moe runs, beside the
+library chain (the three elementwise ops, then ``scatter_add_`` into
+zeros), after one qwen2-moe train step profiled (busy share, the
+router forward's and backward's shares of device time).  The rows of
 ``seg_sum``, ``pair_sum``, ``time_bin``, ``hist_bin`` and ``topk_gating``
 name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
@@ -408,6 +445,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -421,10 +459,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.launch.cardcheck import (  # noqa: E402
-    card_line, cuda_ms, device_ms, exact, flash_bwd_tol, flash_draw,
-    flash_forward_lse, flash_gate_share, gate, same_bits)
+    HBM_BYTES_PER_S, card_line, cuda_ms, device_ms, exact, flash_bwd_tol,
+    flash_draw, flash_forward_lse, flash_gate_share, gate, same_bits,
+    topk_bwd_bound_ms, topk_bwd_err)
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 MAIN = dict(nprocs=64, events_per_proc=156_250, seed=0)
@@ -932,8 +970,53 @@ def phase_model_kernels() -> None:
     if seen != set(tg.PATH_LAUNCHES):
         raise AssertionError(f"topk_gating paths checked {seen}")
     _topk_nan_row(tg)
+    check_topk_bwd(rng)
     for label, args in router:
         check_router(label, *args)
+
+
+#: the router backward's cases in phase 3: (E, k) of qwen2-moe-a2.7b,
+#: qwen3-moe-235b-a22b and the wide top-k path, at these token counts
+TOPK_BWD_CASES = ((60, 4), (128, 8), (256, 8))
+TOPK_BWD_T = (1, 2048, 3488)
+
+
+def check_topk_bwd(rng) -> None:
+    """The router backward's kernel against its plain version on the card,
+    on the forward kernel's indices and gates of logits with tied rows and
+    rows with fewer finite logits than k (one finite logit, or none: a
+    column chosen again, whose slots' contributions add up), with and
+    without an incoming gradient of the logits: the nonzero pattern exact,
+    each value within 1e-6 of its row's largest |g_j dg_j|
+    (``cardcheck.topk_bwd_err``), bit-identical on relaunch."""
+    from repro_torch.kernels import topk_gating as tg
+    for E, k in TOPK_BWD_CASES:
+        for T in TOPK_BWD_T:
+            x = rng.standard_normal((T, E)).astype(np.float32)
+            x[::4, 3::4] = 2.5               # exact ties among the largest
+            x[1::4] = np.round(x[1::4])      # tied integers
+            x[3::11, 1:] = -np.inf           # one finite logit
+            x[5::11] = -np.inf               # none
+            idx, gates = tg.topk_gating(_dev(x), k)
+            dg = _dev(rng.standard_normal((T, k)).astype(np.float32))
+            dup = sum(len(set(r)) < k for r in idx.tolist())
+            for incoming in (False, True):
+                din = _dev(rng.standard_normal((T, E)).astype(
+                    np.float32)) if incoming else None
+                got = tg.topk_gating_bwd(idx, gates, dg, din, E=E)
+                again = tg.topk_gating_bwd(idx, gates, dg, din, E=E)
+                torch.cuda.synchronize()
+                label = (f"T={T} E={E} k={k} "
+                         f"{'+ dlogits' if incoming else 'alone'}")
+                if not same_bits(got, again):
+                    raise AssertionError(f"topk_gating_bwd [{label}]: "
+                                         f"relaunch differs")
+                want = tg.topk_gating_bwd_plain(idx, gates, dg, din, E=E)
+                err = topk_bwd_err(got, want, gates, dg)
+                log(f"[kernels] topk_gating_bwd {label:30s} ok  nonzero "
+                    f"pattern exact, max_abs_err={err:.3g} (tol 1e-6 x the "
+                    f"row's largest |g dg|), {dup} rows with a column "
+                    f"chosen again; bit-identical relaunch")
 
 
 def flash_bwd_err(got, want, label) -> tuple:
@@ -977,6 +1060,22 @@ def check_flash_bwd(rng) -> None:
                          window=64, prefix_len=8)),
             (f"{tag} phi-3 4x1168x32x96 causal",
              _flash_case(rng, 4, 1168, 1168, 32, 32, 96, dtype)),
+            # phase 26's first backwards at full width: the GQA groups of
+            # qwen3-moe (16) and qwen1.5-110b (8), gemma3's local window,
+            # whisper's non-causal cross-attention at Sq != Sk
+            (f"{tag} qwen3-moe GQA 16 1x1024 H64/KV4 D=128",
+             _flash_case(rng, 1, 1024, 1024, 64, 4, 128, dtype)),
+            (f"{tag} qwen1.5-110b GQA 8 1x1024 H64/KV8 D=128",
+             _flash_case(rng, 1, 1024, 1024, 64, 8, 128, dtype)),
+            (f"{tag} gemma3 local 1x2048 H32/KV16 D=128 window 1024",
+             _flash_case(rng, 1, 2048, 2048, 32, 16, 128, dtype,
+                         window=1024)),
+            (f"{tag} whisper cross 2x448 over 1500 frames D=64",
+             _flash_case(rng, 2, 448, 1500, 16, 16, 64, dtype,
+                         causal=False)),
+            (f"{tag} hymba 1x1300 H25/KV5 D=64 window 1024 + prefix 128",
+             _flash_case(rng, 1, 1300, 1300, 25, 5, 64, dtype, window=1024,
+                         prefix_len=128)),
         ]
     for label, ((q, k, v), kw) in cases:
         o, lse = flash_forward_lse(q, k, v, **kw)
@@ -3518,6 +3617,89 @@ def train_timing(kept: dict, stepper) -> list:
     return [_bwd_row(kept["call"], kept["launches"])]
 
 
+def train_family_timing(trainfam: dict) -> list:
+    """One :data:`TRAIN_CELL_ARCH` train step at phase 26's width and batch
+    under ``torch.profiler``: the device's busy share and the router
+    forward's (``router_topk``) and backward's (``topk_bwd``) shares of
+    device time; then the router backward's rows on the first backward
+    call of that run (``topk_gating_bwd``) and of qwen3-moe-235b-a22b's
+    (``topk_gating_bwd_e128``)."""
+    spec = next(s for s in TRAIN_FAMILIES if s["arch"] == TRAIN_CELL_ARCH)
+    trainer = train_trainer(spec, 100)
+    batch = train_batch(trainer.cfg, spec, 0)
+    trainer.train_one(batch, 0)
+    prof = profile_step(f"train_step {TRAIN_CELL_ARCH}",
+                        lambda: trainer.train_one(batch, 0))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    busy = prof["busy_s"]
+    if not busy > 0:
+        raise AssertionError(f"{TRAIN_CELL_ARCH} train step: the profiler "
+                             f"saw no device time")
+    share = {part: sum(t for k, t in prof["kernels"].items() if key in k)
+             / busy for part, key in (("forward", "router_topk"),
+                                      ("backward", "topk_bwd"))}
+    log(f"[trainfam] {TRAIN_CELL_ARCH} profiled step: busy "
+        f"{busy * 1e3:.3f} ms of {prof['wall_s'] * 1e3:.3f} = "
+        f"{busy / prof['wall_s']:.1%}; the router's forward "
+        f"{share['forward']:.3%} and backward {share['backward']:.3%} of "
+        f"device time | {SMI[0]}")
+    rows = []
+    for arch, name in ((TRAIN_CELL_ARCH, "topk_gating_bwd"),
+                       ("qwen3-moe-235b-a22b", "topk_gating_bwd_e128")):
+        fam = trainfam[arch]
+        paths = {f"train {arch}": fam["launches"]["topk_gating_bwd"]}
+        if "cell" in fam:
+            paths[f"train cell {arch}"] = \
+                fam["cell"]["launches"]["topk_gating_bwd"]
+        rows.append(_topk_bwd_row(name, fam["bwd_call"], paths))
+    return rows
+
+
+def _topk_bwd_row(name, call, by_path) -> dict:
+    """The router backward's row on one call's inputs from a train run:
+    the kernel against its plain version (bit-identical on relaunch,
+    ``cardcheck.topk_bwd_err``), the library chain (the three elementwise
+    ops, then ``scatter_add_`` into zeros or into the incoming gradient),
+    its bound (bytes, :func:`cardcheck.topk_bwd_bound_ms`; operations: 5
+    a slot); ``launches`` the Trainer run's."""
+    from repro_torch.kernels import topk_gating as tg
+    (idx, gates, dgates, dlogits), kw = call
+    E = kw.get("E") or dlogits.shape[1]
+    T, k = idx.shape
+
+    def kern():
+        return tg.topk_gating_bwd(idx, gates, dgates, dlogits, E=E)
+
+    def library():
+        c = gates * (dgates - (gates * dgates).sum(1, keepdim=True))
+        out = (torch.zeros((T, E), dtype=torch.float32, device=idx.device)
+               if dlogits is None else dlogits.clone())
+        return out.scatter_add_(1, idx.long(), c)
+
+    got, again = kern(), kern()
+    want = tg.topk_gating_bwd_plain(idx, gates, dgates, dlogits, E=E)
+    torch.cuda.synchronize()
+    if not same_bits(got, again):
+        raise AssertionError(f"{name}: relaunch differs")
+    err = topk_bwd_err(got, want, gates, dgates)
+    lib_err = float((library() - want).abs().max())
+    row = _model_row(
+        name, "none: src/repro/kernels/topk_gating.py:50 is forward-only",
+        {name: by_path[next(iter(by_path))]}, err, kern,
+        lambda: tg.topk_gating_bwd_plain(idx, gates, dgates, dlogits, E=E),
+        library, 5.0 * T * k / F32_OPS_PER_S * 1e3,
+        topk_bwd_bound_ms(T, E, k, dlogits is not None),
+        f"idx/gates/dgates [{T}, {k}], dlogits [{T}, {E}] f32"
+        f"{' + incoming' if dlogits is not None else ''}")
+    row.update(source="src/repro_torch/csrc/topk_gating_bwd.cu",
+               path_launches=by_path,
+               library="(g dg).sum, g (dg - S), scatter_add_ into zeros",
+               library_max_abs_err=lib_err,
+               dgates_contiguous=dgates.is_contiguous())
+    return row
+
+
 def _train_batch(cfg, train, step):
     from repro_torch.data import SyntheticLMStream
     stream = SyntheticLMStream(cfg.vocab, train["batch"], train["seq"],
@@ -3528,21 +3710,26 @@ def _train_batch(cfg, train, step):
         stream.close()
 
 
-def train_path() -> None:
-    """pipit-lm-100m-smoke in f32 from one seeded weight set, trained 3
-    steps on the card (kernels) and on the CPU (plain versions): losses
-    within 1e-4 (cuBLAS against CPU matmuls, the kernels' summation
-    order)."""
+def train_path(arch: str = "pipit-lm-100m", overrides=None) -> None:
+    """The smoke config of ``arch`` (with ``overrides``) in f32 from one
+    seeded weight set (and its seeded extras), trained 3 steps on the card
+    (kernels) and on the CPU (plain versions): losses within 1e-4 (cuBLAS
+    against CPU matmuls, the kernels' summation order).  On the card the
+    flash forward and backward launch :func:`train_flash_per_step` a
+    step, and an MoE model's f32 router the ``topk_gating`` forward and
+    backward kernels once a MoE layer a step; on the CPU nothing
+    launches."""
     import tempfile
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticLMStream
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build_model
     from repro_torch.runtime import Trainer, TrainLoopConfig
-    cfg = get_smoke_config("pipit-lm-100m")
-    params = build_model(cfg, device="cpu").init(
-        torch.Generator().manual_seed(0)).state_dict()
+    cfg = dataclasses.replace(get_smoke_config(arch), **(overrides or {}))
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0)).state_dict()
+    moe_layers = sum(s.moe for s in model.specs)
+    extras = model_extras(cfg, 8, "cpu", torch.float32)
     out = {}
     for dev in ("cuda", "cpu"):
         with tempfile.TemporaryDirectory() as d:
@@ -3550,17 +3737,23 @@ def train_path() -> None:
                                               ckpt_dir=d), device=dev)
             tr.model.load_state_dict(params)
             stream = SyntheticLMStream(cfg.vocab, 8, 64, seed=1)
-            before = (fa.LAUNCHES, fa.LAUNCHES_BWD)
-            out[dev] = [tr.train_one(stream.batch_at(i), i)
-                        for i in range(3)]
+            reset_model_counts()
+            out[dev] = [tr.train_one(dict(stream.batch_at(i), **{
+                k: v.to(dev) for k, v in extras.items()}), i)
+                for i in range(3)]
             stream.close()
-            ran = (fa.LAUNCHES - before[0], fa.LAUNCHES_BWD - before[1])
-            if ran != ((3 * cfg.n_layers,) * 2 if dev == "cuda"
-                       else (0, 0)):
-                raise AssertionError(f"train path {dev}: launches {ran}")
+            c = model_counts()
+            ran = (c["flash_attention"], c["flash_attention_bwd"],
+                   c["topk_gating"], c["topk_gating_bwd"], c["router_topk"])
+            want = (3 * train_flash_per_step(cfg),) * 2 + \
+                (3 * moe_layers,) * 2 + (0,)
+            if ran != (want if dev == "cuda" else (0,) * 5):
+                raise AssertionError(f"train path {cfg.name} {dev}: "
+                                     f"launches {ran}")
     err = max(abs(a - b) for a, b in zip(out["cuda"], out["cpu"]))
     if not err <= 1e-4:
-        raise AssertionError(f"train path: losses {out} differ by {err}")
+        raise AssertionError(f"train path {cfg.name}: losses {out} differ "
+                             f"by {err}")
     log(f"[train] {cfg.name} f32, 3 steps: losses card "
         f"{out['cuda']} | cpu {out['cpu']} | max abs diff {err:.3g} "
         f"(tol 1e-4)")
@@ -4400,10 +4593,6 @@ def phase_sharded(run, spec: dict) -> dict:
     loop over the cells): its greedy tokens equal the engine's, and its
     flash launches the unsharded wave's (one a layer, all ``"wgmma"``).
     Leaves the model sharded."""
-    import shutil
-    import tempfile
-
-    import torch.distributed as dist
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.steps import CellEngine, build_cell
@@ -4415,11 +4604,7 @@ def phase_sharded(run, spec: dict) -> dict:
     wave = run.done[:batch]
     want = [r.out_tokens for r in wave]
     shape = first_wave(run.done, batch).shape
-    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
-    dist.init_process_group("nccl", rank=0, world_size=1,
-                            store=dist.FileStore(os.path.join(d, "store"),
-                                                 1))
-    try:
+    with nccl_world_of_one():
         mesh = make_local_mesh()
         t0 = time.perf_counter()
         pre = build_cell(cfg, ShapeConfig("serve", S, batch, "prefill"),
@@ -4437,9 +4622,6 @@ def phase_sharded(run, spec: dict) -> dict:
         wall = time.perf_counter() - t0
         launches, by_variant = fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES)
         rules = {k: v for k, v in pre.rules.rules}
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(d, ignore_errors=True)
     log(f"{tag} mesh (data 1, model 1) over NCCL, world size 1; parameters "
         f"placed in {t_place:.2f} s (no copy: peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
@@ -4457,6 +4639,287 @@ def phase_sharded(run, spec: dict) -> dict:
                              f"({by_variant}), the unsharded wave's "
                              f"{cfg.n_layers}")
     return {"launches": launches, "tokens_equal": True, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: every served family trained at full width, depth cut to fit
+# ---------------------------------------------------------------------------
+
+#: each config's train run through ``runtime.Trainer`` on the card: bf16
+#: weights drawn from seed 0, batches from ``SyntheticLMStream(seed=1)``,
+#: seeded bf16 extras (:func:`model_extras`).  Training holds about 16
+#: bytes a parameter (the bf16 weight and its gradient, the f32 gradient,
+#: the f32 moments m and v), so the depth is cut where the whole model
+#: would not fit: the largest run (gemma3-27b's 6 layers, one period of 5
+#: local + 1 global) is 3.887 B parameters, ~62 GB
+TRAIN_FAMILIES = (
+    dict(arch="qwen2-moe-a2.7b", layers=4, batch=4, seq=512, steps=10),
+    dict(arch="qwen3-moe-235b-a22b", layers=1, batch=2, seq=1024, steps=3),
+    dict(arch="qwen1.5-110b", layers=1, batch=2, seq=1024, steps=3),
+    dict(arch="gemma3-27b", layers=6, batch=1, seq=2048, steps=3),
+    dict(arch="hymba-1.5b", layers=None, batch=2, seq=1024, steps=3),
+    dict(arch="mamba2-130m", layers=None, batch=4, seq=1024, steps=3),
+    dict(arch="whisper-medium", layers=None, batch=2, seq=448, steps=3),
+    dict(arch="phi-3-vision-4.2b", layers=16, batch=2, seq=1024, steps=3),
+    dict(arch="codeqwen1.5-7b", layers=8, batch=2, seq=1024, steps=3),
+    dict(arch="qwen1.5-0.5b", layers=None, batch=4, seq=1024, steps=3),
+)
+#: the config whose losses must fall over its steps, and which then takes
+#: one step through ``launch.steps.build_cell``'s train cell
+TRAIN_CELL_ARCH = "qwen2-moe-a2.7b"
+#: the learning rate of the phase's runs (one warm-up step, then cosine)
+TRAIN_FAMILY_LR = 1e-3
+#: bytes a parameter takes in training (see :data:`TRAIN_FAMILIES`)
+TRAIN_BYTES_PER_PARAM = 16
+
+
+def train_family_cfg(spec: dict):
+    """The config of ``spec`` at full width, its depth cut where the spec
+    says."""
+    from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"])
+    if spec["layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    return cfg
+
+
+def train_trainer(spec: dict, steps: int):
+    """A ``runtime.Trainer`` of ``spec``'s config on the card in bf16,
+    drawn from seed 0."""
+    from repro_torch.runtime import Trainer, TrainLoopConfig
+    return Trainer(train_family_cfg(spec), TrainLoopConfig(
+        steps=steps, peak_lr=TRAIN_FAMILY_LR, warmup_steps=1,
+        ckpt_every=0, dtype=torch.bfloat16), device="cuda")
+
+
+def train_batch(cfg, spec: dict, step: int) -> dict:
+    """``SyntheticLMStream(seed=1)``'s batch at ``step`` with the config's
+    seeded bf16 extras on the card."""
+    batch = _train_batch(cfg, spec, step)
+    batch.update(model_extras(cfg, spec["batch"], "cuda", torch.bfloat16))
+    return batch
+
+
+def train_flash_per_step(cfg) -> int:
+    """Flash forward (and backward) launches of one train step: one a
+    layer with attention; the encoder-decoder's encoder layers, decoder
+    self-attention and cross-attention; none for an SSM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def reset_model_counts() -> None:
+    from repro_torch import kernels
+    fa, rt, tg = (kernels.flash_attention, kernels.router_topk,
+                  kernels.topk_gating)
+    for mod in kernels.MODEL_KERNELS:
+        mod.LAUNCHES = 0
+    fa.LAUNCHES_BWD = tg.LAUNCHES_BWD = 0
+    for d in (fa.VARIANT_LAUNCHES, fa.VARIANT_LAUNCHES_BWD,
+              rt.VARIANT_CALLS, tg.PATH_LAUNCHES):
+        d.update(dict.fromkeys(d, 0))
+
+
+def model_counts() -> dict:
+    from repro_torch import kernels
+    fa, rt, tg = (kernels.flash_attention, kernels.router_topk,
+                  kernels.topk_gating)
+    return {"flash_attention": fa.LAUNCHES,
+            "flash_attention_bwd": fa.LAUNCHES_BWD,
+            "flash_by_variant": dict(fa.VARIANT_LAUNCHES),
+            "flash_bwd_by_variant": dict(fa.VARIANT_LAUNCHES_BWD),
+            "router_topk": rt.LAUNCHES, "router_calls": dict(rt.VARIANT_CALLS),
+            "topk_gating": tg.LAUNCHES, "topk_gating_bwd": tg.LAUNCHES_BWD}
+
+
+def phase_train_families() -> dict:
+    """Each of :data:`TRAIN_FAMILIES` trained through ``runtime.Trainer``
+    on the card (:func:`train_family`), then :data:`TRAIN_CELL_ARCH`
+    through the train cell on a (1, 1) NCCL mesh (:func:`train_cell`),
+    then every config's smoke config in f32 from one seeded weight set, 3
+    steps on the card and on the CPU (:func:`train_path`).  Returns, per
+    config, its launches and step times, and the first router backward
+    call's inputs of each MoE config (the timing rows')."""
+    from repro_torch.configs import get_smoke_config
+    out = {}
+    for spec in TRAIN_FAMILIES:
+        out[spec["arch"]] = train_family(spec)
+        torch.cuda.empty_cache()
+    cell = next(s for s in TRAIN_FAMILIES if s["arch"] == TRAIN_CELL_ARCH)
+    out[TRAIN_CELL_ARCH]["cell"] = train_cell(
+        cell, out[TRAIN_CELL_ARCH]["losses"][0])
+    torch.cuda.empty_cache()
+    for spec in TRAIN_FAMILIES:
+        smoke = get_smoke_config(spec["arch"])
+        train_path(spec["arch"], {"head_dim": 16} if smoke.hd < 16 else None)
+    return out
+
+
+def train_family(spec: dict) -> dict:
+    """One config of :data:`TRAIN_FAMILIES` trained ``spec["steps"]`` steps
+    on the card, its cut logged; counts reset just before and read just
+    after: flash forward and backward :func:`train_flash_per_step` a step,
+    all ``"wgmma"`` (phi-3-vision's head dim 96: ``"simt"``); the router
+    one ``router_topk`` launch a MoE layer a step, every call
+    ``"fused"``, and one ``topk_gating_bwd`` launch, no ``topk_gating``
+    forward; none for a dense model.  Losses finite, and for
+    :data:`TRAIN_CELL_ARCH` the mean of the last 3 below that of the first
+    3.  Logs ms a step (host clock, steps 2 on), tokens/s and peak memory
+    beside the card's name and power limit."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_gating as tg
+    from repro_torch.configs import get_config
+    full = get_config(spec["arch"])
+    cfg = train_family_cfg(spec)
+    steps, B, S = spec["steps"], spec["batch"], spec["seq"]
+    tag = f"[trainfam] {cfg.name}:"
+    need = TRAIN_BYTES_PER_PARAM * full.param_count()
+    if spec["layers"] is not None:
+        log(f"{tag} depth cut to {cfg.n_layers} of {full.n_layers} layers: "
+            f"{full.param_count() / 1e9:.3f} B parameters take "
+            f"~{need / 1e9:.0f} GB to train at {TRAIN_BYTES_PER_PARAM} "
+            f"bytes each, the card has 80; {cfg.param_count() / 1e9:.3f} B "
+            f"kept (~{TRAIN_BYTES_PER_PARAM * cfg.param_count() / 1e9:.0f} "
+            f"GB)")
+    torch.cuda.synchronize()
+    reset_peak()
+    trainer = train_trainer(spec, steps)
+    moe_layers = sum(s.moe for s in trainer.model.specs)
+    captured = {}
+    orig_bwd = tg.topk_gating_bwd
+
+    def capture(idx, gates, dgates, dlogits=None, **kw):
+        captured.setdefault("call", ((idx.clone(), gates.clone(),
+                                      dgates.clone(), None if dlogits is None
+                                      else dlogits.clone()), dict(kw)))
+        return orig_bwd(idx, gates, dgates, dlogits, **kw)
+
+    batches = [train_batch(cfg, spec, i) for i in range(steps)]
+    torch.cuda.synchronize()
+    reset_model_counts()
+    tg.topk_gating_bwd = capture
+    losses, times = [], []
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            losses.append(trainer.train_one(batch, i))
+            times.append(time.perf_counter() - t0)
+    finally:
+        tg.topk_gating_bwd = orig_bwd
+    counts = model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.mean(times[1:]))
+    extras = {k: list(v.shape) for k, v in batches[0].items()
+              if k not in ("tokens", "labels")}
+    log(f"{tag} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters in bf16; batch {B} x "
+        f"{S}{', extras ' + json.dumps(extras) if extras else ''}; "
+        f"{steps} steps, losses {', '.join(f'{x:.4f}' for x in losses)}")
+    log(f"{tag} {step_s * 1e3:.2f} ms a step (host clock, steps 2 on; "
+        f"first {times[0] * 1e3:.2f}), {B * S / step_s:.0f} tokens/s, peak "
+        f"device memory {peak / 2**30:.2f} GiB | {SMI[0]}")
+    log(f"{tag} launches {json.dumps(counts)}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} losses {losses} not finite")
+    if cfg.name == TRAIN_CELL_ARCH and \
+            not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"{tag} losses {losses} not falling")
+    flash = train_flash_per_step(cfg) * steps
+    variant = fa.variant(torch.bfloat16, cfg.hd)
+    router = moe_layers * steps
+    want = {"flash_attention": flash, "flash_attention_bwd": flash,
+            "flash_by_variant": {**dict.fromkeys(fa.VARIANT_LAUNCHES, 0),
+                                 variant: flash},
+            "flash_bwd_by_variant": {
+                **dict.fromkeys(fa.VARIANT_LAUNCHES_BWD, 0),
+                fa.variant_bwd(torch.bfloat16, cfg.hd): flash},
+            "router_topk": router,
+            "router_calls": {"fused": router, "unfused": 0},
+            "topk_gating": 0, "topk_gating_bwd": router}
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts}, expected {want}")
+    out = {"launches": counts, "losses": losses, "step_ms": step_s * 1e3,
+           "tokens_per_s": B * S / step_s, "peak": peak}
+    if moe_layers:
+        out["bwd_call"] = captured["call"]
+    del trainer, batches
+    return out
+
+
+def train_cell(spec: dict, first_loss: float) -> dict:
+    """``spec``'s config through ``launch.steps.build_cell``'s train cell on
+    a (data 1, model 1) NCCL mesh, world size 1: one step from the
+    Trainer's first-step weights (the same draw from seed 0) and batch;
+    its loss within 1e-3 relative of the Trainer's first-step loss, and
+    the router's forward and backward one launch a MoE layer (the router
+    kernels on the rank's local shards, ``models/moe.py::_moe_sharded``),
+    flash forward and backward one a layer."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    cfg = train_family_cfg(spec)
+    B, S = spec["batch"], spec["seq"]
+    tag = f"[traincell] {cfg.name}:"
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    moe_layers = sum(s.moe for s in model.specs)
+    raw = _train_batch(cfg, spec, 0)
+    batch = {k: torch.from_numpy(np.asarray(v)).cuda().long()
+             for k, v in raw.items()}
+    with nccl_world_of_one():
+        mesh = make_local_mesh()
+        cell = build_cell(cfg, ShapeConfig("train", S, B, "train"), mesh,
+                          model=model)
+        args = cell.make_args(batch)
+        torch.cuda.synchronize()
+        reset_model_counts()
+        t0 = time.perf_counter()
+        _params, _opt, loss = cell.fn(*args)
+        loss = loss.detach()
+        loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                     else loss)
+        wall = time.perf_counter() - t0
+        counts = model_counts()
+        del cell, args, _params, _opt
+    del model
+    rel = abs(loss - first_loss) / abs(first_loss)
+    log(f"{tag} mesh (data 1, model 1) over NCCL, world size 1; one step "
+        f"[{B}, {S}] in {wall:.2f} s, loss {loss:.6f} against the "
+        f"Trainer's first step {first_loss:.6f} (relative {rel:.3g}, tol "
+        f"1e-3); launches {json.dumps(counts)}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"{tag} loss {loss} against {first_loss}")
+    if (counts["router_topk"], counts["topk_gating_bwd"],
+            counts["router_calls"]["fused"]) != (moe_layers,) * 3 or \
+            counts["flash_attention"] != cfg.n_layers or \
+            counts["flash_attention_bwd"] != cfg.n_layers:
+        raise AssertionError(f"{tag} launches {counts}; expected the router "
+                             f"{moe_layers} forward and backward, flash "
+                             f"{cfg.n_layers} each")
+    return {"loss": loss, "launches": counts, "wall_s": wall}
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A one-rank NCCL process group on the card (a ``FileStore`` in a
+    temporary directory), destroyed on the way out."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(d, "store"),
+                                                 1))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
@@ -4680,6 +5143,9 @@ def _model_row(name, replaces, launches, err, kern, plain, library, t_ops,
 #: log, which the parent prints behind the child's tag
 READY, ROWS, PEAK = "@@ready", "@@rows ", "@@peak "
 TRACE_S = "@@trace_s "
+#: the timing process's peak device memory while it waits beside the LM
+#: run (its ``PEAK`` is the peak after ``go``, when the LM run is over)
+WAIT_PEAK = "@@wait_peak "
 #: CPU threads of the LM half's torch ops (its CPU work is the smoke
 #: configs'; the trace half's host work and its pool get the rest)
 LM_THREADS = 2
@@ -4689,6 +5155,9 @@ HANDOFF = "lm_timing_inputs.pt"
 #: the file that carries the trace kernels' main-path inputs (phase 17's)
 #: from this process to the timing process
 TRACE_HANDOFF = "trace_timing_inputs.pt"
+#: the most device memory the LM half may hold at once, so that beside the
+#: trace half's ~2 GiB the card keeps a margin
+LM_PEAK_LIMIT = 70 * 2**30
 #: each phase's peak device memory (bytes) before the phase reset it
 PEAKS = [0]
 
@@ -4721,8 +5190,8 @@ def lm_half(handoff: str) -> int:
     the path (20), training (22), the families (23, each with a
     profiled decode step) and the encoder-decoder, VLM and dense models
     (24), the two configs no card holds, cut in depth, and the sharded
-    cells on a (1, 1) mesh (25); then the inputs of the LM timing rows
-    saved to ``DIR`` for
+    cells on a (1, 1) mesh (25), and every served config trained (26);
+    then the inputs of the LM timing rows saved to ``DIR`` for
     :func:`lm_timing`, and its peak memory."""
     _child_setup()
     t0 = time.perf_counter()
@@ -4744,9 +5213,15 @@ def lm_half(handoff: str) -> int:
     log(f"[giant] phase wall {time.perf_counter() - t1:.1f} s, peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB | {SMI[0]}")
+    t1 = time.perf_counter()
+    trainfam = phase_train_families()
+    log(f"[trainfam] phase wall {time.perf_counter() - t1:.1f} s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB | {SMI[0]}")
     torch.save({"serve": (serve_launches, serve_inputs),
                 "f32": (f32_launches, f32_inputs), "families": families,
-                "encdec": encdec, "giants": giants, "train": train},
+                "encdec": encdec, "giants": giants, "train": train,
+                "trainfam": trainfam},
                os.path.join(handoff, HANDOFF))
     log(f"[halves] LM half's run {time.perf_counter() - t0:.1f} s")
     print(PEAK + str(half_peak()), flush=True)
@@ -4760,11 +5235,13 @@ def lm_timing(handoff: str) -> int:
     nothing else works on the card) every timing row on the inputs the
     other processes saved: phase 17's (the trace kernels), phase 21's,
     the train step's profile and the backward kernel's row (SDPA's
-    backward beside it).  A process of its own that does nothing else,
+    backward beside it), phase 26's profiled MoE step and the router
+    backward's rows.  A process of its own that does nothing else,
     whose profiler sessions are its first: in processes that had worked
     or profiled before, sessions recorded part of the kernels or none."""
     _child_setup()
     stepper = train_stepper()      # built and run once while it waits
+    print(WAIT_PEAK + str(torch.cuda.max_memory_allocated()), flush=True)
     print(READY, flush=True)
     if sys.stdin.readline().strip() != "go":
         raise RuntimeError("the LM timing process was not told to go on")
@@ -4782,14 +5259,19 @@ def lm_timing(handoff: str) -> int:
     rows += phase_model_timing(*kept["serve"], *kept["f32"],
                                kept["families"], kept["encdec"],
                                kept["giants"])
-    train = kept.pop("train")
+    train, trainfam = kept.pop("train"), kept.pop("trainfam")
     del kept                        # the model rows' inputs, on the card
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     rows += train_timing(train, stepper)
+    del stepper
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    rows += train_family_timing(trainfam)
     log(f"[halves] LM timing {time.perf_counter() - t1:.1f} s (phase 21 "
         f"{t2 - t1:.1f} s, the train step's profile and backward row "
-        f"{time.perf_counter() - t2:.1f} s)")
+        f"{t3 - t2:.1f} s, phase 26's profile and router backward rows "
+        f"{time.perf_counter() - t3:.1f} s)")
     print(PEAK + str(half_peak()), flush=True)
     print(ROWS + json.dumps(rows), flush=True)
     return 0
@@ -4811,7 +5293,7 @@ class Child:
             stderr=subprocess.STDOUT, text=True, bufsize=1, cwd=ROOT)
         self.ready = threading.Event()
         self.rows = self.peak = self.t_ready = self.t_go = self.t_exit = None
-        self.trace_s = 0.0
+        self.trace_s = self.wait_peak = 0
         self.thread = threading.Thread(target=self._read, daemon=True)
         self.thread.start()
 
@@ -4827,6 +5309,8 @@ class Child:
                 self.peak = int(line[len(PEAK):])
             elif line.startswith(TRACE_S):
                 self.trace_s = float(line[len(TRACE_S):])
+            elif line.startswith(WAIT_PEAK):
+                self.wait_peak = int(line[len(WAIT_PEAK):])
             else:
                 log(f"[{self.tag}] {line}")
         self.proc.wait()
@@ -4925,13 +5409,19 @@ def main() -> int:
         f"{hidden:.1f} s of it hidden "
         f"by the trace half = {hidden / work:.1%}")
     total = torch.cuda.get_device_properties(0).total_memory
-    lm_peak = lm.peak + timing.peak
+    # the timing process waits beside the LM run, and times after it
+    lm_peak = max(lm.peak + timing.wait_peak, timing.peak)
     log(f"[halves] peak device memory: trace half {trace_peak / 2**30:.2f} "
         f"GiB, LM half {lm_peak / 2**30:.2f} GiB (run "
-        f"{lm.peak / 2**30:.2f}, timing {timing.peak / 2**30:.2f}), sum "
+        f"{lm.peak / 2**30:.2f} beside the timing process's wait "
+        f"{timing.wait_peak / 2**30:.2f}; its timing after the run "
+        f"{timing.peak / 2**30:.2f}), sum "
         f"{(trace_peak + lm_peak) / 2**30:.2f} of {total / 2**30:.2f} GiB")
     if trace_peak + lm_peak >= total:
         raise AssertionError("the halves' peaks exceed the card's memory")
+    if lm_peak >= LM_PEAK_LIMIT:
+        raise AssertionError(f"the LM half's peak {lm_peak / 2**30:.2f} GiB "
+                             f"is above {LM_PEAK_LIMIT / 2**30:.0f} GiB")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(device["smi"])
     print(json.dumps({"kernels": rows}), flush=True)

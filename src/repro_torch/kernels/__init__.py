@@ -22,7 +22,10 @@ flash_attention  ``repro/kernels/flash_attention.py``        LM prefill and
                  (``flash_attention_bwd``) replaces none:    attention
                  the TPU kernel is forward-only
 topk_gating      ``repro/kernels/topk_gating.py``            MoE routing
-                                                             (float32)
+                 (forward); its backward kernel              (float32), and
+                 (``topk_gating_bwd``) replaces none:        the router's
+                 the TPU kernel is forward-only              backward on
+                                                             both routes
 router_topk      ``repro/kernels/topk_gating.py`` fused      MoE routing
                  with the router product of                  (bfloat16)
                  ``repro/models/moe.py``
@@ -36,7 +39,8 @@ from . import (flash_attention, hist_bin, pair_sum, router_topk, seg_sum,
 TRACE_KERNELS = (seg_sum, pair_sum, time_bin, hist_bin)
 #: the kernels of the LM serving path (bfloat16 weights route through
 #: router_topk; float32 ones through topk_gating); the training path runs
-#: flash_attention's forward and backward kernels
+#: flash_attention's forward and backward kernels and, in an MoE model,
+#: the router's forward and topk_gating's backward kernel
 MODEL_KERNELS = (flash_attention, router_topk, topk_gating)
 #: every kernel module
 KERNELS = TRACE_KERNELS + MODEL_KERNELS

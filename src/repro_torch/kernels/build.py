@@ -24,14 +24,14 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "build", "check", "refuse_grad", "raw_stream",
+__all__ = ["library", "build", "check", "refuse_wrapped", "raw_stream",
            "stream_of", "BUILD_DIR", "SOURCES", "COUNT_LOCK"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("seg_sum.cu", "pair_sum.cu", "time_bin.cu", "hist_bin.cu",
            "flash_attention.cu", "flash_attention_bwd.cu", "topk_gating.cu",
-           "router_topk.cu")
+           "topk_gating_bwd.cu", "router_topk.cu")
 #: sorted records per CTA in the walk pass of csrc/runs.cuh (keep in step)
 CHUNK = 1024
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +76,10 @@ SIGNATURES = {
     # (device, logits, T, E, k, idx, gates, stream)
     "pipit_topk_gating": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
     "pipit_topk_gating_narrow": (_I32, _P, _I64, _I32, _I32, _P, _P, _P),
+    # (device, idx, gates, dgates, dlogits_in or null, T, E, k, dlogits,
+    #  stream)
+    "pipit_topk_gating_bwd": (_I32, _P, _P, _P, _P, _I64, _I32, _I32, _P,
+                              _P),
     # (device, x, w, T, d, E, k, logits, idx, gates, stream)
     "pipit_router_topk": (_I32, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P,
                           _P),
@@ -169,20 +173,6 @@ def check(err: int, what: str) -> None:
     ``cudaGetLastError()`` after the launches)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise when autograd would need a gradient through a kernel that has
-    no backward: grad mode is on and a floating input requires grad.  A
-    launch through raw pointers gives outputs with no ``grad_fn``, so
-    without this a backward pass would stop at the kernel without a
-    word."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in tensors if t.is_floating_point()):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet; call it under "
-            f"torch.no_grad(), or with inputs that do not require grad")
 
 
 def refuse_wrapped(what: str, *tensors) -> None:

@@ -17,10 +17,25 @@ row, largest first, the lowest index on ties) and ``gates [T, k]`` float32
 - ``"unfused"`` (every other case, float32 among them): the float32
   product, then the ``topk_gating`` kernel.
 
-On a CPU tensor :func:`router_topk` runs :func:`router_topk_plain`, which
-is differentiable.  Neither kernel has a backward yet: on the card the
-wrapper raises when autograd would need one (``build.refuse_grad``), on
-either route.
+On a CPU tensor :func:`router_topk` runs :func:`router_topk_plain` in
+place of the fused kernel and ``topk_gating``'s plain version in place of
+its kernel.  With grad on and an input that requires it, both routes are
+differentiable on either device, through ``autograd.Function`` classes whose
+backward is ``topk_gating.topk_gating_bwd`` (``csrc/topk_gating_bwd.cu``
+on the card):
+
+- ``"fused"``: :class:`_RouterFused`, whose backward turns the gates'
+  gradient (plus the logits' own, where there is one) into ``dlogits``,
+  then ``dx = dlogits @ w^T`` and ``dw = x^T @ dlogits`` in float32 (the
+  transposes of the reference's f32 einsum; plain matrix products), cast
+  to the inputs' dtypes;
+- ``"unfused"``: the float32 product under autograd, then
+  ``topk_gating``'s Function.
+
+The gradient follows the indices the forward chose (saved), never a new
+selection.  Under a mesh the router gets a rank's local tokens and a
+weight whose gradient is a partial sum (``models/moe.py::_moe_sharded``):
+``dw`` is that rank's share.
 """
 
 from __future__ import annotations
@@ -75,7 +90,6 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [T, d], w [d, E] (float32 or bfloat16) → (logits [T, E] float32,
     idx [T, k] int32, gates [T, k] float32)."""
-    global LAUNCHES
     build.refuse_wrapped("router_topk", x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"router_topk: x [T, d] and w [d, E] expected, got "
@@ -91,22 +105,36 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
     if not 1 <= k <= min(E, _topk.MAX_K):
         raise ValueError(f"router_topk: k = {k} outside [1, min(E = {E}, "
                          f"{_topk.MAX_K})]")
-    if x.device.type == "cpu":
-        return router_topk_plain(x, w, k)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"router_topk: unsupported device {x.device}")
-    build.refuse_grad("router_topk", x, w)
+    cuda = x.device.type == "cuda"
     if w.dtype != x.dtype or router_variant(x.dtype, d, E, k) == "unfused":
-        with build.COUNT_LOCK:
-            VARIANT_CALLS["unfused"] += 1
+        if cuda:
+            with build.COUNT_LOCK:
+                VARIANT_CALLS["unfused"] += 1
         logits = x.float() @ w.float()
         idx, gates = _topk.topk_gating(logits, k)
         return logits, idx, gates
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("router_topk: contiguous x and w expected")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("router_topk: the kernel's 16-byte copies need "
-                         "16-byte aligned x and w")
+    if cuda:
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError("router_topk: contiguous x and w expected")
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("router_topk: the kernel's 16-byte copies "
+                             "need 16-byte aligned x and w")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RouterFused.apply(x, w, k)
+    return _fused(x, w, k)
+
+
+def _fused(x: torch.Tensor, w: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused route's forward on checked inputs: the plain version on
+    the CPU, one launch of the kernel on the card."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return router_topk_plain(x, w, k)
+    T, d = x.shape
+    E = w.shape[1]
     # one allocation for the three outputs: logits, gates, then idx
     out = torch.empty(T * (E + 2 * k), dtype=torch.float32, device=x.device)
     logits = out[:T * E].view(T, E)
@@ -123,3 +151,31 @@ def router_topk(x: torch.Tensor, w: torch.Tensor, k: int
         LAUNCHES += 1
         VARIANT_CALLS["fused"] += 1
     return logits, idx, gates
+
+
+class _RouterFused(torch.autograd.Function):
+    """The fused route's forward (saving x, w, idx and gates) and its
+    backward: ``topk_gating_bwd`` from the gates' gradient and the logits'
+    own (None where the logits are unused: no zeros are made for them),
+    then the two f32 products of the router's transpose.  idx is not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w, k):
+        logits, idx, gates = _fused(x, w, k)
+        ctx.save_for_backward(x, w, idx, gates)
+        ctx.mark_non_differentiable(idx)
+        ctx.set_materialize_grads(False)
+        return logits, idx, gates
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dlogits, _didx, dgates):
+        x, w, idx, gates = ctx.saved_tensors
+        dl = dlogits if dgates is None else _topk.topk_gating_bwd(
+            idx, gates, dgates, dlogits, E=w.shape[1])
+        dx = (dl @ w.float().T).to(x.dtype) if ctx.needs_input_grad[0] \
+            else None
+        dw = (x.float().T @ dl).to(w.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw, None

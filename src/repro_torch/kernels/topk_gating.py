@@ -13,26 +13,34 @@ On a CUDA tensor :func:`topk_gating` launches the hand-written kernels in
   row's logits loaded once into registers;
 - ``"wide"`` (more columns): one warp a row, the row re-read each round.
 
-The two give the same bits.  The kernels have no backward: on the card the
-wrapper raises when autograd would need one (``build.refuse_grad``).  On a
-CPU tensor it runs :func:`topk_gating_plain`, which is differentiable.
+The two give the same bits.  On a CPU tensor the wrapper runs
+:func:`topk_gating_plain`.  With grad on and logits that require it, either
+device goes through one ``autograd.Function``: the forward above, and
+:func:`topk_gating_bwd` as its backward (on the card the hand-written
+kernel in ``csrc/topk_gating_bwd.cu``, counted in :data:`LAUNCHES_BWD`; on
+the CPU :func:`topk_gating_bwd_plain`).  The indices are not
+differentiable; the gradient follows the columns the forward chose.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
 
 __all__ = ["topk_gating", "topk_gating_plain", "topk_gating_path", "path",
-           "LAUNCHES", "PATH_LAUNCHES", "MAX_K", "NARROW_E"]
+           "topk_gating_bwd", "topk_gating_bwd_plain", "LAUNCHES",
+           "LAUNCHES_BWD", "PATH_LAUNCHES", "MAX_K", "NARROW_E"]
 
 #: kernel launches since import (one per wrapper call that launches)
 LAUNCHES = 0
 #: the same launches by path
 PATH_LAUNCHES = {"narrow": 0, "wide": 0}
+#: backward kernel launches since import (one per :func:`topk_gating_bwd`
+#: call that launches)
+LAUNCHES_BWD = 0
 #: the largest k the kernels unroll
 MAX_K = 8
 #: the most columns the narrow path holds: 4 registers on each of 32 lanes
@@ -78,7 +86,6 @@ def topk_gating_path(name: str, logits: torch.Tensor,
     """:func:`topk_gating` through the named path (``"narrow"`` or
     ``"wide"``) whatever :func:`path` would pick, to compare the two on the
     same inputs; a CPU tensor still runs the plain version."""
-    global LAUNCHES
     if name not in PATH_LAUNCHES:
         raise ValueError(f"topk_gating: unknown path {name!r}")
     build.refuse_wrapped("topk_gating", logits)
@@ -95,13 +102,23 @@ def topk_gating_path(name: str, logits: torch.Tensor,
     if name == "narrow" and E > NARROW_E:
         raise ValueError(f"topk_gating: the narrow path takes at most "
                          f"{NARROW_E} columns, got {E}")
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_gating: unsupported device {logits.device}")
+    if logits.device.type == "cuda" and not logits.is_contiguous():
+        raise ValueError("topk_gating: contiguous logits expected")
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _TopkGating.apply(logits, k, name)
+    return _forward(name, logits, k)
+
+
+def _forward(name: str, logits: torch.Tensor,
+             k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on checked inputs: the plain version on the CPU, one
+    launch of the path ``name`` on the card."""
+    global LAUNCHES
     if logits.device.type == "cpu":
         return topk_gating_plain(logits, k)
-    if logits.device.type != "cuda":
-        raise ValueError(f"topk_gating: unsupported device {logits.device}")
-    build.refuse_grad("topk_gating", logits)
-    if not logits.is_contiguous():
-        raise ValueError("topk_gating: contiguous logits expected")
+    T, E = logits.shape
     # one allocation for both outputs: gates, then idx
     out = torch.empty(2 * T * k, dtype=torch.float32, device=logits.device)
     gates = out[:T * k].view(T, k)
@@ -119,3 +136,104 @@ def topk_gating_path(name: str, logits: torch.Tensor,
         LAUNCHES += 1
         PATH_LAUNCHES[name] += 1
     return idx, gates
+
+
+class _TopkGating(torch.autograd.Function):
+    """The forward of the path ``name`` (saving idx and gates) and
+    :func:`topk_gating_bwd` backward; idx is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, logits, k, name):
+        idx, gates = _forward(name, logits, k)
+        ctx.save_for_backward(idx, gates)
+        ctx.mark_non_differentiable(idx)
+        ctx.E = logits.shape[1]
+        return idx, gates
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, _didx, dgates):
+        idx, gates = ctx.saved_tensors
+        return topk_gating_bwd(idx, gates, dgates, E=ctx.E), None, None
+
+
+def topk_gating_bwd_plain(idx: torch.Tensor, gates: torch.Tensor,
+                          dgates: torch.Tensor,
+                          dlogits: Optional[torch.Tensor] = None, *,
+                          E: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the backward: ``dlogits`` (or zeros ``[T, E]``)
+    plus, at column ``idx[t, j]``, ``g_j (dg_j - S)`` with ``S`` the sum of
+    ``g_i dg_i`` over i = 0..k-1 in that order, added in j order as a loop
+    over j (a column chosen twice takes both contributions)."""
+    T, k = idx.shape
+    if dlogits is None:
+        out = torch.zeros((T, E), dtype=torch.float32, device=idx.device)
+    else:
+        out = dlogits.float().clone()
+    s = torch.zeros(T, dtype=torch.float32, device=idx.device)
+    for i in range(k):
+        s = s + gates[:, i] * dgates[:, i]
+    contrib = gates * (dgates - s[:, None])
+    rows = torch.arange(T, device=idx.device)
+    for j in range(k):
+        col = idx[:, j].long()
+        out[rows, col] = out[rows, col] + contrib[:, j]
+    return out
+
+
+def topk_gating_bwd(idx: torch.Tensor, gates: torch.Tensor,
+                    dgates: torch.Tensor,
+                    dlogits: Optional[torch.Tensor] = None, *,
+                    E: Optional[int] = None) -> torch.Tensor:
+    """The gradient of :func:`topk_gating`'s gates with respect to its
+    logits: idx [T, k] int32, gates and their gradient ``dgates`` [T, k]
+    float32, and the logits' own gradient ``dlogits`` [T, E] float32 where
+    there is one (else ``E`` gives the width) → dlogits [T, E] float32.
+    On the card one launch of ``csrc/topk_gating_bwd.cu``, on a CPU
+    tensor :func:`topk_gating_bwd_plain`."""
+    global LAUNCHES_BWD
+    ts = (idx, gates, dgates) + (() if dlogits is None else (dlogits,))
+    build.refuse_wrapped("topk_gating_bwd", *ts)
+    if idx.dim() != 2 or gates.shape != idx.shape or \
+            dgates.shape != idx.shape:
+        raise ValueError(f"topk_gating_bwd: idx, gates and dgates [T, k] "
+                         f"expected, got {tuple(idx.shape)}, "
+                         f"{tuple(gates.shape)}, {tuple(dgates.shape)}")
+    T, k = idx.shape
+    if dlogits is not None:
+        if dlogits.dim() != 2 or dlogits.shape[0] != T or \
+                (E is not None and dlogits.shape[1] != E):
+            raise ValueError(f"topk_gating_bwd: dlogits [{T}, E] expected, "
+                             f"got {tuple(dlogits.shape)}")
+        E = dlogits.shape[1]
+    if E is None:
+        raise ValueError("topk_gating_bwd: give dlogits or E")
+    if idx.dtype != torch.int32 or any(t.dtype != torch.float32
+                                       for t in ts[1:]):
+        raise TypeError("topk_gating_bwd: int32 idx and float32 gates, "
+                        "dgates and dlogits expected")
+    if not 1 <= k <= min(E, MAX_K):
+        raise ValueError(f"topk_gating_bwd: k = {k} outside [1, min(E = "
+                         f"{E}, {MAX_K})]")
+    if any(t.device != idx.device for t in ts):
+        raise ValueError("topk_gating_bwd: inputs on different devices")
+    if idx.device.type == "cpu":
+        return topk_gating_bwd_plain(idx, gates, dgates, dlogits, E=E)
+    if idx.device.type != "cuda":
+        raise ValueError(f"topk_gating_bwd: unsupported device "
+                         f"{idx.device}")
+    # autograd may hand over a strided gradient
+    idx, gates, dgates = (t.contiguous() for t in (idx, gates, dgates))
+    if dlogits is not None:
+        dlogits = dlogits.contiguous()
+    out = torch.empty((T, E), dtype=torch.float32, device=idx.device)
+    if T == 0:
+        return out
+    dev = idx.device.index
+    build.check(build.library().pipit_topk_gating_bwd(
+        dev, idx.data_ptr(), gates.data_ptr(), dgates.data_ptr(),
+        None if dlogits is None else dlogits.data_ptr(), T, E, k,
+        out.data_ptr(), build.raw_stream(dev)), "topk_gating_bwd")
+    with build.COUNT_LOCK:
+        LAUNCHES_BWD += 1
+    return out

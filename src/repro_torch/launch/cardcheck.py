@@ -19,6 +19,7 @@ import torch
 
 __all__ = ["gate", "exact", "same_bits", "digest", "set_gate",
            "findings_gate", "flash_bwd_tol", "flash_draw", "flash_gate_share",
+           "topk_bwd_err", "topk_bwd_bound_ms", "HBM_BYTES_PER_S",
            "flash_forward_lse", "cuda_ms", "device_ms", "short_name",
            "card_line", "ptxas", "run_trees"]
 
@@ -38,6 +39,10 @@ PEAKED_V = 3.5
 #: the largest share of a peaked case's mean output magnitude its gate may
 #: be, so that the gate is well under what it compares
 PEAKED_GATE_SHARE = 0.1
+#: the router backward's gate: 1e-6 x its row's largest |g_j dg_j|
+TOPK_BWD_TOL = 1e-6
+#: the H100 SXM's HBM3 rate (NVIDIA data sheet), bytes a second
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _f64(x) -> np.ndarray:
@@ -207,6 +212,38 @@ def flash_bwd_tol(dtype, want) -> float:
     w = _f64(want)
     mag = float(np.abs(w).max()) if w.size else 0.0
     return (2e-5 if dtype == torch.float32 else 3e-2) * mag
+
+
+def topk_bwd_err(got, want, gates, dgates) -> float:
+    """The router backward ``got`` ([T, E] dlogits) against its plain
+    version ``want``: the same nonzero pattern exactly, and each value
+    within :data:`TOPK_BWD_TOL` x its row's largest ``|g_j dg_j|`` (the
+    scale of the row's contributions, which holds its meaning whatever the
+    incoming gradient's size).  Returns the max abs error; raises
+    ``AssertionError`` outside the gate."""
+    a, b = _f64(got), _f64(want)
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {a.shape} != {b.shape}")
+    if not np.array_equal(a != 0, b != 0):
+        raise AssertionError(f"nonzero pattern differs in "
+                             f"{int(((a != 0) != (b != 0)).sum())} places")
+    if not a.size:
+        return 0.0
+    row = np.abs(_f64(gates) * _f64(dgates)).max(axis=1, keepdims=True)
+    err = np.abs(a - b)
+    if not bool((err <= TOPK_BWD_TOL * row).all()):
+        raise AssertionError(f"outside {TOPK_BWD_TOL:g} x the row's largest "
+                             f"|g dg|: max abs err {float(err.max())}")
+    return float(err.max())
+
+
+def topk_bwd_bound_ms(T: int, E: int, k: int, incoming: bool) -> float:
+    """The least time of the router backward on the H100, in ms: bytes
+    over :data:`HBM_BYTES_PER_S` (reads T k 12 bytes of idx, gates and
+    their gradient, plus T E 4 of an incoming logits gradient; writes T E
+    4); its few operations a byte leave it bound by bytes."""
+    nbytes = T * k * 12 + T * E * 4 + (T * E * 4 if incoming else 0)
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def flash_draw(rng, q_shape, kv_shape, peaked: bool = False):

@@ -4,7 +4,9 @@ Mirrors :mod:`repro.models.moe` (Switch-Transformer routing):
 
 1. router logits → top-k experts + gate probs per token, on the card in
    one launch of the fused ``router_topk`` kernel (bfloat16; other dtypes
-   take the float32 product and the ``topk_gating`` kernel),
+   take the float32 product and the ``topk_gating`` kernel); in training
+   the gates' gradient comes back through one launch of
+   ``topk_gating_bwd`` (either route) on the columns the forward chose,
 2. assignments stably sorted by expert id; rank within expert computed
    vectorially,
 3. assignments over ``capacity`` are dropped (``capacity_factor``),
@@ -185,6 +187,8 @@ def _moe_sharded(x, w_router, w_gate, w_up, w_down, topk: int, G: int,
     xl = xg.to_local()
     Gl = xl.shape[0]
     # each data rank's router gradient covers its own tokens: partial sums
+    # (the router's backward, on the card or the CPU, gives x^T @ dlogits
+    # over this rank's tokens alone: the rank's share)
     wr = w_router.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
         grad_placements=[Partial() if p.is_shard() else Replicate()
                          for p in pl])

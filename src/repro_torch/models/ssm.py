@@ -11,7 +11,11 @@ P, state N:
 Plain PyTorch: the state and every accumulation are float32, and an
 explicit loop over chunks of ``Q`` tokens takes the place of the
 reference's ``lax.scan`` (inside a chunk the quadratic form runs as
-batched matmuls, between chunks the state is carried).  The reference
+batched matmuls, between chunks the state is carried).  The chunk's
+decay matrix masks its upper triangle before the exp, where the
+reference masks after it: the forward is the same, and the gradient
+stays finite where a chunk's decay passes f32's exp range (at full
+width, training hymba-1.5b and mamba2-130m; ROADMAP §C).  The reference
 computes this outside any Pallas kernel, so there is no kernel to port;
 a hand-written SSD kernel would be a design change made against a
 measured cost (ROADMAP §B).  The reference's seven activation
@@ -86,7 +90,11 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256,
         # intra-chunk: the quadratic form
         g = torch.einsum("bsn,btn->bst", cq, bq)                  # [B,Q,Q]
         ldiff = cum[:, :, None, :] - cum[:, None, :, :]          # [B,s,t,H]
-        L = torch.where(causal[None, :, :, None], torch.exp(ldiff), 0.0)
+        # masked before the exp: above the diagonal ldiff is a growing
+        # positive sum, whose exp overflows past ~88, and the reference's
+        # where(mask, exp(ldiff), 0) then back-propagates 0 * inf = NaN
+        L = torch.exp(torch.where(causal[None, :, :, None], ldiff,
+                                  float("-inf")))
         m = g[..., None] * L * dtq[:, None, :, :]                # [B,s,t,H]
         y = torch.einsum("bsth,bthp->bshp", m, xq)               # [B,Q,H,P]
         # inter-chunk: the carried state's contribution

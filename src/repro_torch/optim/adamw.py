@@ -8,7 +8,10 @@ over those f32 gradients, weight decay applies to every leaf as the
 reference applies it, and the update runs in f32 and is cast back to the
 parameter's dtype.  Unlike the reference, which returns new arrays, the
 port updates the parameters and the moments in place: a step allocates
-no second copy of the model or its state.
+no second copy of the model or its state.  A large plain leaf is updated
+in pieces of :data:`CHUNK` elements (every op is elementwise, so the bits
+are the same): the update's f32 temporaries stay that size, where a
+whole 1.4 B-element embedding (gemma3-27b's) would take 5.3 GiB each.
 """
 
 from __future__ import annotations
@@ -18,7 +21,11 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm",
+           "CHUNK"]
+
+#: the most elements of one leaf :func:`adamw_update` updates at once
+CHUNK = 1 << 26
 
 
 @dataclasses.dataclass
@@ -73,11 +80,25 @@ def adamw_update(params: Dict[str, torch.Tensor],
     bc2 = (1.0 - (b2 * one) ** float(step)).to(dev)
     lr = torch.as_tensor(lr, dtype=torch.float32).to(dev)
     for k, p in params.items():
-        g, m, v = grads[k].float(), state.m[k], state.v[k]
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        pf = p.float()
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+        for p, g, m, v in _pieces(p, grads[k], state.m[k], state.v[k]):
+            g = g.float()
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            pf = p.float()
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + \
+                weight_decay * pf
+            p.copy_((pf - lr * delta).to(p.dtype))
     state.step = step
     return state
+
+
+def _pieces(p, g, m, v):
+    """One leaf's (parameter, gradient, m, v) as flat views of at most
+    :data:`CHUNK` elements; a small leaf, or a DTensor (whose shards the
+    mesh lays out), whole."""
+    from torch.distributed.tensor import DTensor
+    n = p.numel()
+    if n <= CHUNK or isinstance(p, DTensor):
+        return [(p, g, m, v)]
+    flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+    return [tuple(t[i:i + CHUNK] for t in flat) for i in range(0, n, CHUNK)]

@@ -18,9 +18,13 @@ Mirrors :mod:`repro.runtime.trainer` on one device:
   device's work, as ``float(loss)`` does in the reference.
 
 The reference jits one train step and donates its buffers; the port runs
-eagerly and updates the parameters and the optimizer state in place.  On
+eagerly and updates the parameters and the optimizer state in place.  As
+the reference's step hands the whole batch to ``model.loss``, the port's
+passes every batch key other than ``tokens`` and ``labels`` (``frames``,
+``img_embeds``) to it as a keyword, split into the same microbatches.  On
 the card every attention call goes through the flash kernel and its
-backward kernel (:mod:`repro_torch.kernels.flash_attention`).  As in
+backward kernel (:mod:`repro_torch.kernels.flash_attention`), and every
+MoE router through its kernel and ``topk_gating_bwd``.  As in
 the reference, ``mesh=`` and ``shardings=`` are accepted and kept, not
 used; the sharded train step over a ``DeviceMesh`` is
 :func:`repro_torch.launch.steps.build_cell`'s.
@@ -121,37 +125,63 @@ class Trainer:
         self.opt_state = adamw_init(self.params)
 
     # ------------------------------------------------------------------
-    def _grads(self, tokens: torch.Tensor, labels: torch.Tensor):
+    def _grads(self, tokens: torch.Tensor, labels: torch.Tensor,
+               **extras: torch.Tensor):
         """(loss, f32 gradients by name) of one batch, over
-        ``loop.microbatches`` microbatches summed in f32."""
+        ``loop.microbatches`` microbatches summed in f32.  ``extras`` (the
+        batch's other keys: ``frames``, ``img_embeds``) go to
+        ``model.loss`` as keywords, each split into the same microbatches
+        as the tokens.  A parameter the loss does not read (whisper's
+        cross-attention ``x_bk`` / ``x_bv``) gets a zero gradient, as under
+        ``jax.value_and_grad``."""
         M = self.loop.microbatches
         names = list(self.params)
         leaves = [self.params[k] for k in names]
+
+        def grads(loss):
+            return torch.autograd.grad(loss, leaves, allow_unused=True,
+                                       materialize_grads=True)
+
         if M == 1:
-            loss = self.model.loss(tokens, labels)
-            gs = torch.autograd.grad(loss, leaves)
-            return loss.detach(), {k: g.float() for k, g in zip(names, gs)}
+            loss = self.model.loss(tokens, labels, **extras)
+            gs = list(grads(loss))
+            out = {}
+            for i, k in enumerate(names):   # each cast frees its bf16 input
+                out[k], gs[i] = gs[i].float(), None
+            return loss.detach(), out
         if tokens.shape[0] % M:
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{M} microbatches")
         acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for k, p in self.params.items()}
         losses = []
-        for tok, lab in zip(tokens.chunk(M), labels.chunk(M)):
-            loss = self.model.loss(tok, lab)
-            gs = torch.autograd.grad(loss, leaves)
-            for k, g in zip(names, gs):
+        chunks = {k: v.chunk(M) for k, v in extras.items()}
+        for m, (tok, lab) in enumerate(zip(tokens.chunk(M),
+                                           labels.chunk(M))):
+            loss = self.model.loss(tok, lab, **{k: c[m]
+                                                for k, c in chunks.items()})
+            for k, g in zip(names, grads(loss)):
                 acc[k].add_(g.float())
             losses.append(loss.detach())
         return torch.stack(losses).mean(), {k: a / M for k, a in acc.items()}
 
-    def _train_step(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
+    def _train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """One step on ``batch``: ``tokens`` and ``labels``, and every other
+        key passed to ``model.loss`` as a keyword, as the reference's
+        ``model.loss(params, batch)`` reads the whole batch; each entry (a
+        NumPy array or a tensor) moved to the trainer's device."""
         loop = self.loop
-        tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(
-            self.device, torch.long)
-        labels = torch.from_numpy(np.asarray(batch["labels"])).to(
-            self.device, torch.long)
-        loss, grads = self._grads(tokens, labels)
+
+        def to_device(v):
+            t = v if isinstance(v, torch.Tensor) else \
+                torch.from_numpy(np.asarray(v))
+            return t.to(self.device)
+
+        tokens = to_device(batch["tokens"]).long()
+        labels = to_device(batch["labels"]).long()
+        extras = {k: to_device(v) for k, v in batch.items()
+                  if k not in ("tokens", "labels")}
+        loss, grads = self._grads(tokens, labels, **extras)
         lr = cosine_schedule(self.opt_state.step, loop.peak_lr,
                              loop.warmup_steps, loop.steps)
         adamw_update(self.params, grads, self.opt_state, lr,

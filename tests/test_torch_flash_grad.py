@@ -181,19 +181,21 @@ def test_bwd_wrapper_checks_its_inputs():
 
 
 def test_flash_no_longer_refuses_grad_but_the_router_kernels_do():
-    """The flash wrapper's refusal is gone (its CUDA call now has a
-    backward); ``router_topk`` and ``topk_gating`` still call
-    ``build.refuse_grad``."""
+    """No model kernel's wrapper refuses a gradient any more: flash
+    attention has its backward kernel, and both router routes
+    (``router_topk``, ``topk_gating``) theirs, ``csrc/topk_gating_bwd.cu``
+    (built with the rest); ``build.refuse_grad`` is gone."""
     import inspect
 
     from repro_torch.kernels import router_topk, topk_gating
-    assert "refuse_grad" not in inspect.getsource(
-        fa.flash_attention_variant)
-    for mod, name in ((router_topk, "router_topk"),
-                      (topk_gating, "topk_gating")):
-        assert f'build.refuse_grad("{name}"' in inspect.getsource(mod)
-    assert build.SIGNATURES["pipit_flash_attention_bwd"]
-    assert "flash_attention_bwd.cu" in build.SOURCES
+    assert not hasattr(build, "refuse_grad")
+    for mod in (fa, router_topk, topk_gating):
+        assert "refuse_grad" not in inspect.getsource(mod)
+    for name, source in (("pipit_flash_attention_bwd",
+                          "flash_attention_bwd.cu"),
+                         ("pipit_topk_gating_bwd", "topk_gating_bwd.cu")):
+        assert build.SIGNATURES[name]
+        assert source in build.SOURCES
 
 
 @pytest.mark.parametrize("dtype,D,want", [

@@ -27,9 +27,10 @@ prefill and decode shapes, its indices and gates equal to
 inputs, counts exact and top-k bits equal between the paths, on edge
 values (+inf, 3e9, -0.0 and NaN coordinates; rows of -inf and of values
 at or below -1e30, which select a chosen column again) and on inputs that
-start off the 16-byte boundary.  The two router wrappers refuse a
-gradient they cannot give: with grad enabled and an input that requires
-grad they raise.  Flash attention's backward kernel is held to its plain
+start off the 16-byte boundary.  The two router wrappers are
+differentiable on both routes: one backward launches the router's backward
+kernel (``topk_gating_bwd``) once, which is held to its plain version on
+duplicate columns, strided gradients and T = 0.  Flash attention's backward kernel is held to its plain
 version at the training shape and the edge cases (bit-identical on
 relaunch), each bfloat16 case at D = 64 or 128 through both of its
 variants (``"wgmma"``, the tensor cores, and ``"simt"``), the forward's
@@ -89,7 +90,8 @@ from repro_torch.kernels import (flash_attention, hist_bin, pair_sum,
 from repro_torch.launch.cardcheck import (digest, findings_gate,
                                          flash_bwd_tol, flash_draw,
                                          flash_forward_lse, flash_gate_share,
-                                         gate, same_bits, set_gate)
+                                         gate, same_bits, set_gate,
+                                         topk_bwd_err)
 from repro_torch.tracegen import big_events, big_trace
 
 pytestmark = pytest.mark.gpu
@@ -1417,22 +1419,69 @@ def test_flash_attention_grad_runs_the_backward_kernel(cuda, case, which):
 @pytest.mark.parametrize("case", GRAD_CASES)
 @pytest.mark.parametrize("which", [0, -1])
 def test_model_kernels_refuse_grad(cuda, case, which):
-    """With grad enabled and an input that requires grad, the CUDA
-    router wrappers (``router_topk``, ``topk_gating``: no backward yet)
-    raise, naming themselves, instead of returning outputs with no
-    grad_fn; under torch.no_grad() the same call runs."""
+    """The router wrappers (``router_topk`` on both routes,
+    ``topk_gating`` on both paths) no longer refuse a gradient: with grad
+    enabled and an input that requires it, the gates carry a grad_fn, one
+    backward launches ``topk_gating_bwd`` once, and the gradients equal
+    those of the same Function's CPU run (plain forward and backward) to
+    f32 rounding (one bf16 ulp of the largest for a bf16 input: cuBLAS and
+    the CPU sum the router's transpose in other orders); under
+    torch.no_grad() the same call has none."""
     fn, args = _grad_cases(cuda)[case]
-    args = list(args)
-    args[which] = args[which].detach().requires_grad_(True)
-    wrapper = case.split()[0]
-    with pytest.raises(RuntimeError, match=f"{wrapper}: .*no backward"):
-        fn(*args)
-    with torch.no_grad():
-        out = fn(*args)
+    args = [a.detach() for a in args]
+    args[which].requires_grad_(True)
+    out = fn(*args)
+    gates = out[-1]
+    assert gates.grad_fn is not None and not out[-2].requires_grad
+    dg = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        tuple(gates.shape)).astype(np.float32)).to(cuda)
+    before = topk_gating.LAUNCHES_BWD
+    gates.backward(dg)
     torch.cuda.synchronize()
-    outs = out if isinstance(out, tuple) else (out,)
+    assert topk_gating.LAUNCHES_BWD == before + 1
+    ref = [a.detach().cpu().requires_grad_(a.requires_grad) for a in args]
+    fn(*ref)[-1].backward(dg.cpu())
+    got, want = args[which].grad, ref[which].grad
+    big = float(want.abs().max())
+    tol = 2.0 ** (np.floor(np.log2(big)) - 7) if want.dtype == \
+        torch.bfloat16 else 1e-5 * big
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=tol,
+                               rtol=0)
+    with torch.no_grad():
+        outs = fn(*args)
     assert all(o.grad_fn is None for o in outs)
-    fn(*(a.detach() for a in args))             # no input requires grad
+
+
+@pytest.mark.parametrize("E,k", [(60, 4), (128, 8), (256, 8), (5, 5)])
+@pytest.mark.parametrize("incoming", [False, True])
+def test_topk_gating_bwd_kernel(cuda, E, k, incoming):
+    """The router backward's kernel against its plain version on the same
+    CUDA tensors: the nonzero pattern exact and each value within 1e-6 of
+    its row's largest |g dg| (``cardcheck.topk_bwd_err``), bit-identical on
+    relaunch, on tied rows and rows with fewer finite logits than k (a
+    column chosen again takes every slot's contribution), a strided
+    ``dgates`` (autograd's may be), and T = 0."""
+    rng = np.random.default_rng(E + k)
+    x = _topk_logits(rng, 2049, E)
+    x[3::11, 1:] = -np.inf                 # one finite logit
+    x[5::11] = -np.inf                     # none
+    logits = x.to(cuda)
+    idx, gates = topk_gating.topk_gating(logits, k)
+    dg = torch.from_numpy(rng.standard_normal((2049, 2 * k)).astype(
+        np.float32)).to(cuda)[:, ::2]
+    din = torch.from_numpy(rng.standard_normal((2049, E)).astype(
+        np.float32)).to(cuda) if incoming else None
+    assert any(len(set(r)) < k for r in idx.tolist()) or k == 1
+    before = topk_gating.LAUNCHES_BWD
+    got = topk_gating.topk_gating_bwd(idx, gates, dg, din, E=E)
+    again = topk_gating.topk_gating_bwd(idx, gates, dg, din, E=E)
+    torch.cuda.synchronize()
+    assert topk_gating.LAUNCHES_BWD == before + 2
+    assert same_bits(got, again)
+    want = topk_gating.topk_gating_bwd_plain(idx, gates, dg, din, E=E)
+    topk_bwd_err(got, want, gates, dg)
+    empty = topk_gating.topk_gating_bwd(idx[:0], gates[:0], dg[:0], E=E)
+    assert empty.shape == (0, E) and topk_gating.LAUNCHES_BWD == before + 2
 
 
 # ---------------------------------------------------------------------------

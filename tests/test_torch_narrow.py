@@ -1,5 +1,5 @@
 """The narrow paths of ``hist_bin`` and ``topk_gating``, and the model
-kernels' refusal of autograd, on the CPU.
+kernels' plain versions under autograd, on the CPU.
 
 Both wrappers pick a path from one width (``hist_bin.path(n_bins)``,
 ``topk_gating.path(E)``): narrow up to 32 bins or 128 columns, wide above.
@@ -22,8 +22,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from repro_torch.kernels import (build, flash_attention, hist_bin,
-                                 router_topk, topk_gating)
+from repro_torch.kernels import (flash_attention, hist_bin, router_topk,
+                                 topk_gating)
 
 NEG = np.float32(-1e30)
 
@@ -228,19 +228,8 @@ def test_narrow_selection_mirror_on_ties_and_signed_zeros(E, k):
 
 
 # ---------------------------------------------------------------------------
-# the model kernels refuse a gradient they cannot give
+# the model kernels' plain versions under autograd
 # ---------------------------------------------------------------------------
-
-def test_refuse_grad_raises_only_when_autograd_would_need_a_backward():
-    a = torch.zeros(3, requires_grad=True)
-    b = torch.zeros(3)
-    with pytest.raises(RuntimeError, match="flash_attention: .*no backward"):
-        build.refuse_grad("flash_attention", b, a)
-    build.refuse_grad("flash_attention", b, b)     # nothing requires grad
-    with torch.no_grad():
-        build.refuse_grad("flash_attention", a, b)
-    build.refuse_grad("hist_bin", torch.zeros(3, dtype=torch.int32))
-
 
 def test_plain_versions_stay_differentiable():
     """On a CPU tensor each of the three wrappers runs its plain version,

@@ -141,3 +141,42 @@ def test_ssd_chunked_has_gradients():
     y, h = ssm.ssd_chunked(x, dt, A, Bm, Cm, chunk=8)
     (y.sum() + h.sum()).backward()
     assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
+
+
+def test_ssd_chunked_gradient_stays_finite_past_the_exp_range():
+    """A chunk whose decay sums past f32's exp range (|A| dt summed over
+    the chunk above ~88, as at full width when training hymba-1.5b and
+    mamba2-130m): the reference's ``where(mask, exp(ldiff), 0)`` gives a
+    NaN gradient (0 x inf above the diagonal), the port, which masks
+    before the exp, the same forward within ``SSD_TOL`` and the
+    sequential oracle's gradients for every input within 1e-4 of each
+    one's largest."""
+    import jax
+    x, dt, A, Bm, Cm = _ssd_inputs(11, 2, 64, 3, 8, 4)
+    A = np.full_like(A, -4.0)                # ~180 summed over the chunk
+    rng = np.random.default_rng(12)
+    ry = rng.standard_normal(x.shape).astype(np.float32)
+    rh = rng.standard_normal((2, 3, 8, 4)).astype(np.float32)
+
+    def jloss(*a):
+        y, h = ref_ssm.ssd_chunked(*a, chunk=64)
+        return jnp.sum(y * ry) + jnp.sum(h * rh)
+
+    jg = jax.grad(jloss, argnums=tuple(range(5)))(*_j(x, dt, A, Bm, Cm))
+    assert any(bool(jnp.isnan(g).any()) for g in jg)
+    grads = []
+    for f in (lambda *a: ssm.ssd_chunked(*a, chunk=64), ssm.ssd_reference):
+        ts = [t.requires_grad_(True) for t in _t(x, dt, A, Bm, Cm)]
+        y, h = f(*ts)
+        ((y * torch.from_numpy(ry)).sum()
+         + (h * torch.from_numpy(rh)).sum()).backward()
+        grads.append([t.grad for t in ts])
+        if f is ssm.ssd_reference:
+            continue
+        want_y, _h = ref_ssm.ssd_chunked(*_j(x, dt, A, Bm, Cm), chunk=64)
+        np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                                   atol=SSD_TOL)
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))

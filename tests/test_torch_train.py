@@ -148,6 +148,36 @@ def test_adamw_update_step_by_step(clip):
                                        atol=1e-10)
 
 
+def test_adamw_chunked_update_gives_the_same_bits(monkeypatch):
+    """A leaf above ``adamw.CHUNK`` elements is updated in flat pieces (its
+    f32 temporaries a piece's size): every op is elementwise, so three
+    steps give the whole-leaf update's parameters and moments bit for bit,
+    for a bf16 leaf, an f32 leaf and a non-contiguous gradient."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(4)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+
+    params = {"emb": draw(300, 70).bfloat16(), "w": draw(64, 50),
+              "b": draw(7)}
+    grads = {"emb": draw(300, 70), "w": draw(50, 64).T, "b": draw(7)}
+    out = []
+    for chunk in (adamw.CHUNK, 1000):
+        monkeypatch.setattr(adamw, "CHUNK", chunk)
+        ps = {k: p.clone() for k, p in params.items()}
+        st = adamw_init(ps)
+        for _ in range(3):
+            adamw_update(ps, {k: g.clone() for k, g in grads.items()}, st,
+                         1e-2)
+        out.append((ps, st))
+    (p1, s1), (p2, s2) = out
+    for k in params:
+        for a, b in ((p1[k], p2[k]), (s1.m[k], s2.m[k]), (s1.v[k], s2.v[k])):
+            assert torch.equal(a, b), k
+
+
 def test_adamw_bf16_parameters_update_in_f32():
     p = {"w": torch.full((4,), 1.0, dtype=torch.bfloat16)}
     state = adamw_init(p)
