@@ -47,19 +47,20 @@ Phases (any failure raises and exits non-zero):
              padded tail and no other mask) and cross-attention (4 x 448
              and 4 x 1 query rows over 1,500 frames, Sq != Sk) and
              phi-3-vision's prefill ([4, 1,168, 32, 96] causal: D = 96,
-             the SIMT kernel in both dtypes), these four and the two
+             the tensor-core kernel in bf16, SIMT in f32), these four and
+             the two
              GQA groupings of phase 25 in bf16 on
              peaked draws (q x 4, v uniform on [-3.5, 3.5]: outputs of
              order one, each gate at most a tenth of its case's mean
              |output|), each bf16
-             case at D = 64 or 128 through both kernel variants, the
+             case at D = 64, 96 or 128 through both kernel variants, the
              tensor-core one the wrapper picks and the SIMT one; its
              backward kernel in bf16
              and f32 at the training shape, GQA, window + prefix (with an
              offset), a padded tail and phi-3-vision's prefill shape, D =
              64, 96 and 128, on the forward kernel's output and row
-             log-sum-exp, each bf16 case at D = 64 or 128 through both
-             backward variants (tensor-core, picked, and SIMT);
+             log-sum-exp, each bf16 case at D = 64, 96 or 128 through
+             both backward variants (tensor-core, picked, and SIMT);
              ``hist_bin`` through its narrow path (up to 32 bins) and its
              wide one, counts exact, on
              +inf, 3e9, -0.0, NaN and -inf coordinates, N = 1, N not a
@@ -350,8 +351,8 @@ Phases (any failure raises and exits non-zero):
              reset just before and read just after each: flash 864
              (whisper: 2 waves x (24 encoder + 24 self + 24 cross in
              prefill + 24 cross x 15 decode steps)), 64, 64 and 48, all
-             ``"wgmma"`` but phi-3-vision's ``"simt"`` (D = 96), no
-             router kernel; the first request's last decode step against
+             ``"wgmma"`` (phi-3-vision's at D = 96 too), no router
+             kernel; the first request's last decode step against
              ``forward`` with its frames or image rows as in phase 23;
              one prefill wave and one decode step profiled (busy share,
              the flash kernels' share); each smoke config served in f32
@@ -392,7 +393,7 @@ Phases (any failure raises and exits non-zero):
              ``SyntheticLMStream(seed=1)``; counts reset just before and
              read just after: flash forward and backward one launch a
              layer with attention a step (whisper 72: encoder, self and
-             cross), all ``"wgmma"`` but phi-3-vision's ``"simt"``; the
+             cross), all ``"wgmma"`` (phi-3-vision's D = 96 too); the
              router one ``router_topk`` (``"fused"``) and one
              ``topk_gating_bwd`` launch a MoE layer a step, no
              ``topk_gating`` forward; finite losses, qwen2-moe's last 3
@@ -417,15 +418,18 @@ overhead included where the kernel is shorter than the call);
 call launches, read from ``torch.profiler``; a model row's
 ``library_device_ms`` is the same for its library call.  Flash attention
 has two rows: the tensor-core kernel on qwen2-moe-a2.7b's first prefill
-(``flash_attention``, its launches summed over every serving run that
-takes it) and the SIMT kernel at head dim 96 on phi-3-vision-4.2b's
-(``flash_attention_simt_d96``); two more rows time it at phase 25's
+(``flash_attention``, its launches summed over every serving run at D =
+64 or 128) and at head dim 96 on phi-3-vision-4.2b's
+(``flash_attention_d96``), each with the SIMT kernel on the same inputs
+as ``prev_*``; two more rows time it at phase 25's
 groupings on each model's first prefill (``flash_attention_gqa16``,
 qwen3-moe's H 64 over KVH 4, and ``flash_attention_gqa8``,
 qwen1.5-110b's H 64 over KVH 8), and ``router_topk_e128`` the fused
 router on qwen3-moe's first call.  The router backward's rows,
 ``topk_gating_bwd`` and ``topk_gating_bwd_e128``, time it on the first
-backward call of phase 26's qwen2-moe and qwen3-moe runs, beside the
+backward call of phase 26's qwen2-moe and qwen3-moe runs (and
+``flash_attention_bwd_d96`` the flash backward on phi-3-vision's, the
+SIMT backward as ``prev_*``, SDPA's backward as the library), beside the
 library chain (the three elementwise ops, then ``scatter_add_`` into
 zeros), after one qwen2-moe train step profiled (busy share, the
 router forward's and backward's shares of device time).  The rows of
@@ -814,8 +818,8 @@ def phase_model_kernels() -> None:
     holds it; every case bit-identical on relaunch.  The peaked flash
     cases (bf16) also hold their gate to at most a tenth of the plain
     output's mean magnitude (:func:`flash_gate_share`).  Each bf16 flash case
-    at D = 64 or 128 runs through both variants: the tensor-core one (what
-    the wrapper picks) and the SIMT one.  Each top-k case runs through the
+    at D = 64, 96 or 128 runs through both variants: the tensor-core one
+    (what the wrapper picks) and the SIMT one.  Each top-k case runs through the
     path the wrapper picks and the wide one, whose bits must be equal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_gating as tg
@@ -1039,8 +1043,8 @@ def check_flash_bwd(rng) -> None:
     """The backward kernel against its plain version on the card, on the
     output and row log-sum-exp of the forward kernel the wrapper picks:
     the training shape and the edge cases in bf16 and f32, D = 64, 96
-    and 128, each bf16 case at D = 64 or 128 through both variants (the
-    picked one through the wrapper); bit-identical on relaunch."""
+    and 128, each bf16 case at D = 64, 96 or 128 through both variants
+    (the picked one through the wrapper); bit-identical on relaunch."""
     from repro_torch.kernels import flash_attention as fa
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -3623,7 +3627,9 @@ def train_family_timing(trainfam: dict) -> list:
     forward's (``router_topk``) and backward's (``topk_bwd``) shares of
     device time; then the router backward's rows on the first backward
     call of that run (``topk_gating_bwd``) and of qwen3-moe-235b-a22b's
-    (``topk_gating_bwd_e128``)."""
+    (``topk_gating_bwd_e128``), and the flash backward's row at head dim
+    96 on phi-3-vision-4.2b's first backward call
+    (``flash_attention_bwd_d96``)."""
     spec = next(s for s in TRAIN_FAMILIES if s["arch"] == TRAIN_CELL_ARCH)
     trainer = train_trainer(spec, 100)
     batch = train_batch(trainer.cfg, spec, 0)
@@ -3653,6 +3659,11 @@ def train_family_timing(trainfam: dict) -> list:
             paths[f"train cell {arch}"] = \
                 fam["cell"]["launches"]["topk_gating_bwd"]
         rows.append(_topk_bwd_row(name, fam["bwd_call"], paths))
+    for arch, fam in trainfam.items():
+        if "flash_bwd_call" in fam:
+            rows.append(_bwd_row(fam["flash_bwd_call"], {
+                "flash_attention_bwd_d96": fam["launches"][
+                    "flash_attention_bwd"]}, "flash_attention_bwd_d96"))
     return rows
 
 
@@ -3759,10 +3770,11 @@ def train_path(arch: str = "pipit-lm-100m", overrides=None) -> None:
         f"(tol 1e-4)")
 
 
-def _bwd_row(call, launches) -> dict:
-    """The backward kernel on the inputs of the train path's first
-    backward call, against its plain version, SDPA's backward (through
-    autograd: timed only) and its bound."""
+def _bwd_row(call, launches, name="flash_attention_bwd") -> dict:
+    """The backward kernel on the inputs of a train path's first backward
+    call, against its plain version, SDPA's backward (through autograd:
+    timed only) and its bound, and the SIMT backward on the same inputs
+    (``prev_*``); the row is ``name``, its launches ``launches[name]``."""
     from repro_torch.kernels import flash_attention as fa
     (q, k, v, o, do, lse), kw = call
     B, Sq, H, D = q.shape
@@ -3773,8 +3785,8 @@ def _bwd_row(call, launches) -> dict:
     torch.cuda.synchronize()
     if not all(same_bits(a, b) for a, b in zip(got, again)):
         raise AssertionError("flash_attention_bwd: relaunch differs")
-    err, each = flash_bwd_err(got, want, "train path's first call")
-    log("[train] flash_attention_bwd on the path's first call: " + ", ".join(
+    err, each = flash_bwd_err(got, want, f"{name}, the path's first call")
+    log(f"[train] {name} on the path's first call: " + ", ".join(
         f"{n} max abs err {e:.6g} (limit {t:.6g})"
         for n, (e, t) in each.items()))
     qpos = kw.get("q_offset", 0) + torch.arange(Sq, device=q.device)
@@ -3793,7 +3805,7 @@ def _bwd_row(call, launches) -> dict:
                      enable_gqa=H != KVH)
     do_t = do.transpose(1, 2).contiguous()
     row = _model_row(
-        "flash_attention_bwd",
+        name,
         "none: src/repro/kernels/flash_attention.py:101 is forward-only",
         launches, err, lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
                                                       **kw),
@@ -3804,15 +3816,16 @@ def _bwd_row(call, launches) -> dict:
         f"q/k/v/o/dO {list(q.shape)} {str(q.dtype)[6:]}, {visible:.0f} "
         f"visible pairs per head")
     row["library"] = "SDPA backward (torch.autograd.grad)"
+    row["source"] = "src/repro_torch/csrc/flash_attention_bwd.cu"
     row["max_abs_err_limit"] = {n: t for n, (_e, t) in each.items()}
     # the SIMT backward, which served this path before, on the same inputs
     simt = lambda: fa.flash_attention_bwd_variant(  # noqa: E731
         "simt", q, k, v, o, do, lse, **kw)
-    prev_err, _each = flash_bwd_err(simt(), want, "train path, simt")
+    prev_err, _each = flash_bwd_err(simt(), want, f"{name}, simt")
     row.update(variant=fa.variant_bwd(q.dtype, D), prev_variant="simt",
                prev_ms=cuda_ms(simt, iters=20),
                prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
-    log(f"[train] flash_attention_bwd variant {row['variant']}; the SIMT "
+    log(f"[train] {name} variant {row['variant']}; the SIMT "
         f"backward on the same inputs {row['prev_ms']:.4f} ms (device "
         f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g}); "
         f"SDPA's backward device {row['library_device_ms']:.4f} ms")
@@ -4289,8 +4302,8 @@ def phase_encdec() -> dict:
     """Each of :data:`ENCDEC` through ``launch.serve`` on the card in bf16
     with its extras (:func:`model_extras`, batch 4, the same for both
     waves): counts reset just before and read just after (flash
-    :func:`flash_launches`, all on the variant the head dim picks:
-    ``"simt"`` for phi-3-vision's 96, else ``"wgmma"``; no router kernel);
+    :func:`flash_launches`, all ``"wgmma"``, phi-3-vision's head dim 96
+    too; no router kernel);
     every request its tokens, in the vocabulary, finite logits; the
     trace's spans; the first request's last decode step against
     ``forward`` on its padded prompt, the tokens fed and its row of the
@@ -4299,8 +4312,8 @@ def phase_encdec() -> dict:
     forward's argmax up to a tie within that; one prefill wave and one
     decode step profiled (busy share, flash's share of the prefill); the
     smoke config on the card and on the CPU (:func:`phase_path`).
-    Returns, per model, its launches and variant, and the SIMT model's
-    first flash call's inputs for the timing row."""
+    Returns, per model, its launches and variant, and phi-3-vision's
+    first flash call's inputs (head dim 96) for its timing row."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core.constants import INC
@@ -4376,7 +4389,7 @@ def phase_encdec() -> dict:
                 f"{busy * 1e3:.3f} ms, busy {busy / wall_s:.1%} of the "
                 f"wall {wall_s * 1e3:.2f} ms")
         out[arch] = {"launches": launches, "variant": variant}
-        if variant == "simt":
+        if cfg.hd == 96:
             out[arch]["flash_inputs"] = inputs["flash_attention"]
         del run, model, trace, decodes, extras, inputs
         torch.cuda.empty_cache()
@@ -4762,7 +4775,7 @@ def train_family(spec: dict) -> dict:
     """One config of :data:`TRAIN_FAMILIES` trained ``spec["steps"]`` steps
     on the card, its cut logged; counts reset just before and read just
     after: flash forward and backward :func:`train_flash_per_step` a step,
-    all ``"wgmma"`` (phi-3-vision's head dim 96: ``"simt"``); the router
+    all ``"wgmma"`` (phi-3-vision's head dim 96 too); the router
     one ``router_topk`` launch a MoE layer a step, every call
     ``"fused"``, and one ``topk_gating_bwd`` launch, no ``topk_gating``
     forward; none for a dense model.  Losses finite, and for
@@ -4789,7 +4802,7 @@ def train_family(spec: dict) -> dict:
     trainer = train_trainer(spec, steps)
     moe_layers = sum(s.moe for s in trainer.model.specs)
     captured = {}
-    orig_bwd = tg.topk_gating_bwd
+    orig_bwd, orig_flash_bwd = tg.topk_gating_bwd, fa.flash_attention_bwd
 
     def capture(idx, gates, dgates, dlogits=None, **kw):
         captured.setdefault("call", ((idx.clone(), gates.clone(),
@@ -4797,10 +4810,17 @@ def train_family(spec: dict) -> dict:
                                       else dlogits.clone()), dict(kw)))
         return orig_bwd(idx, gates, dgates, dlogits, **kw)
 
+    def capture_flash(*args, **kw):    # the first flash backward's inputs
+        if "flash" not in captured:
+            captured["flash"] = ([a.detach().clone() for a in args], dict(kw))
+        return orig_flash_bwd(*args, **kw)
+
     batches = [train_batch(cfg, spec, i) for i in range(steps)]
     torch.cuda.synchronize()
     reset_model_counts()
     tg.topk_gating_bwd = capture
+    if cfg.hd == 96:
+        fa.flash_attention_bwd = capture_flash
     losses, times = [], []
     try:
         for i, batch in enumerate(batches):
@@ -4809,6 +4829,7 @@ def train_family(spec: dict) -> dict:
             times.append(time.perf_counter() - t0)
     finally:
         tg.topk_gating_bwd = orig_bwd
+        fa.flash_attention_bwd = orig_flash_bwd
     counts = model_counts()
     peak = torch.cuda.max_memory_allocated()
     step_s = float(np.mean(times[1:]))
@@ -4845,6 +4866,8 @@ def train_family(spec: dict) -> dict:
            "tokens_per_s": B * S / step_s, "peak": peak}
     if moe_layers:
         out["bwd_call"] = captured["call"]
+    if "flash" in captured:
+        out["flash_bwd_call"] = captured["flash"]
     del trainer, batches
     return out
 
@@ -4926,13 +4949,13 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
                        families, encdec, giants) -> list:
     """Each model kernel's row on the inputs of its first call on the
     serving path.  The tensor-core flash row's ``launches`` count the
-    serving runs whose flash launches are all ``"wgmma"``: qwen2-moe-a2.7b,
-    gemma3-27b, hymba-1.5b, whisper-medium, codeqwen1.5-7b and
-    qwen1.5-0.5b (``path_launches`` each); the D = 96 row phi-3-vision's,
-    all ``"simt"``; the two GQA rows qwen3-moe-235b-a22b's and
+    serving runs at head dim 64 or 128: qwen2-moe-a2.7b, gemma3-27b,
+    hymba-1.5b, whisper-medium, codeqwen1.5-7b and qwen1.5-0.5b
+    (``path_launches`` each); the D = 96 row (``flash_attention_d96``)
+    phi-3-vision's; both beside the SIMT kernel on the same inputs
+    (``prev_*``); the two GQA rows qwen3-moe-235b-a22b's and
     qwen1.5-110b's (phase 25), and the second router row
     qwen3-moe's."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import router_topk as rt
     from repro_torch.kernels import topk_gating as tg
     rows = []
@@ -4940,29 +4963,20 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
     by_path.update({f"serve {arch}": fam["launches"]["flash_attention"]
                     for arch, fam in families.items()})
     by_path.update({f"serve {arch}": m["launches"]["flash_attention"]
-                    for arch, m in encdec.items() if m["variant"] == "wgmma"})
-    # flash attention on the first prefill's q, k, v
-    row = _flash_row("flash_attention", inputs["flash_attention"], by_path)
-    # the SIMT kernel, which served this path before, on the same inputs
-    (q, k, v), kw = inputs["flash_attention"]
-    tol = 3e-2 if q.dtype == torch.bfloat16 else 2e-5
-    want = fa.flash_attention_plain(q, k, v, **kw)
-    simt = lambda: fa.flash_attention_variant("simt", q, k, v, **kw)  # noqa
-    prev_err = within(tol)(simt().float().cpu().numpy(),
-                           want.float().cpu().numpy())
-    row.update(prev_variant="simt", prev_ms=cuda_ms(simt, iters=20),
-               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
-    log(f"[timing] flash_attention variant {row['variant']}; the SIMT kernel "
-        f"on the same inputs {row['prev_ms']:.4f} ms (device "
-        f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g})")
-    rows.append(row)
-    del want
-    # the SIMT kernel at head dim 96, on phi-3-vision's first prefill
+                    for arch, m in encdec.items() if "flash_inputs" not in m})
+    # flash attention on the first prefill's q, k, v, beside the SIMT
+    # kernel, which served this path before, on the same inputs
+    rows.append(_with_simt(_flash_row("flash_attention",
+                                      inputs["flash_attention"], by_path),
+                           inputs["flash_attention"]))
+    # head dim 96, on phi-3-vision's first prefill, beside the SIMT kernel
+    # that served it before
     for arch, m in encdec.items():
-        if m["variant"] == "simt":
-            rows.append(_flash_row(
-                "flash_attention_simt_d96", m["flash_inputs"],
-                {f"serve {arch}": m["launches"]["flash_attention"]}))
+        if "flash_inputs" in m:
+            rows.append(_with_simt(_flash_row(
+                "flash_attention_d96", m["flash_inputs"],
+                {f"serve {arch}": m["launches"]["flash_attention"]}),
+                m["flash_inputs"]))
     # phase 25's groupings, each on its model's first prefill
     for arch, name in (("qwen3-moe-235b-a22b", "flash_attention_gqa16"),
                        ("qwen1.5-110b", "flash_attention_gqa8")):
@@ -5010,6 +5024,24 @@ def phase_model_timing(launches, inputs, f32_launches, f32_inputs,
         f"ms), the same bits")
     rows.append(row)
     return rows
+
+
+def _with_simt(row, call) -> dict:
+    """``row`` (a flash forward row) with the SIMT kernel's ``prev_*`` on
+    the same inputs, checked against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v), kw = call
+    tol = 3e-2 if q.dtype == torch.bfloat16 else 2e-5
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    simt = lambda: fa.flash_attention_variant("simt", q, k, v, **kw)  # noqa
+    prev_err = within(tol)(simt().float().cpu().numpy(),
+                           want.float().cpu().numpy())
+    row.update(prev_variant="simt", prev_ms=cuda_ms(simt, iters=20),
+               prev_device_ms=device_ms(simt)[0], prev_max_abs_err=prev_err)
+    log(f"[timing] {row['name']} variant {row['variant']}; the SIMT kernel "
+        f"on the same inputs {row['prev_ms']:.4f} ms (device "
+        f"{row['prev_device_ms']:.4f} ms, max_abs_err {prev_err:.6g})")
+    return row
 
 
 def _flash_row(name, call, by_path) -> dict:

@@ -14,47 +14,59 @@
 // causal) the 57 MB it must read and write take 0.017 ms at 3.35 TB/s and
 // its 12.5 GFLOP of QK^T and PV 0.013 ms at 989 TFLOP/s on the tensor
 // cores, so it sits near the ridge; off the tensor cores (67 TFLOP/s in
-// f32) the operations bound it at 0.19 ms.
+// f32) the operations bound it at 0.19 ms. At phi-3-vision's prefill
+// (q/k/v [4, 1016, 32, 96] bf16, causal) the bytes bound it: 99.9 MB,
+// 0.0298 ms, against 25.4 GFLOP, 0.0257 ms.
 //
 // Two kernels; the wrapper picks one by (dtype, D) alone
 // (kernels/flash_attention.py::variant):
 //
-// flash_wgmma ("wgmma": bf16 at D = 64 or 128) runs both products on the
-// tensor cores. One CTA per (128 query rows, head, batch), heaviest causal
-// q-blocks launched first; two consumer warpgroups of 64 rows each and one
-// producer warp. The producer's lane 0 loads the query tile once and then
-// each 128-key K and V tile into a ring of two stages with TMA
-// (cp.async.bulk.tensor over the 3-D view [B, S, heads * D], box
-// [1, 128, 64] at column head * D, so GQA reads its KV head in place and a
-// tail tile is zero-filled, never read from the next batch), 128-byte
-// swizzled, completion counted on mbarriers (full: one per stage for K and
-// for V; empty: the eight consumer warps release a stage). Each consumer
+// flash_wgmma ("wgmma": bf16 at D = 64, 96 or 128) runs both products on
+// the tensor cores. One CTA per (128 query rows, head, batch), heaviest
+// causal q-blocks launched first; two consumer warpgroups of 64 rows each
+// and one producer warp. The producer's lane 0 loads the query tile once
+// and then each 128-key K and V tile into a ring of two stages with TMA
+// (cp.async.bulk.tensor over the 3-D view [B, S, heads * D], boxes
+// [1, 128, W] from column head * D, so GQA reads its KV head in place and a
+// tail tile is zero-filled, never read from the next batch), swizzled,
+// completion counted on mbarriers (full: one per stage for K and for V;
+// empty: the eight consumer warps release a stage). A tile is D / W column
+// blocks (hopper.cuh, Cols<D>): W = 64 under 128-byte swizzle at D = 64
+// and 128; at D = 96 (phi-3-vision's) W = 32 under 64-byte swizzle, three
+// blocks, rather than two 128-byte blocks with 32 columns of zeros: no
+// padding to load or hold (120 KB of shared memory, not D = 128's 160 KB),
+// and 96 columns are whole swizzle atoms of the MN-major V operand, which
+// the N = 96 product reads (a 64-column atom would leave half of one).
+// Each consumer
 // warpgroup scales its query rows in shared memory once (round(q * scale)
 // in bf16, then fence.proxy.async so wgmma sees the writes), and per tile:
 //   S = Q K^T      wgmma m64n128k16, both operands from shared memory,
-//                  K-major (D / 16 instructions);
+//                  K-major (D / 16 instructions: 6 at D = 96);
 //   softmax        on the f32 accumulator fragments in registers: each
 //                  thread holds two rows, row max and sum meet by two quad
 //                  xor-shuffles; the mask is applied only on tiles that
 //                  straddle Sk, the diagonal or the window edge;
-//   O += P V       wgmma m64nDk16 with P as the register A operand (the f32
+//   O += P V       wgmma m64nDk16 (m64n96k16 at D = 96: O is 48 f32 a
+//                  thread) with P as the register A operand (the f32
 //                  fragments rounded to bf16 pairs: the accumulator layout
 //                  of m64nN is the A-fragment layout of m64nDk16) and V from
 //                  shared memory, MN-major (transposed B).
 // The Hopper helpers (mbarriers, TMA loads, wgmma descriptors and
 // products, tensor maps) are in hopper.cuh, shared with the backward's
 // tensor-core kernels.
-// BK = 128 at both D: one S shape (m64n128k16) and half the tile round
+// BK = 128 at every D: one S shape (m64n128k16) and half the tile round
 // trips of BK = 64; S and O at D = 128 take 64 + 64 accumulator registers,
-// which fit the 168 a thread that 288 threads leave (ptxas spills 8
-// bytes). Shared memory: Q 32 KB + 2 x (K + V) 128 KB at D = 128.
+// which fit the 168 a thread that 288 threads leave (ptxas spills 8 bytes,
+// and 8 at D = 96). Shared memory: Q 32 KB + 2 x (K + V) 128 KB at D =
+// 128, 24 + 96 KB at D = 96.
 // P is rounded to bf16 before P V, as in every tensor-core flash kernel;
 // l is summed from the f32 P. This is the one place it differs from the
 // SIMT kernel and the reference, which keep P in f32 (within the bf16
 // gate of 3e-2).
 //
-// flash_fwd ("simt": f32, and bf16 at D = 16, 32 or 96) is f32 FMAs off
-// the tensor cores: one CTA per (64 query rows, head, batch). Four threads
+// flash_fwd ("simt": f32, and bf16 at D = 16 or 32; bf16 at any D by name,
+// the tensor-core kernel's yardstick) is f32 FMAs off the tensor cores:
+// one CTA per (64 query rows, head, batch). Four threads
 // share a query row; thread j of a row owns the dims 16*i + 4*j + {0..3},
 // so its slice of the scaled query row and of the f32 accumulator stays in
 // registers and each of its shared-memory reads is one 16-byte load that
@@ -63,9 +75,7 @@
 // are summed across the four threads with two xor-shuffles (the same bits
 // on all four), so every thread holds the row's 32 scores and runs the
 // softmax update itself. f32 is held to 2e-5, which no tensor-core rounding
-// meets. D = 96 (phi-3-vision's head dim) is six such 16-dim groups: the
-// tensor-core kernel's 64-column TMA boxes and 128-byte swizzle do not
-// tile it, so bf16 at D = 96 runs here too.
+// meets. D = 96 is six such 16-dim groups.
 //
 // Both run  m' = max(m, max s), p = exp(s - m'), l = l e^(m - m') + sum p,
 // acc = acc e^(m - m') + p V,  out = acc / max(l, 1e-30),  with masked
@@ -248,7 +258,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// flash_wgmma: the tensor-core kernel (bf16, D = 64 or 128)
+// flash_wgmma: the tensor-core kernel (bf16, D = 64, 96 or 128)
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -261,11 +271,11 @@ constexpr int NBARS = 1 + 3 * STAGES;
 enum { LIVE, SKIP, STOP };
 
 // Dynamic shared memory: [Q][K0][V0][K1][V1] then the mbarriers. A tile of
-// R rows x D is D / 64 column blocks of [R][64] bf16, each 128-byte
-// swizzled by TMA; every block starts on 1024 bytes, the swizzle period.
+// R rows x D is Cols<D>::NB column blocks of [R][W] bf16, each swizzled by
+// TMA (hopper.cuh); every block starts on 1024 bytes.
 template <int D>
 struct Layout {
-  static constexpr int NB = D / 64;
+  using C = Cols<D>;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -296,6 +306,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
             int Sq, int Sk, int H, int KVH, int causal, int has_window,
             int window, int prefix_len, int q_offset, float scale) {
   using L = Layout<D>;
+  using C = Cols<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -332,8 +343,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     // ---- producer: lane 0 keeps the ring full ----
     if (lane != 0) return;
     mbar_expect_tx(q_full, L::Q_BYTES);
-    for (int nb = 0; nb < L::NB; ++nb)
-      tma_load(sq + nb * BQ * ROW_BYTES, &tq, q_full, h * D + 64 * nb, q0, b);
+    for (int nb = 0; nb < C::NB; ++nb)
+      tma_load(sq + nb * BQ * C::ROW, &tq, q_full, h * D + C::W * nb, q0, b);
     int i = 0;
     for (int c0 = 0; c0 < Sk; c0 += BK) {
       const int st = tile_state(c0, Sk, causal, has_window, window,
@@ -344,13 +355,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // first pass: free
       const uint32_t ks = skv + 2 * s * L::KV_BYTES, vs = ks + L::KV_BYTES;
       mbar_expect_tx(k_full(s), L::KV_BYTES);
-      for (int nb = 0; nb < L::NB; ++nb)
-        tma_load(ks + nb * BK * ROW_BYTES, &tk, k_full(s),
-                 kvh * D + 64 * nb, c0, b);
+      for (int nb = 0; nb < C::NB; ++nb)
+        tma_load(ks + nb * BK * C::ROW, &tk, k_full(s),
+                 kvh * D + C::W * nb, c0, b);
       mbar_expect_tx(v_full(s), L::KV_BYTES);
-      for (int nb = 0; nb < L::NB; ++nb)
-        tma_load(vs + nb * BK * ROW_BYTES, &tv, v_full(s),
-                 kvh * D + 64 * nb, c0, b);
+      for (int nb = 0; nb < C::NB; ++nb)
+        tma_load(vs + nb * BK * C::ROW, &tv, v_full(s),
+                 kvh * D + C::W * nb, c0, b);
       ++i;
     }
     return;
@@ -366,11 +377,11 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   // scale the warpgroup's query rows in place: round(q * scale) in bf16
   mbar_wait(q_full, 0);
 #pragma unroll
-  for (int nb = 0; nb < L::NB; ++nb) {
-    uint4* rows = reinterpret_cast<uint4*>(base + nb * BQ * ROW_BYTES +
-                                           wg * 64 * ROW_BYTES);
+  for (int nb = 0; nb < C::NB; ++nb) {
+    uint4* rows = reinterpret_cast<uint4*>(base + nb * BQ * C::ROW +
+                                           wg * 64 * C::ROW);
 #pragma unroll
-    for (int e = t; e < 64 * ROW_BYTES / 16; e += 128) {
+    for (int e = t; e < 64 * C::ROW / 16; e += 128) {
       uint4 x = rows[e];
       __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&x);
 #pragma unroll
@@ -392,7 +403,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
   for (int e = 0; e < 64; ++e) s[e] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   uint32_t p[32];
-  const uint32_t qa = sq + wg * 64 * ROW_BYTES;
+  const uint32_t qa = sq + wg * 64 * C::ROW;
 
   int i = 0;
   for (int c0 = 0; c0 < Sk; c0 += BK) {
@@ -404,21 +415,14 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     const uint32_t par = (i / STAGES) & 1;
     const uint32_t ks = skv + 2 * stage * L::KV_BYTES, vs = ks + L::KV_BYTES;
 
-    // S = Q K^T: D / 16 steps of 16 dims; a step's 32 bytes lie inside one
-    // 128-byte swizzle row, so it moves the start address only (SBO: the
-    // 1024 bytes between groups of 8 rows; LBO unused in K-major swizzle).
+    // S = Q K^T: D / 16 steps of 16 dims, both operands K-major (kdesc)
     mbar_wait(k_full(stage), par);
     __syncwarp();
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n128(s,
-                    desc(qa + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024),
-                    desc(ks + (kk / 4) * BK * ROW_BYTES + off, 16, 1024),
-                    kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(s, kdesc<D>(qa, BQ, kk), kdesc<D>(ks, BK, kk), kk > 0);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -474,9 +478,8 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int e = 0; e < 32; ++e) p[e] = pack_bf16(s[2 * e], s[2 * e + 1]);
 
-    // O += P V: BK / 16 steps of 16 keys = 16 rows of 128 bytes of every
-    // column block; V is MN-major: LBO is the distance between the
-    // 64-column blocks, SBO the 1024 bytes between groups of 8 keys.
+    // O += P V: BK / 16 steps of 16 keys = 16 rows of every column block;
+    // V is MN-major (mndesc), N = D.
     mbar_wait(v_full(stage), par);
     __syncwarp();
     fence_regs(o);
@@ -485,7 +488,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_rs<D>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                  desc(vs + kk * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
+                  mndesc<D>(vs, BK, kk));
     wgmma_commit();
     wgmma_wait();
     fence_regs(o);
@@ -523,9 +526,10 @@ cudaError_t launch_lse(const void* q, const void* k, const void* v,
                        int prefix_len, int q_offset, float scale,
                        cudaStream_t s) {
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B, Sq, H * D, BQ) ||
-      !tensor_map(&tk, k, B, Sk, KVH * D, BK) ||
-      !tensor_map(&tv, v, B, Sk, KVH * D, BK))
+  constexpr int W = Cols<D>::W;
+  if (!tensor_map(&tq, q, B, Sq, H * D, BQ, W) ||
+      !tensor_map(&tk, k, B, Sk, KVH * D, BK, W) ||
+      !tensor_map(&tv, v, B, Sk, KVH * D, BK, W))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -558,8 +562,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = flash_fwd (SIMT), 1 =
-// flash_wgmma (tensor cores; bf16 at D = 64 or 128 only, 16-byte aligned
-// q, k, v). Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 96, 128} (the
+// flash_wgmma (tensor cores; bf16 at D = 64, 96 or 128 only, 16-byte
+// aligned q, k, v). Sq, Sk >= 1; H % KVH == 0; D in {16, 32, 64, 96, 128} (the
 // wrapper checks all of it). lse: null, or f32 [B, H, Sq] that receives
 // each row's log-sum-exp m + log(max(l, 1e-30)) (the training forward saves
 // it for csrc/flash_attention_bwd.cu; serving passes null and writes none).
@@ -579,6 +583,10 @@ extern "C" int pipit_flash_attention(int device, const void* q, const void* k,
       err = tc::launch<128>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH,
                             causal, has_window, window, prefix_len, q_offset,
                             scale, s);
+    else if (D == 96)
+      err = tc::launch<96>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH,
+                           causal, has_window, window, prefix_len, q_offset,
+                           scale, s);
     else if (D == 64)
       err = tc::launch<64>(q, k, v, out, (float*)lse, B, Sq, Sk, H, KVH,
                            causal, has_window, window, prefix_len, q_offset,

@@ -23,7 +23,9 @@
 // and the gradient, 2 flops a MAC over the visible pairs (about 4.1 GFLOP:
 // 0.004 ms at 989 TFLOP/s on the tensor cores), so the bytes bound it on
 // the tensor cores; off them (67 TFLOP/s in f32) the operations would, at
-// 0.06 ms.
+// 0.06 ms. At phi-3-vision's training shape ([2, 1168, 32, 96] causal) the
+// five products are 41.9 GFLOP (0.0424 ms) against 115 MB (0.0344 ms): the
+// operations bound it.
 //
 // Two designs; the wrapper picks one by (dtype, D) alone
 // (kernels/flash_attention.py::variant_bwd), as the forward does. Both are
@@ -34,8 +36,8 @@
 // query block (dq), and every sum has one order, so a relaunch gives the
 // same bits.
 //
-// "wgmma" (bf16 at D = 64 or 128): all products on the tensor cores. What
-// held the SIMT design back, and what this one does about it:
+// "wgmma" (bf16 at D = 64, 96 or 128): all products on the tensor cores.
+// What held the SIMT design back, and what this one does about it:
 //  - Its products were f32 FMAs on the CUDA cores (67 TFLOP/s, and bwd_dq
 //    computed S and dP again): here each is a wgmma m64nNk16 with f32
 //    accumulators (989 TFLOP/s). dq still recomputes S and dP (7 products
@@ -48,18 +50,27 @@
 //    fragments hold each score once, and a thread computes P and dS for its
 //    own elements with no shuffle at all.
 //  - Tiles were staged as f32 by scalar 2-byte loads between two
-//    __syncthreads: here one producer warp loads 64-column boxes with TMA
-//    (cp.async.bulk.tensor over the 3-D view [B, S, heads * D], 128-byte
-//    swizzled, zero-filled past S, completion counted on mbarriers) into a
-//    ring of two stages, so the next tile's copy overlaps this tile's
-//    products.
-//  - Registers: 128 with a spill (D = 64) and 234 (D = 128) a thread of
-//    the SIMT dk / dv kernel. Here a consumer thread holds dK and dV (D / 2
-//    f32 each) and S^T and dP^T of one query tile (QT / 2 each, QT = 64
-//    query rows at D = 64, 32 at D = 128). Each CTA is one consumer
-//    warpgroup and one producer warp (160 threads), which ptxas lets use up
-//    to 255 registers a thread: 158 (dk / dv) and 128 (dq) at D = 64, 200
-//    and 160 at D = 128, no spill (PERF.md). Two consumer warpgroups a CTA
+//    __syncthreads: here one producer warp loads column boxes with TMA
+//    (cp.async.bulk.tensor over the 3-D view [B, S, heads * D], swizzled,
+//    zero-filled past S, completion counted on mbarriers) into a ring of
+//    two stages, so the next tile's copy overlaps this tile's products.
+//    The boxes are the forward's (hopper.cuh, Cols<D>): 64 columns under
+//    128-byte swizzle at D = 64 and 128; at D = 96 (phi-3-vision's) three
+//    32-column boxes under 64-byte swizzle, so no column is padded or read
+//    twice, S^T and dP^T take six k-steps and the N = 96 products (dV, dK,
+//    dQ) one wgmma m64n96k16 each.
+//  - Registers: 128 with a spill (D = 64), 188 (D = 96) and 234 (D = 128)
+//    a thread of the SIMT dk / dv kernel. Here a consumer thread holds dK
+//    and dV (D / 2 f32 each) and S^T and dP^T of one query tile (QT / 2
+//    each, QT = 64 query rows at D = 64, 32 at D = 96 and 128). Each CTA is
+//    one consumer warpgroup and one producer warp (160 threads), which
+//    ptxas lets use up to 255 registers a thread: 168 (dk / dv) and 122
+//    (dq) at D = 64, 168 and 141 at D = 96, 202 and 154 at D = 128, no
+//    spill (PERF.md). At D = 96 a 64-row tile took 202 and ran the dk / dv
+//    kernel 1.5x slower (0.3319 against 0.2171 ms at phi-3-vision's
+//    training shape on an H100 at 700 W, the same bits): above 168 a CTA's
+//    five warps hold more than half the SM's registers, so two CTAs no
+//    longer share it. Two consumer warpgroups a CTA
 //    cap a thread at 168 (ptxas counts 288 threads as three warpgroups):
 //    the dk / dv kernel at D = 128 then spilled 388 bytes and serialized
 //    its wgmma, and at D = 64 both kernels ran slower than with one
@@ -96,7 +107,8 @@
 // where it differs from the SIMT kernel and the plain version (within the
 // bf16 gate, 3e-2 x each gradient's largest magnitude).
 //
-// "simt" (f32, and bf16 at D = 16, 32 or 96): f32 FMAs, P and dS in f32:
+// "simt" (f32, and bf16 at D = 16 or 32; bf16 at every D by name, the
+// yardstick of the tensor-core kernels): f32 FMAs, P and dS in f32:
 //   bwd_dkdv   one CTA per (64 keys, KV head, batch), four threads a key:
 //              a thread keeps its quarter of k_c and v_c and of the dk / dv
 //              sums in registers and walks the G query heads, then the
@@ -433,7 +445,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 
 // ---------------------------------------------------------------------------
-// the tensor-core kernels (bf16, D = 64 or 128)
+// the tensor-core kernels (bf16, D = 64, 96 or 128)
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -452,15 +464,15 @@ constexpr int DQ_KEYS = 64;      // keys per K / V tile of the dq kernel
 enum { LIVE, SKIP, STOP };
 
 // query rows per streamed tile of the dk / dv kernel: a consumer thread
-// holds dK and dV (D / 2 f32 each) and S^T and dP^T (QT / 2 each)
+// holds dK and dV (D / 2 f32 each) and S^T and dP^T (QT / 2 each); 32
+// rows keep D = 96 at 168 registers, two CTAs an SM (see the note above)
 template <int D>
-constexpr int QT = D == 128 ? 32 : 64;
+constexpr int QT = D == 64 ? 64 : 32;
 
 // dk / dv kernel's dynamic shared memory: [K][V], then per stage [Q][dO],
 // then per stage the tile's lse and Delta (f32), then the mbarriers.
 template <int D>
 struct KvLayout {
-  static constexpr int NB = D / 64;
   static constexpr int KV_BYTES = KV_KEYS * D * 2;
   static constexpr int T_BYTES = QT<D> * D * 2;       // a Q or dO tile
   static constexpr int STAGE_OFF = 2 * KV_BYTES;
@@ -474,7 +486,6 @@ struct KvLayout {
 // dq kernel's: [Q][dO], then per stage [K][V], then the mbarriers.
 template <int D>
 struct QLayout {
-  static constexpr int NB = D / 64;
   static constexpr int Q_BYTES = DQ_ROWS * D * 2;
   static constexpr int KV_BYTES = DQ_KEYS * D * 2;
   static constexpr int STAGE_OFF = 2 * Q_BYTES;
@@ -543,6 +554,7 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                int has_window, int window, int prefix_len, int q_offset,
                float scale) {
   using L = KvLayout<D>;
+  using C = Cols<D>;
   constexpr int R = QT<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align_1024(smem_raw);
@@ -569,11 +581,11 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     // ---- producer: lane 0 issues the copies, all 32 lanes the rows ----
     if (lane == 0) {
       mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
-      for (int nb = 0; nb < L::NB; ++nb) {
-        tma_load(sk + nb * KV_KEYS * ROW_BYTES, &tk, kv_full,
-                 kvh * D + 64 * nb, c0, b);
-        tma_load(sv + nb * KV_KEYS * ROW_BYTES, &tv, kv_full,
-                 kvh * D + 64 * nb, c0, b);
+      for (int nb = 0; nb < C::NB; ++nb) {
+        tma_load(sk + nb * KV_KEYS * C::ROW, &tk, kv_full,
+                 kvh * D + C::W * nb, c0, b);
+        tma_load(sv + nb * KV_KEYS * C::ROW, &tv, kv_full,
+                 kvh * D + C::W * nb, c0, b);
       }
     }
     int i = 0;
@@ -594,11 +606,11 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         }
         if (lane == 0) {                  // counts as lane 0's arrival
           mbar_expect_tx(full(s), L::STAGE_BYTES);
-          for (int nb = 0; nb < L::NB; ++nb) {
-            tma_load(sq(s) + nb * R * ROW_BYTES, &tq, full(s),
-                     h * D + 64 * nb, i0, b);
-            tma_load(sq(s) + L::T_BYTES + nb * R * ROW_BYTES, &tdo, full(s),
-                     h * D + 64 * nb, i0, b);
+          for (int nb = 0; nb < C::NB; ++nb) {
+            tma_load(sq(s) + nb * R * C::ROW, &tq, full(s),
+                     h * D + C::W * nb, i0, b);
+            tma_load(sq(s) + L::T_BYTES + nb * R * C::ROW, &tdo, full(s),
+                     h * D + C::W * nb, i0, b);
           }
         } else {
           mbar_arrive(full(s));
@@ -642,21 +654,13 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       fence_regs(dp);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;
-        wgmma_ss<R>(s, desc(sk + (kk / 4) * KV_KEYS * ROW_BYTES + off, 16,
-                            1024),
-                    desc(qs + (kk / 4) * R * ROW_BYTES + off, 16, 1024),
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<R>(s, kdesc<D>(sk, KV_KEYS, kk), kdesc<D>(qs, R, kk),
                     kk > 0);
-      }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;
-        wgmma_ss<R>(dp, desc(sv + (kk / 4) * KV_KEYS * ROW_BYTES + off, 16,
-                             1024),
-                    desc(dos + (kk / 4) * R * ROW_BYTES + off, 16, 1024),
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<R>(dp, kdesc<D>(sv, KV_KEYS, kk), kdesc<D>(dos, R, kk),
                     kk > 0);
-      }
       wgmma_commit();
       wgmma_wait();
       fence_regs(s);
@@ -701,13 +705,11 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < R / 16; ++kk)
         wgmma_rs<D>(dva, pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2],
-                    pp[4 * kk + 3],
-                    desc(dos + kk * 16 * ROW_BYTES, R * ROW_BYTES, 1024));
+                    pp[4 * kk + 3], mndesc<D>(dos, R, kk));
 #pragma unroll
       for (int kk = 0; kk < R / 16; ++kk)
         wgmma_rs<D>(dka, pd[4 * kk], pd[4 * kk + 1], pd[4 * kk + 2],
-                    pd[4 * kk + 3],
-                    desc(qs + kk * 16 * ROW_BYTES, R * ROW_BYTES, 1024));
+                    pd[4 * kk + 3], mndesc<D>(qs, R, kk));
       wgmma_commit();
       wgmma_wait();
       fence_regs(dva);
@@ -747,6 +749,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
              int KVH, int causal, int has_window, int window, int prefix_len,
              int q_offset, float scale) {
   using L = QLayout<D>;
+  using C = Cols<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align_1024(smem_raw);
   const uint32_t sq = smem_u32(base), sdo = sq + L::Q_BYTES;
@@ -781,11 +784,11 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     // ---- producer: lane 0 keeps the ring full ----
     if (lane != 0) return;
     mbar_expect_tx(q_full, 2 * L::Q_BYTES);
-    for (int nb = 0; nb < L::NB; ++nb) {
-      tma_load(sq + nb * DQ_ROWS * ROW_BYTES, &tq, q_full, h * D + 64 * nb,
+    for (int nb = 0; nb < C::NB; ++nb) {
+      tma_load(sq + nb * DQ_ROWS * C::ROW, &tq, q_full, h * D + C::W * nb,
                q0, b);
-      tma_load(sdo + nb * DQ_ROWS * ROW_BYTES, &tdo, q_full,
-               h * D + 64 * nb, q0, b);
+      tma_load(sdo + nb * DQ_ROWS * C::ROW, &tdo, q_full,
+               h * D + C::W * nb, q0, b);
     }
     int i = 0;
     for (int c0 = 0; c0 < Sk; c0 += DQ_KEYS) {
@@ -796,11 +799,11 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
       const uint32_t ks = skv(s), vs = ks + L::KV_BYTES;
       mbar_expect_tx(kv_full(s), 2 * L::KV_BYTES);
-      for (int nb = 0; nb < L::NB; ++nb) {
-        tma_load(ks + nb * DQ_KEYS * ROW_BYTES, &tk, kv_full(s),
-                 kvh * D + 64 * nb, c0, b);
-        tma_load(vs + nb * DQ_KEYS * ROW_BYTES, &tv, kv_full(s),
-                 kvh * D + 64 * nb, c0, b);
+      for (int nb = 0; nb < C::NB; ++nb) {
+        tma_load(ks + nb * DQ_KEYS * C::ROW, &tk, kv_full(s),
+                 kvh * D + C::W * nb, c0, b);
+        tma_load(vs + nb * DQ_KEYS * C::ROW, &tv, kv_full(s),
+                 kvh * D + C::W * nb, c0, b);
       }
       ++i;
     }
@@ -848,19 +851,13 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss<DQ_KEYS>(
-          s, desc(sq + (kk / 4) * DQ_ROWS * ROW_BYTES + off, 16, 1024),
-          desc(ks + (kk / 4) * DQ_KEYS * ROW_BYTES + off, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<DQ_KEYS>(s, kdesc<D>(sq, DQ_ROWS, kk),
+                        kdesc<D>(ks, DQ_KEYS, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss<DQ_KEYS>(
-          dp, desc(sdo + (kk / 4) * DQ_ROWS * ROW_BYTES + off, 16, 1024),
-          desc(vs + (kk / 4) * DQ_KEYS * ROW_BYTES + off, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<DQ_KEYS>(dp, kdesc<D>(sdo, DQ_ROWS, kk),
+                        kdesc<D>(vs, DQ_KEYS, kk), kk > 0);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -895,8 +892,7 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
       wgmma_rs<D>(acc, pd[4 * kk], pd[4 * kk + 1], pd[4 * kk + 2],
-                  pd[4 * kk + 3],
-                  desc(ks + kk * 16 * ROW_BYTES, DQ_KEYS * ROW_BYTES, 1024));
+                  pd[4 * kk + 3], mndesc<D>(ks, DQ_KEYS, kk));
     wgmma_commit();
     wgmma_wait();
     fence_regs(acc);
@@ -930,15 +926,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   using QL = QLayout<D>;
   // box rows: the dk / dv kernel's query tiles and key block, the dq
   // kernel's query block and key tiles
+  constexpr int W = Cols<D>::W;
   CUtensorMap tq_t, tdo_t, tk_b, tv_b, tq_b, tdo_b, tk_t, tv_t;
-  if (!tensor_map(&tq_t, q, B, Sq, H * D, QT<D>) ||
-      !tensor_map(&tdo_t, dout, B, Sq, H * D, QT<D>) ||
-      !tensor_map(&tk_b, k, B, Sk, KVH * D, KV_KEYS) ||
-      !tensor_map(&tv_b, v, B, Sk, KVH * D, KV_KEYS) ||
-      !tensor_map(&tq_b, q, B, Sq, H * D, DQ_ROWS) ||
-      !tensor_map(&tdo_b, dout, B, Sq, H * D, DQ_ROWS) ||
-      !tensor_map(&tk_t, k, B, Sk, KVH * D, DQ_KEYS) ||
-      !tensor_map(&tv_t, v, B, Sk, KVH * D, DQ_KEYS))
+  if (!tensor_map(&tq_t, q, B, Sq, H * D, QT<D>, W) ||
+      !tensor_map(&tdo_t, dout, B, Sq, H * D, QT<D>, W) ||
+      !tensor_map(&tk_b, k, B, Sk, KVH * D, KV_KEYS, W) ||
+      !tensor_map(&tv_b, v, B, Sk, KVH * D, KV_KEYS, W) ||
+      !tensor_map(&tq_b, q, B, Sq, H * D, DQ_ROWS, W) ||
+      !tensor_map(&tdo_b, dout, B, Sq, H * D, DQ_ROWS, W) ||
+      !tensor_map(&tk_t, k, B, Sk, KVH * D, DQ_KEYS, W) ||
+      !tensor_map(&tv_t, v, B, Sk, KVH * D, DQ_KEYS, W))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -978,8 +975,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; variant: 0 = the SIMT kernels, 1 = the
-// tensor-core kernels (bf16 at D = 64 or 128 only, 16-byte aligned q, k, v,
-// dout). delta: f32 scratch of B * H * Sq. Sq, Sk >= 1; H % KVH == 0; D in
+// tensor-core kernels (bf16 at D = 64, 96 or 128 only, 16-byte aligned q,
+// k, v, dout). delta: f32 scratch of B * H * Sq. Sq, Sk >= 1; H % KVH == 0; D in
 // {16, 32, 64, 96, 128}; every tensor contiguous (the wrapper checks all of
 // it).
 extern "C" int pipit_flash_attention_bwd(
@@ -999,6 +996,11 @@ extern "C" int pipit_flash_attention_bwd(
                             (float*)delta, B, Sq, Sk, H, KVH, causal,
                             has_window, window, prefix_len, q_offset, scale,
                             s);
+    else if (D == 96)
+      err = tc::launch<96>(q, k, v, o, dout, (const float*)lse, dq, dk, dv,
+                           (float*)delta, B, Sq, Sk, H, KVH, causal,
+                           has_window, window, prefix_len, q_offset, scale,
+                           s);
     else if (D == 64)
       err = tc::launch<64>(q, k, v, o, dout, (const float*)lse, dq, dk, dv,
                            (float*)delta, B, Sq, Sk, H, KVH, causal,

@@ -9,13 +9,18 @@ launches one of the two hand-written kernels in ``csrc/flash_attention.cu``
 (the KV head of query head h is ``h // G``, read in place), chosen by
 :func:`variant` from the dtype and head dim alone:
 
-- ``"wgmma"`` (bfloat16 at D = 64 or 128, the serving shapes):
-  ``flash_wgmma``, both products on the tensor cores (``wgmma`` on
-  TMA-fed, 128-byte-swizzled shared-memory tiles).  It rounds the softmax
-  weights P to bfloat16 before P·V, as every tensor-core flash kernel does;
-  the row sums stay f32.  Held to the bf16 gate, 3e-2.
-- ``"simt"`` (float32, and bfloat16 at D = 16, 32 or 96): ``flash_fwd``,
-  f32 FMAs with P in f32, held to 2e-5 in float32.
+- ``"wgmma"`` (bfloat16 at D = 64, 96 or 128, every served model's head
+  dim): ``flash_wgmma``, both products on the tensor cores (``wgmma`` on
+  TMA-fed, swizzled shared-memory tiles: 64-column blocks under 128-byte
+  swizzle at D = 64 and 128, three 32-column blocks under 64-byte swizzle
+  at D = 96, phi-3-vision's).  It rounds the softmax weights P to bfloat16
+  before P·V, as every tensor-core flash kernel does; the row sums stay
+  f32.  Held to the bf16 gate, 3e-2.
+- ``"simt"`` (float32, and bfloat16 at D = 16 or 32): ``flash_fwd``, f32
+  FMAs with P in f32, held to 2e-5 in float32.  Its bfloat16 instantiation
+  at D = 64, 96 and 128 stays reachable through
+  :func:`flash_attention_variant`, the yardstick the card's checks time
+  the tensor-core kernel against.
 
 On a CPU tensor it runs :func:`flash_attention_plain`, the chunked
 online-softmax scan of ``chunked_attention`` (P in f32), which is
@@ -31,13 +36,15 @@ Pallas kernel is forward-only and it trains by autodiff through
 ``chunked_attention``), chosen by :func:`variant_bwd` with the forward's
 rule:
 
-- ``"wgmma"`` (bfloat16 at D = 64 or 128, the training shape):
-  ``bwd_dkdv_wgmma`` and ``bwd_dq_wgmma``, every product on the tensor
-  cores; P and dS are rounded to bfloat16 before the three gradient
+- ``"wgmma"`` (bfloat16 at D = 64, 96 or 128): ``bwd_dkdv_wgmma`` and
+  ``bwd_dq_wgmma``, every product on the tensor cores, in the forward's
+  tile layouts; P and dS are rounded to bfloat16 before the three gradient
   products.  Held to the bf16 gate, 3e-2 x each gradient's largest
   magnitude (``launch.cardcheck.flash_bwd_tol``).
-- ``"simt"`` (float32, and bfloat16 at D = 16, 32 or 96): ``bwd_dkdv``
-  and ``bwd_dq``, f32 FMAs, held to 2e-5 x that magnitude in float32.
+- ``"simt"`` (float32, and bfloat16 at D = 16 or 32): ``bwd_dkdv`` and
+  ``bwd_dq``, f32 FMAs, held to 2e-5 x that magnitude in float32;
+  reachable in bfloat16 at every head dim through
+  :func:`flash_attention_bwd_variant`.
 
 :func:`flash_attention_bwd_plain` is their plain version.  Serving, under
 ``torch.no_grad()``, launches as before and writes no log-sum-exp.
@@ -77,16 +84,16 @@ _NEG = -1e30
 _CHUNK = 1024             # KV chunk of the plain scan (chunked_attention's)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 96, 128)
-_WGMMA_HEAD_DIMS = (64, 128)
+_WGMMA_HEAD_DIMS = (64, 96, 128)
 _VARIANT_IDS = {"simt": 0, "wgmma": 1}
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call with this dtype and head dim launches:
-    ``"wgmma"`` (tensor cores) for bfloat16 at D = 64 or 128, else
+    ``"wgmma"`` (tensor cores) for bfloat16 at D = 64, 96 or 128, else
     ``"simt"`` (f32 FMAs: float32 needs P in f32 to meet 2e-5, and the
-    tensor-core tiles are 64 dims wide, so D = 96, phi-3-vision's, is a
-    SIMT instantiation)."""
+    tensor-core tiles have no layout for D = 16 or 32, which no served
+    model uses)."""
     if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
@@ -95,7 +102,7 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 def variant_bwd(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel a CUDA call with this dtype and head dim
     launches, by :func:`variant`'s rule: ``"wgmma"`` (tensor cores) for
-    bfloat16 at D = 64 or 128, else ``"simt"``."""
+    bfloat16 at D = 64, 96 or 128, else ``"simt"``."""
     return variant(dtype, head_dim)
 
 
@@ -354,7 +361,7 @@ def flash_attention_bwd_variant(name: str, q: torch.Tensor, k: torch.Tensor,
     """:func:`flash_attention_bwd` through the named kernel (``"simt"`` or
     ``"wgmma"``) whatever :func:`variant_bwd` would pick, to compare the
     two on the same inputs; a CPU tensor still runs the plain version.
-    ``"wgmma"`` takes bfloat16 at D = 64 or 128 only, and on the card
+    ``"wgmma"`` takes bfloat16 at D = 64, 96 or 128 only, and on the card
     16-byte aligned q, k, v and o (its TMA loads); an unaligned ``do``,
     which autograd hands over, is copied once instead."""
     global LAUNCHES_BWD

@@ -9,11 +9,13 @@ name and power limit and what ``ptxas`` said about the flash and top-k
 kernels (registers, spills, and any advisory such as a serialized
 ``wgmma``), holds the tensor-core kernel against the plain version on the
 bf16 cases of the tests (within 3e-2, bit-identical on relaunch), and times
-it beside ``scaled_dot_product_attention`` at the serving shape and a few
-longer ones (CUDA events around back-to-back calls, best of three runs),
-the SIMT kernel at the serving shape too.  Then the backward (q/k/v/o/dO
-bf16, causal) at the training shape [16, 256, 12, 64] and at
-[2, 4096, 16, 128], on the plain forward's output and log-sum-exp, through
+it beside ``scaled_dot_product_attention`` at the serving shape, a few
+longer ones and phi-3-vision's first prefill at head dim 96 (CUDA events
+around back-to-back calls, best of three runs), the SIMT kernel at the
+serving shape and at D = 96 too.  Then the backward (q/k/v/o/dO bf16,
+causal) at the training shape [16, 256, 12, 64], at [2, 4096, 16, 128]
+and at phi-3-vision's training shape [2, 1168, 32, 96], on the plain
+forward's output and log-sum-exp, through
 each variant the tree has (``"wgmma"`` and ``"simt"``; a tree with one
 runs its wrapper, the SIMT design): each gradient within
 ``flash_bwd_tol`` of the plain version, bit-identical on relaunch, device
@@ -71,15 +73,22 @@ CASES = [
     (2, 512, 700, 8, 8, 128, {"causal": False}),
     (1, 77, 200, 4, 4, 64, {"causal": False}),
     (4, 872, 872, 16, 16, 128, {}),
+    (1, 300, 300, 4, 4, 96, {}),
+    (1, 200, 200, 4, 2, 96, {"window": 64, "prefix_len": 8}),
+    (2, 70, 150, 4, 2, 96, {"causal": False}),
+    (1, 40, 1300, 4, 2, 96, {"q_offset": 1260, "window": 64,
+                             "prefix_len": 8}),
+    (2, 1, 1500, 4, 4, 96, {"causal": False}),
 ]
 #: timed q = k = v shapes [B, S, H, D] and causality; the first two are
-#: the serving path's two prefill waves
+#: the serving path's two prefill waves, the last phi-3-vision's first
 SHAPES = [((4, 872, 16, 128), True), ((4, 958, 16, 128), True),
           ((2, 4096, 16, 128), True), ((2, 4096, 16, 128), False),
-          ((4, 2048, 16, 64), True)]
+          ((4, 2048, 16, 64), True), ((4, 1016, 32, 96), True)]
 #: the backward's q = o = dO [B, S, H, D] and k = v [B, S, KVH, D], causal:
-#: the training shape, and a long one at D = 128
-BWD_SHAPES = [(16, 256, 12, 12, 64), (2, 4096, 16, 16, 128)]
+#: the training shape, a long one at D = 128 and phi-3-vision's at D = 96
+BWD_SHAPES = [(16, 256, 12, 12, 64), (2, 4096, 16, 16, 128),
+              (2, 1168, 32, 32, 96)]
 #: the f32 router's top-k: (T, E, k) of chip_smoke.py's f32 moe_ffn call
 TOPK = (3488, 60, 4)
 
@@ -104,9 +113,14 @@ def run(iters: int, out=None) -> int:
     for line in build.BUILD_LOG.splitlines():
         if "(C75" in line:
             print(f"[ptxas] {line.strip()[:240]}", flush=True)
+    wgmma_dims = _wgmma_dims(fa)
     rng = np.random.default_rng(0)
     bad, outs = 0, {}
     for B, Sq, Sk, H, KVH, D, kw in CASES:
+        if D not in wgmma_dims:
+            print(f"[check] skip {(B, Sq, Sk, H, KVH, D)} {kw}: no "
+                  f"tensor-core kernel at D = {D} in this tree", flush=True)
+            continue
         q, k, v = (torch.from_numpy(rng.standard_normal(s)
                                     .astype(np.float32))
                    .cuda().to(torch.bfloat16)
@@ -136,7 +150,9 @@ def run(iters: int, out=None) -> int:
             "wgmma": lambda: fa.flash_attention_variant(
                 "wgmma", q, k, v, causal=causal),
             "sdpa": lambda: sdpa(qt, kt, vt, is_causal=causal)}
-        if n == 0:
+        if D not in wgmma_dims:
+            del times["wgmma"]
+        if n == 0 or D == 96:
             times["simt"] = lambda: fa.flash_attention_variant(
                 "simt", q, k, v, causal=causal)
         best = {name: min(cuda_ms(fn, iters, warm=5)
@@ -150,6 +166,12 @@ def run(iters: int, out=None) -> int:
     if out is not None:
         torch.save(outs, out)
     return 1 if bad else 0
+
+
+def _wgmma_dims(fa) -> tuple:
+    """The head dims this tree's tensor-core flash kernels take: a tree
+    from before D = 96 had them skips the D = 96 cases."""
+    return getattr(fa, "_WGMMA_HEAD_DIMS", (64, 128))
 
 
 def _median_device_ms(fn, iters):
@@ -178,7 +200,7 @@ def run_bwd(iters: int, outs: dict) -> int:
         want = fa.flash_attention_bwd_plain(q, k, v, o, do, lse)
         tag = f"{str(dtype)[6:]} {[B, S, H, D]}"
         names = ("wgmma", "simt") if dtype == torch.bfloat16 and \
-            by_variant is not None else ("simt",)
+            by_variant is not None and D in _wgmma_dims(fa) else ("simt",)
         for name in names:
             def call(_n=name):
                 if by_variant is None:              # one design: SIMT

@@ -11,7 +11,7 @@ and single-query rows.  Tolerances are ``tests/test_kernels.py``'s:
 after the f32 cast, ``chunked_attention`` and the port before it).
 Inputs are made from a seed with NumPy and handed to both.
 
-On the card, bfloat16 at D = 64 or 128 runs the tensor-core kernel, which
+On the card, bfloat16 at D = 64, 96 or 128 runs the tensor-core kernel, which
 rounds the softmax weights P to bfloat16 before P·V (the row sums stay
 f32); that kernel cannot run here, so a test-local emulation of the scan
 with P rounded at that point is held to the JAX ``chunked_attention``
@@ -150,7 +150,7 @@ def test_flash_wrapper_rejects_bad_inputs(bad, err):
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
-    (torch.bfloat16, 96, "simt"), (torch.float32, 96, "simt"),
+    (torch.bfloat16, 96, "wgmma"), (torch.float32, 96, "simt"),
 ])
 def test_flash_variant_rule(dtype, D, want):
     assert flash.variant(dtype, D) == want

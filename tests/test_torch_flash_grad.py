@@ -14,12 +14,15 @@ both sides, about 3 significant digits): ``cardcheck.flash_bwd_tol``, the
 gate the card's tests and ``chip_smoke.py`` hold the kernel to.  The kernel itself runs
 only on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 
-The tensor-core backward (``"wgmma"``, bfloat16 at D = 64 or 128) rounds
-P and dS to bfloat16 before its three gradient products.  An emulation of
-that rounding in plain PyTorch (with the tensor-core forward's own
-rounding of P before P·V for O) is held here to the same bf16 gate of
-``jax.value_and_grad`` on every case, so the design's numerics are known
-to fit the gate before any card runs it.  :func:`variant_bwd`'s table and
+The tensor-core backward (``"wgmma"``, bfloat16 at D = 64, 96 or 128)
+rounds P and dS to bfloat16 before its three gradient products.  An
+emulation of that rounding in plain PyTorch (with the tensor-core
+forward's own rounding of P before P·V for O) is held here to the same
+bf16 gate of ``jax.value_and_grad`` on every case, and its forward to the
+bf16 gate of 3e-2 of ``chunked_attention``, so the design's numerics are
+known to fit the gates before any card runs it; the cases include
+phi-3-vision's head dim 96 (causal, window + prefix, non-causal at
+Sq != Sk, GQA).  :func:`variant_bwd`'s table and
 :func:`flash_attention_bwd_variant`'s checks are tested here too.
 """
 
@@ -45,6 +48,13 @@ CASES = {
     "padded-tail": (1, 9, 1100, 2, 1, 16, {"q_offset": 1091}),
     "q_offset": (1, 7, 20, 2, 2, 16, {"q_offset": 13}),
     "causal-d64-gqa2": (2, 64, 64, 4, 2, 64, {}),
+    # phi-3-vision's head dim, which the tensor-core kernels take since
+    # they tile 96 columns as three 32-column blocks
+    "d96-causal": (1, 40, 40, 4, 4, 96, {}),
+    "d96-window+prefix": (1, 48, 48, 4, 4, 96, {"window": 8,
+                                                "prefix_len": 3}),
+    "d96-non-causal": (1, 24, 37, 2, 2, 96, {"causal": False}),
+    "d96-gqa": (2, 33, 33, 8, 2, 96, {"q_offset": 5}),
 }
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -202,7 +212,8 @@ def test_flash_no_longer_refuses_grad_but_the_router_kernels_do():
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 16, "simt"),
+    (torch.float32, 16, "simt"), (torch.bfloat16, 96, "wgmma"),
+    (torch.float32, 96, "simt"),
 ])
 def test_variant_bwd_table(dtype, D, want):
     """The backward picks by the forward's rule, from dtype and D alone."""
@@ -211,8 +222,8 @@ def test_variant_bwd_table(dtype, D, want):
 
 def test_bwd_variant_checks_and_cpu_plain_version():
     """``flash_attention_bwd_variant`` refuses an unknown name and, for
-    ``"wgmma"``, any dtype but bfloat16 or a D outside 64 / 128, on every
-    device; on a CPU tensor either name runs the plain version and
+    ``"wgmma"``, any dtype but bfloat16 or a D outside 64 / 96 / 128, on
+    every device; on a CPU tensor either name runs the plain version and
     launches nothing."""
     arrs, kw = _inputs("causal-d64-gqa2", seed=6)
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
@@ -234,30 +245,48 @@ def test_bwd_variant_checks_and_cpu_plain_version():
     assert (fa.LAUNCHES_BWD, fa.VARIANT_LAUNCHES_BWD) == before
 
 
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _wgmma_forward(q, k, v, *, causal=True, window=None, prefix_len=0,
+                   q_offset=0):
+    """The tensor-core forward's arithmetic in plain PyTorch: P rounded to
+    bf16 before P V, l summed from the f32 P, every sum in f32.  Returns
+    the output [B, KVH, G, Sq, D] (bf16 values in f32), the scores
+    [B, KVH, G, Sq, Sk] with masked pairs at -1e30, the row log-sum-exp
+    and the mask."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    qq = (q.reshape(B, Sq, KVH, H // KVH, D) * D ** -0.5).to(q.dtype)
+    allow = fa.mask(q_offset + torch.arange(Sq), torch.arange(Sk), causal,
+                    window, prefix_len)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qq.float(), k.float())
+    s = torch.where(allow, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(allow, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = _bf(torch.einsum("bhgqk,bkhd->bhgqd", _bf(p), v.float()) / l)
+    return o, s, m + torch.log(l), allow
+
+
 def _wgmma_numerics(q, k, v, do, *, causal=True, window=None, prefix_len=0,
                     q_offset=0):
     """The tensor-core kernels' arithmetic in plain PyTorch: the forward
-    (P rounded to bf16 before P V, l summed from the f32 P; the row
-    log-sum-exp from f32) and the backward (P^T and dS^T rounded to bf16
-    before dV = P^T dO, dK = dS^T qq and dQ = scale dS K; dS formed from the
-    f32 P), every sum in f32.  Returns (dq, dk, dv) in bf16."""
+    (:func:`_wgmma_forward`) and the backward (P^T and dS^T rounded to
+    bf16 before dV = P^T dO, dK = dS^T qq and dQ = scale dS K; dS formed
+    from the f32 P), every sum in f32.  Returns (dq, dk, dv) in bf16."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     scale = D ** -0.5
     qq = (q.reshape(B, Sq, KVH, G, D) * scale).to(q.dtype).float()
-    kf, vf = k.float(), v.float()
+    kf = k.float()
     dof = do.reshape(B, Sq, KVH, G, D).float()
-    allow = fa.mask(q_offset + torch.arange(Sq), torch.arange(Sk), causal,
-                    window, prefix_len)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qq, kf)
-    s = torch.where(allow, s, -1e30)
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(allow, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True)
-    bf = lambda x: x.to(torch.bfloat16).float()          # noqa: E731
-    o = bf(torch.einsum("bhgqk,bkhd->bhgqd", bf(p), vf) / l)
-    lse = m + torch.log(l)
+    o, s, lse, allow = _wgmma_forward(q, k, v, causal=causal, window=window,
+                                      prefix_len=prefix_len,
+                                      q_offset=q_offset)
+    vf, bf = v.float(), _bf
     p = torch.where(allow, torch.exp(s - lse), 0.0)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", bf(p), dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
@@ -283,3 +312,26 @@ def test_bf16_p_and_ds_rounding_within_gate_of_jax(case):
     o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     plain = fa.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
     assert not all(torch.equal(g, w) for g, w in zip(got, plain))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_p_rounding_forward_within_gate_of_jax(case):
+    """The tensor-core forward's rounding of P to bf16 before P V keeps its
+    output within the bf16 gate of 3e-2 of the reference model's
+    ``chunked_attention`` in bf16, on the cases the backward's emulation
+    runs (phi-3-vision's head dim 96 among them)."""
+    arrs, kw = _inputs(case)
+    q, k, v = (_to_torch(a, torch.bfloat16) for a in arrs[:3])
+    o, _s, _lse, _allow = _wgmma_forward(q, k, v, **kw)
+    B, Sq, H, D = q.shape
+    got = o.movedim(3, 1).reshape(B, Sq, H, D).numpy()
+    want = _jax_out(case)
+    err = float(np.abs(got - want).max())
+    assert err <= 3e-2, err
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_out(case):
+    arrs, kw = _inputs(case)
+    q, k, v = (jnp.asarray(a, jnp.bfloat16) for a in arrs[:3])
+    return np.asarray(jax_chunked(q, k, v, **kw), np.float32)

@@ -12,10 +12,11 @@ second launch; the five ops on the card must match the CPU path.  The
 model kernels are held to their plain versions as ``tests/test_kernels.py``
 holds the Pallas kernels: flash attention within 2e-5 in float32 and 3e-2
 in bfloat16, top-k indices exact and gates within 1e-6.  Flash attention in
-bfloat16 at D = 64 or 128 runs the tensor-core kernel (``"wgmma"``), whose
-cases below cover both head dims, lengths that are not multiples of 64 or
-128, GQA, window + prefix with an offset, non-causal, one query row and
-the serving shape.  ``pair_sum`` runs both of its paths (per-warp
+bfloat16 at D = 64, 96 or 128 runs the tensor-core kernel (``"wgmma"``),
+whose cases below cover the three head dims, lengths that are not
+multiples of 64 or 128, GQA, window + prefix with an offset, non-causal,
+one query row, the serving shape and phi-3-vision's prefill at D = 96;
+each bfloat16 case at D = 96 also runs the SIMT kernel, its yardstick.  ``pair_sum`` runs both of its paths (per-warp
 shared-memory copies, and sorted runs) on each side of the private path's
 threshold, and so do ``seg_sum`` and ``time_bin`` (``time_bin`` also on
 NaN and infinite coordinates, where both paths equal its plain version);
@@ -32,8 +33,9 @@ differentiable on both routes: one backward launches the router's backward
 kernel (``topk_gating_bwd``) once, which is held to its plain version on
 duplicate columns, strided gradients and T = 0.  Flash attention's backward kernel is held to its plain
 version at the training shape and the edge cases (bit-identical on
-relaunch), each bfloat16 case at D = 64 or 128 through both of its
-variants (``"wgmma"``, the tensor cores, and ``"simt"``), the forward's
+relaunch), each bfloat16 case at D = 64, 96 or 128 through both of its
+variants (``"wgmma"``, the tensor cores, and ``"simt"``; phi-3-vision's
+training shape among them), the forward's
 row log-sum-exp to the plain one; a failed backward launch of either
 variant and an unaligned q, k, v or o under ``"wgmma"`` raise (an
 unaligned dO is copied once, to the same bits); a training step of
@@ -657,6 +659,44 @@ def test_flash_attention_kernel(cuda, dtype, tol, B, Sq, Sk, H, KVH, D, kw):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+#: bfloat16 cases at phi-3-vision's head dim 96 (peaked draws, as above):
+#: its prefill, window + prefix over GQA with an offset, non-causal at
+#: Sq != Sk, one query row, a padded tail
+D96_CASES = [
+    (4, 1168, 1168, 32, 32, {}),                              # phi-3 prefill
+    (1, 40, 1300, 4, 2, {"q_offset": 1260, "window": 64, "prefix_len": 8}),
+    (2, 70, 150, 4, 2, {"causal": False}),
+    (2, 1, 1500, 4, 4, {"causal": False}),
+    (1, 1000, 1000, 4, 4, {}),
+]
+
+
+@pytest.mark.parametrize("name", ["wgmma", "simt"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,kw", D96_CASES)
+def test_flash_attention_d96_both_variants(cuda, name, B, Sq, Sk, H, KVH,
+                                           kw):
+    """bfloat16 at D = 96 through the tensor-core kernel (what the wrapper
+    picks) and the SIMT one: each within 3e-2 of the plain version,
+    bit-identical on relaunch, one launch a call of that variant."""
+    rng = np.random.default_rng(Sq * Sk + 96)
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in flash_draw(rng, (B, Sq, H, 96), (B, Sk, KVH, 96),
+                                   True))
+    assert flash_attention.variant(q.dtype, 96) == "wgmma"
+    before = flash_attention.VARIANT_LAUNCHES[name]
+    got = flash_attention.flash_attention_variant(name, q, k, v, **kw)
+    again = flash_attention.flash_attention_variant(name, q, k, v, **kw)
+    want = flash_attention.flash_attention_plain(q, k, v, **kw)
+    assert flash_attention.VARIANT_LAUNCHES[name] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.equal(got, again), "relaunch not bit-identical"
+    if name == "wgmma":
+        assert torch.equal(got, flash_attention.flash_attention(q, k, v,
+                                                                **kw))
+    flash_gate_share(3e-2, want)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
 @pytest.mark.parametrize("B,Sq,Sk,H,KVH,D,kw", [
     (2, 128, 128, 4, 4, 64, {}),                              # D = 64
     (2, 256, 256, 4, 4, 128, {}),                             # D = 128
@@ -732,6 +772,9 @@ BWD_CASES = [
     (2, 50, 70, 4, 4, 32, {"causal": False}),
     (1, 300, 300, 4, 4, 96, {}),                              # phi-3: D 96
     (2, 70, 150, 4, 2, 96, {"causal": False}),
+    (1, 40, 1300, 8, 2, 96, {"q_offset": 1260, "window": 64,
+                             "prefix_len": 8}),
+    (2, 1168, 1168, 32, 32, 96, {}),                          # phi-3 train
 ]
 
 
@@ -744,8 +787,8 @@ def _bwd_inputs(cuda, dtype, B, Sq, Sk, H, KVH, D):
 
 def _bwd_variant_cases():
     """(dtype, case, variant): every case through the kernel the wrapper
-    picks, and each bfloat16 case at D = 64 or 128 through the SIMT
-    kernel as well."""
+    picks, and each bfloat16 case at D = 64, 96 or 128 (the tensor-core
+    kernel's head dims) through the SIMT kernel as well."""
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         for case in BWD_CASES:

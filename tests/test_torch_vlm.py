@@ -57,7 +57,7 @@ def test_full_configs_at_their_published_widths():
     phi = get_config(VLM)
     assert (phi.n_layers, phi.d_model, phi.n_heads, phi.hd,
             phi.img_tokens) == (32, 3072, 32, 96, 144)
-    assert fa.variant(torch.bfloat16, phi.hd) == "simt"
+    assert fa.variant(torch.bfloat16, phi.hd) == "wgmma"
     cq = get_config("codeqwen1.5-7b")
     assert (cq.n_layers, cq.d_model, cq.n_heads, cq.n_kv_heads, cq.hd,
             cq.qkv_bias) == (32, 4096, 32, 32, 128, True)
