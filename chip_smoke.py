@@ -94,8 +94,8 @@ Phases (any failure raises and exits non-zero):
              plan within the gate of the CPU path; counts reset before the
              plans and read after them, as in phase 5;
 7. stream  — ``Trace.open(paths, streaming=True, chunk_rows=65_536)``
-             over ``big_trace`` jsonl shards (64 ranks x 15,625 events,
-             about 1.0M, in a temporary directory) on the card: each op
+             over ``big_trace`` jsonl shards (64 ranks x 7,813 events,
+             about 0.5M, in a temporary directory) on the card: each op
              the bits of ``Trace.open(paths)`` on the card, counts as in
              phase 5, and ``flat_profile``, ``time_profile`` and
              ``comm_matrix`` (one op a kernel but ``hist_bin``'s exact
@@ -122,7 +122,21 @@ Phases (any failure raises and exits non-zero):
              file with its footer torn is refused under ``strict``,
              ``skip_chunk`` and ``salvage`` keep every clean group byte
              for byte;
-9. parallel — stream-1M's jsonl shards, and the same events joined into
+   fold    — the same 64 shards streamed with ``fold="chunks"`` (9,942,144
+             events, not cut): the seven op calls each within the gate of
+             the eager route above, counts and edges exact, one launch of
+             the op's kernel for every chunk that held records (64, one a
+             shard), the same bits on a second call, the wall beside the
+             buffered streamed route's; ``flat_profile(time.exc,
+             time.inc)``'s host peak under ``tracemalloc`` (NumPy's
+             allocations; mapped pack pages are not counted) on the fold
+             and the buffered route over the first 8 shards opened alone
+             and over all 64: the fold's at 64 at least 2x below the
+             buffered one's and at most 1.5x its own at 8; then the seven
+             with ``processes=`` over the pool, each within the gate of the
+             serial fold, every unit's ``torch.cuda.is_initialized()``
+             false;
+9. parallel — stream-0.5M's jsonl shards, and the same events joined into
              one file (byte-span units cut calls, so the seam replay
              runs), through ``processes=`` work units in the pool: each
              op the eager bits of phase 7 and within the gate of the CPU
@@ -130,16 +144,16 @@ Phases (any failure raises and exits non-zero):
              the card; a degradation warning is an error in both phases,
              and each prints pool start-up, write, open, per-op wall and
              events/s beside the card's name and power limit;
-10. formats — stream-1M's events (phase 7's eager trace: its seven op
+10. formats — stream-0.5M's events (phase 7's eager trace: its seven op
              calls are phase 7's digests) written as csv, chrome and an
              otf2j directory archive, and as chrome again for the first 8
              ranks (one pool worker a file, each write timed, the HLO
              check below running meanwhile): each
              opened with the format sniffed, its canonical events the
              source's and its seven op calls the source's digests; ``flat_profile`` and
-             ``comm_matrix`` streamed serially (otf2j at 1M, chrome on
+             ``comm_matrix`` streamed serially (otf2j at 0.5M, chrome on
              the 8 ranks: its chunked reader decodes the JSON array
-             incrementally; csv at 1M ``flat_profile`` only, its reader
+             incrementally; csv at 0.5M ``flat_profile`` only, its reader
              the slowest) and over the pool (csv ``ByteSpan``,
              otf2j and chrome ``ProcSpan`` units), the eager digest of the
              same file; a process-restricted ``flat_profile`` plan over
@@ -169,7 +183,7 @@ Phases (any failure raises and exits non-zero):
              ``regression_report`` and ``diff_flat_profile`` prepares
              each member once (``seg_sum`` 2) and gives the eager
              selection's bits;
-12. set-stream — ``TraceSet.open([stream-1M's 64 shards, the first 32],
+12. set-stream — ``TraceSet.open([stream-0.5M's 64 shards, the first 32],
              streaming=True)``, serially and with ``processes=`` over the
              pool (every member on the scheduler's one pool, no unit on
              the card): ``regression_report``, ``diff_time_profile`` and
@@ -179,7 +193,7 @@ Phases (any failure raises and exits non-zero):
              truth at top 1 on the card, the clean baseline gives no
              findings; ``diagnose()`` on main-10M within the CPU route's
              findings (host detectors exact, ``stragglers`` within the
-             gate), one ``seg_sum`` launch; over stream-1M streamed,
+             gate), one ``seg_sum`` launch; over stream-0.5M streamed,
              pooled, from pack and streamed pack the eager digest;
 14. analysis — the rest of the paper's analysis API on main-10M in memory
              on the card: twelve host-op calls (``idle_time``,
@@ -206,7 +220,7 @@ Phases (any failure raises and exits non-zero):
              overlaps more than v0 and v1 and v2 expose less comm, and
              ``gol(imbalance=0.5)``'s maximum lateness is above 0);
              ``idle_time``, ``comm_by_process`` and ``comm_over_time`` over
-             stream-1M pooled (``idle_time`` alone streamed serially: the
+             stream-0.5M pooled (``idle_time`` alone streamed serially: the
              jsonl reader's pass is the cost), the eager digest, and over
              pack-10M streamed, the main-10M digest, no launch; each of
              phases 11-14 logs its wall beside
@@ -236,7 +250,12 @@ Phases (any failure raises and exits non-zero):
              the survivors is a set of direct live opens' bits; phase 14's
              three streamed ops at the final watermark, incrementally
              (folded on from the first watermark) and on a cold handle,
-             the main-10M digest with no launch;
+             the main-10M digest with no launch; a ``fold="chunks"`` live
+             handle folded at the first watermark and re-queried after the
+             growth, each of the seven within the gate of a cold fold pass,
+             one launch a folded chunk (``time_profile`` and
+             ``message_histogram`` need the statistics pre-pass, so take
+             the full pass, counted apart from the fallbacks);
 16. served — pack-10M's 64 shards (phase 8's) through ``ServiceClient``
              (``streaming=True``): ``flat_profile``, ``comm_matrix`` and
              ``message_histogram`` each the library call's digest on the
@@ -437,9 +456,10 @@ router forward's and backward's shares of device time).  The rows of
 name their
 ``path`` and time the path it replaced on the same inputs (``prev_path``,
 ``prev_ms``, ``prev_device_ms``); the four trace rows also give their
-launches on the query, stream, pack, parallel, formats, set, diagnose,
-analysis, live and served routes (``route_launches``; a cache hit's are
-0, and so are the host ops' of phase 14).
+launches on the query, stream, pack, fold, parallel, formats, set,
+diagnose, analysis, live and served routes (``route_launches``; a cache
+hit's are 0, and so are the host ops' of phase 14).  Each trace-half
+phase logs its wall (``[<phase>] phase wall``).
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of the JAX
@@ -1369,10 +1389,10 @@ QUERY_DROP, QUERY_RANKS = "MpiSend", range(32)
 #: their message instants stay, so the plan recomputes structure
 HALO_DROP = "halo_exchange()"
 #: the stream phase's trace: the port's ``big_trace`` jsonl shards
-STREAM = dict(nprocs=64, events_per_proc=15_625, calls_per_iter=500,
+STREAM = dict(nprocs=64, events_per_proc=7_813, calls_per_iter=500,
               seed=0)
 STREAM_CHUNK_ROWS = 65_536
-#: a chunk size under one shard (about 15,600 rows), so that chunk
+#: a chunk size under one shard (about 7,400 rows), so that chunk
 #: boundaries split enter/leave pairs and parent chains
 SEAM_CHUNK_ROWS = 4_999
 #: the stream phase holds the card against the CPU streaming route on one
@@ -1459,7 +1479,7 @@ def phase_stream():
     """``Trace.open(..., streaming=True)`` over jsonl shards on the card:
     each op the bits of ``Trace.open(paths)`` on the card, and within the
     gate of the CPU streaming route.  Returns the launches, the eager
-    results' digests and the eager trace (stream-1M in memory)."""
+    results' digests and the eager trace (stream-0.5M in memory)."""
     import tempfile
 
     from repro_torch import Trace
@@ -1561,6 +1581,11 @@ def start_pool():
     return pool, workers, start_s
 
 
+#: (phase, route) -> each op's wall in :func:`_route_bits`, for the fold
+#: phase's lines beside the buffered route's
+ROUTE_WALLS = {}
+
+
 def _route_bits(label, route, ops, run, wants, n_events, expect,
                 pooled=None) -> list:
     """``run(op, kw)`` for each op on the card, counts reset before and
@@ -1588,6 +1613,7 @@ def _route_bits(label, route, ops, run, wants, n_events, expect,
                                 category=RuntimeWarning)
         results = _route(ops, run if pooled is None else pooled_run)
     launches = expect_counts(f"{label} {route}", expect)
+    ROUTE_WALLS[label, route] = [wall for _r, wall in results]
     for (op, kw), (res, wall), want in zip(ops, results, wants):
         same = digest(res) == want
         log(f"[{label}] {route:16s} {op:17s} "
@@ -1600,11 +1626,14 @@ def _route_bits(label, route, ops, run, wants, n_events, expect,
     return [r for r, _w in results], launches
 
 
-def phase_pack(main_digests, main_launches, pool, workers, d) -> dict:
-    """main-10M as 64 pack shards in ``d``/pack (left there for the served
-    phase): the eager, serial-streamed and pooled routes give phase 5's
-    bits, ``scan`` skips the shards its plan excludes, and a damaged shard
-    is refused, dropped and salvaged.  Returns each route's launches."""
+def phase_pack(main_digests, main_launches, pool, workers, d,
+               kept) -> dict:
+    """main-10M as 64 pack shards in ``d``/pack (left there for the fold
+    and served phases): the eager, serial-streamed and pooled routes give
+    phase 5's bits, ``scan`` skips the shards its plan excludes, and a
+    damaged shard is refused, dropped and salvaged.  The eager results and
+    the shards go to ``kept`` (for the fold phase).  Returns each route's
+    launches."""
     import shutil
 
     from repro_torch import Trace
@@ -1643,9 +1672,10 @@ def phase_pack(main_digests, main_launches, pool, workers, d) -> dict:
         f"events in {open_s:.2f} s, {len(eager) / open_s:,.0f} "
         f"events/s | {SMI[0]}")
     launches = {}
-    _res, launches["pack eager"] = _route_bits(
+    kept["eager"], launches["pack eager"] = _route_bits(
         "pack", "eager", OPS, lambda op, kw: eager.run(op, **kw),
         main_digests, n_events, main_launches)
+    kept["shards"] = shards
     derived = structure.DERIVE_CALLS - derive0
     if derived != 1:
         raise AssertionError(f"the eager sharded pack route derived "
@@ -1682,7 +1712,7 @@ def phase_pack(main_digests, main_launches, pool, workers, d) -> dict:
     if not same or len(kept) != len(SCAN_RANKS) or \
             sub.label != f"parallel[{len(SCAN_RANKS)}]":
         raise AssertionError("scan: wrong bits or shards")
-    del eager, _res, sub
+    del eager, sub
 
     # streamed, serial then pooled: sidecar slices, no derivation
     st = Trace.open(shards, streaming=True, device="cuda")
@@ -1761,8 +1791,147 @@ def _damage_check(pack, good, d) -> None:
         f" of {len(whole)}, every clean group byte for byte")
 
 
+#: the kernel each op's fold launches once a chunk
+FOLD_KERNEL = {"flat_profile": "seg_sum", "time_profile": "time_bin",
+               "load_imbalance": "pair_sum", "comm_matrix": "pair_sum",
+               "message_histogram": "hist_bin", "stragglers": "seg_sum"}
+#: the fold phase's memory check: the first 8 shards opened alone, then
+#: all 64, under ``tracemalloc``; the op it runs
+FOLD_FEW_SHARDS = 8
+FOLD_MEMORY_OP = OPS[0]
+
+
+def _fold_kernel(op, kw) -> str:
+    return "pair_sum" if kw.get("per_process") else FOLD_KERNEL[op]
+
+
+def _traced_peak(run) -> tuple:
+    """(``run()``'s result, wall s, peak bytes ``tracemalloc`` traced while
+    it ran): NumPy's allocations are traced, pages mapped from a file and
+    torch's own allocations are not."""
+    import gc
+    import tracemalloc
+    gc.collect()
+    tracemalloc.start()
+    try:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, wall, tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+
+
+def phase_fold(shards, eager, pool, workers) -> dict:
+    """pack-10M's 64 shards streamed with ``fold="chunks"``: the seven op
+    calls each within the gate of the eager route (phase 8's results),
+    counts and edges exact, one launch of the op's kernel for each chunk
+    that held records, the same bits on a second call, the wall beside
+    the buffered streamed route's; ``flat_profile``'s traced host peak on
+    the fold and buffered routes over 8 shards and 64; then the seven over
+    the pool, each within the gate of the serial fold, no unit on the
+    card.  Returns the routes' launches."""
+    import warnings
+
+    from repro_torch import Trace, kernels
+    from repro_torch.core import streaming
+    from repro_torch.launch.cardcheck import digest, op_gate
+    from repro_torch.readers import pack
+    chunk_rows = streaming.DEFAULT_CHUNK_ROWS
+    chunks = sum(-(-pack.read_footer(p)["rows"] // chunk_rows)
+                 for p in shards)
+    names = [mod.__name__.rsplit(".", 1)[1] for mod in kernels.TRACE_KERNELS]
+    buffered = ROUTE_WALLS["pack", "streamed"]
+
+    def counted(run, label, op, kw):
+        """``run()`` with the counts reset before: (result, wall s); its
+        launches are one of the op's kernel a folded chunk, on its path,
+        and every chunk folded."""
+        reset_counts()
+        streaming.FOLDED_CHUNKS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect = dict.fromkeys(names, 0)
+        expect[_fold_kernel(op, kw)] = streaming.FOLDED_CHUNKS
+        got = expect_counts(f"fold {label} {op}", expect)
+        if streaming.FOLDED_CHUNKS != chunks:
+            raise AssertionError(f"fold {label} {op}: "
+                                 f"{streaming.FOLDED_CHUNKS} chunks folded, "
+                                 f"{chunks} held records")
+        totals[label] = {k: totals[label].get(k, 0) + v
+                         for k, v in got.items()}
+        return res, wall
+
+    totals = {"serial": {}, "pooled": {}}
+    st = Trace.open(shards, streaming=True, device="cuda", fold="chunks")
+    serial = []
+    for (op, kw), want, buf_s in zip(OPS, eager, buffered):
+        res, wall = counted(lambda: st.run(op, **kw), "serial", op, kw)
+        err = op_gate(op, res, want)
+        t0 = time.perf_counter()
+        same = digest(st.run(op, **kw)) == digest(res)
+        again_s = time.perf_counter() - t0
+        log(f"[fold] {op:17s} {json.dumps(kw, default=str):34s} "
+            f"wall {wall:.3f} s (again {again_s:.3f} s, bits "
+            f"{'equal' if same else 'DIFFER'}) | buffered streamed "
+            f"{buf_s:.3f} s | {_fold_kernel(op, kw)} x {chunks} | within "
+            f"the gate of eager, max_abs_err {err:.6g} | {SMI[0]}")
+        if not same:
+            raise AssertionError(f"fold {op}: other bits on relaunch")
+        serial.append(res)
+
+    op, kw = FOLD_MEMORY_OP
+    peaks = {}
+    for n in (FOLD_FEW_SHARDS, len(shards)):
+        for fold in ("chunks", "once"):
+            h = Trace.open(shards[:n], streaming=True, device="cuda",
+                           fold=fold)
+            _res, wall, peaks[n, fold] = _traced_peak(
+                lambda: h.run(op, **kw))
+            log(f"[fold] memory {op} {json.dumps(kw, default=str)} over "
+                f"{n} shards, fold={fold!r}: traced host peak "
+                f"{peaks[n, fold] / 2**20:.1f} MiB (tracemalloc: NumPy's "
+                f"allocations; mapped pack pages not counted), wall "
+                f"{wall:.3f} s under tracing")
+    many, few = len(shards), FOLD_FEW_SHARDS
+    ratio = peaks[many, "once"] / peaks[many, "chunks"]
+    growth = peaks[many, "chunks"] / peaks[few, "chunks"]
+    log(f"[fold] memory: at {many} shards the buffered peak is {ratio:.2f}x "
+        f"the fold's; the fold's peak at {many} shards is {growth:.2f}x its "
+        f"peak at {few}")
+    if ratio < 2 or growth > 1.5:
+        raise AssertionError(f"fold memory: buffered/fold {ratio:.2f} "
+                             f"(needs >= 2), fold {many}/{few} shards "
+                             f"{growth:.2f} (needs <= 1.5)")
+
+    pst = Trace.open(shards, streaming=True, device="cuda", fold="chunks",
+                     processes=workers)
+    pst._pool = pool
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="parallel streaming",
+                                category=RuntimeWarning)
+        for (op, kw), want in zip(OPS, serial):
+            res, wall = counted(lambda: pst.run(op, **kw), "pooled", op, kw)
+            err = op_gate(op, res, want)
+            log(f"[fold] pooled x{workers} {op:17s} "
+                f"{json.dumps(kw, default=str):34s} wall {wall:.3f} s | "
+                f"within the gate of the serial fold, max_abs_err "
+                f"{err:.6g} | units' torch.cuda.is_initialized() "
+                f"{sorted(set(pst.units_cuda))} over "
+                f"{len(pst.units_cuda)} units | {SMI[0]}")
+            if len(pst.units_cuda) < 2 or any(pst.units_cuda):
+                raise AssertionError(f"fold pooled {op}: units "
+                                     f"{pst.units_cuda}")
+    return {"pack fold": totals["serial"],
+            f"pack fold x{workers}": totals["pooled"]}
+
+
 def phase_parallel(wants, pool, workers, paths, d) -> dict:
-    """stream-1M's jsonl shards (``paths``), and the same events as one
+    """stream-0.5M's jsonl shards (``paths``), and the same events as one
     file in ``d``, through ``processes=`` work units in a spawn pool on
     the card: each op the eager bits, within the gate of the CPU parallel
     route, every trace kernel launched as on the eager route, no worker on
@@ -1806,9 +1975,9 @@ def phase_parallel(wants, pool, workers, paths, d) -> dict:
 #: routes, and their launches
 FORMAT_OPS = [OPS[0], OPS[4]]
 FORMAT_LAUNCHES = {"seg_sum": 1, "pair_sum": 1, "time_bin": 0, "hist_bin": 0}
-#: chrome's chunked routes read a file of stream-1M's first 8 ranks (their
+#: chrome's chunked routes read a file of stream-0.5M's first 8 ranks (their
 #: messages among themselves): its incremental JSON-array decoder is the
-#: slow reader at 1M
+#: slow reader at 0.5M
 CHROME_STREAM_RANKS = range(8)
 #: the restricted plans: ranks a ProcSpan unit of each must hold for the
 #: worker to run (2 or more units survive the pruning)
@@ -1969,7 +2138,7 @@ def _write_format(args) -> tuple:
 
 
 def phase_formats(src, wants, pool, d) -> dict:
-    """stream-1M (``src``: phase 7's eager trace of its jsonl shards, on
+    """stream-0.5M (``src``: phase 7's eager trace of its jsonl shards, on
     the card; ``wants``: its seven op calls' digests) written as csv,
     chrome and an otf2j directory archive in ``d`` (one pool worker a
     file, while the parent checks the HLO reader), and read back on every
@@ -2039,7 +2208,7 @@ def phase_formats(src, wants, pool, d) -> dict:
         want = (wants8 if fmt == "chrome"
                 else [wants[OPS.index(o)] for o in FORMAT_OPS])
         n = n8 if fmt == "chrome" else n_events
-        size = "8 ranks" if fmt == "chrome" else "1M"
+        size = "8 ranks" if fmt == "chrome" else "0.5M"
         st = Trace.open(path, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
                         device="cuda")
         k = 1 if fmt == "csv" else len(FORMAT_OPS)
@@ -2107,7 +2276,7 @@ SET_NO_CPU = "diff_load_imbalance"
 SET_LAUNCHES = {"seg_sum": 2, "pair_sum": 2, "time_bin": 2, "hist_bin": 2}
 #: the SetQuery plan's two chained ops: one profile a member
 PLAN_LAUNCHES = {"seg_sum": 2, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}
-#: the set-stream phase's ops, on stream-1M's shards and its first half
+#: the set-stream phase's ops, on stream-0.5M's shards and its first half
 STREAM_SET_OPS = [("regression_report", {}), ("diff_time_profile", {}),
                   ("scaling_analysis", {})]
 #: the closed loop: the five pathologies on 64 ranks x 1,170 iterations
@@ -2269,7 +2438,7 @@ def phase_set(trace, kept: dict) -> dict:
 
 
 def phase_set_stream(paths, pool, workers) -> dict:
-    """set-stream: ``TraceSet.open([stream-1M's shards, their first
+    """set-stream: ``TraceSet.open([stream-0.5M's shards, their first
     half], streaming=True)`` serially and with ``processes=`` over the
     shared pool: each op the eager set's bits; one pool serves the set and
     no worker initializes CUDA.  Returns the launches."""
@@ -2326,7 +2495,7 @@ def phase_diagnose(trace, paths, pool, workers, d) -> dict:
     """The detector suite on the card: the closed loop (each pathology's
     detector names the ground truth at top 1; the clean baseline gives no
     findings), ``diagnose`` at 10M against the CPU route with one
-    ``seg_sum`` launch, and over stream-1M streamed, pooled and from pack
+    ``seg_sum`` launch, and over stream-0.5M streamed, pooled and from pack
     the eager digest.  Returns the launches."""
     import warnings
 
@@ -2372,7 +2541,7 @@ def phase_diagnose(trace, paths, pool, workers, d) -> dict:
         f"({sorted(set(map(str, card['detector'])))}), card {card_s:.3f} s,"
         f" cpu route {time.perf_counter() - t0:.3f} s, max_abs_err "
         f"{err:.6g} | {SMI[0]}")
-    # every route over stream-1M: the eager digest
+    # every route over stream-0.5M: the eager digest
     eager = Trace.open(paths, device="cuda")
     want = digest(eager.diagnose())
     del eager
@@ -2402,7 +2571,7 @@ def phase_diagnose(trace, paths, pool, workers, d) -> dict:
         launches[f"diagnose {route.split()[0]}"] = expect_counts(
             f"diagnose {route}", DIAG_LAUNCHES)
         same = digest(got) == want
-        log(f"[diagnose] stream-1M {route:12s} {wall:.3f} s | eager digest "
+        log(f"[diagnose] stream-0.5M {route:12s} {wall:.3f} s | eager digest "
             f"{'equal' if same else 'DIFFER'} | {SMI[0]}")
         if not same:
             raise AssertionError(f"diagnose {route}: not the eager digest")
@@ -2571,7 +2740,7 @@ def _paper_claims() -> None:
 
 def _analysis_routes(stream_paths, pool, workers, pack_dir,
                      main_digests) -> dict:
-    """The three streamed ops over stream-1M (streamed and pooled: the
+    """The three streamed ops over stream-0.5M (streamed and pooled: the
     eager digest) and pack-10M streamed (main-10M's digest), no launch.
     Returns the launches."""
     import warnings
@@ -2588,10 +2757,10 @@ def _analysis_routes(stream_paths, pool, workers, pack_dir,
     packs = [os.path.join(pack_dir, f"rank_{r}.pack")
              for r in range(MAIN["nprocs"])]
     routes = [
-        ("stream-1M", "streamed", 1, wants, lambda: Trace.open(
+        ("stream-0.5M", "streamed", 1, wants, lambda: Trace.open(
             stream_paths, streaming=True, chunk_rows=STREAM_CHUNK_ROWS,
             device="cuda")),
-        ("stream-1M", f"pooled x{workers}", 3, wants, lambda: pst),
+        ("stream-0.5M", f"pooled x{workers}", 3, wants, lambda: pst),
         ("pack-10M", "streamed", 3, main_digests, lambda: Trace.open(
             packs, streaming=True, device="cuda")),
     ]
@@ -2817,6 +2986,55 @@ def _live_polls(client, paths, before_commit: bool) -> None:
         raise AssertionError("/live: a poll with no growth was served")
 
 
+def _live_fold(lf, paths) -> dict:
+    """The fold phase's live check: ``lf`` (``fold="chunks"``, folded at
+    the first watermark) refreshed after the growth; each op call
+    re-queried, folding only the new rows into its stored bounded state
+    (an op that needs the statistics pre-pass takes the full pass,
+    counted apart), within the gate of a cold ``cache=False`` fold pass,
+    one launch a folded chunk.  Returns the re-queries' launches."""
+    from repro_torch import Trace, kernels
+    from repro_torch.core import streaming
+    from repro_torch.launch.cardcheck import op_gate
+    names = [mod.__name__.rsplit(".", 1)[1] for mod in kernels.TRACE_KERNELS]
+    lf.refresh()
+    cold_h = Trace.open(paths, live=True, cache=False, device="cuda",
+                        fold="chunks")
+    stats0 = streaming.LIVE_STATS_PASSES
+    totals = dict.fromkeys(names, 0)
+    full = 0
+    for op, kw in OPS:
+        runs = []
+        for label, h in (("incremental", lf), ("cold", cold_h)):
+            reset_counts()
+            streaming.FOLDED_CHUNKS = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = h.run(op, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            expect = dict.fromkeys(names, 0)
+            expect[_fold_kernel(op, kw)] = streaming.FOLDED_CHUNKS
+            got = expect_counts(f"live fold {label} {op}", expect)
+            if label == "incremental":
+                totals = {k: totals[k] + got[k] for k in names}
+            runs.append((res, wall, streaming.FOLDED_CHUNKS))
+        (inc, inc_s, inc_n), (cold, cold_s, cold_n) = runs
+        err = op_gate(op, inc, cold)
+        passes = streaming.LIVE_STATS_PASSES - stats0 - full
+        full += passes
+        log(f"[live] fold {op:17s} {json.dumps(kw, default=str):34s} "
+            f"incremental {inc_s:.3f} s ({inc_n} chunks"
+            f"{', the full pass: it needs the pre-pass' if passes else ''})"
+            f" | cold {cold_s:.3f} s ({cold_n} chunks) | within the gate, "
+            f"max_abs_err {err:.6g} | {SMI[0]}")
+    needs = sum(op in ("time_profile", "message_histogram") for op, _ in OPS)
+    if full != needs:
+        raise AssertionError(f"live fold: {full} full passes for the "
+                             f"pre-pass, expected {needs}")
+    return totals
+
+
 def phase_live(main_digests, client, analysis_digests) -> dict:
     """live-10M: main-10M's events as 64 append-mode shards grown in two
     commits a rank; at each watermark the seven op calls incrementally,
@@ -2851,6 +3069,12 @@ def phase_live(main_digests, client, analysis_digests) -> dict:
         for op, kw in ANALYSIS_STREAMED:
             lt.run(op, **kw)
         log(f"[live] half: the three analysis ops folded in "
+            f"{time.perf_counter() - t0:.3f} s")
+        lf = Trace.open(paths, live=True, device="cuda", fold="chunks")
+        t0 = time.perf_counter()
+        for op, kw in OPS:
+            lf.run(op, **kw)
+        log(f"[live] half: the seven op calls with fold=\"chunks\" in "
             f"{time.perf_counter() - t0:.3f} s")
         _live_polls(client, paths, before_commit=True)
         t0 = time.perf_counter()
@@ -2891,6 +3115,8 @@ def phase_live(main_digests, client, analysis_digests) -> dict:
         launches["live analysis"] = expect_counts("live analysis",
                                                   NO_LAUNCHES)
         del cold_h
+        launches["live fold"] = _live_fold(lf, paths)
+        del lf
         n_fb = streaming.INCREMENTAL_FALLBACKS - fallbacks
         log(f"[live] incremental fallbacks {n_fb}")
         if n_fb:
@@ -5464,36 +5690,42 @@ def main() -> int:
 
 
 def trace_half(check):
-    """Phases 3-16 on the trace path, ``check()`` between them; returns the
-    main path's launches and kernel calls and every route's launches, for
-    phase 17."""
+    """Phases 3-16 on the trace path, ``check()`` between them, each
+    phase's wall logged; returns the main path's launches and kernel calls
+    and every route's launches, for phase 17."""
     import tempfile
-    phase_kernels()
-    phase_reader()
-    check()
-    trace, launches, calls, main_digests = phase_main()
-    check()
-    stream_launches, stream_wants, stream_trace = phase_stream()
-    routes = {"query": phase_query(trace), "stream": stream_launches}
-    check()
+
+    def timed(label, run):
+        t0 = time.perf_counter()
+        out = run()
+        log(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s | "
+            f"{SMI[0]}")
+        check()
+        return out
+
+    timed("kernels", phase_kernels)
+    timed("reader", phase_reader)
+    trace, launches, calls, main_digests = timed("main", phase_main)
+    stream_launches, stream_wants, stream_trace = timed("stream",
+                                                        phase_stream)
+    routes = {"query": timed("query", lambda: phase_query(trace)),
+              "stream": stream_launches}
     with tempfile.TemporaryDirectory() as d:
         pool, workers, _start_s = start_pool()
         try:
-            routes.update(phase_pack(main_digests, launches, pool, workers,
-                                     d))
-            check()
+            kept = {}
+            routes.update(timed("pack", lambda: phase_pack(
+                main_digests, launches, pool, workers, d, kept)))
+            routes.update(timed("fold", lambda: phase_fold(
+                kept.pop("shards"), kept.pop("eager"), pool, workers)))
             from repro_torch.tracegen import big_trace
             stream_paths = big_trace(os.path.join(d, "stream"), **STREAM)
-            routes.update(phase_parallel(stream_wants, pool, workers,
-                                         stream_paths, d))
-            check()
-            t0 = time.perf_counter()
-            routes.update(phase_formats(stream_trace, stream_wants, pool,
-                                        d))
+            routes.update(timed("parallel", lambda: phase_parallel(
+                stream_wants, pool, workers, stream_paths, d)))
+            routes.update(timed("formats", lambda: phase_formats(
+                stream_trace, stream_wants, pool, d)))
             del stream_trace
-            log(f"[formats] phase wall {time.perf_counter() - t0:.1f} s "
-                f"| {SMI[0]}")
-            kept, analysis = {}, {}
+            analysis = {}
 
             def analysis_phase():
                 out, analysis["digests"] = phase_analysis(
@@ -5508,17 +5740,12 @@ def trace_half(check):
                     ("diagnose", lambda: phase_diagnose(
                         trace, stream_paths, pool, workers, d)),
                     ("analysis", analysis_phase)):
-                t0 = time.perf_counter()
-                routes.update(phase())
-                log(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s "
-                    f"| {SMI[0]}")
-                check()
+                routes.update(timed(label, phase))
         finally:
             pool.close()
         del trace
-        routes.update(phase_live_and_served(main_digests,
-                                            os.path.join(d, "pack"),
-                                            analysis["digests"]))
+        routes.update(timed("live and served", lambda: phase_live_and_served(
+            main_digests, os.path.join(d, "pack"), analysis["digests"])))
     return launches, calls, routes
 
 

@@ -61,7 +61,8 @@ from .constants import (DEFAULT_COMM_PREFIXES, DEFAULT_IDLE_NAMES, ENTER,
                         PARTNER, PROC, TAG, THREAD, TS)
 from .frame import EventFrame
 from .registry import get_op, register_op, register_streaming
-from .streaming import RecordBuffer, StreamAgg, StreamingUnsupported, grow_to
+from .streaming import (FoldAgg, RecordBuffer, StreamAgg,
+                        StreamingUnsupported, add_into, grow_to)
 
 __all__ = ["DetectorSpec", "register_detector", "get_detector",
            "list_detectors", "Findings", "FINDINGS_COLUMNS", "is_comm_name",
@@ -535,8 +536,33 @@ def stragglers(trace, threshold: float = 0.2, device="cuda") -> EventFrame:
     return _straggler_findings(work, t0, t1, nprocs, threshold)
 
 
+class _RankBounds:
+    """Exact per-rank [first, last] event timestamps (int64), kept chunk
+    by chunk and merged across work units by min and max."""
+
+    def update_bounds(self, chunk) -> None:
+        ev = chunk.events
+        proc = np.asarray(ev[PROC], np.int64)
+        if len(proc):  # a seam block of the parallel merge has no events
+            self._widen(int(proc.max()) + 1)
+            ts = np.asarray(ev[TS], np.int64)
+            np.minimum.at(self._t0, proc, ts)
+            np.maximum.at(self._t1, proc, ts)
+
+    def _widen(self, nprocs: int) -> None:
+        self._t0 = grow_to(self._t0, (nprocs,), fill=_T_MAX)
+        self._t1 = grow_to(self._t1, (nprocs,), fill=_T_MIN)
+
+    def merge_bounds(self, other, code_map) -> None:
+        n = len(other._t0)
+        if n:
+            self._widen(n)
+            np.minimum(self._t0[:n], other._t0, out=self._t0[:n])
+            np.maximum(self._t1[:n], other._t1, out=self._t1[:n])
+
+
 @register_streaming("stragglers")
-class _StragglerAgg(StreamAgg):
+class _StragglerAgg(_RankBounds, StreamAgg):
     """Streaming stragglers: per-rank time bounds accumulated per chunk
     (exact int64), the non-comm completed calls buffered for the in-memory
     op's one ``seg_sum`` call."""
@@ -553,29 +579,15 @@ class _StragglerAgg(StreamAgg):
         self._classes = _NameClassCache()
 
     def update(self, chunk) -> None:
-        ev = chunk.events
-        proc = np.asarray(ev[PROC], np.int64)
-        if len(proc):  # a seam block of the parallel merge has no events
-            self._widen(int(proc.max()) + 1)
-            ts = np.asarray(ev[TS], np.int64)
-            np.minimum.at(self._t0, proc, ts)
-            np.maximum.at(self._t1, proc, ts)
+        self.update_bounds(chunk)
         calls = chunk.calls
         keep = ~self._classes.mask(chunk.names)[calls.name]
         self._recs.add(calls, np.nan_to_num(calls.exc), keep)
 
-    def _widen(self, nprocs: int) -> None:
-        self._t0 = grow_to(self._t0, (nprocs,), fill=_T_MAX)
-        self._t1 = grow_to(self._t1, (nprocs,), fill=_T_MIN)
-
     def merge_from(self, other, code_map) -> None:
         """Per-rank bounds by min and max, records appended (a unit's
         records were kept by its own name classes, the same names')."""
-        n = len(other._t0)
-        if n:
-            self._widen(n)
-            np.minimum(self._t0[:n], other._t0, out=self._t0[:n])
-            np.maximum(self._t1[:n], other._t1, out=self._t1[:n])
+        self.merge_bounds(other, code_map)
         self._recs.merge(other._recs, code_map)
 
     def result(self, ctx) -> EventFrame:
@@ -585,6 +597,56 @@ class _StragglerAgg(StreamAgg):
         _names, _order, inv = accel.alpha_positions(ctx.names.names)
         acode, proc, start, end, exc = self._recs.gather(inv)
         work = _busy(acode, proc, start, end, exc[:, 0], nprocs, self.device)
+        t0 = grow_to(self._t0, (nprocs,), fill=_T_MAX)[:nprocs]
+        t1 = grow_to(self._t1, (nprocs,), fill=_T_MIN)[:nprocs]
+        return _straggler_findings(work, t0, t1, nprocs, self.threshold)
+
+    def fold_form(self):
+        return _StragglerFold(self.threshold, self.device)
+
+
+class _StragglerFold(_RankBounds, FoldAgg):
+    """``stragglers`` folded a chunk at a time: per-rank time bounds
+    (exact int64, as the buffering form keeps them) and, per chunk, one
+    ``seg_sum`` launch of its non-comm calls' exclusive time by rank,
+    added into float64 busy sums.  Mirrors the reference's
+    ``_StragglerAgg`` with ``backend="numpy"``."""
+
+    needs_calls = True
+
+    def __init__(self, threshold: float, device):
+        super().__init__(device)
+        self.threshold = threshold
+        self._work = np.zeros(0)
+        self._t0 = np.full(0, _T_MAX, np.int64)
+        self._t1 = np.full(0, _T_MIN, np.int64)
+        self._classes = _NameClassCache()
+
+    def observe(self, chunk) -> None:
+        self.update_bounds(chunk)
+
+    def merge_host(self, other, code_map) -> None:
+        self.merge_bounds(other, code_map)
+
+    def records(self, chunk):
+        calls = chunk.calls
+        keep = ~self._classes.mask(chunk.names)[calls.name]
+        if not keep.any():
+            return None
+        return calls.proc[keep], np.nan_to_num(calls.exc[keep])
+
+    def fold(self, part) -> None:
+        proc, exc = part
+        self._work = add_into(self._work, accel.seg_sum(
+            proc, exc, int(proc.max()) + 1, device=self.device))
+
+    def result(self, ctx) -> EventFrame:
+        nprocs = ctx.num_processes
+        if nprocs <= 0:
+            return Findings([])
+        work = np.zeros(nprocs)
+        n = min(nprocs, len(self._work))
+        work[:n] = self._work[:n]
         t0 = grow_to(self._t0, (nprocs,), fill=_T_MAX)[:nprocs]
         t1 = grow_to(self._t1, (nprocs,), fill=_T_MIN)[:nprocs]
         return _straggler_findings(work, t0, t1, nprocs, self.threshold)

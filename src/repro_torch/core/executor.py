@@ -23,13 +23,20 @@ pool:
   its ``merge_from`` (name codes remapped, buffered records appended), and
   replays the seam events against the carry stacks of the preceding
   units, so calls split across unit seams complete with the inclusive and
-  exclusive times the serial stitcher gives them.
+  exclusive times the serial stitcher gives them.  Units are merged as
+  they arrive, in unit order, and then dropped.
 
-The port's aggregators buffer records and make one kernel call in
-``result()``, on the parent's device, after the canonical record sort: the
-same record multiset reaches the kernel in the same order on every route,
-so the parallel route gives the serial route's bits.  They take their bin
-edges from their own records, so no statistics pre-pass runs.
+With the handle's ``fold="once"`` the aggregators buffer records and make
+one kernel call in ``result()``, on the parent's device, after the
+canonical record sort: the same record multiset reaches the kernel in the
+same order on every route, so the parallel route gives the serial route's
+bits.  With ``fold="chunks"`` a worker holds each chunk's records on the
+host and the parent folds them on the card as the unit arrives, one launch
+a chunk, into its bounded state (:class:`~repro_torch.core.streaming.
+FoldAgg`); peak memory then holds the units in flight, not the stream.
+An aggregator that needs global bin edges gets them from the statistics
+pre-pass, itself fanned over the pool (:func:`parallel_stats`, a
+``"stats"`` payload a unit, merged in unit order).
 
 A degradation back to the serial pass raises :class:`ParallelDegraded`;
 ``execute_streaming`` turns it into a ``RuntimeWarning`` naming the reason.
@@ -48,11 +55,13 @@ from .constants import ENTER, ET, INSTANT, LEAVE, NAME, PROC, TS
 from .frame import Categorical, EventFrame
 from .streaming import (CallBlock, CallStitcher, Chunk, GlobalNames,
                         StreamAgg, StreamContext, StreamingUnsupported,
-                        _steps_hints, fold_frames, iter_chunks_fallback,
-                        mask_frames)
+                        StreamStats, _steps_hints, fold_frames,
+                        iter_chunks_fallback, make_agg, mask_frames,
+                        stats_from_frames)
 from ..parallel_util import resolve_processes, spawn_unsafe_reason
 
-__all__ = ["execute_parallel", "plan_units", "ParallelDegraded"]
+__all__ = ["execute_parallel", "parallel_stats", "plan_units",
+           "ParallelDegraded"]
 
 
 class ParallelDegraded(RuntimeError):
@@ -206,18 +215,25 @@ class _UnitResult:
             setattr(self, s, state[s])
 
 
-def _run_unit(payload) -> _UnitResult:
+def _run_unit(payload):
     """Pool worker: one unit through the serial streaming pipeline, on the
     host — the aggregator's ``device`` is only carried, and the masks and
-    the stitcher run in NumPy."""
-    (unit, fmt, chunk_rows, reader_kwargs, steps, factory, args, kwargs) = \
-        payload
+    the stitcher run in NumPy.  ``mode="stats"`` returns the unit's
+    :class:`StreamStats` partial; ``mode="fold"`` folds the unit into the
+    op's aggregator (a ``fold="chunks"`` one holds each chunk's records
+    for the parent) and returns a :class:`_UnitResult`."""
+    (mode, unit, fmt, chunk_rows, reader_kwargs, steps, name, factory, args,
+     kwargs, fold, stats) = payload
     from ..readers import parallel as _rp
     _rp._ensure_registered()
     frames = mask_frames(
         _unit_frames(unit, fmt, chunk_rows, _steps_hints(steps),
                      reader_kwargs), steps, device="cpu")
-    agg: StreamAgg = factory(*args, **kwargs)
+    if mode == "stats":
+        return stats_from_frames(frames)
+    agg: StreamAgg = make_agg(name, factory, args, kwargs, fold)
+    agg.deferred = True
+    agg.begin(stats)
     names = GlobalNames()
     stitcher = CallStitcher(defer_unmatched=True) if agg.needs_calls else None
     proc_max = fold_frames(frames, agg, names, stitcher)
@@ -246,15 +262,19 @@ def _empty_events() -> EventFrame:
     })
 
 
-def _merge_results(agg: StreamAgg, results: Sequence[_UnitResult]) -> Any:
-    """Fold worker results, in unit order, into ``agg`` and return its
-    result: the op's one kernel call, on ``agg``'s device."""
+def _merge_results(agg: StreamAgg, results: Iterator[_UnitResult],
+                   units_cuda: List[bool]) -> Any:
+    """Fold worker results, in unit order and each as it arrives, into
+    ``agg`` and return its result (the op's one kernel call, or the fold
+    state's assembly, on ``agg``'s device); each unit's
+    ``torch.cuda.is_initialized()`` is appended to ``units_cuda``."""
     names = GlobalNames()
     proc_max = -1
     # per-group carry stacks across unit seams: [name, proc, start, child_inc]
     prefix: Dict[int, List[list]] = {}
     last_ts: Dict[int, float] = {}
     for r in results:
+        units_cuda.append(r.cuda_initialized)
         code_map = np.asarray([names.intern(str(s)) for s in r.names],
                               np.int64)
         for g, ft in r.first_ts.items():
@@ -325,6 +345,69 @@ def _prune_units(units: List[Any], hints: registry.PlanHints) -> List[Any]:
 # entry point
 # ---------------------------------------------------------------------------
 
+def _pool_mapper(handle, use_pool: bool):
+    """``mapper(payloads)`` over the handle's pool (ordered, lazy) or
+    in-process; raises :class:`ParallelDegraded` when no pool can run."""
+    if not use_pool:
+        return lambda payloads: (_run_unit(p) for p in payloads)
+    reason = spawn_unsafe_reason()
+    if reason is not None:
+        raise ParallelDegraded(reason)
+    if handle._pool is None:
+        # the shared scheduler owns the pools: every handle (and every
+        # service session) asking for n workers fans into one pool
+        from .scheduler import get_scheduler
+        handle._pool = get_scheduler().spawn_pool(
+            resolve_processes(handle.processes))
+    try:
+        handle._pool.get()
+    except RuntimeError as e:  # pragma: no cover - raced __main__ state
+        raise ParallelDegraded(str(e)) from None
+    return lambda payloads: handle._pool.imap(_run_unit, payloads)
+
+
+def _units(handle, steps: Sequence, n: int) -> List[Any]:
+    planned = plan_units(handle, steps, n)
+    units = _prune_units(planned, _steps_hints(steps))
+    handle.units_pruned = len(planned) - len(units)
+    if len(units) <= 1:
+        raise ParallelDegraded(
+            "the input cannot be partitioned into more than one work unit "
+            "(single file with no registered unit planner, or everything "
+            "was pruned by shard skipping / the plan's process "
+            "restriction)")
+    return units
+
+
+def _stats_payloads(handle, steps: Sequence, units: List[Any]) -> list:
+    return [("stats", u, handle.format, handle.chunk_rows,
+             handle.reader_kwargs, tuple(steps), None, None, (), {},
+             "once", None) for u in units]
+
+
+def _merged_stats(parts) -> StreamStats:
+    stats = StreamStats()
+    for part in parts:
+        stats.merge(part)
+    return stats
+
+
+def parallel_stats(handle, steps: Sequence, n_units: Optional[int] = None,
+                   use_pool: bool = True) -> StreamStats:
+    """The statistics pre-pass over work units in the handle's pool, on
+    the host, merged in unit order.  Raises :class:`ParallelDegraded` when
+    fan-out does not apply; the caller (``StreamingTrace.stats``) then
+    runs the serial pass without a warning, since a stats pass has no
+    mode choice to warn about.  ``n_units`` / ``use_pool=False`` are
+    :func:`execute_parallel`'s test hooks."""
+    n = resolve_processes(handle.processes)
+    if use_pool and n <= 1:
+        raise ParallelDegraded("processes=1 leaves nothing to fan out")
+    units = _units(handle, steps, n_units or n)
+    mapper = _pool_mapper(handle, use_pool)
+    return _merged_stats(mapper(_stats_payloads(handle, steps, units)))
+
+
 def execute_parallel(handle, steps: Sequence, spec: registry.OpSpec,
                      args: tuple, kwargs: dict, agg: StreamAgg,
                      n_units: Optional[int] = None,
@@ -335,7 +418,9 @@ def execute_parallel(handle, steps: Sequence, spec: registry.OpSpec,
     multi-core execution is not applicable; the caller falls back to the
     serial pass and warns.  ``n_units`` / ``use_pool=False`` are test
     hooks: they force a unit count and run the units in-process, which
-    exercises the seam machinery without a pool."""
+    exercises the seam machinery without a pool.  An aggregator that
+    needs the statistics pre-pass gets it over the same units first (or
+    the handle's cached stats when the plan adds no steps)."""
     if not getattr(agg, "supports_parallel", False):
         raise ParallelDegraded(
             f"op {spec.name!r} has a streaming form but no cross-worker "
@@ -344,34 +429,24 @@ def execute_parallel(handle, steps: Sequence, spec: registry.OpSpec,
     n = resolve_processes(handle.processes)
     if use_pool and n <= 1:
         raise ParallelDegraded("processes=1 leaves nothing to fan out")
-    planned = plan_units(handle, steps, n_units or n)
-    units = _prune_units(planned, _steps_hints(steps))
-    handle.units_pruned = len(planned) - len(units)
-    if len(units) <= 1:
-        raise ParallelDegraded(
-            "the input cannot be partitioned into more than one work unit "
-            "(single file with no registered unit planner, or everything "
-            "was pruned by shard skipping / the plan's process "
-            "restriction)")
+    units = _units(handle, steps, n_units or n)
+    mapper = _pool_mapper(handle, use_pool)
+    stats = None
+    if agg.needs_stats:
+        same = tuple(steps) == tuple(handle._steps)
+        if same and handle._stats0 is not None:
+            stats = handle._stats0
+        else:
+            stats = _merged_stats(mapper(_stats_payloads(handle, steps,
+                                                         units)))
+            if same:
+                handle._stats0 = stats
+    agg.begin(stats)
     # workers never see a torch.device: they must not touch torch.cuda
     wkw = {k: (str(v) if k == "device" else v) for k, v in kwargs.items()}
-    payloads = [(u, handle.format, handle.chunk_rows, handle.reader_kwargs,
-                 tuple(steps), spec.streaming, args, wkw) for u in units]
-    if use_pool:
-        reason = spawn_unsafe_reason()
-        if reason is not None:
-            raise ParallelDegraded(reason)
-        if handle._pool is None:
-            # the shared scheduler owns the pools: every handle (and every
-            # service session) asking for n workers fans into one pool
-            from .scheduler import get_scheduler
-            handle._pool = get_scheduler().spawn_pool(n)
-        try:
-            handle._pool.get()
-        except RuntimeError as e:  # pragma: no cover - raced __main__ state
-            raise ParallelDegraded(str(e)) from None
-        results = handle._pool.map(_run_unit, payloads)
-    else:
-        results = [_run_unit(p) for p in payloads]
-    handle.units_cuda = [r.cuda_initialized for r in results]
-    return _merge_results(agg, results)
+    payloads = [("fold", u, handle.format, handle.chunk_rows,
+                 handle.reader_kwargs, tuple(steps), spec.name,
+                 spec.streaming, args, wkw, handle.fold, stats)
+                for u in units]
+    handle.units_cuda = []
+    return _merge_results(agg, mapper(payloads), handle.units_cuda)

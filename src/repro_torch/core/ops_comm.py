@@ -10,14 +10,19 @@ indices through the ``hist_bin`` kernel, on ``device`` — the card by
 default, the kernels' plain versions with ``device="cpu"``.  Their
 streaming forms (the reference's ``backend="pallas"`` branch of
 ``_CommMatrixAgg`` and ``_MessageHistogramAgg``) buffer the send records
-and make the same one kernel call at the end.
+and make the same one kernel call at the end; their ``fold="chunks"``
+forms launch the kernel once a chunk into bounded state, the histogram on
+edges from the statistics pre-pass's size range, as the reference's
+``backend="numpy"`` forms do.
 
 No kernel backs the other three ops, in the reference or here: they
 compute in NumPy on the host whatever the ``device`` (which is still
 checked, so asking for the card without one raises).  The streaming forms
 of ``comm_by_process`` and ``comm_over_time`` buffer the send records too
 and reduce them once in ``result()``, in the order the in-memory op uses,
-so every route gives the in-memory op's bits.
+so every route gives the in-memory op's bits.  ``comm_over_time``'s
+``fold="chunks"`` form bins each chunk's sends with NumPy on the
+pre-pass's edges, as the reference's streaming form does.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from .constants import (DEFAULT_COMM_PREFIXES, ENTER, ET, MATCH, MPI_SEND,
 from .frame import EventFrame
 from .intervals import merge_intervals
 from .registry import register_op, register_streaming
-from .streaming import StreamAgg
+from .streaming import FoldAgg, StreamAgg, add_into
 
 __all__ = ["comm_matrix", "message_histogram", "comm_by_process",
            "comm_over_time", "comm_comp_breakdown", "comm_name_mask"]
@@ -61,9 +66,7 @@ def _wrap_partners(src, dst, n: int, op: str):
     reference raises instead of silently dropping."""
     if len(dst) and (int(src.max()) >= n or int(dst.max()) >= n
                      or int(src.min()) < 0 or int(dst.min()) < -n):
-        raise IndexError(
-            f"{op}: message endpoints outside the selected trace's "
-            f"0..{n - 1} process range")
+        raise _range_error(op, n)
     return np.where(dst < 0, dst + n, dst)
 
 
@@ -93,6 +96,11 @@ def comm_matrix(trace, output: str = "size", device="cuda") -> np.ndarray:
     """
     return _matrix(_sends(trace.events, output), trace.num_processes,
                    "comm_matrix", device)
+
+
+def _range_error(op: str, n: int) -> IndexError:
+    return IndexError(f"{op}: message endpoints outside the selected "
+                      f"trace's 0..{n - 1} process range")
 
 
 def _hist_indices(sizes: np.ndarray, edges: np.ndarray,
@@ -171,6 +179,9 @@ class _CommMatrixAgg(_SendsAgg):
         return _matrix(self.sends(), ctx.num_processes,
                        "streaming comm_matrix", self.device)
 
+    def fold_form(self):
+        return _CommMatrixFold(self.output, self.device)
+
 
 @register_streaming("message_histogram")
 class _MessageHistogramAgg(_SendsAgg):
@@ -185,6 +196,99 @@ class _MessageHistogramAgg(_SendsAgg):
         s = self.sends()
         return _histogram(None if s is None else s[2], self.bins,
                           self.device)
+
+    def fold_form(self):
+        return _MessageHistogramFold(self.bins, self.device)
+
+
+class _CommMatrixFold(FoldAgg):
+    """``comm_matrix`` folded a chunk at a time: one ``pair_sum`` launch a
+    chunk into a float64 sender x partner matrix.  A negative partner
+    wraps to ``n + partner`` as in memory, but ``n`` (the selected
+    processes) is known only at the end: the launch puts partner ``-k`` in
+    column ``m + k - 1`` past the chunk's ``m`` columns, and those columns
+    are kept apart per sender and placed in ``result()``.  Mirrors the
+    reference's ``_CommMatrixAgg`` with ``backend="numpy"``."""
+
+    def __init__(self, output: str, device):
+        super().__init__(device)
+        self.output = output
+        self._mat = np.zeros((0, 0))
+        self._neg = np.zeros((0, 0))   # [sender, -partner - 1]
+        self._extent = 0               # 1 + the largest endpoint
+        self._neg_extent = 0           # the most negative partner, negated
+        self._src_min = 0
+
+    def records(self, chunk):
+        s = _sends(chunk.events, self.output)
+        return None if s is None else s[:3]
+
+    def fold(self, part) -> None:
+        src, dst, w = part
+        neg = dst < 0
+        m = int(max(src.max(), dst.max())) + 1
+        k = int(-dst.min()) if neg.any() else 0
+        col = np.where(neg, m - 1 - dst, dst)
+        block = accel.pair_sum(src, col, w, m, m + k, device=self.device)
+        self._src_min = min(self._src_min, int(src.min()))
+        self._extent = max(self._extent, m)
+        self._mat = add_into(self._mat, block[:, :m])
+        if k:
+            self._neg_extent = max(self._neg_extent, k)
+            self._neg = add_into(self._neg, block[:, m:])
+
+    def result(self, ctx) -> np.ndarray:
+        n = ctx.num_processes
+        if n == 0:
+            return np.zeros((0, 0))
+        if self._src_min < 0 or max(self._extent, self._neg_extent) > n:
+            raise _range_error("streaming comm_matrix", n)
+        out = np.zeros((n, n))
+        e = self._extent
+        out[:e, :e] = self._mat[:e, :e]
+        a = min(e, self._neg.shape[0])
+        for j in range(self._neg_extent):  # partner -(j + 1): column n-j-1
+            out[:a, n - j - 1] += self._neg[:a, j]
+        return out
+
+
+class _MessageHistogramFold(FoldAgg):
+    """``message_histogram`` folded a chunk at a time on edges the
+    statistics pre-pass fixes from the stream's size range
+    (``np.histogram_bin_edges`` over ``[size_min, size_max]``, the edges
+    the in-memory op derives): per chunk, exact host bin indices counted
+    by one ``hist_bin`` launch, added into int64 counts.  Mirrors the
+    reference's ``_MessageHistogramAgg`` with ``backend="numpy"``."""
+
+    needs_stats = True
+
+    def __init__(self, bins: int, device):
+        super().__init__(device)
+        self.bins = bins
+        self._edges: Optional[np.ndarray] = None
+        self._counts = np.zeros(bins, np.int64)
+
+    def begin(self, stats) -> None:
+        if stats.n_sends:
+            self._edges = np.histogram_bin_edges(
+                np.asarray([stats.size_min, stats.size_max]), bins=self.bins,
+                range=(stats.size_min, stats.size_max))
+
+    def records(self, chunk):
+        s = _sends(chunk.events)
+        return None if s is None else (s[2],)
+
+    def fold(self, part) -> None:
+        (sizes,) = part
+        self._counts += accel.hist_counts(
+            _hist_indices(sizes, self._edges, self.bins), self.bins,
+            device=self.device)
+
+    def result(self, ctx) -> Tuple[np.ndarray, np.ndarray]:
+        if self._edges is None or not self.folds:
+            return np.zeros(self.bins, np.int64), np.linspace(0, 1,
+                                                              self.bins + 1)
+        return self._counts.copy(), self._edges
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +435,48 @@ class _CommOverTimeAgg(_SendsAgg):
         if self._t0 > self._t1:
             return _over_time(None, 0.0, 1.0, self.num_bins)
         return _over_time(self.sends(), self._t0, self._t1, self.num_bins)
+
+    def fold_form(self):
+        return _CommOverTimeFold(self.num_bins, self.output, self.device)
+
+
+class _CommOverTimeFold(StreamAgg):
+    """``comm_over_time`` folded a chunk at a time: the pre-pass's time
+    span (over every event, the in-memory op's) fixes the edges, and each
+    chunk's sends are binned with ``np.histogram`` into float64 totals, on
+    the host (no kernel backs this op), in a pool worker too.  Mirrors the
+    reference's streaming ``_CommOverTimeAgg``."""
+
+    needs_stats = True
+    supports_parallel = True
+
+    def __init__(self, num_bins: int, output: str, device):
+        self.num_bins = num_bins
+        self.output = output
+        self.device = device
+        self._vals = np.zeros(num_bins)
+        self._edges = np.linspace(0.0, 1.0, num_bins + 1)
+
+    def begin(self, stats) -> None:
+        t0 = stats.ts_min if stats.n_events else 0.0
+        t1 = stats.ts_max if stats.n_events else 1.0
+        self._edges = np.linspace(t0, max(t1, t0 + 1), self.num_bins + 1)
+
+    def update(self, chunk) -> None:
+        s = _sends(chunk.events, self.output)
+        if s is not None:
+            self._vals += np.histogram(s[3], bins=self._edges,
+                                       weights=s[2])[0]
+
+    def merge_from(self, other, code_map) -> None:
+        self._vals += other._vals
+
+    @property
+    def nbytes(self) -> int:
+        return self._vals.nbytes + self._edges.nbytes
+
+    def result(self, ctx) -> Tuple[np.ndarray, np.ndarray]:
+        return self._vals.copy(), self._edges
 
 
 def comm_name_mask(events: EventFrame,

@@ -27,7 +27,11 @@ Each op also has a streaming aggregator (the reference's
 and ``_LoadImbalanceAgg``): it buffers the completed-call records chunk by
 chunk and, at the end, makes the in-memory op's one kernel call on the
 same records in the same canonical order, so both routes give the same
-bits.
+bits.  Its ``fold="chunks"`` form (the reference's ``backend="numpy"``
+branch, whose bounded state it keeps) launches the op's kernel once a
+chunk and adds the result into float64 state
+(:class:`~repro_torch.core.streaming.FoldAgg`); ``time_profile``'s takes
+its bin edges from the statistics pre-pass.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ from .constants import (DEFAULT_IDLE_NAMES, ENTER, ET, EXC, INC, MATCH, NAME,
                         PROC, TS)
 from .frame import Categorical, EventFrame
 from .registry import register_op, register_streaming
-from .streaming import (RecordBuffer, StreamAgg, StreamingUnsupported,
-                        check_metric, grow_to)
+from .streaming import (FoldAgg, RecordBuffer, StreamAgg,
+                        StreamingUnsupported, add_into, check_metric, grow_to)
 
 
 def _calls(trace):
@@ -177,12 +181,11 @@ def time_profile(trace, num_bins: int = 32, metric: str = EXC,
     procs = np.asarray(ev[PROC], np.int64)[sel]
     return _profile_from_records(starts, ends, w, procs,
                                  inv[ev.codes(NAME)[sel]], names_alpha,
-                                 edges, num_bins, normalized, device)
+                                 edges, normalized, device)
 
 
 def _profile_from_records(starts, ends, w, procs, acodes, names_alpha,
-                          edges, num_bins, normalized, device
-                          ) -> EventFrame:
+                          edges, normalized, device) -> EventFrame:
     """Record-level ``time_profile`` core: canonical-sort the call
     records, launch the kernel once, apply the zero-duration fixup and
     assemble columns in the alphabetical code space."""
@@ -192,11 +195,24 @@ def _profile_from_records(starts, ends, w, procs, acodes, names_alpha,
     rate = np.where(inc > 0, w / np.maximum(inc, 1e-30), 0.0)
     prof = _kernel_profile(starts, ends, rate, acodes, edges,
                            len(names_alpha), device)
+    _zero_duration(prof, starts, inc, w, acodes, edges)
+    return _profile_assemble(prof, names_alpha, edges, normalized)
+
+
+def _zero_duration(prof, starts, inc, w, codes, edges) -> None:
+    """Add the metric of zero-duration calls, which the overlap integral
+    misses, into the bin of their start (``prof`` is ``[bins, names]``)."""
     zsel = inc <= 0
     if np.any(zsel & (w > 0)):
         b = np.clip(np.searchsorted(edges, starts[zsel], side="right") - 1,
-                    0, num_bins - 1)
-        np.add.at(prof, (b, acodes[zsel]), w[zsel])
+                    0, len(edges) - 2)
+        np.add.at(prof, (b, codes[zsel]), w[zsel])
+
+
+def _profile_assemble(prof, names_alpha, edges, normalized) -> EventFrame:
+    """``[bins, names]`` on the alphabetical axis becomes the output: bin
+    edges, then one column per function with any weight, heaviest
+    first."""
     if normalized:
         denom = prof.sum(axis=1, keepdims=True)
         prof = prof / np.maximum(denom, 1e-30)
@@ -410,6 +426,9 @@ class _FlatProfileAgg(StreamAgg):
         return _flat_assemble(names_alpha, counts, sums, self.metrics,
                               self.per_process)
 
+    def fold_form(self):
+        return _FlatProfileFold(self.metrics, self.per_process, self.device)
+
 
 @register_streaming("time_profile")
 class _TimeProfileAgg(StreamAgg):
@@ -451,8 +470,12 @@ class _TimeProfileAgg(StreamAgg):
         names_alpha, _order, inv = accel.alpha_positions(ctx.names.names)
         acode, proc, start, end, w = self._recs.gather(inv)
         return _profile_from_records(start, end, w[:, 0], proc, acode,
-                                     names_alpha, edges, self.num_bins,
-                                     self.normalized, self.device)
+                                     names_alpha, edges, self.normalized,
+                                     self.device)
+
+    def fold_form(self):
+        return _TimeProfileFold(self.num_bins, self.metric, self.normalized,
+                                self.device)
 
 
 @register_streaming("load_imbalance")
@@ -486,6 +509,196 @@ class _LoadImbalanceAgg(StreamAgg):
         o = accel.canonical_order(start, end, proc, acode, vals)
         tot = accel.pair_sum(acode[o], proc[o], vals[o], len(names_alpha),
                              max(nprocs, 1), device=self.device)
+        return _imbalance_assemble(tot, names_alpha, self.metric,
+                                   self.num_processes, self.top_functions,
+                                   nprocs)
+
+    def fold_form(self):
+        return _LoadImbalanceFold(self.metric, self.num_processes,
+                                  self.top_functions, self.device)
+
+
+# ---------------------------------------------------------------------------
+# fold forms: one launch a chunk into bounded float64 state
+# ---------------------------------------------------------------------------
+
+def _remap_codes(part: tuple, code_map: np.ndarray) -> tuple:
+    """A held part whose first array is name codes, mapped."""
+    return (code_map[part[0]],) + tuple(part[1:])
+
+
+class _FlatProfileFold(FoldAgg):
+    """``flat_profile`` folded a chunk at a time: call counts over every
+    Enter row (exact int64, as the buffering form keeps them) and, per
+    chunk, one ``seg_sum`` launch over its completed calls' metrics
+    (``pair_sum`` per metric when ``per_process``) added into float64
+    sums by global name code (and process).  Mirrors the reference's
+    ``_FlatProfileAgg`` with ``backend="numpy"``."""
+
+    needs_calls = True
+
+    def __init__(self, metrics, per_process: bool, device):
+        super().__init__(device)
+        self.metrics = list(metrics)
+        self.per_process = per_process
+        nm = len(self.metrics)
+        self._counts = np.zeros((0, 0) if per_process else (0,), np.int64)
+        self._sums = np.zeros((nm, 0, 0) if per_process else (nm, 0))
+
+    def observe(self, chunk) -> None:
+        ev = chunk.events
+        is_enter = ev.cat(ET).mask_eq(ENTER)
+        codes = chunk.gcodes[is_enter]
+        if not len(codes):
+            return
+        if self.per_process:
+            procs = np.asarray(ev[PROC], np.int64)[is_enter]
+            self._counts = grow_to(self._counts, (int(codes.max()) + 1,
+                                                  int(procs.max()) + 1))
+            np.add.at(self._counts, (codes, procs), 1)
+        else:
+            self._counts = grow_to(self._counts, (int(codes.max()) + 1,))
+            np.add.at(self._counts, codes, 1)
+
+    def records(self, chunk):
+        calls = chunk.calls
+        if not len(calls.name):
+            return None
+        return (calls.name, calls.proc, np.stack(
+            [call_metric(calls, m) for m in self.metrics], axis=1))
+
+    def fold(self, part) -> None:
+        codes, procs, vals = part
+        nf = int(codes.max()) + 1
+        if self.per_process:
+            np_ = int(procs.max()) + 1
+            block = np.stack([accel.pair_sum(codes, procs, vals[:, i], nf,
+                                             np_, device=self.device)
+                              for i in range(len(self.metrics))])
+        else:
+            block = accel.seg_sum(codes, vals, nf, device=self.device).T
+        self._sums = add_into(self._sums, block)
+
+    remap = staticmethod(_remap_codes)
+
+    def merge_host(self, other, code_map) -> None:
+        c = other._counts
+        rows = min(c.shape[0], len(code_map))
+        if rows:
+            dst = code_map[:rows]
+            self._counts = grow_to(self._counts,
+                                   (int(dst.max()) + 1,) + c.shape[1:])
+            self._counts[(dst,) + tuple(slice(0, n)
+                                        for n in c.shape[1:])] += c[:rows]
+
+    def result(self, ctx) -> EventFrame:
+        nf = len(ctx.names)
+        names_alpha, order, _inv = accel.alpha_positions(ctx.names.names)
+        open_names, open_procs = ctx.open_calls
+        nm = len(self.metrics)
+        if self.per_process:
+            nprocs = max(ctx.num_processes, 1)
+            counts = _pad_to(self._counts, (nf, nprocs))[order]
+            sums = _pad_to(self._sums, (nm, nf, nprocs))
+            sums[:, open_names, open_procs] = 0.0
+        else:
+            counts = _pad_to(self._counts, (nf,))[order]
+            sums = _pad_to(self._sums, (nm, nf))
+            sums[:, open_names] = 0.0
+        return _flat_assemble(names_alpha, counts, sums[:, order],
+                              self.metrics, self.per_process)
+
+
+class _TimeProfileFold(FoldAgg):
+    """``time_profile`` folded a chunk at a time on the pre-pass's edges
+    (``linspace(ts_min, ts_max)``, the in-memory op's): per chunk, one
+    ``time_bin`` launch (:func:`_kernel_profile`) whose float64 ``[bins,
+    names]`` and the chunk's zero-duration term are added into the state;
+    normalized and assembled once, at the end.  Mirrors the reference's
+    ``_TimeProfileAgg`` with ``backend="numpy"``."""
+
+    needs_calls = True
+    needs_stats = True
+
+    def __init__(self, num_bins: int, metric: str, normalized: bool,
+                 device):
+        super().__init__(device)
+        self.num_bins = num_bins
+        self.metric = metric
+        self.normalized = normalized
+        self._edges: Optional[np.ndarray] = None
+        self._prof = np.zeros((num_bins, 0))
+
+    def begin(self, stats) -> None:
+        if stats.n_events == 0:
+            return
+        t0, t1 = stats.ts_min, stats.ts_max
+        if t1 <= t0:
+            t1 = t0 + 1.0
+        self._edges = np.linspace(t0, t1, self.num_bins + 1)
+
+    def records(self, chunk):
+        calls = chunk.calls
+        if not len(calls.name):
+            return None
+        return (calls.name, calls.start, calls.end,
+                call_metric(calls, self.metric))
+
+    def fold(self, part) -> None:
+        codes, starts, ends, w = part
+        inc = ends - starts
+        rate = np.where(inc > 0, w / np.maximum(inc, 1e-30), 0.0)
+        nf = int(codes.max()) + 1
+        block = _kernel_profile(starts, ends, rate, codes, self._edges, nf,
+                                self.device)
+        _zero_duration(block, starts, inc, w, codes, self._edges)
+        self._prof = add_into(self._prof, block)
+
+    remap = staticmethod(_remap_codes)
+
+    def result(self, ctx) -> EventFrame:
+        if self._edges is None:
+            return EventFrame({"bin_start": np.asarray([]),
+                               "bin_end": np.asarray([])})
+        names_alpha, order, _inv = accel.alpha_positions(ctx.names.names)
+        prof = _pad_to(self._prof, (self.num_bins, len(names_alpha)))
+        return _profile_assemble(prof[:, order], names_alpha, self._edges,
+                                 self.normalized)
+
+
+class _LoadImbalanceFold(FoldAgg):
+    """``load_imbalance`` folded a chunk at a time: one ``pair_sum``
+    launch a chunk into float64 function x rank totals.  Mirrors the
+    reference's ``_LoadImbalanceAgg`` with ``backend="numpy"``."""
+
+    needs_calls = True
+
+    def __init__(self, metric: str, num_processes: int,
+                 top_functions: Optional[int], device):
+        super().__init__(device)
+        self.metric = metric
+        self.num_processes = num_processes
+        self.top_functions = top_functions
+        self._tot = np.zeros((0, 0))
+
+    def records(self, chunk):
+        calls = chunk.calls
+        if not len(calls.name):
+            return None
+        return calls.name, calls.proc, call_metric(calls, self.metric)
+
+    def fold(self, part) -> None:
+        codes, procs, vals = part
+        self._tot = add_into(self._tot, accel.pair_sum(
+            codes, procs, vals, int(codes.max()) + 1, int(procs.max()) + 1,
+            device=self.device))
+
+    remap = staticmethod(_remap_codes)
+
+    def result(self, ctx) -> EventFrame:
+        names_alpha, order, _inv = accel.alpha_positions(ctx.names.names)
+        nprocs = ctx.num_processes
+        tot = _pad_to(self._tot, (len(names_alpha), max(nprocs, 1)))[order]
         return _imbalance_assemble(tot, names_alpha, self.metric,
                                    self.num_processes, self.top_functions,
                                    nprocs)

@@ -21,8 +21,10 @@ Content identity is what makes this safe:
 
 * **streaming / scan sources**: the (path, size, mtime_ns, inode) of every
   input file, or a pack's stored content id, plus the handle's read
-  configuration.  On by default (``Trace.open(..., streaming=True,
-  cache=False)`` or a per-call ``op(..., cache=False)`` opts out).
+  configuration and its ``fold`` mode (a fold result is within the gate
+  of a buffered one, not its bits, so one never answers the other).  On
+  by default (``Trace.open(..., streaming=True, cache=False)`` or a
+  per-call ``op(..., cache=False)`` opts out).
 * **in-memory traces**: a SHA-256 over the trace's base event columns,
   O(N) per call, so **opt-in** per call (``trace.query().flat_profile(
   cache=True)``).
@@ -365,7 +367,7 @@ def _source_token(source, cache_flag: Optional[bool]):
         if cache_flag is None and not h.cache:
             return None
         return ("stream", _paths_token(h.paths), h.format, h.chunk_rows,
-                h.executor, h.processes, _norm(h.reader_kwargs),
+                h.executor, h.processes, h.fold, _norm(h.reader_kwargs),
                 _steps_token(h._steps))
     if isinstance(source, _ScanSource):
         return ("scan", _paths_token(source.paths), source.format)
@@ -407,12 +409,12 @@ def plan_key(source, steps, spec, args: tuple, kwargs: dict,
 
 def live_plan_key(handle, steps, spec, args: tuple, kwargs: dict
                   ) -> Optional[str]:
-    """Digest naming one live plan *across growth*: the handle's paths and
-    read configuration, the plan, op and arguments (the device among
-    them), and deliberately no stat or content token, so the key survives
-    the files growing.  Whether the new prefix extends the folded one is
-    checked against fingerprints inside the entry.  None when a component
-    has no exact digest."""
+    """Digest naming one live plan *across growth*: the handle's paths,
+    read configuration and ``fold`` mode, the plan, op and arguments (the
+    device among them), and deliberately no stat or content token, so the
+    key survives the files growing.  Whether the new prefix extends the
+    folded one is checked against fingerprints inside the entry.  None
+    when a component has no exact digest."""
     import os
     if not _ENABLED:
         return None
@@ -422,7 +424,7 @@ def live_plan_key(handle, steps, spec, args: tuple, kwargs: dict
         token = ("live",
                  tuple(os.path.abspath(p) for p in handle.paths),
                  handle.format, handle.chunk_rows, handle.processes,
-                 _norm(rk), _steps_token(handle._steps),
+                 handle.fold, _norm(rk), _steps_token(handle._steps),
                  _steps_token(steps), _op_token(spec), _norm(args),
                  _norm(kwargs))
     except (_Undigestable, OSError):

@@ -21,7 +21,14 @@ chunk:
   reduces and, in ``result()``, sorts them into the canonical order and
   makes one kernel call on the handle's ``device`` — the same record
   multiset in the same order as the in-memory op, so the card gives the
-  same bits on both routes.
+  same bits on both routes.  That is the handle's default ``fold="once"``;
+  with ``fold="chunks"`` the op's **fold aggregator** (:class:`FoldAgg`)
+  reduces each chunk's records with one launch into state sized by names x
+  processes (x bins) and drops them, so memory does not grow with the
+  trace (the reference's ``backend="numpy"`` streaming).  Fold
+  aggregators that need global bin edges (``needs_stats``) get them from a
+  statistics pre-pass over the stream (:func:`_stats_pass`, or
+  :func:`repro_torch.core.executor.parallel_stats` over the pool).
 
 A handle carries a ``device`` (``"cuda"`` unless the caller asks for the
 CPU) and hands it to its ops' kernel calls.  ``processes=N`` (or
@@ -39,7 +46,9 @@ repeated op folds only the rows committed since the last call into the
 running aggregator kept in the plan cache's live store
 (:mod:`repro_torch.core.plancache`); its ``result()`` then sorts and
 reduces the whole record buffer in one kernel launch, as the cold pass
-does, so the incremental result is the cold pass's bits.
+does, so the incremental result is the cold pass's bits.  With
+``fold="chunks"`` the stored state is the fold aggregator's bounded state,
+and only the new rows' chunks are launched.
 """
 
 from __future__ import annotations
@@ -54,19 +63,31 @@ import numpy as np
 from . import registry, structure
 from .accel import resolve_device
 from .constants import (DERIVED_COLUMNS, ENTER, ET, EXC, INC, LEAVE, MATCH,
-                        NAME, PARENT, PROC, THREAD, TS)
+                        MPI_SEND, MSG_SIZE, NAME, PARENT, PROC, THREAD, TS)
 from .errors import IngestReport
 from .frame import Categorical, EventFrame, concat
 from .registry import PlanHints
 
 __all__ = ["StreamingTrace", "LiveTrace", "Watermark", "LiveResult",
-           "StreamingUnsupported", "StreamAgg",
+           "StreamingUnsupported", "StreamAgg", "FoldAgg", "FOLD_MODES",
+           "make_agg",
            "GlobalNames", "CallBlock", "Chunk", "StreamStats",
            "StreamContext", "CallStitcher", "execute_streaming",
-           "iter_chunks_fallback", "grow_to", "fold_frames", "mask_frames",
+           "iter_chunks_fallback", "grow_to", "add_into", "fold_frames",
+           "mask_frames",
            "stats_from_frames"]
 
 DEFAULT_CHUNK_ROWS = 1_000_000
+#: a streaming handle's ``fold=``: ``"once"`` buffers each op's records
+#: for one kernel launch at the end, ``"chunks"`` folds every chunk's
+#: records with one launch into bounded state
+FOLD_MODES = ("once", "chunks")
+
+
+def check_fold(fold: str) -> str:
+    if fold not in FOLD_MODES:
+        raise ValueError(f'fold must be "once" or "chunks", got {fold!r}')
+    return fold
 
 
 class StreamingUnsupported(RuntimeError):
@@ -112,6 +133,15 @@ class GlobalNames:
 
     def __len__(self) -> int:
         return len(self.names)
+
+
+def add_into(state: np.ndarray, block: np.ndarray) -> np.ndarray:
+    """``state`` grown (:func:`grow_to`) to cover ``block`` from its
+    origin, with ``block`` added there: how a fold aggregator adds one
+    chunk's kernel result into its state."""
+    state = grow_to(state, block.shape)
+    state[tuple(slice(0, n) for n in block.shape)] += block
+    return state
 
 
 def grow_to(arr: np.ndarray, shape: Tuple[int, ...], fill=0) -> np.ndarray:
@@ -170,41 +200,84 @@ class Chunk:
 
 
 class StreamStats:
-    """Whole-stream facts from one pass (:meth:`StreamingTrace.stats`)."""
+    """Whole-stream facts from one pass (:meth:`StreamingTrace.stats`):
+    event count, time span, process count, and the send count and
+    message-size range (mirrors ``repro.core.streaming.StreamStats``)."""
 
-    __slots__ = ("n_events", "ts_min", "ts_max", "proc_max")
+    __slots__ = ("n_events", "ts_min", "ts_max", "proc_max", "size_min",
+                 "size_max", "n_sends")
 
     def __init__(self):
         self.n_events = 0
         self.ts_min = np.inf
         self.ts_max = -np.inf
         self.proc_max = -1
+        self.size_min = np.inf
+        self.size_max = -np.inf
+        self.n_sends = 0
 
     @property
     def num_processes(self) -> int:
         return self.proc_max + 1
 
+    def merge(self, other: "StreamStats") -> None:
+        """Fold another partial pass in: mins, maxes and integer sums, so
+        the merge is exact in any order (the pooled pre-pass merges its
+        units' partials with it)."""
+        self.n_events += other.n_events
+        self.ts_min = min(self.ts_min, other.ts_min)
+        self.ts_max = max(self.ts_max, other.ts_max)
+        self.proc_max = max(self.proc_max, other.proc_max)
+        self.size_min = min(self.size_min, other.size_min)
+        self.size_max = max(self.size_max, other.size_max)
+        self.n_sends += other.n_sends
+
 
 class StreamAgg:
-    """Base class for streaming aggregators: the executor calls ``update``
-    once per masked chunk, then ``result`` once.
+    """Base class for streaming aggregators: the executor calls
+    ``begin(stats)``, then ``update`` once per masked chunk, then
+    ``result`` once.
 
-    The reference's aggregators can also take a statistics pre-pass
-    (``needs_stats``: a second read of the stream for global bin edges),
-    which its per-chunk histograms need.  The port's aggregators buffer the
-    records their kernel reduces and fix bin edges in ``result``, from
-    the same values the in-memory op uses, so none needs one.
+    An aggregator that sets ``needs_stats`` gets a :class:`StreamStats`
+    from a pre-pass over the masked stream in ``begin`` (the stream is
+    read twice; memory stays bounded); the others get None.
+
+    Two forms per kernel-backed op, chosen by the handle's ``fold=``:
+
+    * ``"once"`` (the default): the aggregator buffers the records its
+      kernel reduces; ``result`` sorts them into the canonical order and
+      makes the in-memory op's one launch, so every route gives the eager
+      route's bits.  ``update`` and ``merge_from`` stay on the host.
+    * ``"chunks"``: :meth:`fold_form` gives a :class:`FoldAgg`, which
+      reduces each chunk's records with one launch into fixed-size state.
+
+    The precision contract of ``fold="chunks"``: the f32 result of each
+    chunk's launch is added, in chunk order, into float64 state, so the
+    result is the same bits on relaunch at the same ``chunk_rows`` and
+    unit plan; it agrees within ``launch/cardcheck.gate`` (rtol 1e-4 plus
+    1e-6 x the largest finite magnitude) with the port's eager route and
+    with the reference's streaming ``backend="numpy"`` route on the same
+    files; counts, histogram counts and bin edges are exact.  On the CPU
+    (``device="cpu"``) the launches are the kernels' plain versions.
 
     Aggregators whose state also merges *across work units* set
     ``supports_parallel = True`` and implement :meth:`merge_from`; the
-    parallel executor fans exactly those over a pool.  ``update`` and
-    ``merge_from`` run on the host and never touch the device (workers
-    build and update aggregators); only ``result`` launches kernels.
+    parallel executor fans exactly those over a pool.
     """
 
     needs_calls = False   # completed-call records (structure across chunks)
+    needs_stats = False   # StreamStats pre-pass for global bin edges
     #: declared by subclasses whose merge_from makes fan-out safe
     supports_parallel = False
+
+    def begin(self, stats: Optional[StreamStats]) -> None:
+        """Called once before the first ``update`` with the pre-pass's
+        stats (None unless ``needs_stats``)."""
+
+    def fold_form(self) -> Optional["StreamAgg"]:
+        """The ``fold="chunks"`` form of this aggregator, or None when the
+        op has none yet (:func:`make_agg` then raises)."""
+        return None
 
     def update(self, chunk: Chunk) -> None:
         raise NotImplementedError
@@ -238,6 +311,93 @@ class StreamContext:
     @property
     def num_processes(self) -> int:
         return self.proc_max + 1
+
+
+class FoldAgg(StreamAgg):
+    """Base of the ``fold="chunks"`` aggregators: each chunk's records
+    (:meth:`records`, host arrays, or None when the chunk holds none) go
+    to one launch of the op's kernel (:meth:`fold`) on ``device``, whose
+    f32 result is added into float64 state held by global name code (and
+    process, or bin); the records are then dropped.  Exact host state
+    (call counts, per-rank time bounds) is kept by :meth:`observe`.
+
+    In a pool worker the executor sets ``deferred``: the worker stays on
+    the host and holds each chunk's records, and the parent folds them on
+    the card in :meth:`merge_from`, unit by unit as the units arrive, its
+    codes remapped first (:meth:`remap`).  ``folds`` counts the chunks
+    this state folded; :data:`FOLDED_CHUNKS` counts them process-wide."""
+
+    supports_parallel = True
+    #: set in pool workers: hold each chunk's records for the parent
+    deferred = False
+
+    def __init__(self, device):
+        self.device = device
+        self.folds = 0
+        self._held: List[tuple] = []
+
+    def observe(self, chunk: Chunk) -> None:
+        """Exact host-side state of one chunk (default: none)."""
+
+    def records(self, chunk: Chunk) -> Optional[tuple]:
+        raise NotImplementedError
+
+    def fold(self, part: tuple) -> None:
+        raise NotImplementedError
+
+    def remap(self, part: tuple, code_map: np.ndarray) -> tuple:
+        """A held part with its name codes mapped into the parent's
+        (default: the part carries none)."""
+        return part
+
+    def merge_host(self, other: "FoldAgg", code_map: np.ndarray) -> None:
+        """Merge ``other``'s :meth:`observe` state (default: none)."""
+
+    def update(self, chunk: Chunk) -> None:
+        self.observe(chunk)
+        part = self.records(chunk)
+        if part is None:
+            return
+        if self.deferred:
+            self._held.append(part)
+        else:
+            self._fold_counted(part)
+
+    def _fold_counted(self, part: tuple) -> None:
+        self.fold(part)
+        self.folds += 1
+        _count("FOLDED_CHUNKS")
+
+    def merge_from(self, other: "FoldAgg", code_map: np.ndarray) -> None:
+        self.merge_host(other, code_map)
+        held, other._held = other._held, []
+        for part in held:
+            self._fold_counted(self.remap(part, code_map))
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the state arrays: fixed by the names, processes and
+        bins seen, whatever the trace's length."""
+        return sum(v.nbytes for v in vars(self).values()
+                   if isinstance(v, np.ndarray))
+
+
+def make_agg(name: str, factory: Callable[..., StreamAgg], args: tuple,
+             kwargs: dict, fold: str = "once") -> StreamAgg:
+    """The streaming aggregator of op ``name`` for a handle's ``fold``
+    mode; an op with no ``fold="chunks"`` form raises
+    :class:`StreamingUnsupported` naming ``fold="once"``."""
+    agg = factory(*args, **kwargs)
+    if check_fold(fold) == "once":
+        return agg
+    folded = agg.fold_form()
+    if folded is None:
+        raise StreamingUnsupported(
+            f'op {name!r} has no fold="chunks" form yet (its records '
+            f'cannot be reduced chunk by chunk into bounded state); open '
+            f'the handle with fold="once", the default, which buffers them '
+            f'for one kernel launch, or materialize with .collect()')
+    return folded
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +750,9 @@ def _masked_chunks(handle: "StreamingTrace", steps: Sequence
 
 
 def stats_from_frames(frames: Iterator[EventFrame]) -> StreamStats:
-    """One StreamStats pass over ``frames``."""
+    """One StreamStats pass over already-masked ``frames``, the sends and
+    their size range included (exactly mergeable across partitions of the
+    stream: :meth:`StreamStats.merge`)."""
     st = StreamStats()
     for frame in frames:
         n = len(frame)
@@ -602,7 +764,21 @@ def stats_from_frames(frames: Iterator[EventFrame]) -> StreamStats:
         st.ts_max = max(st.ts_max, float(ts.max()))
         st.proc_max = max(st.proc_max,
                           int(np.asarray(frame[PROC], np.int64).max()))
+        if MSG_SIZE in frame:
+            sends = frame.cat(NAME).mask_eq(MPI_SEND)
+            if np.any(sends):
+                sz = np.nan_to_num(
+                    np.asarray(frame[MSG_SIZE], np.float64)[sends])
+                st.n_sends += int(sends.sum())
+                st.size_min = min(st.size_min, float(sz.min()))
+                st.size_max = max(st.size_max, float(sz.max()))
     return st
+
+
+def _stats_pass(handle: "StreamingTrace", steps: Sequence) -> StreamStats:
+    """The statistics pre-pass over ``handle``'s stream under ``steps``,
+    on the host."""
+    return stats_from_frames(_masked_chunks(handle, steps))
 
 
 def fold_frames(frames: Iterator[EventFrame], agg: StreamAgg,
@@ -626,8 +802,10 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
                       kwargs: dict, cache_flag: Optional[bool] = None
                       ) -> Any:
     """Run one registered op out of core over ``handle`` under ``steps``:
-    one pass that folds every masked chunk into the op's aggregator, then
-    its ``result()``.
+    the statistics pre-pass when the op's aggregator needs one, then one
+    pass that folds every masked chunk into the aggregator (the buffering
+    one, or with the handle's ``fold="chunks"`` the fold one: :func:`
+    make_agg`), then its ``result()``.
 
     When the handle asks for parallel execution (``processes=N`` or
     ``executor="parallel"``) the pass fans over work units through
@@ -641,7 +819,9 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
     store.  Where it cannot (a plan with no exact digest, a stored state
     folded past the handle's snapshot by another thread, or a fold the
     stored state refuses) it falls back to the full pass and counts it in
-    :data:`INCREMENTAL_FALLBACKS`."""
+    :data:`INCREMENTAL_FALLBACKS`.  An aggregator that needs the pre-pass
+    takes the full pass, as the reference's does, counted in
+    :data:`LIVE_STATS_PASSES`."""
     if spec.streaming is None:
         raise StreamingUnsupported(
             f"op {spec.name!r} has no combinable streaming form (it needs "
@@ -649,14 +829,17 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
             f".collect().{spec.name}(...) on the collected trace, or open "
             f"with streaming=False.")
     _validate_steps(steps)
-    agg: StreamAgg = spec.streaming(*args, **kwargs)
+    agg = make_agg(spec.name, spec.streaming, args, kwargs, handle.fold)
     if (getattr(handle, "is_live", False) and handle.cache
             and cache_flag is not False and not handle.wants_parallel()):
-        res = _execute_live_incremental(handle, steps, spec, args, kwargs,
-                                        agg)
-        if res is not _NO_INCREMENTAL:
-            return res
-        _count_fallback()
+        if agg.needs_stats:
+            _count("LIVE_STATS_PASSES")
+        else:
+            res = _execute_live_incremental(handle, steps, spec, args,
+                                            kwargs, agg)
+            if res is not _NO_INCREMENTAL:
+                return res
+            _count("INCREMENTAL_FALLBACKS")
     if handle.wants_parallel():
         from . import executor
         try:
@@ -667,6 +850,13 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
             warnings.warn(
                 f"parallel streaming of op {spec.name!r} degraded to "
                 f"serial: {d}", RuntimeWarning, stacklevel=3)
+    stats = None
+    if agg.needs_stats:
+        # the handle caches its own stats: reuse them when the plan adds
+        # no steps
+        stats = (handle.stats() if tuple(steps) == tuple(handle._steps)
+                 else _stats_pass(handle, steps))
+    agg.begin(stats)
     names = GlobalNames()
     stitcher = CallStitcher() if agg.needs_calls else None
     proc_max = fold_frames(_masked_chunks(handle, steps), agg, names,
@@ -683,13 +873,20 @@ def execute_streaming(handle: "StreamingTrace", steps: Sequence,
 _NO_INCREMENTAL = object()  # sentinel: fall through to the full pass
 #: live ops that asked for the incremental path and ran the full pass
 INCREMENTAL_FALLBACKS = 0
-_FALLBACK_LOCK = threading.Lock()
+#: live ops whose aggregator needs the statistics pre-pass, so ran the
+#: full pass (by design: a pre-pass's bin edges move as the trace grows)
+LIVE_STATS_PASSES = 0
+#: chunks folded by ``fold="chunks"`` aggregators (one launch of the op's
+#: kernel each, per metric for a per-process ``flat_profile``)
+FOLDED_CHUNKS = 0
+_COUNT_LOCK = threading.Lock()
 
 
-def _count_fallback() -> None:
-    global INCREMENTAL_FALLBACKS
-    with _FALLBACK_LOCK:
-        INCREMENTAL_FALLBACKS += 1
+def _count(counter: str) -> None:
+    """Add one to the module counter named ``counter`` (lane threads of
+    the trace-query service run ops concurrently)."""
+    with _COUNT_LOCK:
+        globals()[counter] += 1
 
 
 class _LiveEntry:
@@ -941,14 +1138,17 @@ class StreamingTrace:
     work units in the shared scheduler's spawn pool
     (:mod:`repro_torch.core.executor`, :mod:`repro_torch.core.scheduler`);
     ``cache=False`` opts this handle out of the plan-result cache
-    (:mod:`repro_torch.core.plancache`).
+    (:mod:`repro_torch.core.plancache`).  ``fold="chunks"`` reduces each
+    chunk with one launch into bounded state instead of buffering the
+    records for one launch at the end (``"once"``, the default;
+    :class:`StreamAgg`).
     """
 
     def __init__(self, paths, format: str = "auto",
                  chunk_rows: int = DEFAULT_CHUNK_ROWS,
                  label: Optional[str] = None, device="cuda",
                  processes: Optional[int] = None, executor: str = "auto",
-                 cache: bool = True, **reader_kwargs):
+                 cache: bool = True, fold: str = "once", **reader_kwargs):
         import os
         if isinstance(paths, (str, bytes)) or hasattr(paths, "__fspath__"):
             paths = [paths]
@@ -963,6 +1163,7 @@ class StreamingTrace:
         self.processes = processes
         self.executor = executor
         self.cache = cache
+        self.fold = check_fold(fold)
         self.reader_kwargs = reader_kwargs
         self._steps: tuple = ()
         self._stats0: Optional[StreamStats] = None
@@ -1035,7 +1236,7 @@ class StreamingTrace:
                                chunk_rows=self.chunk_rows, label=self.label,
                                device=self.device, processes=self.processes,
                                executor=self.executor, cache=self.cache,
-                               **self.reader_kwargs)
+                               fold=self.fold, **self.reader_kwargs)
         clone._steps = tuple(steps)
         clone._pool = self._pool
         clone._units_cache = self._units_cache  # same paths, same plans
@@ -1081,9 +1282,18 @@ class StreamingTrace:
     # -- cheap whole-stream facts ------------------------------------------
     def stats(self) -> StreamStats:
         """One pass over the (selection-masked) stream: event count, time
-        span, process count.  Cached."""
+        span, process count, sends and their size range.  Cached.  Fans
+        over the worker pool when this handle runs parallel (the partials
+        merge exactly), on the host."""
         if self._stats0 is None:
-            self._stats0 = stats_from_frames(self.iter_chunks())
+            if self.wants_parallel():
+                from . import executor
+                try:
+                    self._stats0 = executor.parallel_stats(self, self._steps)
+                    return self._stats0
+                except executor.ParallelDegraded:
+                    pass  # a stats pass has no mode choice to warn about
+            self._stats0 = _stats_pass(self, self._steps)
         return self._stats0
 
     @property
@@ -1096,7 +1306,8 @@ class StreamingTrace:
     def __repr__(self) -> str:  # pragma: no cover
         return (f"StreamingTrace(label={self.label!r}, "
                 f"{len(self.paths)} path(s), chunk_rows={self.chunk_rows}, "
-                f"steps={len(self._steps)}, device={self.device})")
+                f"steps={len(self._steps)}, fold={self.fold!r}, "
+                f"device={self.device})")
 
     # -- query / terminal ops ----------------------------------------------
     def query(self):
@@ -1134,7 +1345,7 @@ class LiveTrace(StreamingTrace):
                  chunk_rows: int = DEFAULT_CHUNK_ROWS,
                  label: Optional[str] = None, device="cuda",
                  processes: Optional[int] = None, executor: str = "auto",
-                 cache: bool = True, **reader_kwargs):
+                 cache: bool = True, fold: str = "once", **reader_kwargs):
         if format not in ("auto", "pack"):
             raise ValueError(
                 f"live=True requires pack shards (the append/commit "
@@ -1145,7 +1356,8 @@ class LiveTrace(StreamingTrace):
         reader_kwargs["live"] = True
         super().__init__(paths, format="pack", chunk_rows=chunk_rows,
                          label=label, device=device, processes=processes,
-                         executor=executor, cache=cache, **reader_kwargs)
+                         executor=executor, cache=cache, fold=fold,
+                         **reader_kwargs)
         self._snapshots: Dict[str, dict] = {}
         self.refresh()
 

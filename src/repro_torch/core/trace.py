@@ -115,7 +115,8 @@ class Trace:
     def open(cls, path, format: str = "auto", device="cuda",
              streaming: bool = False, chunk_rows: Optional[int] = None,
              live: bool = False, processes: Optional[int] = None,
-             executor: str = "auto", cache: bool = True, **kw):
+             executor: str = "auto", cache: bool = True,
+             fold: Optional[str] = None, **kw):
         """Open a trace of any registered format (``format="auto"`` sniffs
         the content: a CSV header, JSON-lines event keys, a Chrome
         ``traceEvents`` envelope, an OTF2-structured archive — one file or
@@ -137,7 +138,15 @@ class Trace:
         :class:`~repro_torch.core.streaming.LiveTrace` over still-growing
         append-mode pack shards: plans run over the committed prefix
         pinned at the last ``refresh()``, results carry a ``watermark``,
-        and a repeated op folds only the newly committed rows."""
+        and a repeated op folds only the newly committed rows.
+
+        ``fold=`` (streaming or live only) picks how a streamed op reduces
+        its records: ``"once"`` (the default) buffers them for one kernel
+        launch at the end, giving the eager route's bits; ``"chunks"``
+        reduces each chunk with one launch into state of fixed size, so
+        memory does not grow with the trace (results within the
+        ``cardcheck.gate`` of the eager route;
+        :class:`~repro_torch.core.streaming.StreamAgg`)."""
         from .. import readers  # noqa: F401 — populates the reader registry
         from .registry import resolve_reader
         if live:
@@ -145,13 +154,18 @@ class Trace:
             return LiveTrace(path, format=format,
                              chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
                              device=device, processes=processes,
-                             executor=executor, cache=cache, **kw)
+                             executor=executor, cache=cache,
+                             fold=fold or "once", **kw)
         if streaming:
             from .streaming import DEFAULT_CHUNK_ROWS, StreamingTrace
             return StreamingTrace(path, format=format,
                                   chunk_rows=chunk_rows or DEFAULT_CHUNK_ROWS,
                                   device=device, processes=processes,
-                                  executor=executor, cache=cache, **kw)
+                                  executor=executor, cache=cache,
+                                  fold=fold or "once", **kw)
+        if fold is not None:
+            raise ValueError("fold only applies with streaming=True or "
+                             "live=True")
         if chunk_rows is not None:
             raise ValueError("chunk_rows only applies with streaming=True")
         if executor != "auto":

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["gate", "exact", "same_bits", "digest", "set_gate",
-           "findings_gate", "flash_bwd_tol", "flash_draw", "flash_gate_share",
+           "findings_gate", "op_gate", "flash_bwd_tol", "flash_draw",
+           "flash_gate_share",
            "topk_bwd_err", "topk_bwd_bound_ms", "HBM_BYTES_PER_S",
            "flash_forward_lse", "cuda_ms", "device_ms", "short_name",
            "card_line", "ptxas", "run_trees"]
@@ -202,6 +203,54 @@ def findings_gate(got, want) -> float:
             and list(ea[~strag]) == list(eb[~strag])):
         raise AssertionError("findings: a host detector's row differs")
     return gate(a[strag], b[strag]) if strag.any() else 0.0
+
+
+def op_gate(op: str, got, want) -> float:
+    """One trace op's result ``got`` against ``want`` where the two need
+    not be the same bits (a ``fold="chunks"`` route against the eager one
+    or the reference's): float columns and arrays within :func:`gate`,
+    counts, names, bin edges, histogram counts and list cells exact, a
+    Findings frame by :func:`findings_gate`.  Frame rows are keyed by
+    ``Name`` and ``Process`` and columns by name, since sums that tie
+    within the gate may sort either way.  Returns the max abs error;
+    raises ``AssertionError`` naming the op and column."""
+    if op == "stragglers":
+        return findings_gate(got, want)
+    if isinstance(want, tuple):  # (values, edges): the two histograms
+        exact(got[1], want[1])
+        values = np.asarray(want[0])
+        if values.dtype.kind != "f":
+            return exact(got[0], values)
+        return gate(got[0], values)
+    if not hasattr(want, "columns"):
+        return gate(got, want)
+    if sorted(got.columns) != sorted(want.columns) or len(got) != len(want):
+        raise AssertionError(f"{op}: columns or rows differ")
+    keys = [c for c in ("Name", "Process") if c in want.columns]
+    if keys:
+        kg, kw = ([tuple(str(x) for x in row)
+                   for row in zip(*(f[c] for c in keys))]
+                  for f in (got, want))
+        at = {k: i for i, k in enumerate(kg)}
+        if sorted(kg) != sorted(kw):
+            raise AssertionError(f"{op}: rows differ")
+        perm = np.asarray([at[k] for k in kw], np.int64)
+    else:
+        perm = np.arange(len(want))
+    err = 0.0
+    for c in want.columns:
+        a, b = np.asarray(got[c])[perm], np.asarray(want[c])
+        if b.dtype.kind == "f":
+            try:
+                err = max(err, gate(a, b))
+            except AssertionError as e:
+                raise AssertionError(f"{op}: column {c}: {e}") from None
+        elif b.dtype == object:
+            if not all(list(x) == list(y) for x, y in zip(a, b)):
+                raise AssertionError(f"{op}: column {c} differs")
+        elif not np.array_equal(a.astype(str), b.astype(str)):
+            raise AssertionError(f"{op}: column {c} differs")
+    return err
 
 
 def flash_bwd_tol(dtype, want) -> float:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import threading
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 __all__ = ["spawn_pool_ok", "spawn_unsafe_reason", "resolve_processes",
            "map_maybe_parallel", "SharedPool"]
@@ -114,6 +114,11 @@ class SharedPool:
 
     def map(self, fn: Callable[[Any], Any], items: Sequence) -> List[Any]:
         return self.get().map(fn, list(items))
+
+    def imap(self, fn: Callable[[Any], Any], items: Sequence) -> Iterator:
+        """Results in item order, each as soon as it and those before it
+        are done (the parent can consume and free them one by one)."""
+        return self.get().imap(fn, list(items))
 
     def close(self) -> None:
         if self._pool is not None:

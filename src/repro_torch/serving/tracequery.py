@@ -149,6 +149,12 @@ def _normalize_open(spec: Any) -> dict:
     if mode == "liveset" and len(paths) != 1:
         raise ProtocolError('mode "liveset" takes exactly one path: the '
                             'shard directory')
+    if spec.get("fold", "once") != "once":
+        from ..core.streaming import StreamingUnsupported
+        raise StreamingUnsupported(
+            'the service opens its handles with fold="once" only; '
+            'fold="chunks" is a library handle\'s option '
+            '(Trace.open(..., fold="chunks"))')
     labels = spec.get("labels")
     if labels is not None and (not isinstance(labels, (list, tuple))
                                or len(labels) != len(paths)):
