@@ -1,6 +1,7 @@
 """Drive the PyTorch + CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fold   # phases 1-2, 5, 8 and the folds alone
 
 It runs in three processes on the one card.  After phases 1-2 this
 process starts ``chip_smoke.py --lm-half DIR``, the LM half's run: phase
@@ -169,8 +170,8 @@ Phases (any failure raises and exits non-zero):
              the gate of the CPU path, the modeled step's compute,
              communication and overlap shares logged; the phase's wall
              beside the card;
-11. set    — set-10M: ``TraceSet([main-10M, scale-10M])``, scale-10M
-             ``big_events(nprocs=32, events_per_proc=312_500, seed=1)``
+11. set    — set-15M: ``TraceSet([main-10M, scale-5M])``, scale-5M
+             ``big_events(nprocs=32, events_per_proc=156_250, seed=1)``
              (one application at two process counts): the five set ops
              and a mapped ``message_histogram`` on the card, each but
              ``diff_load_imbalance`` (``diff_flat_profile`` holds
@@ -187,7 +188,10 @@ Phases (any failure raises and exits non-zero):
              streaming=True)``, serially and with ``processes=`` over the
              pool (every member on the scheduler's one pool, no unit on
              the card): ``regression_report``, ``diff_time_profile`` and
-             ``scaling_analysis`` give the eager set's bits;
+             ``scaling_analysis`` give the eager set's bits; with
+             ``fold="chunks"`` members ``regression_report`` (``seg_sum``
+             once a member's chunk) and ``scaling_analysis`` (no launch)
+             within the set gate of the eager set's;
 13. diagnose — the five pathologies on 64 ranks x 1,170 iterations
              (1,048,320 events): each matching detector names the ground
              truth at top 1 on the card, the clean baseline gives no
@@ -209,8 +213,8 @@ Phases (any failure raises and exits non-zero):
              ``comm_over_time``, the eager selection's bits;
              ``multirun_analysis`` over ``tortuga(nprocs=n, iters=6)`` for
              n = 16, 32, 64, 128 (paper Fig. 12): ``seg_sum`` 4, private
-             path, within the gate of the CPU route; over set-10M's
-             members (main-10M and scale-10M): no launch (phase 11 left
+             path, within the gate of the CPU route; over set-15M's
+             members (main-10M and scale-5M): no launch (phase 11 left
              both profiles in the comparison's cache), within the gate of
              the CPU route; the
              paper's claims on the app generators at their defaults
@@ -224,6 +228,24 @@ Phases (any failure raises and exits non-zero):
              jsonl reader's pass is the cost), the eager digest, and over
              pack-10M streamed, the main-10M digest, no launch; each of
              phases 11-14 logs its wall beside
+             the card;
+14b. fold hosts — pack-10M's 64 shards with ``fold="chunks"`` for
+             ``idle_time``, ``comm_by_process``, ``late_sender``,
+             ``serialization``, ``imbalance_root_cause``,
+             ``efficiency_metrics``, ``pop_efficiency`` and ``diagnose``:
+             each main-10M's eager result (phase 13's ``diagnose`` and a
+             detector's rows of it, phase 14's two calls, one
+             ``efficiency_metrics`` call): the host folds its bits (the
+             detectors' findings exact) with no launch and no chunk
+             folded, ``diagnose`` within ``findings_gate`` with
+             ``seg_sum`` once a chunk (64) and its same bits on a second
+             call; ``efficiency_metrics``' and ``diagnose``'s traced host
+             peak on the fold and buffered routes over 8 shards and 64
+             (``efficiency_metrics``: the fold's at 64 at least 2x below
+             the buffered one's and at most 1.5x its own at 8;
+             ``diagnose``: below the buffered one's, its ``late_sender``
+             instants growing with the messages); then the eight over the
+             pool, each within the gate of the serial fold, no unit on
              the card;
 15. live   — with the plan cache on (phases 3-14 run with it off, so no
              stored result answers their checks), a ``TraceServer`` on
@@ -266,6 +288,10 @@ Phases (any failure raises and exits non-zero):
              (``/setquery``, ``regression_report``) and ``/diagnose`` over
              the 64: the library's digests, a miss launching as the
              library call, a repeat a cache hit that launches nothing;
+             ``/diagnose`` and ``/query`` of ``idle_time`` on a ``"fold":
+             "chunks"`` spec: phase 14b's fold results' digests, the
+             folded ``diagnose`` miss ``seg_sum`` once a chunk, ``idle_time``
+             none, each repeat a hit;
              phase 14's three streamed ops, a miss the library's digest and
              a hit, neither launching; the server then drains, the live
              store is cleared and the scheduler's threads stop;
@@ -1791,18 +1817,65 @@ def _damage_check(pack, good, d) -> None:
         f" of {len(whole)}, every clean group byte for byte")
 
 
-#: the kernel each op's fold launches once a chunk
+#: the kernel each op's fold launches once a chunk (``diagnose`` through
+#: ``stragglers``' fold); the host folds launch none
 FOLD_KERNEL = {"flat_profile": "seg_sum", "time_profile": "time_bin",
                "load_imbalance": "pair_sum", "comm_matrix": "pair_sum",
-               "message_histogram": "hist_bin", "stragglers": "seg_sum"}
+               "message_histogram": "hist_bin", "stragglers": "seg_sum",
+               "diagnose": "seg_sum", "regression_report": "seg_sum"}
 #: the fold phase's memory check: the first 8 shards opened alone, then
 #: all 64, under ``tracemalloc``; the op it runs
 FOLD_FEW_SHARDS = 8
 FOLD_MEMORY_OP = OPS[0]
+#: the host ops, the five other detectors and ``diagnose`` with
+#: ``fold="chunks"`` (phase 14b), each with its default arguments, as
+#: ``diagnose`` runs the detectors
+HOST_FOLD_OPS = [("idle_time", {}), ("comm_by_process", {}),
+                 ("late_sender", {}), ("serialization", {}),
+                 ("imbalance_root_cause", {}), ("efficiency_metrics", {}),
+                 ("pop_efficiency", {}), ("diagnose", {})]
+#: the two of them whose traced host peak phase 14b measures
+HOST_FOLD_MEMORY_OPS = [HOST_FOLD_OPS[5], HOST_FOLD_OPS[7]]
+#: main-10M's eager results that phase 14b holds the folds against:
+#: ``diagnose`` (phase 13), ``idle_time`` and ``comm_by_process``
+#: (phase 14); and pack-10M's fold results (phase 14b) that phase 16's
+#: service must give
+MAIN_RESULTS = {}
+FOLD_RESULTS = {}
 
 
-def _fold_kernel(op, kw) -> str:
-    return "pair_sum" if kw.get("per_process") else FOLD_KERNEL[op]
+def _fold_kernel(op, kw):
+    """The kernel ``op``'s fold launches once a chunk, or None."""
+    return "pair_sum" if kw.get("per_process") else FOLD_KERNEL.get(op)
+
+
+def _counted_fold(run, label, op, kw, chunks) -> tuple:
+    """``run()`` with the trace kernels' counts and
+    ``streaming.FOLDED_CHUNKS`` reset just before: (result, wall s,
+    launches).  A kernel-backed fold launches its kernel once a folded
+    chunk, on its path, and folds every one of ``chunks``; a host fold
+    launches nothing and folds none."""
+    from repro_torch import kernels
+    from repro_torch.core import streaming
+    reset_counts()
+    streaming.FOLDED_CHUNKS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect = {mod.__name__.rsplit(".", 1)[1]: 0
+              for mod in kernels.TRACE_KERNELS}
+    kernel = _fold_kernel(op, kw)
+    if kernel is not None:
+        expect[kernel] = streaming.FOLDED_CHUNKS
+    got = expect_counts(f"fold {label} {op}", expect)
+    want = chunks if kernel is not None else 0
+    if streaming.FOLDED_CHUNKS != want:
+        raise AssertionError(f"fold {label} {op}: "
+                             f"{streaming.FOLDED_CHUNKS} chunks folded, "
+                             f"{want} expected")
+    return res, wall, got
 
 
 def _traced_peak(run) -> tuple:
@@ -1823,6 +1896,15 @@ def _traced_peak(run) -> tuple:
         tracemalloc.stop()
 
 
+def _pack_chunks(shards) -> int:
+    """Chunks of ``streaming.DEFAULT_CHUNK_ROWS`` rows in the pack
+    shards: one a shard at pack-10M."""
+    from repro_torch.core import streaming
+    from repro_torch.readers import pack
+    return sum(-(-pack.read_footer(p)["rows"] // streaming.DEFAULT_CHUNK_ROWS)
+               for p in shards)
+
+
 def phase_fold(shards, eager, pool, workers) -> dict:
     """pack-10M's 64 shards streamed with ``fold="chunks"``: the seven op
     calls each within the gate of the eager route (phase 8's results),
@@ -1834,34 +1916,16 @@ def phase_fold(shards, eager, pool, workers) -> dict:
     card.  Returns the routes' launches."""
     import warnings
 
-    from repro_torch import Trace, kernels
-    from repro_torch.core import streaming
+    from repro_torch import Trace
     from repro_torch.launch.cardcheck import digest, op_gate
-    from repro_torch.readers import pack
-    chunk_rows = streaming.DEFAULT_CHUNK_ROWS
-    chunks = sum(-(-pack.read_footer(p)["rows"] // chunk_rows)
-                 for p in shards)
-    names = [mod.__name__.rsplit(".", 1)[1] for mod in kernels.TRACE_KERNELS]
+    chunks = _pack_chunks(shards)
     buffered = ROUTE_WALLS["pack", "streamed"]
 
     def counted(run, label, op, kw):
         """``run()`` with the counts reset before: (result, wall s); its
         launches are one of the op's kernel a folded chunk, on its path,
         and every chunk folded."""
-        reset_counts()
-        streaming.FOLDED_CHUNKS = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        expect = dict.fromkeys(names, 0)
-        expect[_fold_kernel(op, kw)] = streaming.FOLDED_CHUNKS
-        got = expect_counts(f"fold {label} {op}", expect)
-        if streaming.FOLDED_CHUNKS != chunks:
-            raise AssertionError(f"fold {label} {op}: "
-                                 f"{streaming.FOLDED_CHUNKS} chunks folded, "
-                                 f"{chunks} held records")
+        res, wall, got = _counted_fold(run, label, op, kw, chunks)
         totals[label] = {k: totals[label].get(k, 0) + v
                          for k, v in got.items()}
         return res, wall
@@ -1928,6 +1992,139 @@ def phase_fold(shards, eager, pool, workers) -> dict:
                                      f"{pst.units_cuda}")
     return {"pack fold": totals["serial"],
             f"pack fold x{workers}": totals["pooled"]}
+
+
+def _detector_rows(findings, name: str):
+    """The rows of a ``diagnose`` Findings frame that detector ``name``
+    gave (what the detector alone returns with its default arguments)."""
+    return findings.take(np.nonzero(np.asarray(findings["detector"])
+                                    == name)[0])
+
+
+def _main_result(trace, op) -> tuple:
+    """(main-10M's eager result of ``op`` with its default arguments on
+    the card, where it came from): phase 13's ``diagnose`` (a detector's
+    own rows of it) or phase 14's call where the run made one, else one
+    call now."""
+    from repro_torch.core.detectors import list_detectors
+    if op in list_detectors():
+        res, came = _main_result(trace, "diagnose")
+        return _detector_rows(res, op), f"diagnose's rows, {came}"
+    if op in MAIN_RESULTS:
+        return MAIN_RESULTS[op], "reused"
+    t0 = time.perf_counter()
+    MAIN_RESULTS[op] = trace.run(op)
+    return MAIN_RESULTS[op], f"{time.perf_counter() - t0:.3f} s"
+
+
+def phase_fold_hosts(trace, shards, pool, workers) -> dict:
+    """pack-10M's 64 shards streamed with ``fold="chunks"`` for the host
+    ops, the five other detectors and ``diagnose``
+    (:data:`HOST_FOLD_OPS`): each the bits of main-10M's eager result (a
+    Findings frame by ``findings_gate``: the host detectors' rows exact,
+    ``stragglers``' severities within the gate), no launch, no chunk
+    folded, but ``diagnose``'s ``seg_sum`` once a chunk (and its same bits
+    on a second call); ``efficiency_metrics``' and ``diagnose``'s traced
+    host peaks on the fold and buffered routes over 8 shards and 64; then
+    the eight over the pool, each within the gate of the serial fold, no
+    unit on the card.  Returns the routes' launches."""
+    import warnings
+
+    from repro_torch import Trace
+    from repro_torch.launch.cardcheck import digest, op_gate
+    chunks = _pack_chunks(shards)
+    totals = {"serial": {}, "pooled": {}}
+
+    def counted(run, label, op, kw):
+        res, wall, got = _counted_fold(run, label, op, kw, chunks)
+        totals[label] = {k: totals[label].get(k, 0) + v
+                         for k, v in got.items()}
+        return res, wall
+
+    st = Trace.open(shards, streaming=True, device="cuda", fold="chunks")
+    peaks = {}
+    for op, kw in HOST_FOLD_OPS:
+        want, came = _main_result(trace, op)
+        res, wall = counted(lambda: st.run(op, **kw), "serial", op, kw)
+        err = op_gate(op, res, want)
+        kernel = _fold_kernel(op, kw)
+        if "detector" in res.columns and kernel is None:
+            # findings_gate held every field of a host detector's rows
+            same, check = True, "eager findings equal"
+        elif kernel is None:
+            # integer-ns sums on the host: the eager bits
+            same = digest(res) == digest(want)
+            check = f"eager bits {'equal' if same else 'DIFFER'}"
+        else:
+            # the second call is the memory check's fold at all shards
+            again, again_s, peaks[op, len(shards), "chunks"] = \
+                _traced_peak(lambda: st.run(op, **kw))
+            same = digest(again) == digest(res)
+            check = (f"within the gate of eager, max_abs_err {err:.6g}; "
+                     f"again {again_s:.3f} s under tracing, bits "
+                     f"{'equal' if same else 'DIFFER'}")
+        log(f"[fold] {op:20s} wall {wall:.3f} s | "
+            f"{f'{kernel} x {chunks}' if kernel else 'no launch'} | "
+            f"{check} | eager {came} | {len(res)} rows | {SMI[0]}")
+        if not same:
+            raise AssertionError(f"fold {op}: not the eager bits, or "
+                                 f"other bits on relaunch")
+        FOLD_RESULTS[op] = res
+
+    for op, kw in HOST_FOLD_MEMORY_OPS:
+        for n in (FOLD_FEW_SHARDS, len(shards)):
+            for fold in ("chunks", "once"):
+                if (op, n, fold) in peaks:
+                    how = "the serial fold's second call"
+                else:
+                    h = Trace.open(shards[:n], streaming=True,
+                                   device="cuda", fold=fold)
+                    _res, wall, peaks[op, n, fold] = _traced_peak(
+                        lambda: h.run(op, **kw))
+                    how = f"wall {wall:.3f} s under tracing"
+                log(f"[fold] memory {op} over {n} shards, fold={fold!r}: "
+                    f"traced host peak "
+                    f"{peaks[op, n, fold] / 2**20:.1f} MiB (tracemalloc: "
+                    f"NumPy's allocations; mapped pack pages not counted), "
+                    f"{how}")
+        many, few = len(shards), FOLD_FEW_SHARDS
+        ratio = peaks[op, many, "once"] / peaks[op, many, "chunks"]
+        growth = peaks[op, many, "chunks"] / peaks[op, few, "chunks"]
+        log(f"[fold] memory {op}: at {many} shards the buffered peak is "
+            f"{ratio:.2f}x the fold's; the fold's peak at {many} shards is "
+            f"{growth:.2f}x its peak at {few}")
+        if op == "diagnose":
+            # late_sender's message instants grow with the trace, as the
+            # reference's do: the fold need only sit below the buffered
+            # route
+            if ratio <= 1:
+                raise AssertionError(f"fold memory {op}: buffered/fold "
+                                     f"{ratio:.2f} (needs > 1)")
+        elif ratio < 2 or growth > 1.5:
+            raise AssertionError(f"fold memory {op}: buffered/fold "
+                                 f"{ratio:.2f} (needs >= 2), fold "
+                                 f"{many}/{few} shards {growth:.2f} "
+                                 f"(needs <= 1.5)")
+
+    pst = Trace.open(shards, streaming=True, device="cuda", fold="chunks",
+                     processes=workers)
+    pst._pool = pool
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="parallel streaming",
+                                category=RuntimeWarning)
+        for op, kw in HOST_FOLD_OPS:
+            res, wall = counted(lambda: pst.run(op, **kw), "pooled", op, kw)
+            err = op_gate(op, res, FOLD_RESULTS[op])
+            log(f"[fold] pooled x{workers} {op:20s} wall {wall:.3f} s | "
+                f"within the gate of the serial fold, max_abs_err "
+                f"{err:.6g} | units' torch.cuda.is_initialized() "
+                f"{sorted(set(pst.units_cuda))} over "
+                f"{len(pst.units_cuda)} units | {SMI[0]}")
+            if len(pst.units_cuda) < 2 or any(pst.units_cuda):
+                raise AssertionError(f"fold pooled {op}: units "
+                                     f"{pst.units_cuda}")
+    return {"pack fold hosts": totals["serial"],
+            f"pack fold hosts x{workers}": totals["pooled"]}
 
 
 def phase_parallel(wants, pool, workers, paths, d) -> dict:
@@ -2258,9 +2455,10 @@ def phase_formats(src, wants, pool, d) -> dict:
 # ---------------------------------------------------------------------------
 
 #: the set phase's second member: the same application at half the ranks,
-#: about 10M events over 32 ranks (the paper's Fig. 12 use: one
-#: application at two process counts)
-SCALE = dict(nprocs=32, events_per_proc=312_500, calls_per_iter=500, seed=1)
+#: about 5M events over 32 ranks (the paper's Fig. 12 use: one
+#: application at two process counts; 10M until the run passed 1,000 s
+#: with the folds of phase 14b)
+SCALE = dict(nprocs=32, events_per_proc=156_250, calls_per_iter=500, seed=1)
 SET_LABELS = ["main-64", "scale-32"]
 #: the five set ops, and a trace op mapped over the members
 SET_OPS = [("diff_flat_profile", {}), ("regression_report", {}),
@@ -2279,6 +2477,11 @@ PLAN_LAUNCHES = {"seg_sum": 2, "pair_sum": 0, "time_bin": 0, "hist_bin": 0}
 #: the set-stream phase's ops, on stream-0.5M's shards and its first half
 STREAM_SET_OPS = [("regression_report", {}), ("diff_time_profile", {}),
                   ("scaling_analysis", {})]
+#: the set-stream phase's ops on ``fold="chunks"`` members:
+#: ``regression_report`` (each member's ``flat_profile`` fold) and
+#: ``scaling_analysis`` (its whole-stream pass on the host, and the
+#: members' profiles, cached by then)
+FOLD_SET_OPS = [STREAM_SET_OPS[0], STREAM_SET_OPS[2]]
 #: the closed loop: the five pathologies on 64 ranks x 1,170 iterations
 #: (1,048,320 events), each at the reference tests' middle magnitude
 PATHO = dict(nprocs=64, iters=1_170, seed=0)
@@ -2349,7 +2552,7 @@ def _columns_are_members(op, res, own):
 
 
 def phase_set(trace, kept: dict) -> dict:
-    """set-10M: main-10M and scale-10M as one ``TraceSet`` on the card.
+    """set-15M: main-10M and scale-5M as one ``TraceSet`` on the card.
     The five set ops and a mapped ``message_histogram``: within the gate
     of the CPU route, each member's columns the member's own op on the
     card bit for bit, :data:`SET_LAUNCHES`; a ``SetQuery`` plan chaining
@@ -2365,7 +2568,7 @@ def phase_set(trace, kept: dict) -> dict:
     t0 = time.perf_counter()
     scale._ensure_structure()
     struct_s = time.perf_counter() - t0
-    log(f"[set] scale-10M: {len(scale)} events over "
+    log(f"[set] scale-5M: {len(scale)} events over "
         f"{scale.num_processes} ranks, generated in {gen_s:.2f} s, "
         f"structure {struct_s:.2f} s (host) | {SMI[0]}")
     ts = TraceSet([trace, scale], labels=SET_LABELS)
@@ -2441,11 +2644,15 @@ def phase_set_stream(paths, pool, workers) -> dict:
     """set-stream: ``TraceSet.open([stream-0.5M's shards, their first
     half], streaming=True)`` serially and with ``processes=`` over the
     shared pool: each op the eager set's bits; one pool serves the set and
-    no worker initializes CUDA.  Returns the launches."""
+    no worker initializes CUDA; then the set of ``fold="chunks"`` members:
+    ``regression_report`` (one ``seg_sum`` a member's chunk) and
+    ``scaling_analysis`` (no launch: the profiles are cached), each within
+    the set gate of the eager set's, its process counts, durations,
+    speedups and totals exact.  Returns the launches."""
     import warnings
 
     from repro_torch import TraceSet
-    from repro_torch.launch.cardcheck import digest
+    from repro_torch.launch.cardcheck import digest, set_gate
     members = [paths, paths[:len(paths) // 2]]
     labels = [f"stream-{len(m)}" for m in members]
     t0 = time.perf_counter()
@@ -2453,8 +2660,9 @@ def phase_set_stream(paths, pool, workers) -> dict:
     for t in eager:
         t._ensure_structure()
     open_s = time.perf_counter() - t0
-    wants = [digest(r) for r, _w in _route(
+    eager_res = [r for r, _w in _route(
         STREAM_SET_OPS, lambda op, kw: eager.run(op, **kw))]
+    wants = [digest(r) for r in eager_res]
     log(f"[set-stream] eager set of {[len(t) for t in eager]} events "
         f"opened in {open_s:.2f} s | {SMI[0]}")
     del eager
@@ -2488,6 +2696,21 @@ def phase_set_stream(paths, pool, workers) -> dict:
             if not same:
                 raise AssertionError(f"set-stream {route} {op}: not the "
                                      f"eager bits")
+    fst = TraceSet.open(members, streaming=True,
+                        chunk_rows=STREAM_CHUNK_ROWS, labels=labels,
+                        device="cuda", fold="chunks")
+    # each shard's 7,813 events are one chunk
+    chunks = sum(len(m) for m in members)
+    for op, kw in FOLD_SET_OPS:
+        want = eager_res[STREAM_SET_OPS.index((op, kw))]
+        res, wall, launches[f"set stream fold {op}"] = _counted_fold(
+            lambda: fst.run(op, **kw), "set-stream", op, kw, chunks)
+        err = set_gate(op, res, want)
+        kernel = _fold_kernel(op, kw)
+        log(f"[set-stream] fold         {op:19s} {wall:.3f} s | within the "
+            f"set gate of the eager set's, max_abs_err {err:.6g} | "
+            f"{f'{kernel} x {chunks}' if kernel else 'no launch'} | "
+            f"{SMI[0]}")
     return launches
 
 
@@ -2535,6 +2758,7 @@ def phase_diagnose(trace, paths, pool, workers, d) -> dict:
     card = trace.diagnose()
     card_s = time.perf_counter() - t0
     launches["diagnose"] = expect_counts("diagnose", DIAG_LAUNCHES)
+    MAIN_RESULTS["diagnose"] = card
     t0 = time.perf_counter()
     err = findings_gate(card, trace.diagnose(device="cpu"))
     log(f"[diagnose] main-10M: {len(card)} findings "
@@ -2633,6 +2857,8 @@ def _analysis_in_memory(trace) -> tuple:
     cpu._structured, cpu._msg_match = trace._structured, trace._msg_match
     digests = {}
     for (op, kw), (res, wall) in zip(ANALYSIS_CALLS, card):
+        if (op, kw) in HOST_FOLD_OPS:
+            MAIN_RESULTS[op] = res
         t0 = time.perf_counter()
         want = cpu.run(op, **kw)
         cpu_s = time.perf_counter() - t0
@@ -2794,8 +3020,8 @@ def phase_analysis(trace, members, stream_paths, pool, workers,
                    d) -> tuple:
     """The rest of the paper's analysis API: main-10M's twelve host calls
     and a lazy plan, ``multirun_analysis`` (the phase's kernel, ``seg_sum``)
-    over a scaling study and over set-10M's ``members`` (main-10M and
-    scale-10M under their labels, as phase 11's set holds them), the
+    over a scaling study and over set-15M's ``members`` (main-10M and
+    scale-5M under their labels, as phase 11's set holds them), the
     paper's claims on the app generators, and the three streamed ops on
     the stream and pack routes.  Returns (the launches, the streamed ops'
     main-10M digests for the live and served phases)."""
@@ -2806,7 +3032,7 @@ def phase_analysis(trace, members, stream_paths, pool, workers,
         study, "tortuga study", STUDY_LAUNCHES,
         f"one seg_sum a run: {len(STUDY_RANKS)} profiles not cached yet")
     launches["analysis multirun 10M"] = _multirun(
-        members, "set-10M", NO_LAUNCHES,
+        members, "set-15M", NO_LAUNCHES,
         "no launch: phase 11's set ops left both members' (time.exc, "
         "device) profiles in the comparison's cache")
     _paper_claims()
@@ -3314,15 +3540,19 @@ def phase_served(client, pack_dir, main_digests,
 
 def _served_set_and_diagnose(client, shards) -> dict:
     """``/setquery`` (``open_set`` over all 64 shards and the first 32,
-    streamed) and ``/diagnose`` over pack-10M: the library's digests, a
-    miss launching as the library call does, a repeat a cache hit that
-    launches nothing.  Returns the launches."""
+    streamed) and ``/diagnose`` over pack-10M, then ``/diagnose`` and
+    ``/query`` of ``idle_time`` on a ``"fold": "chunks"`` spec: the
+    library's digests (phase 14b's fold results for the last two), a miss
+    launching as the library call does (the folded ``diagnose`` one
+    ``seg_sum`` a chunk), a repeat a cache hit that launches nothing.
+    Returns the launches."""
     from repro_torch import Trace, TraceSet
     from repro_torch.serving import protocol
     members = [shards, shards[:len(shards) // 2]]
     labels = [f"pack-{len(m)}" for m in members]
     rset = client.open_set(members, streaming=True, labels=labels)
     remote = client.open(shards, streaming=True)
+    folded = client.open(shards, streaming=True, fold="chunks")
     cases = [
         ("set", "/setquery regression_report",
          lambda: rset.query().regression_report(),
@@ -3333,6 +3563,13 @@ def _served_set_and_diagnose(client, shards) -> dict:
         ("diagnose", "/diagnose", remote.diagnose,
          lambda: Trace.open(shards, streaming=True, cache=False,
                             device="cuda").diagnose(), DIAG_LAUNCHES),
+        # fold="chunks": phase 14b's library fold results
+        ("fold diagnose", "/diagnose fold=chunks", folded.diagnose,
+         lambda: FOLD_RESULTS["diagnose"],
+         dict(NO_LAUNCHES, seg_sum=_pack_chunks(shards))),
+        ("fold idle_time", "/query idle_time fold=chunks",
+         lambda: folded.query().idle_time(),
+         lambda: FOLD_RESULTS["idle_time"], NO_LAUNCHES),
     ]
     launches = {}
     for name, label, served, library, expect in cases:
@@ -5628,6 +5865,8 @@ def main() -> int:
     # result would answer them with no launch.  The cache is on only for
     # the live and served phases, which check it
     plancache.configure(enabled=False)
+    if sys.argv[1:] == ["--fold"]:
+        return fold_only()
     t_start = time.perf_counter()
     device = phase_device()
     phase_build()
@@ -5689,6 +5928,40 @@ def main() -> int:
     return 0
 
 
+def fold_only() -> int:
+    """``python3 chip_smoke.py --fold``: phases 1-2, main-10M (phase 5),
+    pack-10M (phase 8) and the fold phases over its shards (8b, 14b; their
+    eager results computed here), each phase's wall logged; it prints no
+    contract line."""
+    import tempfile
+    t_start = time.perf_counter()
+    phase_device()
+    phase_build()
+
+    def timed(label, run):
+        t0 = time.perf_counter()
+        out = run()
+        log(f"[{label}] phase wall {time.perf_counter() - t0:.1f} s | "
+            f"{SMI[0]}")
+        return out
+
+    trace, launches, _calls, main_digests = timed("main", phase_main)
+    with tempfile.TemporaryDirectory() as d:
+        pool, workers, _start_s = start_pool()
+        try:
+            kept = {}
+            timed("pack", lambda: phase_pack(main_digests, launches, pool,
+                                             workers, d, kept))
+            timed("fold", lambda: phase_fold(kept["shards"], kept["eager"],
+                                             pool, workers))
+            timed("fold hosts", lambda: phase_fold_hosts(
+                trace, kept["shards"], pool, workers))
+        finally:
+            pool.close()
+    log(f"[done] --fold {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def trace_half(check):
     """Phases 3-16 on the trace path, ``check()`` between them, each
     phase's wall logged; returns the main path's launches and kernel calls
@@ -5716,8 +5989,9 @@ def trace_half(check):
             kept = {}
             routes.update(timed("pack", lambda: phase_pack(
                 main_digests, launches, pool, workers, d, kept)))
+            shards = kept.pop("shards")
             routes.update(timed("fold", lambda: phase_fold(
-                kept.pop("shards"), kept.pop("eager"), pool, workers)))
+                shards, kept.pop("eager"), pool, workers)))
             from repro_torch.tracegen import big_trace
             stream_paths = big_trace(os.path.join(d, "stream"), **STREAM)
             routes.update(timed("parallel", lambda: phase_parallel(
@@ -5739,7 +6013,9 @@ def trace_half(check):
                         stream_paths, pool, workers)),
                     ("diagnose", lambda: phase_diagnose(
                         trace, stream_paths, pool, workers, d)),
-                    ("analysis", analysis_phase)):
+                    ("analysis", analysis_phase),
+                    ("fold hosts", lambda: phase_fold_hosts(
+                        trace, shards, pool, workers))):
                 routes.update(timed(label, phase))
         finally:
             pool.close()

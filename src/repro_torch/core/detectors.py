@@ -42,8 +42,14 @@ their span from a statistics pre-pass; the port's aggregators track the
 span of the masked chunks themselves and buffer the call records, fixing
 window edges in ``result`` — the span the pre-pass would read, with no
 second read of the stream, so the live incremental fold stays usable.
-Each takes ``device=`` like every op; a host detector only checks it
-(the card asked for without one raises) and the plan cache keys on it.
+With a handle's ``fold="chunks"`` every detector, ``efficiency_metrics``
+and ``diagnose`` keep bounded state instead: the POP pair sums each
+chunk's calls into per-(window, rank) totals on edges from the
+statistics pre-pass, ``stragglers`` launches ``seg_sum`` once a chunk,
+and ``late_sender``, ``serialization`` and ``imbalance_root_cause`` keep
+the state they already keep, which is the reference's.  Each takes
+``device=`` like every op; a host detector only checks it (the card
+asked for without one raises) and the plan cache keys on it.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from .constants import (DEFAULT_COMM_PREFIXES, DEFAULT_IDLE_NAMES, ENTER,
 from .frame import EventFrame
 from .registry import get_op, register_op, register_streaming
 from .streaming import (FoldAgg, RecordBuffer, StreamAgg,
-                        StreamingUnsupported, add_into, grow_to)
+                        StreamingUnsupported, add_into, grow_to, make_agg)
 
 __all__ = ["DetectorSpec", "register_detector", "get_detector",
            "list_detectors", "Findings", "FINDINGS_COLUMNS", "is_comm_name",
@@ -455,6 +461,13 @@ class _LateSenderAgg(_SpanAgg):
                               self._t1 - self._t0, ctx.num_processes,
                               self.threshold, self.late_recv_margin)
 
+    def fold_form(self):
+        """Its own ``fold="chunks"`` form: the compact send / recv instants
+        it keeps are the reference's state, O(#messages) in both packages,
+        since the late-receiver half needs the median lag over every
+        matched pair."""
+        return self
+
 
 # ---------------------------------------------------------------------------
 # detector 2: straggler ranks
@@ -801,6 +814,11 @@ class _SerializationAgg(StreamAgg):
         return _serialization_findings(busy, nev, t0, t1, self.threshold,
                                        self.min_threads)
 
+    def fold_form(self):
+        """Its own ``fold="chunks"`` form: per-(process, thread) int64 sums
+        and per-rank bounds, the reference's state, fixed in size."""
+        return self
+
 
 # ---------------------------------------------------------------------------
 # detector 4: load-imbalance root cause
@@ -924,6 +942,11 @@ class _ImbalanceRootCauseAgg(_SpanAgg):
         tot = _pad_to(self._tot, (nf, nprocs))
         return _imbalance_findings(ctx.names.names, tot, nprocs, self._t0,
                                    self._t1, self.threshold, self.top_n)
+
+    def fold_form(self):
+        """Its own ``fold="chunks"`` form: per-(name, process) float64
+        sums, the reference's state, fixed in size."""
+        return self
 
 
 # ---------------------------------------------------------------------------
@@ -1120,6 +1143,9 @@ class _EfficiencyMetricsAgg(_SpanAgg):
     def result(self, ctx) -> EventFrame:
         return self._metrics(ctx)
 
+    def fold_form(self):
+        return _EfficiencyMetricsFold(self.num_windows, self.device)
+
 
 @register_streaming("pop_efficiency")
 class _PopEfficiencyAgg(_EfficiencyMetricsAgg):
@@ -1130,6 +1156,77 @@ class _PopEfficiencyAgg(_EfficiencyMetricsAgg):
                  device="cuda"):
         super().__init__(num_windows=num_windows, device=device)
         self.threshold = float(threshold)
+
+    def result(self, ctx) -> EventFrame:
+        return _pop_findings(self._metrics(ctx), self.threshold)
+
+    def fold_form(self):
+        return _PopEfficiencyFold(self.threshold, self.num_windows,
+                                  self.device)
+
+
+class _EfficiencyMetricsFold(StreamAgg):
+    """:func:`efficiency_metrics` folded a chunk at a time on the host:
+    window edges from the statistics pre-pass's span (the masked events'
+    int64 ns, the span :class:`_SpanAgg` tracks), then each chunk's
+    completed calls windowed by Enter timestamp and summed into float64
+    ``[num_windows, processes]`` useful and communication ns, work units
+    merged by a padded add.  Exact on integer-ns traces.  Mirrors the
+    reference's streaming ``_EfficiencyMetricsAgg``."""
+
+    needs_calls = True
+    needs_stats = True
+    supports_parallel = True
+
+    def __init__(self, num_windows: int, device):
+        self.num_windows = int(num_windows)
+        self.device = device
+        self._edges: Optional[np.ndarray] = None
+        self._useful = np.zeros((max(self.num_windows, 1), 0))
+        self._comm = np.zeros((max(self.num_windows, 1), 0))
+        self._classes = _NameClassCache()
+
+    def begin(self, stats) -> None:
+        if stats.n_events and self.num_windows > 0:
+            self._edges = _window_edges(int(stats.ts_min),
+                                        int(stats.ts_max), self.num_windows)
+
+    def update(self, chunk) -> None:
+        calls = chunk.calls
+        if self._edges is None or len(calls.proc) == 0:
+            return
+        useful, comm = _accumulate_windows(
+            self._edges, np.asarray(calls.start, np.int64), calls.proc,
+            np.nan_to_num(calls.exc),
+            self._classes.mask(chunk.names)[calls.name],
+            int(calls.proc.max()) + 1)
+        self._useful = add_into(self._useful, useful)
+        self._comm = add_into(self._comm, comm)
+
+    def merge_from(self, other, code_map) -> None:
+        self._useful = add_into(self._useful, other._useful)
+        self._comm = add_into(self._comm, other._comm)
+
+    def _metrics(self, ctx) -> EventFrame:
+        nprocs = ctx.num_processes
+        if self._edges is None or nprocs <= 0:
+            return _empty_efficiency()
+        from .ops_summary import _pad_to
+        shape = (self.num_windows, nprocs)
+        return _efficiency_frame(self._edges, _pad_to(self._useful, shape),
+                                 _pad_to(self._comm, shape), nprocs)
+
+    def result(self, ctx) -> EventFrame:
+        return self._metrics(ctx)
+
+
+class _PopEfficiencyFold(_EfficiencyMetricsFold):
+    """:func:`pop_efficiency` folded: the metrics fold with the findings
+    finalizer."""
+
+    def __init__(self, threshold: float, num_windows: int, device):
+        super().__init__(num_windows, device)
+        self.threshold = threshold
 
     def result(self, ctx) -> EventFrame:
         return _pop_findings(self._metrics(ctx), self.threshold)
@@ -1195,6 +1292,7 @@ class _DiagnoseAgg(StreamAgg):
     def __init__(self, detectors: Optional[Sequence[str]] = None,
                  device="cuda"):
         self._names = _resolve_detectors(detectors)
+        self.device = device
         self._children: List[StreamAgg] = []
         for d in self._names:
             spec = get_op(d)
@@ -1203,6 +1301,56 @@ class _DiagnoseAgg(StreamAgg):
                     f"detector {d!r} has no streaming form; materialize "
                     f"with .collect().diagnose(...) or run it eagerly")
             self._children.append(spec.streaming(device=device))
+
+    def update(self, chunk) -> None:
+        for c in self._children:
+            c.update(chunk)
+
+    def merge_from(self, other, code_map) -> None:
+        for mine, theirs in zip(self._children, other._children):
+            mine.merge_from(theirs, code_map)
+
+    def result(self, ctx) -> EventFrame:
+        return _rank_findings([c.result(ctx) for c in self._children])
+
+    def fold_form(self):
+        return _DiagnoseFold(self._names, self.device)
+
+
+class _DiagnoseFold(StreamAgg):
+    """``diagnose`` folded: each selected detector's ``fold="chunks"``
+    form, all fed from one pass (the statistics pre-pass too, when a
+    child needs it).  ``deferred`` is handed down to every child, so in a
+    pool worker ``stragglers``' fold holds its parts and the parent
+    launches ``seg_sum`` for them in :meth:`merge_from`, child by child.
+    Mirrors the reference's streaming ``_DiagnoseAgg``."""
+
+    needs_calls = True
+    supports_parallel = True
+
+    def __init__(self, names: Sequence[str], device):
+        self._children = [make_agg(d, get_op(d).streaming, (),
+                                   {"device": device}, "chunks")
+                          for d in names]
+        self.needs_stats = any(c.needs_stats for c in self._children)
+
+    @property
+    def deferred(self) -> bool:
+        return any(getattr(c, "deferred", False) for c in self._children)
+
+    @deferred.setter
+    def deferred(self, value: bool) -> None:
+        for c in self._children:
+            if isinstance(c, FoldAgg):
+                c.deferred = value
+
+    @property
+    def nbytes(self) -> int:
+        return sum(c.nbytes for c in self._children)
+
+    def begin(self, stats) -> None:
+        for c in self._children:
+            c.begin(stats)
 
     def update(self, chunk) -> None:
         for c in self._children:

@@ -198,6 +198,11 @@ class _WholeStreamAgg(StreamAgg):
         dur = (self.ts_max - self.ts_min) if self.n_events else 0.0
         return ctx.num_processes, dur, self.total
 
+    def fold_form(self):
+        """Its own ``fold="chunks"`` form: its host float64 totals are
+        already bounded."""
+        return self
+
 
 def _stream_facts(t: StreamingTrace, metric: str) -> Tuple[int, float,
                                                            float]:
@@ -793,7 +798,7 @@ class TraceSet:
              processes: Optional[int] = None,
              labels: Optional[Sequence[str]] = None, streaming: bool = False,
              chunk_rows: Optional[int] = None, device="cuda",
-             **kw) -> "TraceSet":
+             fold: Optional[str] = None, **kw) -> "TraceSet":
         """Open N traces, each on ``device`` (any registered format, sniffed
         per member as ``Trace.open`` does).  Each item may itself be a list
         of per-rank shard paths.  ``processes`` > 1 opens members
@@ -804,14 +809,17 @@ class TraceSet:
         then stream each member chunk by chunk.  ``processes=N`` then turns
         on the parallel executor for every member, all members' work units
         fanning into **one** spawn pool, the shared scheduler's (worker
-        start-up is paid once per set, not once per member)."""
+        start-up is paid once per set, not once per member).  ``fold=``
+        (streaming only) is each member's (``Trace.open``'s): with
+        ``"chunks"`` every comparison op folds its members' chunks into
+        bounded state."""
         if streaming:
             from .streaming import DEFAULT_CHUNK_ROWS
             members = [StreamingTrace(p, format=format,
                                       chunk_rows=chunk_rows
                                       or DEFAULT_CHUNK_ROWS,
                                       processes=processes, device=device,
-                                      **kw)
+                                      fold=fold or "once", **kw)
                        for p in paths]
             if members and members[0].wants_parallel():
                 from .scheduler import get_scheduler
@@ -821,6 +829,8 @@ class TraceSet:
             return cls(members, labels=labels)
         if chunk_rows is not None:
             raise ValueError("chunk_rows only applies with streaming=True")
+        if fold is not None:
+            raise ValueError("fold only applies with streaming=True")
         from ..readers.parallel import open_many
         return cls(open_many(paths, kind=format, processes=processes,
                              device=device, **kw), labels=labels)

@@ -22,6 +22,8 @@ of the answer, never a silent omission.
 Timeouts read an injectable ``clock`` (``time.time`` by default), so
 tests can age ranks without sleeping.  ``to_traceset`` hands the
 survivors to the comparison ops as a ``TraceSet`` of per-rank handles.
+``fold=`` is every live handle's it builds (``Trace.open``'s): with
+``"chunks"`` the ops fold each chunk into bounded state.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from .accel import resolve_device
-from .streaming import DEFAULT_CHUNK_ROWS, LiveTrace, Watermark
+from .streaming import DEFAULT_CHUNK_ROWS, LiveTrace, Watermark, check_fold
 
 __all__ = ["Coverage", "LiveTraceSet"]
 
@@ -110,7 +112,7 @@ class LiveTraceSet:
                  chunk_rows: Optional[int] = None,
                  processes: Optional[int] = None, executor: str = "auto",
                  cache: bool = True, clock=time.time, device="cuda",
-                 **reader_kwargs):
+                 fold: str = "once", **reader_kwargs):
         if dead_timeout < lag_timeout:
             raise ValueError("dead_timeout must be >= lag_timeout")
         self.root = os.fspath(root)
@@ -123,6 +125,7 @@ class LiveTraceSet:
         self.cache = cache
         self.clock = clock
         self.device = resolve_device(device)
+        self.fold = check_fold(fold)
         self.reader_kwargs = dict(reader_kwargs)
         self._lt: Optional[LiveTrace] = None
         self._coverage: Optional[Coverage] = None
@@ -175,7 +178,7 @@ class LiveTraceSet:
                 chunk_rows=self.chunk_rows or DEFAULT_CHUNK_ROWS,
                 processes=self.processes, executor=self.executor,
                 cache=self.cache, label=os.path.basename(self.root),
-                device=self.device, **self.reader_kwargs)
+                device=self.device, fold=self.fold, **self.reader_kwargs)
         else:
             self._lt = None
         self._coverage = cov
@@ -232,7 +235,7 @@ class LiveTraceSet:
                 [cov.per_rank[r]["path"]],
                 chunk_rows=self.chunk_rows or DEFAULT_CHUNK_ROWS,
                 cache=self.cache, label=f"rank{r}", device=self.device,
-                **self.reader_kwargs))
+                fold=self.fold, **self.reader_kwargs))
             labels.append(f"rank{r}")
         return TraceSet(members, labels=labels)
 

@@ -20,9 +20,10 @@ compute in NumPy on the host whatever the ``device`` (which is still
 checked, so asking for the card without one raises).  The streaming forms
 of ``comm_by_process`` and ``comm_over_time`` buffer the send records too
 and reduce them once in ``result()``, in the order the in-memory op uses,
-so every route gives the in-memory op's bits.  ``comm_over_time``'s
-``fold="chunks"`` form bins each chunk's sends with NumPy on the
-pre-pass's edges, as the reference's streaming form does.
+so every route gives the in-memory op's bits.  Their ``fold="chunks"``
+forms reduce each chunk with NumPy into per-process sums
+(``comm_by_process``) or bins on the pre-pass's edges
+(``comm_over_time``), as the reference's streaming forms do.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from .constants import (DEFAULT_COMM_PREFIXES, ENTER, ET, MATCH, MPI_SEND,
 from .frame import EventFrame
 from .intervals import merge_intervals
 from .registry import register_op, register_streaming
-from .streaming import FoldAgg, StreamAgg, add_into
+from .streaming import FoldAgg, StreamAgg, add_into, grow_to
 
 __all__ = ["comm_matrix", "message_histogram", "comm_by_process",
            "comm_over_time", "comm_comp_breakdown", "comm_name_mask"]
@@ -373,15 +374,12 @@ def comm_over_time(trace, num_bins: int = 32, output: str = "size",
     return _over_time(_sends(ev, output), t0, t1, num_bins)
 
 
-def _check_partner_range(sends, n: int, op: str) -> None:
+def _check_partner_range(extent: int, n: int, op: str) -> None:
     """A stream sizes its output by the selected processes; a partner id
-    beyond them would fail the in-memory op too, so say why instead of
-    letting NumPy's bare IndexError stand (e.g. ``restrict_processes([0])``
-    then ``comm_by_process()``)."""
-    if sends is None:
-        return
-    dst = sends[1]
-    extent = int(dst.max()) + 1 if len(dst) else 0
+    at or beyond them (``extent`` is 1 + the largest) would fail the
+    in-memory op too, so say why instead of letting NumPy's bare
+    IndexError stand (e.g. ``restrict_processes([0])`` then
+    ``comm_by_process()``)."""
     if extent > n:
         raise IndexError(
             f"streaming {op}: message partner ids reach process "
@@ -402,8 +400,73 @@ class _CommByProcessAgg(_SendsAgg):
     def result(self, ctx) -> EventFrame:
         n = ctx.num_processes
         sends = self.sends()
-        _check_partner_range(sends, n, "comm_by_process")
+        if sends is not None and len(sends[1]):
+            _check_partner_range(int(sends[1].max()) + 1, n,
+                                 "comm_by_process")
         return _by_process(sends, n)
+
+    def fold_form(self):
+        return _CommByProcessFold(self.output, self.device)
+
+
+class _CommByProcessFold(StreamAgg):
+    """``comm_by_process`` folded a chunk at a time on the host (no kernel
+    backs it): per-process float64 ``sent`` and ``received`` added with
+    ``np.add.at``, work units merged by a padded add.  A negative partner
+    wraps to ``n + partner`` as the eager op's ``np.add.at`` wraps it
+    (not as the reference's stream, which credits every negative partner
+    to the last rank: ROADMAP §C), but ``n`` is known only at the end, so
+    its weight is parked by the partner's value and added in ``result``.
+    Exact on integer sizes; elsewhere within ``launch/cardcheck.gate`` of
+    the eager op, which sums in its own record order.  Mirrors the
+    reference's streaming ``_CommByProcessAgg``."""
+
+    supports_parallel = True
+
+    def __init__(self, output: str, device):
+        self.output = output
+        self.device = device
+        self._sent = np.zeros(0)
+        self._recv = np.zeros(0)
+        self._neg = np.zeros(0)   # [-partner - 1]: weight sent to partner
+        self._extent = 0          # 1 + the largest partner
+
+    def update(self, chunk) -> None:
+        s = _sends(chunk.events, self.output)
+        if s is None:
+            return
+        src, dst, w, _ts = s
+        self._sent = grow_to(self._sent, (int(src.max()) + 1,))
+        np.add.at(self._sent, src, w)
+        neg = dst < 0
+        if neg.any():
+            k = -dst[neg] - 1
+            self._neg = grow_to(self._neg, (int(k.max()) + 1,))
+            np.add.at(self._neg, k, w[neg])
+        if not neg.all():
+            self._extent = max(self._extent, int(dst[~neg].max()) + 1)
+            self._recv = grow_to(self._recv, (self._extent,))
+            np.add.at(self._recv, dst[~neg], w[~neg])
+
+    def merge_from(self, other, code_map) -> None:
+        self._sent = add_into(self._sent, other._sent)
+        self._recv = add_into(self._recv, other._recv)
+        self._neg = add_into(self._neg, other._neg)
+        self._extent = max(self._extent, other._extent)
+
+    def result(self, ctx) -> EventFrame:
+        n = ctx.num_processes
+        _check_partner_range(self._extent, n, "comm_by_process")
+        if len(self._neg) > n:
+            raise _range_error("streaming comm_by_process", n)
+        sent = np.zeros(n)
+        recv = np.zeros(n)
+        sent[:min(n, len(self._sent))] = self._sent[:n]
+        recv[:min(n, len(self._recv))] = self._recv[:n]
+        for j in range(len(self._neg)):  # partner -(j + 1): rank n - j - 1
+            recv[n - j - 1] += self._neg[j]
+        return EventFrame({PROC: np.arange(n, dtype=np.int32), "sent": sent,
+                           "received": recv, "total": sent + recv})
 
 
 @register_streaming("comm_over_time")
@@ -470,10 +533,6 @@ class _CommOverTimeFold(StreamAgg):
 
     def merge_from(self, other, code_map) -> None:
         self._vals += other._vals
-
-    @property
-    def nbytes(self) -> int:
-        return self._vals.nbytes + self._edges.nbytes
 
     def result(self, ctx) -> Tuple[np.ndarray, np.ndarray]:
         return self._vals.copy(), self._edges

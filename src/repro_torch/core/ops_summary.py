@@ -15,7 +15,9 @@ backend to f32 rounding.
 ``idle_time`` has no kernel, in the reference or here: it sums in NumPy
 on the host whatever the ``device`` (which is still checked).  Its
 streaming form buffers the idle calls and sums them once, in the order
-the in-memory op uses.  ``multi_run_analysis`` joins flat profiles
+the in-memory op uses; its ``fold="chunks"`` form adds each chunk's into
+per-process sums, as the reference's streaming form does.
+``multi_run_analysis`` joins flat profiles
 (:func:`repro_torch.core.diff.align_flat_profiles`): one ``seg_sum``
 launch per run whose profile is not cached yet.
 
@@ -717,6 +719,12 @@ def _idle_sum(proc, start, end, inc, nprocs: int,
     out = np.zeros(max(nprocs, 0))
     o = np.lexsort((inc, -end, start, proc))
     np.add.at(out, proc[o], np.nan_to_num(inc[o]))
+    return _idle_frame(out, k)
+
+
+def _idle_frame(out: np.ndarray, k: Optional[int]) -> EventFrame:
+    """Per-process idle ns ``out`` as the op's frame: most idle first
+    (stable), the first ``k`` rows when ``k`` is given."""
     order = np.argsort(-out, kind="stable")
     res = EventFrame({PROC: order.astype(np.int32), "idle_time": out[order]})
     return res.head(k) if k else res
@@ -783,6 +791,46 @@ class _IdleTimeAgg(StreamAgg):
             np.arange(len(ctx.names)))
         return _idle_sum(proc, start, end, inc[:, 0], ctx.num_processes,
                          self.k)
+
+    def fold_form(self):
+        return _IdleTimeFold(self.idle, self.k)
+
+
+class _IdleTimeFold(StreamAgg):
+    """``idle_time`` folded a chunk at a time on the host (no kernel backs
+    it): per-process float64 sums of the idle-named completed calls'
+    inclusive ns (NaN as 0), added with ``np.add.at``; work units merge by
+    a padded add keyed by process alone (each unit matched the idle names
+    in its own code space).  Exact on integer-ns traces; the eager op sums
+    each process's calls in Enter order and this in chunk order, so
+    elsewhere the two agree within ``launch/cardcheck.gate``.  Mirrors the
+    reference's streaming ``_IdleTimeAgg``."""
+
+    needs_calls = True
+    supports_parallel = True
+
+    def __init__(self, idle: Sequence[str], k: Optional[int]):
+        self.idle = list(idle)
+        self.k = k
+        self._out = np.zeros(0)
+
+    def update(self, chunk) -> None:
+        calls = chunk.calls
+        codes = [c for c in map(chunk.names.code, self.idle) if c >= 0]
+        if not codes or len(calls.name) == 0:
+            return
+        keep = np.isin(calls.name, np.asarray(codes, np.int64))
+        if keep.any():
+            proc = calls.proc[keep]
+            self._out = grow_to(self._out, (int(proc.max()) + 1,))
+            np.add.at(self._out, proc, np.nan_to_num(calls.inc[keep]))
+
+    def merge_from(self, other, code_map) -> None:
+        self._out = add_into(self._out, other._out)
+
+    def result(self, ctx) -> EventFrame:
+        return _idle_frame(_pad_to(self._out, (max(ctx.num_processes, 0),)),
+                           self.k)
 
 
 def multi_run_analysis(traces: Sequence, metric: str = EXC, top_n: int = 16,

@@ -25,9 +25,11 @@ chunk:
   with ``fold="chunks"`` the op's **fold aggregator** (:class:`FoldAgg`)
   reduces each chunk's records with one launch into state sized by names x
   processes (x bins) and drops them, so memory does not grow with the
-  trace (the reference's ``backend="numpy"`` streaming).  Fold
-  aggregators that need global bin edges (``needs_stats``) get them from a
-  statistics pre-pass over the stream (:func:`_stats_pass`, or
+  trace (the reference's ``backend="numpy"`` streaming); a host op's fold
+  adds each chunk in NumPy, and ``late_sender``'s keeps each message's
+  instants, as the reference's does.  Fold aggregators that need global
+  bin or window edges (``needs_stats``) get them from a statistics
+  pre-pass over the stream (:func:`_stats_pass`, or
   :func:`repro_torch.core.executor.parallel_stats` over the pool).
 
 A handle carries a ``device`` (``"cuda"`` unless the caller asks for the
@@ -275,8 +277,10 @@ class StreamAgg:
         stats (None unless ``needs_stats``)."""
 
     def fold_form(self) -> Optional["StreamAgg"]:
-        """The ``fold="chunks"`` form of this aggregator, or None when the
-        op has none yet (:func:`make_agg` then raises)."""
+        """The ``fold="chunks"`` form of this aggregator (itself when its
+        state is already bounded), or None when it has none, as a user's
+        own registered aggregator may not (:func:`make_agg` then
+        raises)."""
         return None
 
     def update(self, chunk: Chunk) -> None:
@@ -293,6 +297,19 @@ class StreamAgg:
         raise StreamingUnsupported(
             f"{type(self).__name__} declares no cross-worker merge; the op "
             f"cannot run under the parallel executor")
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the state's NumPy arrays, held directly or in a list:
+        of a fold form, fixed by the names, processes and bins seen,
+        whatever the trace's length (``late_sender``'s message instants
+        excepted)."""
+        total = 0
+        for v in vars(self).values():
+            for a in (v if isinstance(v, list) else [v]):
+                if isinstance(a, np.ndarray):
+                    total += a.nbytes
+        return total
 
 
 class StreamContext:
@@ -374,12 +391,6 @@ class FoldAgg(StreamAgg):
         for part in held:
             self._fold_counted(self.remap(part, code_map))
 
-    @property
-    def nbytes(self) -> int:
-        """Bytes of the state arrays: fixed by the names, processes and
-        bins seen, whatever the trace's length."""
-        return sum(v.nbytes for v in vars(self).values()
-                   if isinstance(v, np.ndarray))
 
 
 def make_agg(name: str, factory: Callable[..., StreamAgg], args: tuple,
@@ -393,10 +404,10 @@ def make_agg(name: str, factory: Callable[..., StreamAgg], args: tuple,
     folded = agg.fold_form()
     if folded is None:
         raise StreamingUnsupported(
-            f'op {name!r} has no fold="chunks" form yet (its records '
-            f'cannot be reduced chunk by chunk into bounded state); open '
-            f'the handle with fold="once", the default, which buffers them '
-            f'for one kernel launch, or materialize with .collect()')
+            f'op {name!r} has no fold="chunks" form (its aggregator '
+            f'defines no fold_form); open the handle with fold="once", the '
+            f'default, which buffers its records for one kernel launch, or '
+            f'materialize with .collect()')
     return folded
 
 

@@ -189,7 +189,7 @@ class ServiceClient:
     def open(self, path, format: str = "auto", streaming: bool = False,
              chunk_rows: Optional[int] = None,
              processes: Optional[int] = None,
-             executor: str = "auto") -> "RemoteTrace":
+             executor: str = "auto", fold: str = "once") -> "RemoteTrace":
         """A remote handle over ``path`` — the signature of
         ``Trace.open``, minus reader kwargs.  Nothing opens until the
         first query; the server pools the actual handle."""
@@ -197,12 +197,13 @@ class ServiceClient:
                  if isinstance(path, (list, tuple)) else [str(path)])
         spec = {"mode": "trace", "paths": paths, "format": format,
                 "streaming": streaming, "chunk_rows": chunk_rows,
-                "processes": processes, "executor": executor}
+                "processes": processes, "executor": executor, "fold": fold}
         return RemoteTrace(self, spec)
 
     def open_live(self, path, chunk_rows: Optional[int] = None,
                   processes: Optional[int] = None,
-                  executor: str = "auto") -> "RemoteLiveTrace":
+                  executor: str = "auto",
+                  fold: str = "once") -> "RemoteLiveTrace":
         """A remote live handle over still-growing pack shard(s): polls go
         to ``/live`` and come back watermarked (see
         :meth:`RemoteLiveTrace.poll`)."""
@@ -210,14 +211,15 @@ class ServiceClient:
                  if isinstance(path, (list, tuple)) else [str(path)])
         spec = {"mode": "live", "paths": paths, "format": "auto",
                 "streaming": False, "chunk_rows": chunk_rows,
-                "processes": processes, "executor": executor}
+                "processes": processes, "executor": executor, "fold": fold}
         return RemoteLiveTrace(self, spec)
 
     def open_liveset(self, root: str, pattern: str = "rank_*.pack",
                      lag_timeout: float = 2.0, dead_timeout: float = 10.0,
                      chunk_rows: Optional[int] = None,
                      processes: Optional[int] = None,
-                     executor: str = "auto") -> "RemoteLiveTrace":
+                     executor: str = "auto",
+                     fold: str = "once") -> "RemoteLiveTrace":
         """A remote rank-failure-tolerant live handle over an N-rank shard
         directory: results carry a coverage report, and degraded coverage
         comes back as a 206 partial response naming the missing ranks."""
@@ -225,14 +227,15 @@ class ServiceClient:
                 "pattern": pattern, "lag_timeout": float(lag_timeout),
                 "dead_timeout": float(dead_timeout), "format": "auto",
                 "streaming": False, "chunk_rows": chunk_rows,
-                "processes": processes, "executor": executor}
+                "processes": processes, "executor": executor, "fold": fold}
         return RemoteLiveTrace(self, spec)
 
     def open_set(self, paths: Sequence, format: str = "auto",
                  processes: Optional[int] = None,
                  labels: Optional[Sequence[str]] = None,
                  streaming: bool = False,
-                 chunk_rows: Optional[int] = None) -> "RemoteTraceSet":
+                 chunk_rows: Optional[int] = None,
+                 fold: str = "once") -> "RemoteTraceSet":
         """A remote ``TraceSet`` over per-run paths (for the diff /
         regression comparison ops); a member may be one path or a list
         of per-rank shard paths."""
@@ -241,7 +244,8 @@ class ServiceClient:
         spec = {"mode": "set", "paths": members, "format": format,
                 "processes": processes,
                 "labels": list(labels) if labels is not None else None,
-                "streaming": streaming, "chunk_rows": chunk_rows}
+                "streaming": streaming, "chunk_rows": chunk_rows,
+                "fold": fold}
         return RemoteTraceSet(self, spec)
 
     # -- execution ---------------------------------------------------------

@@ -39,7 +39,10 @@ over still-growing shards (429 ``watermark_stalled`` when the watermark
 has not advanced; 206 partial responses naming the missing ranks of a
 degraded fleet), ``GET /stats``, ``GET /ops``, ``GET /health`` and ``POST
 /shutdown`` (a graceful drain).  A set member may be one path or a list
-of per-rank shard paths, as ``TraceSet.open`` takes them.
+of per-rank shard paths, as ``TraceSet.open`` takes them.  An open
+spec's ``"fold"`` (``"once"``, the default, or ``"chunks"``; streaming,
+set of streaming members, live and liveset specs) is the handle's
+``fold=``: part of the handle pool's key and of every request key.
 :mod:`repro_torch.serving.client` wraps the protocol in the library's own
 query-chain API.
 """
@@ -59,6 +62,7 @@ from ..core import plancache, registry
 from ..core.accel import resolve_device
 from ..core.cancellation import CancelToken, cancel_scope
 from ..core.scheduler import Scheduler, get_scheduler
+from ..core.streaming import FOLD_MODES
 from . import protocol
 from .protocol import ProtocolError, canonical_json
 
@@ -118,8 +122,11 @@ class _Handle:
         return self.kind != "stream"
 
 
-def _normalize_open(spec: Any) -> dict:
-    """Validate and normalize a wire ``open`` spec into canonical form."""
+def _normalize_open(spec: Any, live: bool = False) -> dict:
+    """Validate and normalize a wire ``open`` spec into canonical form;
+    ``live`` (``/live``) reads a bare ``"trace"`` spec as ``"live"``.
+    ``"fold"`` is always written (``"once"`` when absent), so an absent
+    key and ``"once"`` key one handle."""
     if isinstance(spec, str):
         spec = {"path": spec}
     if not isinstance(spec, dict):
@@ -135,6 +142,8 @@ def _normalize_open(spec: Any) -> dict:
     if mode not in ("trace", "set", "live", "liveset"):
         raise ProtocolError(f'open mode must be "trace", "set", "live" or '
                             f'"liveset", got {mode!r}')
+    if live and mode == "trace":
+        mode = "live"   # a bare path on /live means live
 
     def member(p) -> bool:
         # a set member may be one path or a list of per-rank shards
@@ -149,12 +158,15 @@ def _normalize_open(spec: Any) -> dict:
     if mode == "liveset" and len(paths) != 1:
         raise ProtocolError('mode "liveset" takes exactly one path: the '
                             'shard directory')
-    if spec.get("fold", "once") != "once":
-        from ..core.streaming import StreamingUnsupported
-        raise StreamingUnsupported(
-            'the service opens its handles with fold="once" only; '
-            'fold="chunks" is a library handle\'s option '
-            '(Trace.open(..., fold="chunks"))')
+    fold = spec.get("fold", "once")
+    if fold not in FOLD_MODES:
+        raise ProtocolError(f'"fold" must be one of {list(FOLD_MODES)}, '
+                            f'got {fold!r}')
+    streaming = bool(spec.get("streaming", False))
+    if fold != "once" and mode in ("trace", "set") and not streaming:
+        raise ProtocolError('"fold" only applies to a streaming or live '
+                            'spec ("streaming": true, or mode "live" or '
+                            '"liveset")')
     labels = spec.get("labels")
     if labels is not None and (not isinstance(labels, (list, tuple))
                                or len(labels) != len(paths)):
@@ -164,7 +176,8 @@ def _normalize_open(spec: Any) -> dict:
         "paths": [str(p) if isinstance(p, str) else [str(q) for q in p]
                   for p in paths],
         "format": str(spec.get("format", "auto")),
-        "streaming": bool(spec.get("streaming", False)),
+        "streaming": streaming,
+        "fold": fold,
         "chunk_rows": (int(spec["chunk_rows"])
                        if spec.get("chunk_rows") is not None else None),
         "processes": (int(spec["processes"])
@@ -220,7 +233,7 @@ class HandlePool:
                 spec["paths"], format=spec["format"],
                 chunk_rows=spec["chunk_rows"] or DEFAULT_CHUNK_ROWS,
                 processes=spec["processes"], executor=spec["executor"],
-                device=dev)
+                device=dev, fold=spec["fold"])
         if spec["mode"] == "liveset":
             from ..core.liveset import LiveTraceSet
             return "liveset", LiveTraceSet(
@@ -229,20 +242,21 @@ class HandlePool:
                 dead_timeout=spec["dead_timeout"],
                 chunk_rows=spec["chunk_rows"],
                 processes=spec["processes"], executor=spec["executor"],
-                device=dev)
+                device=dev, fold=spec["fold"])
         if spec["mode"] == "set":
             return "set", TraceSet.open(
                 spec["paths"], format=spec["format"],
                 processes=spec["processes"], labels=spec["labels"],
                 streaming=spec["streaming"], chunk_rows=spec["chunk_rows"],
-                device=dev)
+                device=dev,
+                fold=spec["fold"] if spec["streaming"] else None)
         if spec["streaming"]:
             src = (spec["paths"][0] if len(spec["paths"]) == 1
                    else spec["paths"])
             return "stream", Trace.open(
                 src, format=spec["format"], streaming=True,
                 chunk_rows=spec["chunk_rows"], processes=spec["processes"],
-                executor=spec["executor"], device=dev)
+                executor=spec["executor"], device=dev, fold=spec["fold"])
         if len(spec["paths"]) > 1:
             return "trace", Trace.open(spec["paths"],
                                        format=spec["format"],
@@ -671,9 +685,7 @@ class TraceService:
     def _decode_live(self, payload: dict):
         if not isinstance(payload, dict):
             raise ProtocolError("request body must be a JSON object")
-        open_spec = _normalize_open(payload.get("open"))
-        if open_spec["mode"] == "trace":
-            open_spec["mode"] = "live"   # bare path on /live means live
+        open_spec = _normalize_open(payload.get("open"), live=True)
         if open_spec["mode"] not in ("live", "liveset"):
             raise ProtocolError('/live takes mode "live" or "liveset"; '
                                 'finalized sources go to /query')

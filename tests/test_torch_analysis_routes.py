@@ -192,8 +192,9 @@ def test_partner_below_minus_one_follows_the_eager_op(tmp_path):
     """A fault of the reference's streamed ``comm_by_process``
     (ROADMAP §C): it credits every negative partner to the last rank,
     where its eager op indexes from the end (-2 is rank n - 2).  The
-    port's stream reduces the records as its eager op does, so both give
-    the reference's eager result."""
+    port's stream reduces the records as its eager op does, and its fold
+    parks a negative partner's weight until the rank count is known, so
+    each gives the reference's eager result."""
     rows = [(0, "Enter", "f", 0, None), (1, "MpiSend", "MpiSend", 0, -2),
             (2, "MpiSend", "MpiSend", 1, 0), (3, "Leave", "f", 0, None),
             (4, "Enter", "f", 2, None), (5, "Leave", "f", 2, None)]
@@ -212,6 +213,9 @@ def test_partner_below_minus_one_follows_the_eager_op(tmp_path):
     assert_same(Trace.open(p, device="cpu").comm_by_process(), want)
     assert_same(Trace.open(p, streaming=True, chunk_rows=2, device="cpu",
                            cache=False).comm_by_process(), want)
+    assert_same(Trace.open(p, streaming=True, chunk_rows=2, device="cpu",
+                           cache=False, fold="chunks").comm_by_process(),
+                want)
 
 
 @pytest.mark.parametrize("op,kw", STREAMED, ids=IDS)

@@ -3,16 +3,21 @@
 With ``fold="chunks"`` each chunk's records go to one launch of the op's
 kernel (here, on the CPU, its plain version) and the result is added into
 float64 state sized by names x processes (x bins); the records are then
-dropped.  For each of the six kernel-backed ops (``flat_profile`` in both
-layouts) and ``comm_over_time``, at 61, 97 and 4,999 rows a chunk, the
-result must be within ``cardcheck.gate`` of the port's eager route and of
-the reference's streaming ``backend="numpy"`` route (which keeps the same
-kind of state), with counts and bin edges exact; it must be the same bits
-on relaunch.  The statistics pre-pass must equal the reference's, serially
-and over work units; the parallel fold must agree with the serial one; a
-live fold must fold only the new rows into state whose size does not move;
-and the state must not grow with the trace while the buffering route's
-memory does.
+dropped.  The host ops (``comm_over_time``, ``idle_time``,
+``comm_by_process``, the POP pair and the host detectors) fold each
+chunk in NumPy and launch nothing; ``diagnose`` folds every detector's
+state in one pass.  For each op that folds (``flat_profile`` in both
+layouts), at 61, 97 and 4,999 rows a chunk, the result must be within
+``cardcheck.gate`` of the port's eager route and of the reference's
+streaming route (``backend="numpy"`` where the op takes one: the same
+kind of state), with counts, bin edges and the host detectors' findings
+exact; it must be the same bits on relaunch.  The statistics pre-pass
+must equal the reference's, serially and over work units; the parallel
+fold must agree with the serial one; a live fold must fold only the new
+rows into state whose size does not move (or take the full pass when it
+needs the pre-pass); and the state must not grow with the trace, but
+``late_sender``'s message instants, while the buffering route's memory
+does.
 """
 
 import os
@@ -41,7 +46,8 @@ from repro_torch.tracegen import big_events, big_trace
 from test_torch_ops import fresh_plan_cache  # noqa: F401
 from test_torch_ops import to_port
 
-#: the seven ops' calls that fold (``flat_profile`` in both layouts)
+#: the op calls that fold (``flat_profile`` in both layouts): the six
+#: kernel-backed ops first, then the host ops and ``diagnose``
 FOLDS = [
     ("flat_profile", {"metrics": ("time.exc", "time.inc")}),
     ("flat_profile", {"per_process": True}),
@@ -51,10 +57,27 @@ FOLDS = [
     ("message_histogram", {"bins": 8}),
     ("stragglers", {"threshold": -1.0}),
     ("comm_over_time", {"num_bins": 16}),
+    ("idle_time", {}),
+    ("comm_by_process", {"output": "count"}),
+    # thresholds of 0 report every rank, window or function with a cost
+    ("late_sender", {"threshold": 0.0}),
+    ("serialization", {}),
+    ("imbalance_root_cause", {"threshold": 0.0}),
+    ("efficiency_metrics", {"num_windows": 8}),
+    ("pop_efficiency", {"threshold": 0.0}),
+    ("diagnose", {}),
 ]
 IDS = [f"{op}-{i}" for i, (op, _) in enumerate(FOLDS)]
+#: the calls whose fold launches a kernel once a chunk that holds records
+#: (``diagnose`` through ``stragglers``' fold)
+KERNEL_FOLDS = FOLDS[:7] + FOLDS[-1:]
+#: the host folds: no launch at all
+HOST_FOLDS = FOLDS[7:-1]
 #: ops the reference streams without a ``backend=`` argument
-NO_BACKEND = {"comm_over_time"}
+NO_BACKEND = {op for op, _ in HOST_FOLDS} | {"diagnose"}
+#: the one fold whose state grows with the trace: the message instants
+#: the late-receiver median needs (and ``diagnose``'s, through it)
+GROWS = {"late_sender", "diagnose"}
 CHUNKS = [61, 97, 4_999]
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 
@@ -114,10 +137,12 @@ def test_fold_is_the_same_bits_on_relaunch(files, op, kw):
         digest(_fold(paths, 61).run(op, **kw))
 
 
-@pytest.mark.parametrize("op,kw", FOLDS[:7], ids=IDS[:7])
+@pytest.mark.parametrize("op,kw", KERNEL_FOLDS,
+                         ids=IDS[:7] + IDS[-1:])
 def test_one_fold_a_chunk_that_holds_records(files, op, kw):
     """Each chunk with records is folded once (one launch), and only
-    those: for the send ops, the chunks holding an ``MpiSend`` row."""
+    those: for the send ops, the chunks holding an ``MpiSend`` row;
+    ``diagnose`` folds each chunk once, through ``stragglers``."""
     paths = files["big_trace"]
     st = _fold(paths, 211)
     chunks = list(st.iter_chunks())
@@ -130,6 +155,32 @@ def test_one_fold_a_chunk_that_holds_records(files, op, kw):
     else:
         # every chunk of 211 rows of this trace completes a call
         assert folded == len(chunks)
+
+
+@pytest.mark.parametrize("op,kw", HOST_FOLDS, ids=IDS[7:-1])
+def test_host_folds_launch_nothing(files, op, kw, monkeypatch):
+    """The host ops fold in NumPy: no kernel wrapper is called, serially
+    or over work units, and no chunk counts as a launch."""
+    from repro_torch.core import accel, ops_summary
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{op}: a kernel wrapper was called")
+
+    for name in ("seg_sum", "pair_sum", "hist_counts"):
+        monkeypatch.setattr(accel, name, refuse)
+    monkeypatch.setattr(ops_summary, "_kernel_profile", refuse)
+    before = port_streaming.FOLDED_CHUNKS
+    paths = files["big_trace"]
+    _fold(paths, 211).run(op, **kw)
+    h = StreamingTrace(paths, chunk_rows=211, device="cpu", processes=2,
+                       fold="chunks")
+    spec = registry.get_op(op)
+    kw_dev = dict(kw, device="cpu")
+    executor.execute_parallel(h, (), spec, (), kw_dev,
+                              port_streaming.make_agg(op, spec.streaming, (),
+                                                      kw_dev, "chunks"),
+                              n_units=3, use_pool=False)
+    assert port_streaming.FOLDED_CHUNKS == before
 
 
 def test_fold_over_pack_shards_and_a_plan(files):
@@ -312,10 +363,12 @@ def _append_rows(writers, frames, lo, hi):
 @pytest.mark.parametrize("op,kw", FOLDS, ids=IDS)
 def test_live_fold_folds_only_new_rows(tmp_path, ranks, op, kw):
     """Grow three append shards twice.  The incremental fold is within
-    the gate of a cold fold at each watermark; the stored state's bytes
-    do not move with the growth (same names, same ranks); an op that
-    needs the pre-pass takes the full pass, counted apart from the
-    incremental fallbacks."""
+    the gate of a cold fold at each watermark and is fed only the new
+    rows' chunks; the stored state's bytes do not move with the growth
+    (same names, same ranks), but ``late_sender``'s, which keeps every
+    message; an op that needs the pre-pass (the POP pair, ``diagnose``)
+    takes the full pass, counted apart from the incremental
+    fallbacks."""
     writers = [PackWriter.open_append(str(tmp_path / f"rank_{r}.pack"),
                                       chunk_rows=GROUP, fsync=False)
                for r in range(len(ranks))]
@@ -335,6 +388,13 @@ def test_live_fold_folds_only_new_rows(tmp_path, ranks, op, kw):
     for k in (1, 2):
         _append_rows(writers, ranks, k * third, (k + 1) * third)
         lt.refresh()
+        fed = []
+        if entries:
+            # count the chunks the stored state is fed (host folds launch
+            # nothing, so FOLDED_CHUNKS cannot count them)
+            (entry,) = plancache._LIVE.values()
+            entry.agg.update = (lambda chunk, update=entry.agg.update:
+                                (fed.append(1), update(chunk)))
         folded = port_streaming.FOLDED_CHUNKS
         inc = lt.run(op, **kw)
         new = port_streaming.FOLDED_CHUNKS - folded
@@ -344,11 +404,20 @@ def test_live_fold_folds_only_new_rows(tmp_path, ranks, op, kw):
         op_gate(op, inc, lt.materialize().run(op, **kw))
         if entries:
             (entry,) = plancache._LIVE.values()
-            assert entry.agg.nbytes == nbytes
+            if op in GROWS:
+                assert entry.agg.nbytes > nbytes
+                nbytes = entry.agg.nbytes
+            else:
+                assert entry.agg.nbytes == nbytes
             # only the new rows' chunks were folded: fewer than a full
-            # pass over every committed row
-            assert 0 < new < sum(-(-min(len(f), (k + 1) * third) // 97)
-                                 for f in ranks)
+            # pass over every committed row, one launch each where the
+            # fold launches
+            full = sum(-(-min(len(f), (k + 1) * third) // 97) for f in ranks)
+            assert 0 < len(fed) < full
+            if (op, kw) in KERNEL_FOLDS:
+                assert 0 < new <= len(fed)
+            else:
+                assert new == 0
     assert port_streaming.INCREMENTAL_FALLBACKS == fallbacks
     assert port_streaming.LIVE_STATS_PASSES == stats_passes + (
         2 if needs_stats else 0)
@@ -367,63 +436,90 @@ def _peak(run) -> int:
         tracemalloc.stop()
 
 
-def test_state_and_peak_do_not_grow_with_the_trace(tmp_path):
+#: events a rank of the short and the 4x longer trace
+LENGTHS = (6_000, 24_000)
+
+
+@pytest.fixture(scope="module")
+def lengths(tmp_path_factory):
+    """events a rank -> four pack shards of ``big_trace`` (the same names
+    and ranks at both lengths)."""
+    d = tmp_path_factory.mktemp("lengths")
+    return {n: big_trace(str(d / str(n)), nprocs=4, events_per_proc=n,
+                         calls_per_iter=40, seed=3, format="pack")
+            for n in LENGTHS}
+
+
+def _fold_state_bytes(paths, op, kw) -> int:
+    """The ``nbytes`` of ``op``'s fold state after one pass over
+    ``paths``."""
+    h = StreamingTrace(paths, chunk_rows=2_000, device="cpu", fold="chunks",
+                       cache=False)
+    agg = port_streaming.make_agg(op, registry.get_op(op).streaming, (),
+                                  dict(kw, device="cpu"), "chunks")
+    agg.begin(h.stats() if agg.needs_stats else None)
+    port_streaming.fold_frames(h.iter_chunks(), agg,
+                               port_streaming.GlobalNames(),
+                               port_streaming.CallStitcher())
+    return agg.nbytes
+
+
+def test_state_and_peak_do_not_grow_with_the_trace(lengths):
     """A trace 4x longer (same names, same ranks): the fold's state bytes
     are equal and its traced peak rises < 1.25x, while the buffering
     route's peak rises >= 2x."""
     peaks, nbytes = {}, {}
-    for n in (6_000, 24_000):
-        paths = big_trace(str(tmp_path / str(n)), nprocs=4,
-                          events_per_proc=n, calls_per_iter=40, seed=3,
-                          format="pack")
-        spec = registry.get_op("flat_profile")
+    kw = {"metrics": ("time.exc", "time.inc")}
+    for n in LENGTHS:
         for fold in ("chunks", "once"):
-            h = StreamingTrace(paths, chunk_rows=2_000, device="cpu",
+            h = StreamingTrace(lengths[n], chunk_rows=2_000, device="cpu",
                                fold=fold, cache=False)
-            kw = {"metrics": ("time.exc", "time.inc"), "device": "cpu"}
             h.run("flat_profile", **kw)       # warm imports and caches
             peaks[fold, n] = _peak(lambda: h.run("flat_profile", **kw))
-            if fold == "chunks":
-                agg = port_streaming.make_agg("flat_profile", spec.streaming,
-                                              (), kw, fold)
-                port_streaming.fold_frames(
-                    h.iter_chunks(), agg, port_streaming.GlobalNames(),
-                    port_streaming.CallStitcher())
-                nbytes[n] = agg.nbytes
+        nbytes[n] = _fold_state_bytes(lengths[n], "flat_profile", kw)
     assert nbytes[6_000] == nbytes[24_000]
     assert peaks["chunks", 24_000] < 1.25 * peaks["chunks", 6_000], peaks
     assert peaks["once", 24_000] >= 2 * peaks["once", 6_000], peaks
 
 
+@pytest.mark.parametrize("op,kw", FOLDS[1:], ids=IDS[1:])
+def test_fold_state_does_not_grow_with_the_trace(lengths, op, kw):
+    """Every fold's state on a 4x longer trace: the same bytes (sized by
+    names, ranks, threads, windows or bins), but ``late_sender``'s (and
+    ``diagnose``'s through it), which keeps each message's instants, as
+    the reference's does: more bytes."""
+    short, long_ = (_fold_state_bytes(lengths[n], op, kw) for n in LENGTHS)
+    if op in GROWS:
+        assert long_ > short
+    else:
+        assert long_ == short
+
+
 # ---------------------------------------------------------------------------
-# what does not fold yet, and the handle's option
+# what cannot fold, and the handle's option
 # ---------------------------------------------------------------------------
 
-NOT_FOLDED = [("idle_time", {}), ("comm_by_process", {}),
-              ("late_sender", {}), ("serialization", {}),
-              ("imbalance_root_cause", {}), ("efficiency_metrics", {}),
-              ("pop_efficiency", {}), ("diagnose", {})]
+#: ops with no streaming form at all: they need the whole trace
+EAGER_ONLY = ["comm_comp_breakdown", "calculate_lateness",
+              "critical_path_analysis"]
 
 
-@pytest.mark.parametrize("op,kw", NOT_FOLDED,
-                         ids=[op for op, _ in NOT_FOLDED])
-def test_ops_without_a_fold_form_name_fold_once(files, op, kw):
+@pytest.mark.parametrize("op", EAGER_ONLY)
+def test_ops_with_no_streaming_form_still_refuse_a_fold(files, op):
+    with pytest.raises(StreamingUnsupported, match=r"\.collect\(\)"):
+        _fold(files["big_trace"]).run(op)
+
+
+def test_an_aggregator_without_a_fold_form_names_fold_once():
+    """An aggregator registered without a ``fold_form`` (a user's own op)
+    runs with ``fold="once"`` and refuses ``"chunks"`` by name."""
+    class Buffering(port_streaming.StreamAgg):
+        pass
+
+    assert isinstance(port_streaming.make_agg("mine", Buffering, (), {}),
+                      Buffering)
     with pytest.raises(StreamingUnsupported, match='fold="once"'):
-        _fold(files["big_trace"]).run(op, **kw)
-
-
-def test_set_ops_and_the_service_refuse_fold(files):
-    from repro_torch.serving.tracequery import _normalize_open
-    paths = files["big_trace"]
-    ts = TraceSet.open([paths, paths[:2]], streaming=True, device="cpu",
-                       fold="chunks")
-    with pytest.raises(StreamingUnsupported, match='fold="once"'):
-        ts.scaling_analysis()
-    with pytest.raises(StreamingUnsupported, match='fold="once"'):
-        _normalize_open({"paths": paths, "streaming": True,
-                         "fold": "chunks"})
-    assert _normalize_open({"paths": paths, "fold": "once"})["paths"] == \
-        paths
+        port_streaming.make_agg("mine", Buffering, (), {}, "chunks")
 
 
 def test_fold_is_a_streaming_option(files):
