@@ -247,6 +247,23 @@ Phases (any failure raises and exits non-zero):
              instants growing with the messages); then the eight over the
              pool, each within the gate of the serial fold, no unit on
              the card;
+14c. extensions — the reference's documented extension examples,
+             registered as its users write them (no ``device``
+             parameter): ``diagnose()`` on main-10M with the ``gpu_idle``
+             detector registered gives phase 13's findings unchanged plus
+             ``gpu_idle``'s own call, ``seg_sum`` once as without it, and
+             on ``gol(64 ranks, imbalance 0.8)``, where ``gpu_idle``
+             fires, the built-in findings unchanged and the CPU route's
+             findings; ``busiest_function`` (``groupby_agg``) and
+             ``my_analysis`` on main-10M with no launch, the first the
+             card's ``flat_profile`` top name; ``iteration_count_delta``
+             over two baselines; stream-0.5M's 64 shards converted to a
+             user format read by a device-less reader registered with
+             ``iter_chunks=``: its trace on the card, a ``fold="chunks"``
+             ``flat_profile`` over it the jsonl reader's bits with the
+             same ``seg_sum`` launches (64), and a user
+             ``register_streaming`` aggregator over it the counts read
+             off the files; the registrations are removed at the end;
 15. live   — with the plan cache on (phases 3-14 run with it off, so no
              stored result answers their checks), a ``TraceServer`` on
              127.0.0.1:0 on the card in a thread of this process;
@@ -2125,6 +2142,313 @@ def phase_fold_hosts(trace, shards, pool, workers) -> dict:
                                      f"{pst.units_cuda}")
     return {"pack fold hosts": totals["serial"],
             f"pack fold hosts x{workers}": totals["pooled"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 14c: the reference's extension surface
+# ---------------------------------------------------------------------------
+
+#: what :func:`register_extensions` registers, removed at phase 14c's end
+EXT_OPS = ("busiest_function", "my_analysis", "gpu_idle",
+           "iteration_count_delta", "enter_counts")
+EXT_READER = "myfmt"
+
+
+def _myfmt_columns(path):
+    """A ``.myfmt`` file (an ``.npz`` of a frame's columns, a categorical
+    one with its category table) as [(name, values, categories or None)]."""
+    with np.load(path, allow_pickle=False) as z:
+        return [(str(n), z[f"v{i}"], z[f"c{i}"] if f"c{i}" in z.files
+                 else None) for i, n in enumerate(z["columns"])]
+
+
+def _rows(frame) -> dict:
+    """A frame's columns as lists (an empty frame's, whatever its dtypes,
+    compare equal)."""
+    return {c: np.asarray(frame[c]).tolist() for c in frame.columns}
+
+
+def write_myfmt(frame, path) -> str:
+    arrays = {"columns": np.asarray(frame.columns)}
+    for i, c in enumerate(frame.columns):
+        col = frame.column(c)
+        if hasattr(col, "codes"):
+            arrays[f"v{i}"] = np.asarray(col.codes)
+            arrays[f"c{i}"] = np.asarray(col.categories).astype(str)
+        else:
+            arrays[f"v{i}"] = np.asarray(col)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    return path
+
+
+def register_extensions() -> None:
+    """The reference's documented extension examples, registered in the
+    port as its users write them (``fn(trace, **kwargs)``, no ``device``
+    parameter anywhere): ``busiest_function`` (``examples/quickstart.py``),
+    ``my_analysis`` (``docs/api.md``), the ``gpu_idle`` detector
+    (``docs/diagnostics.md``), the ``iteration_count_delta`` set op
+    (``docs/comparing-traces.md``), a ``.myfmt`` reader with
+    ``iter_chunks=`` and ``enter_counts`` with a streaming aggregator
+    (``docs/streaming.md``)."""
+    from repro_torch.core import (Categorical, EventFrame, Findings, Trace,
+                                  register_detector, register_op,
+                                  register_reader, register_streaming)
+    from repro_torch.core.constants import ENTER, ET, EXC, INC, NAME, PROC, TS
+    from repro_torch.core.streaming import StreamAgg
+
+    @register_op("busiest_function", needs_structure=True)
+    def busiest_function(trace, metric=EXC):
+        """Name of the function with the largest total exclusive time."""
+        ev = trace.events
+        ent = ev.mask(ev.cat(ET).mask_eq(ENTER))
+        prof = ent.groupby_agg(NAME, {metric: "sum"})
+        vals = np.nan_to_num(np.asarray(prof[metric], np.float64))
+        return str(prof[NAME][int(np.argmax(vals))])
+
+    @register_op("my_analysis", needs_structure=True)
+    def my_analysis(trace, **kwargs):
+        """Calls and longest inclusive time of the most-called functions."""
+        ev = trace.events
+        ent = ev.mask(ev.cat(ET).mask_eq(ENTER))
+        prof = ent.groupby_agg(NAME, {INC: "max"}, count_name="calls")
+        rows = sorted(zip(np.asarray(prof[NAME]).astype(str).tolist(),
+                          np.asarray(prof["calls"]).tolist(),
+                          np.asarray(prof[INC], np.float64).tolist()),
+                      key=lambda r: (-r[1], r[0]))
+        return rows[:kwargs.get("top", 3)]
+
+    @register_detector("gpu_idle", category="efficiency", threshold=0.25)
+    def gpu_idle(trace, threshold=0.25):
+        """Flags ranks whose idle share exceeds the threshold."""
+        ev = trace.events
+        ts = np.asarray(ev[TS], np.float64)
+        procs = np.asarray(ev[PROC], np.int64)
+        idle = trace.idle_time()
+        rows = []
+        for rank, spent in zip(np.asarray(idle[PROC]).tolist(),
+                               np.asarray(idle["idle_time"]).tolist()):
+            on = ts[procs == rank]
+            t0, t1 = float(on.min()), float(on.max())
+            frac = spent / (t1 - t0) if t1 > t0 else 0.0
+            if frac >= threshold:
+                rows.append({
+                    "detector": "gpu_idle", "location": f"rank {rank}",
+                    "process": rank, "function": "", "severity": frac,
+                    "t_start": t0, "t_end": t1,
+                    "explanation": f"rank {rank} idle {frac:.0%} of the run",
+                })
+        return Findings(rows)
+
+    @register_op("iteration_count_delta", needs_structure=True, scope="set")
+    def iteration_count_delta(traces, marker="time-loop"):
+        """Change in detected iteration count between first and last run."""
+        def count(t):
+            ev = t.events
+            m = ev.cat("Name").mask_eq(marker) & \
+                ev.cat("Event Type").mask_eq("Enter")
+            return int(np.count_nonzero(m))
+        return count(traces[-1]) - count(traces[0])
+
+    def load_frame(path):
+        frame = EventFrame()
+        for name, vals, cats in _myfmt_columns(path):
+            frame[name] = vals if cats is None else Categorical(vals, cats)
+        return frame
+
+    def read_myfmt(path, label=None):
+        return Trace(load_frame(path), label=label or path)
+
+    def iter_myfmt(path, chunk_rows, hints=None, **kw):
+        ev = load_frame(path)
+        for lo in range(0, len(ev), chunk_rows):
+            yield ev.take(np.arange(lo, min(lo + chunk_rows, len(ev))))
+
+    register_reader(EXT_READER, extensions=(".myfmt",),
+                    iter_chunks=iter_myfmt)(read_myfmt)
+
+    @register_op("enter_counts")
+    def enter_counts(trace):
+        """Enter events by function name."""
+        ev = trace.events
+        keys, counts = np.unique(np.asarray(
+            ev[NAME][ev.cat(ET).mask_eq(ENTER)]).astype(str),
+            return_counts=True)
+        return dict(zip(keys.tolist(), counts.tolist()))
+
+    @register_streaming("enter_counts")
+    class EnterCounts(StreamAgg):
+        supports_parallel = True
+
+        def __init__(self):
+            self.counts = np.zeros(0, np.int64)
+
+        def _grow(self, n):
+            if n > len(self.counts):
+                self.counts = np.concatenate(
+                    [self.counts, np.zeros(n - len(self.counts), np.int64)])
+
+        def update(self, chunk):
+            codes = np.asarray(chunk.gcodes)[
+                chunk.events.cat(ET).mask_eq(ENTER)]
+            if codes.size:
+                self._grow(int(codes.max()) + 1)
+                np.add.at(self.counts, codes, 1)
+
+        def merge_from(self, other, code_map):
+            if len(other.counts):
+                mapped = np.asarray(code_map)[:len(other.counts)]
+                self._grow(int(mapped.max()) + 1)
+                np.add.at(self.counts, mapped, other.counts)
+
+        def result(self, ctx):
+            names = ctx.names.names
+            return dict(sorted((names[i], int(c))
+                               for i, c in enumerate(self.counts) if c))
+
+
+def unregister_extensions() -> None:
+    from repro_torch.core import detectors, registry
+    for name in EXT_OPS:
+        registry._OP_REGISTRY.pop(name, None)
+    detectors._DETECTOR_REGISTRY.pop("gpu_idle", None)
+    registry._READER_REGISTRY.pop(EXT_READER, None)
+
+
+def phase_extensions(trace, stream_paths, d) -> dict:
+    """Phase 14c: the examples of :func:`register_extensions` on the card.
+    ``diagnose()`` on main-10M with ``gpu_idle`` registered: phase 13's
+    findings unchanged plus ``gpu_idle``'s own call, one ``seg_sum``
+    launch as without it; ``busiest_function`` and ``my_analysis`` (host
+    ``groupby_agg``, no launch), the first against the card's
+    ``flat_profile``; the set op on two baselines; stream-0.5M's 64 jsonl
+    shards as ``.myfmt`` files: opened eagerly the trace is on the card,
+    and a ``fold="chunks"`` ``flat_profile`` over the user reader's
+    ``iter_chunks`` gives the jsonl reader's bits with the same launches;
+    ``enter_counts`` streamed over them the counts read off the files.
+    Returns the launches."""
+    from repro_torch import Trace, TraceSet
+    from repro_torch.core import list_detectors, registry
+    from repro_torch.core.constants import ENTER, ET, EXC, NAME
+    from repro_torch.launch.cardcheck import digest, findings_gate
+    from repro_torch.readers.jsonl import iter_chunks_jsonl
+    from repro_torch.tracegen import baseline, gol
+    register_extensions()
+    launches = {}
+    try:
+        took = {n: registry.get_op(n).takes_device for n in EXT_OPS}
+        if took != dict.fromkeys(EXT_OPS, False) | {"my_analysis": True}:
+            raise AssertionError(f"extensions: takes_device {took}")
+        reset_counts()
+        t0 = time.perf_counter()
+        got = trace.diagnose()
+        wall = time.perf_counter() - t0
+        launches["extensions diagnose"] = expect_counts(
+            "extensions diagnose", DIAG_LAUNCHES)
+        mine = np.asarray(got["detector"]).astype(str) == "gpu_idle"
+        reset_counts()
+        own = trace.run("gpu_idle")
+        expect_counts("extensions gpu_idle", NO_LAUNCHES)
+        same = (_rows(got.mask(~mine)) == _rows(MAIN_RESULTS["diagnose"])
+                and _rows(got.mask(mine)) == _rows(own))
+        log(f"[extensions] diagnose + gpu_idle on main-10M {wall:.3f} s: "
+            f"{len(got)} findings ({int(mine.sum())} gpu_idle), phase 13's "
+            f"findings {'unchanged' if same else 'CHANGED'} | {SMI[0]}")
+        if not same:
+            raise AssertionError("extensions: diagnose with gpu_idle is not "
+                                 "the built-in findings plus gpu_idle's")
+        # an application whose ranks idle past the threshold: gpu_idle
+        # fires, and the built-in findings stay as they are
+        app = gol(nprocs=64, iters=8, imbalance=0.8, seed=3, device="cuda")
+        reset_counts()
+        got = app.diagnose()
+        expect_counts("extensions gol diagnose", DIAG_LAUNCHES)
+        mine = np.asarray(got["detector"]).astype(str) == "gpu_idle"
+        built_in = app.diagnose(detectors=sorted(
+            set(list_detectors()) - {"gpu_idle"}))
+        err = findings_gate(got, app.diagnose(device="cpu"))
+        same = (_rows(got.mask(~mine)) == _rows(built_in)
+                and _rows(got.mask(mine)) == _rows(app.run("gpu_idle")))
+        log(f"[extensions] diagnose + gpu_idle on gol(64 ranks, imbalance "
+            f"0.8): {len(got)} findings ({int(mine.sum())} gpu_idle), the "
+            f"built-in findings {'unchanged' if same else 'CHANGED'}, "
+            f"within the CPU route's (max_abs_err {err:.6g})")
+        if not same or not mine.any():
+            raise AssertionError("extensions: gpu_idle on gol")
+        reset_counts()
+        t0 = time.perf_counter()
+        busiest = trace.run("busiest_function")
+        top = trace.query().my_analysis(top=3)
+        host_s = time.perf_counter() - t0
+        expect_counts("extensions host ops", NO_LAUNCHES)
+        prof = trace.flat_profile()
+        vals = np.nan_to_num(np.asarray(prof[EXC], np.float64))
+        want = str(prof[NAME][int(np.argmax(vals))])
+        log(f"[extensions] busiest_function {busiest!r} (card flat_profile "
+            f"{want!r}), my_analysis {top[0][:2]}... {host_s:.3f} s, no "
+            f"launch")
+        if busiest != want or len(top) != 3:
+            raise AssertionError(f"extensions: busiest_function {busiest!r}"
+                                 f" against {want!r}")
+        runs = [baseline(nprocs=8, iters=n, device="cuda") for n in (12, 16)]
+        delta = TraceSet(runs).iteration_count_delta(marker="iteration")
+        log(f"[extensions] iteration_count_delta {delta} (want 32)")
+        if delta != 32:
+            raise AssertionError(f"extensions: iteration_count_delta {delta}")
+        # the user reader over stream-0.5M's shards, converted
+        t0 = time.perf_counter()
+        mine_paths = []
+        for p in stream_paths:
+            (frame,) = list(iter_chunks_jsonl(p, 1 << 30))
+            mine_paths.append(write_myfmt(frame, os.path.join(
+                d, os.path.basename(p)[:-len(".jsonl")] + ".myfmt")))
+        conv_s = time.perf_counter() - t0
+        one = Trace.open(mine_paths[0])
+        if one.device.type != "cuda":
+            raise AssertionError(f"extensions: a user reader's trace on "
+                                 f"{one.device}")
+        folds = {}
+        for label, paths in (("jsonl", stream_paths),
+                             (EXT_READER, mine_paths)):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = Trace.open(paths, streaming=True, fold="chunks",
+                             chunk_rows=STREAM_CHUNK_ROWS,
+                             device="cuda").flat_profile()
+            folds[label] = (digest(res), time.perf_counter() - t0,
+                            expect_counts(f"extensions fold {label}", dict(
+                                NO_LAUNCHES, seg_sum=len(paths))))
+        launches["extensions fold myfmt"] = folds[EXT_READER][2]
+        same = folds["jsonl"][0] == folds[EXT_READER][0]
+        log(f"[extensions] fold=\"chunks\" flat_profile over "
+            f"{len(mine_paths)} shards: "
+            f"{EXT_READER} iter_chunks {folds[EXT_READER][1]:.3f} s, jsonl "
+            f"{folds['jsonl'][1]:.3f} s, seg_sum x {len(mine_paths)} each, "
+            f"bits {'equal' if same else 'DIFFER'} (converted in "
+            f"{conv_s:.2f} s) | {SMI[0]}")
+        if not same:
+            raise AssertionError("extensions: the user reader's fold is not "
+                                 "the jsonl reader's bits")
+        counts = Trace.open(mine_paths, streaming=True,
+                            chunk_rows=STREAM_CHUNK_ROWS,
+                            device="cuda").enter_counts()
+        want = {}
+        for p in mine_paths:
+            cols = {n: (v, c) for n, v, c in _myfmt_columns(p)}
+            codes, cats = cols[ET]
+            names, ncats = cols[NAME]
+            enter = codes == int(np.flatnonzero(cats == ENTER)[0])
+            for k, v in zip(*np.unique(ncats[names[enter]],
+                                       return_counts=True)):
+                want[str(k)] = want.get(str(k), 0) + int(v)
+        log(f"[extensions] enter_counts streamed over {EXT_READER}: "
+            f"{sum(counts.values())} enters, "
+            f"{'equal' if counts == want else 'DIFFER'} to the files' count")
+        if counts != want:
+            raise AssertionError("extensions: enter_counts differs")
+    finally:
+        unregister_extensions()
+    return launches
 
 
 def phase_parallel(wants, pool, workers, paths, d) -> dict:
@@ -6015,7 +6339,9 @@ def trace_half(check):
                         trace, stream_paths, pool, workers, d)),
                     ("analysis", analysis_phase),
                     ("fold hosts", lambda: phase_fold_hosts(
-                        trace, shards, pool, workers))):
+                        trace, shards, pool, workers)),
+                    ("extensions", lambda: phase_extensions(
+                        trace, stream_paths, d))):
                 routes.update(timed(label, phase))
         finally:
             pool.close()

@@ -25,7 +25,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -160,10 +160,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any,
+                device_put: Optional[Callable[[str, torch.Tensor],
+                                              Any]] = None,
+                verify: bool = True) -> Any:
         """Restore into the structure of ``like``: each leaf comes back on
-        the device of ``like``'s leaf, in the stored dtype.  A leaf whose
-        bytes do not hash to the manifest's sha256 raises ``IOError``."""
+        the device of ``like``'s leaf, in the stored dtype, or as
+        ``device_put(key, leaf)`` of the leaf on the CPU when given (the
+        caller's own placement, as a reshard).  With ``verify`` a leaf
+        whose bytes do not hash to the manifest's sha256 raises
+        ``IOError``."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         manifest = self.manifest(step)
         with np.load(os.path.join(path, "arrays.npz")) as data:
@@ -175,10 +181,14 @@ class CheckpointManager:
             for k, lk in flat:
                 arr = data[k]
                 meta = manifest["leaves"][k]
-                if hashlib.sha256(arr.tobytes()).hexdigest() != \
+                if verify and hashlib.sha256(arr.tobytes()).hexdigest() != \
                         meta["sha256"]:
                     raise IOError(f"checksum mismatch for {k}")
-                leaves[k] = _from_host(arr, meta["dtype"], lk.device)
+                if device_put is None:
+                    leaves[k] = _from_host(arr, meta["dtype"], lk.device)
+                else:
+                    leaves[k] = device_put(k, _from_host(arr, meta["dtype"],
+                                                         "cpu"))
         return _unflatten_like(like, leaves)
 
     def manifest(self, step: int) -> Dict:

@@ -66,7 +66,8 @@ from .constants import (DEFAULT_COMM_PREFIXES, DEFAULT_IDLE_NAMES, ENTER,
                         ET, EXC, INC, LEAVE, MATCH, MPI_RECV, MPI_SEND, NAME,
                         PARTNER, PROC, TAG, THREAD, TS)
 from .frame import EventFrame
-from .registry import get_op, register_op, register_streaming
+from .registry import (call_with_device, get_op, register_op,
+                       register_streaming)
 from .streaming import (FoldAgg, RecordBuffer, StreamAgg,
                         StreamingUnsupported, add_into, grow_to, make_agg)
 
@@ -189,10 +190,12 @@ _DETECTOR_REGISTRY: Dict[str, DetectorSpec] = {}
 def register_detector(name: str, *, category: str, threshold: float,
                       needs_structure: bool = False,
                       needs_messages: bool = False) -> Callable:
-    """Register ``fn(trace, ..., device=) -> Findings`` as a detector: an
-    ordinary ``scope="trace"`` op (a lazy-query terminal, served, cached,
-    and, once ``register_streaming`` attaches an aggregator, out of core
-    and parallel) that :func:`diagnose` also enumerates."""
+    """Register ``fn(trace, ...) -> Findings`` as a detector: an ordinary
+    ``scope="trace"`` op (a lazy-query terminal, served, cached, and, once
+    ``register_streaming`` attaches an aggregator, out of core and
+    parallel) that :func:`diagnose` also enumerates.  ``fn`` gets
+    ``device=`` only if it takes it (:func:`~repro_torch.core.registry.
+    call_with_device`), as the built-in detectors do."""
     def deco(fn: Callable) -> Callable:
         wrapped = register_op(name, needs_structure=needs_structure,
                               needs_messages=needs_messages)(fn)
@@ -1263,8 +1266,8 @@ def diagnose(trace, detectors: Optional[Sequence[str]] = None,
     """Run every registered detector (or a named subset) and return one
     combined, severity-ranked Findings frame.
 
-    Each detector runs with its default arguments on ``device``; tune an
-    individual detector by calling its op directly
+    Each detector runs with its default arguments (on ``device``, if it
+    takes one); tune an individual detector by calling its op directly
     (``trace.query().stragglers(threshold=0.1)``).
 
     Args:
@@ -1275,8 +1278,9 @@ def diagnose(trace, detectors: Optional[Sequence[str]] = None,
         descending — the ``detector`` column says which check fired.
     """
     names = _resolve_detectors(detectors)
-    return _rank_findings([_DETECTOR_REGISTRY[d].fn(trace, device=device)
-                           for d in names])
+    return _rank_findings([
+        call_with_device(_DETECTOR_REGISTRY[d].fn, None, trace, device=device)
+        for d in names])
 
 
 @register_streaming("diagnose")
@@ -1300,7 +1304,8 @@ class _DiagnoseAgg(StreamAgg):
                 raise StreamingUnsupported(
                     f"detector {d!r} has no streaming form; materialize "
                     f"with .collect().diagnose(...) or run it eagerly")
-            self._children.append(spec.streaming(device=device))
+            self._children.append(call_with_device(
+                spec.streaming, spec.streaming_takes_device, device=device))
 
     def update(self, chunk) -> None:
         for c in self._children:

@@ -145,8 +145,9 @@ def _member_op(t, op_name: str, device, *args, **kwargs):
     streaming member runs the op's combinable form out of core."""
     if isinstance(t, StreamingTrace):
         return t.run(op_name, *args, device=device, **kwargs)
-    return registry.get_op(op_name).fn(t, *args, device=_device(t, device),
-                                       **kwargs)
+    spec = registry.get_op(op_name)
+    return registry.call_with_device(spec.fn, spec.takes_device, t, *args,
+                                     device=_device(t, device), **kwargs)
 
 
 class _WholeStreamAgg(StreamAgg):
@@ -744,7 +745,9 @@ class SetQuery:
         traces = self._prepare(spec.needs_structure, spec.needs_messages,
                                processes)
         if spec.scope == "set":
-            return spec.fn(traces, *args, device=dev, **kwargs)
+            return registry.call_with_device(spec.fn, spec.takes_device,
+                                             traces, *args, device=dev,
+                                             **kwargs)
         return [_member_op(t, op_name, dev, *args, **kwargs) for t in traces]
 
     def __getattr__(self, name: str):

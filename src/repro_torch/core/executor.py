@@ -223,12 +223,13 @@ def _run_unit(payload):
     op's aggregator (a ``fold="chunks"`` one holds each chunk's records
     for the parent) and returns a :class:`_UnitResult`."""
     (mode, unit, fmt, chunk_rows, reader_kwargs, steps, name, factory, args,
-     kwargs, fold, stats) = payload
+     kwargs, fold, stats, *rest) = payload
+    label = rest[0] if rest else None  # the handle's, for the step masks
     from ..readers import parallel as _rp
     _rp._ensure_registered()
     frames = mask_frames(
         _unit_frames(unit, fmt, chunk_rows, _steps_hints(steps),
-                     reader_kwargs), steps, device="cpu")
+                     reader_kwargs), steps, label, device="cpu")
     if mode == "stats":
         return stats_from_frames(frames)
     agg: StreamAgg = make_agg(name, factory, args, kwargs, fold)
@@ -382,7 +383,7 @@ def _units(handle, steps: Sequence, n: int) -> List[Any]:
 def _stats_payloads(handle, steps: Sequence, units: List[Any]) -> list:
     return [("stats", u, handle.format, handle.chunk_rows,
              handle.reader_kwargs, tuple(steps), None, None, (), {},
-             "once", None) for u in units]
+             "once", None, handle.label) for u in units]
 
 
 def _merged_stats(parts) -> StreamStats:
@@ -446,7 +447,7 @@ def execute_parallel(handle, steps: Sequence, spec: registry.OpSpec,
     wkw = {k: (str(v) if k == "device" else v) for k, v in kwargs.items()}
     payloads = [("fold", u, handle.format, handle.chunk_rows,
                  handle.reader_kwargs, tuple(steps), spec.name,
-                 spec.streaming, args, wkw, handle.fold, stats)
+                 spec.streaming, args, wkw, handle.fold, stats, handle.label)
                 for u in units]
     handle.units_cuda = []
     return _merge_results(agg, mapper(payloads), handle.units_cuda)

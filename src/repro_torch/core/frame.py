@@ -13,12 +13,16 @@ environment, so ``EventFrame`` implements that insight directly on NumPy:
   ``Categorical`` (int32 codes + a small category table), matching pandas'
   categorical dtype that Pipit relies on for memory/performance,
 * row selection (boolean mask / index take) is zero-copy per column where
-  NumPy allows it.
+  NumPy allows it, and ``groupby_agg`` is vectorized NumPy
+  (``np.lexsort`` + ``np.add.reduceat``), as in the reference; the
+  analysis ops reduce on the device instead.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Union
+import io
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Union)
 
 import numpy as np
 
@@ -205,6 +209,13 @@ class EventFrame:
                 out._cols[k] = c
         return out
 
+    def rename(self, mapping: Mapping[str, str]) -> "EventFrame":
+        out = EventFrame()
+        out._n = self._n
+        for k, c in self._cols.items():
+            out._cols[mapping.get(k, k)] = c
+        return out
+
     # -- ordering ----------------------------------------------------------
     def argsort(self, by: Sequence[str], kind: str = "stable") -> np.ndarray:
         keys = []
@@ -217,6 +228,102 @@ class EventFrame:
         if isinstance(by, str):
             by = [by]
         return self.take(self.argsort(by))
+
+    # -- aggregation -------------------------------------------------------
+    def groupby_agg(
+        self,
+        by: Union[str, Sequence[str]],
+        aggs: Mapping[str, Union[str, Callable[[np.ndarray], Any]]],
+        count_name: Optional[str] = None,
+    ) -> "EventFrame":
+        """Vectorized groupby: lexsort on keys then reduceat per segment.
+
+        ``aggs`` maps column name -> one of {"sum","mean","min","max","std",
+        "median","first","last"} or a callable applied per group (slow path).
+        """
+        if isinstance(by, str):
+            by = [by]
+        if self._n == 0:
+            out = EventFrame()
+            for b in by:
+                out[b] = np.asarray([])
+            for c in aggs:
+                out[c] = np.asarray([])
+            return out
+        order = self.argsort(by)
+        key_codes = []
+        for name in by:
+            col = self._cols[name]
+            key_codes.append((col.codes if isinstance(col, Categorical) else col)[order])
+        # group boundary where any key changes
+        changed = np.zeros(len(order), dtype=bool)
+        changed[0] = True
+        for kc in key_codes:
+            changed[1:] |= kc[1:] != kc[:-1]
+        starts = np.nonzero(changed)[0]
+        out = EventFrame()
+        for name, kc in zip(by, key_codes):
+            col = self._cols[name]
+            vals = kc[starts]
+            if isinstance(col, Categorical):
+                out[name] = Categorical(vals, col.categories)
+            else:
+                out[name] = vals
+        counts = np.diff(np.append(starts, len(order)))
+        if count_name:
+            out[count_name] = counts
+        for cname, how in aggs.items():
+            col = self._cols[cname]
+            vals = (col.codes if isinstance(col, Categorical) else col)[order]
+            if callable(how):
+                ends = np.append(starts[1:], len(order))
+                out[cname] = np.asarray([how(vals[s:e]) for s, e in zip(starts, ends)])
+                continue
+            if how == "sum":
+                res = np.add.reduceat(vals, starts)
+            elif how == "mean":
+                res = np.add.reduceat(vals.astype(np.float64), starts) / counts
+            elif how == "min":
+                res = np.minimum.reduceat(vals, starts)
+            elif how == "max":
+                res = np.maximum.reduceat(vals, starts)
+            elif how == "first":
+                res = vals[starts]
+            elif how == "last":
+                res = vals[np.append(starts[1:], len(order)) - 1]
+            elif how == "std":
+                s1 = np.add.reduceat(vals.astype(np.float64), starts)
+                s2 = np.add.reduceat(vals.astype(np.float64) ** 2, starts)
+                res = np.sqrt(np.maximum(s2 / counts - (s1 / counts) ** 2, 0.0))
+            elif how == "median":
+                ends = np.append(starts[1:], len(order))
+                res = np.asarray([np.median(vals[s:e]) for s, e in zip(starts, ends)])
+            else:
+                raise ValueError(f"unknown agg {how!r}")
+            out[cname] = res
+        return out
+
+    # -- io / display ------------------------------------------------------
+    def to_dict(self) -> Dict[str, np.ndarray]:
+        return {k: self[k] for k in self.columns}
+
+    def to_csv(self, path_or_buf=None) -> Optional[str]:
+        buf = io.StringIO() if path_or_buf is None else path_or_buf
+        close = False
+        if isinstance(buf, str):
+            buf = open(buf, "w")
+            close = True
+        cols = self.columns
+        buf.write(",".join(cols) + "\n")
+        mats = [self[c] for c in cols]
+        for i in range(self._n):
+            buf.write(",".join(str(m[i]) for m in mats) + "\n")
+        if close:
+            buf.close()
+            return None
+        if path_or_buf is None:
+            return buf.getvalue()
+        return None
 
     def __repr__(self) -> str:
         n_show = min(self._n, 10)

@@ -577,7 +577,8 @@ class TraceQuery:
                 trace._ensure_structure()
             if spec.needs_messages:
                 trace._ensure_messages()
-            result = spec.fn(trace, *args, **kwargs)
+            result = registry.call_with_device(spec.fn, spec.takes_device,
+                                               trace, *args, **kwargs)
         if key is not None:
             plancache.store(key, result)
         return result

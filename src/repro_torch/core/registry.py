@@ -7,8 +7,13 @@ inc/exc; ``needs_messages``: send/recv matching), and every trace format
 registers a reader plus an optional content sniffer, so
 ``Trace.open(path, format="auto")`` resolves the format here.
 
-The port has no backend table: each op has one implementation, which runs
-its kernels on the ``device=`` it is given.  An op may also declare a
+The port has no backend table: each built-in op has one implementation,
+which runs its kernels on the ``device=`` it is given.  A user's op,
+detector, streaming factory or reader keeps the reference's contract,
+``fn(trace, *args, **kwargs)``: the registry records whether the callable
+takes ``device`` (a parameter of that name, or ``**kwargs``), and
+:func:`call_with_device` hands it ``device=`` only then.  An op may also
+declare a
 streaming form (:func:`register_streaming`), and a reader a chunked one
 (``iter_chunks``), which the out-of-core executor
 (:mod:`repro_torch.core.streaming`) drives, a per-shard process hint
@@ -23,6 +28,7 @@ it without cycles.
 
 from __future__ import annotations
 
+import inspect
 import os
 import re
 from dataclasses import dataclass, replace
@@ -36,7 +42,33 @@ __all__ = ["OpSpec", "register_op", "register_streaming", "get_op",
            "register_reader", "register_chunked", "register_units",
            "get_reader", "list_readers", "sniff_format", "resolve_reader",
            "rank_shard_procs", "PlanHints", "ByteSpan", "ProcSpan",
-           "RowSpan", "even_edges", "even_groups"]
+           "RowSpan", "even_edges", "even_groups", "takes_device",
+           "call_with_device"]
+
+
+def takes_device(fn: Callable) -> bool:
+    """True when ``fn`` accepts a ``device`` keyword: a parameter of that
+    name, or ``**kwargs``.  A callable whose signature cannot be read is
+    taken not to."""
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    return any(p.kind is p.VAR_KEYWORD
+               or (p.name == "device"
+                   and p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY))
+               for p in params)
+
+
+def call_with_device(fn: Callable, takes: Optional[bool], /, *args: Any,
+                     **kwargs: Any) -> Any:
+    """``fn(*args, **kwargs)``, where a ``device`` among ``kwargs`` is
+    handed on only when ``fn`` takes it (``takes``: the registration's
+    record, or None to read the signature now).  The one way the port
+    calls a registered op, detector, streaming factory or reader."""
+    if not (takes_device(fn) if takes is None else takes):
+        kwargs.pop("device", None)
+    return fn(*args, **kwargs)
 
 
 @dataclass(frozen=True)
@@ -132,7 +164,9 @@ class OpSpec:
     ``fn(traces, *args, **kwargs)`` over a sequence of traces and
     terminates a :class:`~repro_torch.core.diff.TraceSet` query.  Either
     way ``fn`` runs with the declared prerequisites already materialized
-    (on every member trace for set-scoped ops)."""
+    (on every member trace for set-scoped ops).  ``takes_device`` and
+    ``streaming_takes_device`` record whether ``fn`` and the streaming
+    factory take ``device`` (:func:`takes_device`)."""
 
     name: str
     fn: Callable[..., Any]
@@ -147,6 +181,8 @@ class OpSpec:
     #: merge (``supports_parallel`` and ``merge_from``): the parallel
     #: executor fans such ops over work units
     parallel_safe: bool = False
+    takes_device: bool = True
+    streaming_takes_device: bool = True
 
 
 _OP_REGISTRY: Dict[str, OpSpec] = {}
@@ -164,7 +200,8 @@ def register_op(name: Optional[str] = None, *, needs_structure: bool = False,
     def deco(fn: Callable) -> Callable:
         op_name = name or fn.__name__
         _OP_REGISTRY[op_name] = OpSpec(op_name, fn, needs_structure,
-                                       needs_messages, scope)
+                                       needs_messages, scope,
+                                       takes_device=takes_device(fn))
         return fn
 
     return deco
@@ -173,8 +210,8 @@ def register_op(name: Optional[str] = None, *, needs_structure: bool = False,
 def register_streaming(op_name: str) -> Callable:
     """Decorator declaring ``op_name``'s streaming (combinable) form: the
     decorated factory, called with the op's own ``(*args, **kwargs)``
-    (``device=`` included), returns a streaming aggregator whose result
-    reproduces the in-memory op.  A factory carrying ``supports_parallel =
+    (and ``device=`` when it takes it), returns a streaming aggregator
+    whose result reproduces the in-memory op.  A factory carrying ``supports_parallel =
     True`` and a ``merge_from`` method marks the op parallel-safe."""
 
     def deco(factory: Callable) -> Callable:
@@ -185,8 +222,9 @@ def register_streaming(op_name: str) -> Callable:
                 f"{op_name!r}; register the op first")
         par = bool(getattr(factory, "supports_parallel", False)
                    and getattr(factory, "merge_from", None) is not None)
-        _OP_REGISTRY[op_name] = replace(spec, streaming=factory,
-                                        parallel_safe=par)
+        _OP_REGISTRY[op_name] = replace(
+            spec, streaming=factory, parallel_safe=par,
+            streaming_takes_device=takes_device(factory))
         return factory
 
     return deco
@@ -225,7 +263,9 @@ def terminal_op(name: str, run: Callable[..., Any], owner: str) -> Callable:
 @dataclass(frozen=True)
 class ReaderSpec:
     """A registered trace-format reader: ``read(path, **kw)`` returns a
-    Trace; ``sniff(path, head)`` gets the path and the first few KB of
+    Trace (``read_takes_device``: whether it takes ``device=``; a trace
+    from one that does not is put on the caller's device, see
+    :meth:`open`); ``sniff(path, head)`` gets the path and the first few KB of
     file text and returns True when the content is this format.
     ``shard_procs(path)`` optionally returns the process ids a shard holds
     (None when unknown): shards a process-restricted plan cannot need are
@@ -245,6 +285,17 @@ class ReaderSpec:
     priority: int = 0  # higher sniffs first
     iter_chunks: Optional[Callable[..., Iterator[Any]]] = None
     plan_units: Optional[Callable[[str, int], Optional[List[Any]]]] = None
+    read_takes_device: bool = True
+
+    def open(self, path: str, device, **kw: Any) -> Any:
+        """``read(path, **kw)``, with ``device=`` when the reader takes it;
+        a trace from a reader that does not is moved to ``device``."""
+        t = call_with_device(self.read, self.read_takes_device, path,
+                             device=device, **kw)
+        if not self.read_takes_device:
+            from .accel import resolve_device
+            t.device = resolve_device(device)
+        return t
 
 
 _READER_REGISTRY: Dict[str, ReaderSpec] = {}
@@ -254,13 +305,18 @@ def register_reader(name: str, *, extensions: Sequence[str] = (),
                     sniff: Optional[Callable[[str, str], bool]] = None,
                     shard_procs: Optional[
                         Callable[[str], Optional[Set[int]]]] = None,
-                    priority: int = 0) -> Callable:
-    """Decorator registering a reader callable under ``name``."""
+                    priority: int = 0,
+                    iter_chunks: Optional[Callable[..., Iterator[Any]]] = None
+                    ) -> Callable:
+    """Decorator registering a reader callable under ``name``, with its
+    chunked form ``iter_chunks`` if given (or later by
+    :func:`register_chunked`)."""
 
     def deco(fn: Callable) -> Callable:
         _READER_REGISTRY[name] = ReaderSpec(
             name, fn, tuple(e.lower() for e in extensions), sniff,
-            shard_procs, priority)
+            shard_procs, priority, iter_chunks,
+            read_takes_device=takes_device(fn))
         return fn
 
     return deco

@@ -398,7 +398,7 @@ def make_agg(name: str, factory: Callable[..., StreamAgg], args: tuple,
     """The streaming aggregator of op ``name`` for a handle's ``fold``
     mode; an op with no ``fold="chunks"`` form raises
     :class:`StreamingUnsupported` naming ``fold="once"``."""
-    agg = factory(*args, **kwargs)
+    agg = registry.call_with_device(factory, None, *args, **kwargs)
     if check_fold(fold) == "once":
         return agg
     folded = agg.fold_form()
@@ -729,16 +729,18 @@ def _steps_hints(steps: Sequence) -> PlanHints:
 
 
 def mask_frames(frames: Iterator[EventFrame], steps: Sequence,
+                label: Optional[str] = None,
                 device="cuda") -> Iterator[EventFrame]:
     """The fused-mask-per-chunk pipeline: every frame the source yields is
     masked once with the AND of all step masks (mask fusion, per chunk).
-    ``device`` is the handle's: the masks run on the host either way."""
+    The per-chunk trace the masks see carries the handle's ``label`` and
+    ``device``; the masks run on the host either way."""
     from .trace import Trace
     for frame in frames:
         if not steps:
             yield frame
             continue
-        t = Trace(frame, device=device)
+        t = Trace(frame, label=label, device=device)
         mask = None
         for step in steps:
             m = step.mask(t)
@@ -757,7 +759,7 @@ def mask_frames(frames: Iterator[EventFrame], steps: Sequence,
 def _masked_chunks(handle: "StreamingTrace", steps: Sequence
                    ) -> Iterator[EventFrame]:
     yield from mask_frames(handle._iter_frames(_steps_hints(steps)), steps,
-                           handle.device)
+                           handle.label, handle.device)
 
 
 def stats_from_frames(frames: Iterator[EventFrame]) -> StreamStats:
@@ -998,7 +1000,8 @@ def _execute_live_incremental(handle: "LiveTrace", steps: Sequence,
                                           row_range=(done, pinned[p]),
                                           live=True, upto_rows=pinned[p],
                                           **kw)
-                pm = fold_frames(mask_frames(frames, steps, handle.device),
+                pm = fold_frames(mask_frames(frames, steps, handle.label,
+                                             handle.device),
                                  entry.agg, entry.names, entry.stitcher)
                 entry.proc_max = max(entry.proc_max, pm)
                 entry.done[p] = pinned[p]
@@ -1128,8 +1131,11 @@ def iter_chunks_fallback(path: str, chunk_rows: int,
                          **reader_kwargs) -> Iterator[EventFrame]:
     """Correctness fallback for formats without a chunked reader: read the
     whole file, slice into ``chunk_rows`` windows.  No memory win — the
-    streaming executor still works, but peak RSS matches the eager read."""
-    ev = reader(path, **reader_kwargs).events
+    streaming executor still works, but peak RSS matches the eager read.
+    A ``device`` among ``reader_kwargs`` reaches ``reader`` only if it
+    takes one."""
+    ev = registry.call_with_device(reader, None, path,
+                                   **reader_kwargs).events
     for lo in range(0, len(ev), chunk_rows):
         yield ev.take(np.arange(lo, min(lo + chunk_rows, len(ev))))
 

@@ -184,7 +184,7 @@ class Trace:
             raise ValueError("processes needs streaming=True or a list of "
                              "shard paths")
         path = os.fspath(path)
-        return resolve_reader(path, format).read(path, device=device, **kw)
+        return resolve_reader(path, format).open(path, device, **kw)
 
     # ------------------------------------------------------------------
     # serialization — the columnar binary store
@@ -366,8 +366,8 @@ class Trace:
     # ------------------------------------------------------------------
     # automated diagnostics (repro_torch.core.detectors)
     # ------------------------------------------------------------------
-    def stragglers(self, threshold: float = 0.2, device=None) -> EventFrame:
-        return self.run("stragglers", threshold=threshold, device=device)
+    def stragglers(self, device=None, **kw) -> EventFrame:
+        return self.run("stragglers", device=device, **kw)
 
     def diagnose(self, detectors: Optional[Sequence[str]] = None,
                  device=None) -> EventFrame:

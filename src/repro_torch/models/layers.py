@@ -18,14 +18,15 @@ The logical axes name dimensions for the sharding rules
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import is_dtensor
 
-__all__ = ["ParamDef", "init_param", "rms_norm", "rope", "apply_rope",
+__all__ = ["ParamDef", "init_param", "init_tree", "abstract_tree",
+           "map_defs", "is_def", "rms_norm", "rope", "apply_rope",
            "gelu", "swiglu_act", "softmax_xent"]
 
 
@@ -65,6 +66,43 @@ def init_param(d: ParamDef, generator: torch.Generator,
                         device=out.device)
         blk.copy_(x.mul_(std))
     return out
+
+
+def is_def(x) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def map_defs(fn: Callable[[ParamDef], Any], tree):
+    """``tree`` (nested dicts, lists and tuples; None an empty subtree)
+    with ``fn`` applied to each leaf, a ParamDef being one, as
+    ``jax.tree_util.tree_map(fn, tree, is_leaf=is_def)`` does."""
+    if isinstance(tree, dict):
+        return {k: map_defs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_defs(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def init_tree(tree, key, dtype=torch.bfloat16, device="cuda"):
+    """A ParamDef tree drawn into tensors on ``device``, leaf by leaf in
+    the tree's order, each by :func:`init_param` from ``key`` (a
+    ``torch.Generator`` on ``device``'s type, or an int seed for one).
+    The reference splits a ``jax.random`` key per leaf, so the draws
+    differ from its."""
+    dev = torch.device(device)
+    gen = key
+    if not isinstance(key, torch.Generator):
+        gen = torch.Generator(device=dev.type).manual_seed(int(key))
+    return map_defs(lambda d: init_param(d, gen, torch.empty(
+        d.shape, dtype=dtype, device=dev)), tree)
+
+
+def abstract_tree(tree, dtype=torch.bfloat16):
+    """Stand-ins for a ParamDef tree: tensors on the ``meta`` device, a
+    shape and a dtype with no storage (the reference's
+    ``ShapeDtypeStruct``)."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), tree)
 
 
 # ---------------------------------------------------------------------------

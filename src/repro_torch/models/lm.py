@@ -40,7 +40,8 @@ from ..core.accel import resolve_device
 from ..distributed.sharding import constrain
 from .blocks import LayerSpec, cache_defs, layer_apply, layer_defs
 from .config import ModelConfig
-from .layers import ParamDef, init_param, rms_norm, softmax_xent
+from .layers import (ParamDef, abstract_tree, init_param, rms_norm,
+                     softmax_xent)
 
 __all__ = ["LM", "Block", "plan_layers"]
 
@@ -137,6 +138,12 @@ class LM(nn.Module):
                 defs.update({f"{name}.{k}": d for k, d in mod.defs.items()})
         return defs
 
+    def abstract_params(self, dtype=torch.bfloat16
+                        ) -> Dict[str, torch.Tensor]:
+        """{``state_dict`` name: meta-device stand-in} of every parameter
+        in ``dtype``: shapes without storage."""
+        return abstract_tree(self.param_defs(), dtype)
+
     def cache_defs(self, batch: int, cache_len: int
                    ) -> List[Dict[str, ParamDef]]:
         """The serve cache's ParamDefs, one dict per layer, as
@@ -168,11 +175,12 @@ class LM(nn.Module):
         return self
 
     # -- cache --------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int,
-                   dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
-        """A zeroed serve cache, one dict per layer.  SSD states are f32
-        (they accumulate); KV and conv caches take ``dtype``."""
-        dev = self.embed.device
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.float32,
+                   abstract: bool = False) -> List[Dict[str, torch.Tensor]]:
+        """A zeroed serve cache, one dict per layer, or with ``abstract``
+        its stand-ins on the ``meta`` device.  SSD states are f32 (they
+        accumulate); KV and conv caches take ``dtype``."""
+        dev = torch.device("meta") if abstract else self.embed.device
         return [{k: torch.zeros(d.shape, device=dev,
                                 dtype=torch.float32 if k == "ssm_h"
                                 else dtype)

@@ -21,8 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm",
-           "CHUNK"]
+__all__ = ["AdamWState", "adamw_init", "abstract_adamw_state",
+           "adamw_update", "global_norm", "CHUNK"]
 
 #: the most elements of one leaf :func:`adamw_update` updates at once
 CHUNK = 1 << 26
@@ -48,11 +48,21 @@ def adamw_init(params: Dict[str, torch.Tensor]) -> AdamWState:
                       v={k: zeros(p) for k, p in params.items()})
 
 
-def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+def abstract_adamw_state(abstract_params: Dict[str, torch.Tensor]
+                         ) -> AdamWState:
+    """The state :func:`adamw_init` would make, as ``meta``-device f32
+    stand-ins of each parameter's shape (``LM.abstract_params``)."""
+    def z():
+        return {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                for k, p in abstract_params.items()}
+    return AdamWState(step=0, m=z(), v=z())
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum, leaf by leaf in order, of each leaf's f32 sum of
     squares: a 0-d f32 tensor on the leaves' device."""
     total = None
-    for g in grads.values():
+    for g in tree.values():
         sq = torch.sum(torch.square(g.float()))
         total = sq if total is None else total + sq
     return torch.sqrt(total)

@@ -22,11 +22,12 @@ from .csvreader import read_csv, write_csv
 from .hlo import read_hlo, read_hlo_file
 from .jsonl import read_jsonl, write_jsonl
 from .otf2j import read_otf2_json, write_otf2_json
-from .pack import read_pack, write_pack
-from .parallel import open_many, read_parallel, split_jsonl_by_process
+from .pack import PackWriter, read_pack, write_pack
+from .parallel import (open_many, read_parallel, select_shards,
+                       split_jsonl_by_process)
 
 __all__ = ["read_csv", "write_csv", "read_jsonl", "write_jsonl",
            "read_chrome", "write_chrome", "read_otf2_json",
            "write_otf2_json", "read_hlo", "read_hlo_file", "read_pack",
-           "write_pack", "read_parallel", "open_many",
-           "split_jsonl_by_process"]
+           "write_pack", "PackWriter", "read_parallel", "open_many",
+           "select_shards", "split_jsonl_by_process"]

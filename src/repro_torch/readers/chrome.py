@@ -373,6 +373,7 @@ def _decode_batch(batch: List[dict], hints: Optional[PlanHints],
 @register_chunked("chrome")
 def iter_chunks_chrome(path: str, chunk_rows: int,
                        hints: Optional[PlanHints] = None,
+                       label: Optional[str] = None,
                        known_pids: Optional[tuple] = None,
                        on_error: str = "strict",
                        report: Optional[IngestReport] = None
@@ -389,7 +390,10 @@ def iter_chunks_chrome(path: str, chunk_rows: int,
     parallel unit planner runs it once and shares the table with every
     worker.  ``on_error="skip"`` salvages the valid event prefix of a
     damaged file (losses counted in ``report``); the pre-pass runs with
-    the same policy but stays silent so counts reflect one pass."""
+    the same policy but stays silent so counts reflect one pass.
+    ``label`` (the handle's, as in the reference) names no column: a
+    chunk is a bare frame, and the executor's per-chunk trace carries it.
+    """
     check_on_error(on_error, ("strict", "skip"))
     require_nonempty(path, os.path.getsize(path), what="chrome trace")
     if report is not None:

@@ -279,6 +279,7 @@ def _decoded_lines(blines, path: str, on_error: str,
 @register_chunked("csv")
 def iter_chunks_csv(path: str, chunk_rows: int,
                     hints: Optional[PlanHints] = None,
+                    label: Optional[str] = None,
                     byte_range: Optional[tuple] = None,
                     on_error: str = "strict",
                     report: Optional[IngestReport] = None
@@ -290,7 +291,9 @@ def iter_chunks_csv(path: str, chunk_rows: int,
     malformed rows (non-numeric values in canonical numeric columns) with
     exact counts in ``report``.  Caveat: extra-column num/cat type
     decisions are made per span — ambiguous columns that the whole-file
-    read types over all rows should use serial streaming."""
+    read types over all rows should use serial streaming.  ``label`` (the
+    handle's, as in the reference) names no column: a chunk is a bare
+    frame, and the executor's per-chunk trace carries it."""
     check_on_error(on_error, ("strict", "skip"))
     require_nonempty(path, os.path.getsize(path), what="csv trace")
     if report is not None and byte_range is None:

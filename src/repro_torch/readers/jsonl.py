@@ -227,6 +227,7 @@ def iter_lines_range(f, lo: int, hi: int) -> Iterator[bytes]:
 @register_chunked("jsonl")
 def iter_chunks_jsonl(path: str, chunk_rows: int,
                       hints: Optional[PlanHints] = None,
+                      label: Optional[str] = None,
                       byte_range: Optional[Tuple[int, int]] = None,
                       on_error: str = "strict",
                       report: Optional[IngestReport] = None
@@ -234,7 +235,9 @@ def iter_chunks_jsonl(path: str, chunk_rows: int,
     """Stream ``path`` in EventFrames of at most ``chunk_rows`` events
     without ever holding the file, dropping while parsing the rows that
     ``hints`` exclude.  ``byte_range=(lo, hi)`` reads only the lines that
-    start inside that span (a work unit)."""
+    start inside that span (a work unit).  ``label`` (the handle's, as
+    in the reference) names no column: a chunk is a bare frame, and the
+    executor's per-chunk trace carries it."""
     check_on_error(on_error, ("strict", "skip"))
     require_nonempty(path, os.path.getsize(path), what="jsonl trace")
     rpt = report if report is not None else IngestReport()

@@ -271,6 +271,7 @@ def _location_frame(loc: dict, stream: List[list], strings, regions
 @register_chunked("otf2j")
 def iter_chunks_otf2j(path: str, chunk_rows: int,
                       hints: Optional[PlanHints] = None,
+                      label: Optional[str] = None,
                       locations_subset=None, on_error: str = "strict",
                       report: Optional[IngestReport] = None):
     """Stream an OTF2-structured archive location by location.
@@ -285,6 +286,8 @@ def iter_chunks_otf2j(path: str, chunk_rows: int,
     location in ``report``) — the same per-location decision the eager
     reader makes, so survivors match across execution modes.  A corrupt
     definitions table always raises.
+    ``label`` (the handle's, as in the reference) names no column: a
+    chunk is a bare frame, and the executor's per-chunk trace carries it.
     """
     check_on_error(on_error, ("strict", "skip"))
     if report is not None:

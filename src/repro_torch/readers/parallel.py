@@ -43,7 +43,7 @@ def _ensure_registered() -> None:
 def _read_one(args) -> EventFrame:
     kind, path, reader_kwargs = args
     _ensure_registered()
-    ev = resolve_reader(path, kind).read(path, device="cpu",
+    ev = resolve_reader(path, kind).open(path, "cpu",
                                          **(reader_kwargs or {})).events
     # per-shard derived structure (pack sidecars) indexes the shard's own
     # rows; the merged sort below invalidates it — strip before concat
